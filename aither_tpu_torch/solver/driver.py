@@ -1,0 +1,334 @@
+"""Time-marching driver: one implicit RANS iteration per step, residual
+logging in the reference format.
+
+Port of ``aither_tpu/solver/driver.py`` for the slice the port runs:
+``Solver.__init__`` (the subset the main-path deck needs), ``_iteration``,
+``_setup_linear``, the lusgs branch of ``_relax``, ``_implicit_update``,
+``store_old_solution``, the ``.resid`` / ``.tme`` writers with the
+first-5-iteration re-max normalisation, and the per-step branch of
+``run`` (reference: src/main.cpp:231-302, output.cpp:1007-1089).
+
+Every deck setting outside the slice is refused with NotImplementedError
+naming its ROADMAP.md item; nothing silently takes another path.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from aither_tpu.io.deck import parse_deck
+
+from ..kernels import lusgs_sweep
+from ..unsupported import refuse
+from . import implicit as imp
+from . import state as st
+from . import step as step_mod
+from .case import build_case
+from .convert import state_from_numpy
+
+EPS = 1.0e-30
+
+SUPPORTED_BCS = ("slipWall", "viscousWall", "characteristic", "interblock")
+
+
+def check_supported(deck):
+    """Refuse every deck setting the port does not cover yet."""
+    v = deck.values
+    if v["equationSet"] != "rans":
+        refuse("equationSet", v["equationSet"])
+    if v["turbulenceModel"] != "sst2003":
+        refuse("turbulenceModel", v["turbulenceModel"])
+    if v["timeIntegration"] != "implicitEuler":
+        refuse("timeIntegration", v["timeIntegration"])
+    if v["matrixSolver"] != "lusgs":
+        refuse(v["matrixSolver"])
+    if v["matrixSweeps"] > 1:
+        refuse("matrixSweeps > 1")
+    if v["inviscidFluxJacobian"] != "rusanov":
+        refuse("approximateRoe")
+    if v["multigridLevels"] > 1:
+        refuse("multigrid")
+    if v["faceReconstruction"] in ("weno", "wenoZ"):
+        refuse("faceReconstruction", v["faceReconstruction"])
+    if v["viscousFaceReconstruction"] != "central":
+        refuse("viscousFaceReconstruction", v["viscousFaceReconstruction"])
+    if v["inviscidFlux"] != "roe":
+        refuse("inviscidFlux", v["inviscidFlux"])
+    for bc in deck.bcs:
+        for s in bc.surfaces:
+            if s.bc_type not in SUPPORTED_BCS:
+                refuse("boundaryCondition", s.bc_type)
+
+
+class Solver:
+    """Implicit SST RANS solver on one device.
+
+    ``Solver(deck_path, device="cuda")`` builds the case on the device;
+    ``run(iterations)`` marches and writes ``<deck>.resid`` / ``<deck>.tme``
+    into ``workdir``.  Raises if the device is CUDA and no card is present.
+    """
+
+    def __init__(self, deck_path: str, device="cuda", dtype=torch.float64,
+                 workdir=None, nproc: int = 1):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but "
+                               "torch.cuda.is_available() is False (use "
+                               "device 'cpu' to run on the CPU)")
+        check_supported(parse_deck(deck_path).finalize())
+        self.case = build_case(deck_path, self.device, dtype=dtype,
+                               nproc=nproc)
+        self.deck = self.case.deck
+        self.phys = self.case.phys
+        deck = self.deck
+        self.workdir = workdir or os.getcwd()
+        sim_root = os.path.splitext(os.path.basename(deck_path))[0]
+        self.sim_root = os.path.join(self.workdir, sim_root)
+        a_ref, l_ref = deck.a_ref, deck.l_ref
+        self.cfg = dict(
+            recon="constant" if deck["faceReconstruction"] == "constant"
+            else "muscl",
+            kappa=deck.kappa,
+            limiter=deck["limiter"],
+            flux=deck["inviscidFlux"],
+            dt=deck["timeStep"],
+            dt_nondim=deck["timeStep"] * a_ref / l_ref,
+            theta=deck.theta,
+            zeta=deck.zeta,
+            dual_time_cfl=deck["dualTimeCFL"],
+            matrix_relaxation=deck["matrixRelaxation"],
+            viscous=deck.is_viscous,
+            turbulent=deck.is_turbulent,
+            turb_model=deck["turbulenceModel"],
+            viscous_cfl_coeff=deck.viscous_cfl_coefficient(),
+        )
+        self.prims = {b.index: b.prim0.clone() for b in self.case.blocks}
+        self.plans = {b.index: imp.build_sweep_plan(b, dtype, self.device)
+                      for b in self.case.blocks}
+        self.cons_n = self.store_old_solution()
+        self.l2_first = None
+        self.l2_history = []     # raw per-equation L2 of every iteration
+
+    # -- state ---------------------------------------------------------------
+    def set_state(self, prims, cons_n=None):
+        """Start from given padded primitive arrays ({block: numpy}) and,
+        optionally, time-n conserved interiors (e.g. the JAX package's
+        ``Solver.prims`` / ``cons_n``)."""
+        dt = self.case.dtype
+        self.prims = state_from_numpy(prims, self.device, dt)
+        self.cons_n = (state_from_numpy(cons_n, self.device, dt)
+                       if cons_n is not None else self.store_old_solution())
+
+    def store_old_solution(self):
+        """conserved state at time n (reference: mgSolution.cpp:103)."""
+        return {b.index: st.cons_from_prim(self.phys,
+                                           self.prims[b.index][b.interior])
+                for b in self.case.blocks}
+
+    # -- one nonlinear iteration ---------------------------------------------
+    def _residuals(self, prims, cfl):
+        """Ghosts, residual, spectral radii, diagonal terms, local time step
+        and implicit aux fields of every block.  Returns (prims with
+        ghosts, residuals, specrads, diags, dts, auxs) as dicts by block."""
+        phys, case, cfg = self.phys, self.case, self.cfg
+        prims = step_mod.apply_all_bcs(phys, case, prims)
+        residuals, specrads, diags, dts, auxs = {}, {}, {}, {}, {}
+        for b in case.blocks:
+            (resid, sr_f, sr_t, dg_f, dg_t, _, prim_v,
+             aux) = step_mod.full_residual(phys, cfg, b, prims[b.index])
+            prims[b.index] = prim_v  # includes viscous-wall ghosts
+            auxs[b.index] = aux
+            residuals[b.index] = resid
+            sr_max = torch.maximum(sr_f, sr_t)
+            specrads[b.index] = sr_max
+            diags[b.index] = (dg_f, dg_t)
+            dts[b.index] = step_mod.local_dt(cfg, b.geom, sr_max, b.g,
+                                             (b.ni, b.nj, b.nk), cfl)
+
+        # connection swaps of eddy viscosity / f1 so the implicit
+        # off-diagonals see donor values at connection ghosts (reference:
+        # gridLevel.cpp:343-395, procBlock.cpp:3057-3084)
+        for key in ("mut", "f1"):
+            step_mod.swap_connections(
+                {bi: auxs[bi][key][None] for bi in auxs}, case.swap_maps)
+        return prims, residuals, specrads, diags, dts, auxs
+
+    def _iteration(self, prims, cons_n, cfl):
+        """One nonlinear iteration of every block.  Returns (new_prims, l2
+        sum of squares per equation, per-block (max residual, flat
+        location), matrix residual sum)."""
+        prims, residuals, specrads, diags, dts, auxs = self._residuals(
+            prims, cfl)
+        new_prims, matrix_resid = self._implicit_update(
+            prims, residuals, specrads, diags, dts, cons_n, auxs)
+        l2 = torch.zeros(self.phys.neq, dtype=self.case.dtype,
+                         device=self.device)
+        linfs = []
+        for b in self.case.blocks:
+            bl2, blinf, bloc = step_mod.residual_norms(residuals[b.index])
+            l2 = l2 + bl2
+            linfs.append((blinf, bloc))
+        return new_prims, l2, linfs, matrix_resid
+
+    # -- implicit path (reference: mgSolution::ImplicitUpdate) ---------------
+    def _setup_linear(self, prims, residuals, specrads, diags, dts, auxs,
+                      cons_n):
+        """Inverted diagonal, diagonal, rhs b and zero initial update per
+        block (reference: linearSolver::AddDiagonalTerms / Invert /
+        InitializeMatrixUpdate; lusgs with one sweep needs no
+        initialisation)."""
+        phys, cfg = self.phys, self.cfg
+        inv_diag, a_diag, bs, dus = {}, {}, {}, {}
+        for b in self.case.blocks:
+            df, dtu = diags[b.index]
+            inv_flow, inv_turb = imp.build_diagonal(
+                phys, b, cfg, df, dtu, specrads[b.index], dts[b.index])
+            inv_diag[b.index] = (inv_flow, inv_turb)
+            a_diag[b.index] = (1.0 / inv_flow, 1.0 / inv_turb)
+            bs[b.index] = imp.rhs_b(phys, b, cfg, prims[b.index],
+                                    residuals[b.index], cons_n[b.index],
+                                    dts[b.index])
+            dus[b.index] = torch.zeros((phys.neq,) + b.shape,
+                                       dtype=self.case.dtype,
+                                       device=self.device)
+        return inv_diag, a_diag, bs, dus
+
+    def _relax(self, prims, auxs, inv_diag, bs, dus):
+        """One forward and one backward LU-SGS sweep over every block, with
+        connection swaps of du before, between and after (reference:
+        lusgs::Relax, matrixSweeps: 1).  The sweeps update du in place."""
+        maps = self.case.swap_maps
+        for sweep in (lusgs_sweep.forward, lusgs_sweep.backward):
+            step_mod.swap_connections(dus, maps)
+            for b in self.case.blocks:
+                bi = b.index
+                sweep(self.phys, self.cfg, self.plans[bi], prims[bi],
+                      dus[bi], bs[bi], *inv_diag[bi], auxs[bi])
+        return step_mod.swap_connections(dus, maps)
+
+    def _implicit_update(self, prims, residuals, specrads, diags, dts,
+                         cons_n, auxs):
+        phys = self.phys
+        inv_diag, a_diag, bs, dus = self._setup_linear(
+            prims, residuals, specrads, diags, dts, auxs, cons_n)
+        dus = self._relax(prims, auxs, inv_diag, bs, dus)
+        mr_sum = torch.zeros((), dtype=self.case.dtype, device=self.device)
+        mr_count = 0
+        new_prims = {}
+        for b in self.case.blocks:
+            mr = imp.matrix_residual(phys, self.cfg, b, prims[b.index],
+                                     dus[b.index], bs[b.index],
+                                     *a_diag[b.index], aux=auxs[b.index])
+            mr_sum = mr_sum + (mr * mr).sum()
+            # the reference divides by the padded array size (ghost entries
+            # are zero): mgSolution.cpp:199-207
+            mr_count += phys.neq * int(np.prod(b.shape))
+            new_prims[b.index] = step_mod.implicit_update(
+                phys, b, prims[b.index], dus[b.index][b.interior])
+        return new_prims, mr_sum / mr_count
+
+    # -- logging (reference format) ------------------------------------------
+    def _open_logs(self):
+        self.resid_file = open(self.sim_root + ".resid", "w")
+        self.time_file = open(self.sim_root + ".tme", "w")
+        self._print_headers(self.resid_file)
+        self.time_file.write(f"{'Step':<7}{'Iter-Time':<16}{'Sim-Time':<16}\n")
+
+    def _print_headers(self, f):
+        deck = self.deck
+        cols = [f"{'Step':<7}", f"{'NL-Iter':<8}"]
+        cols.append(f"{'Time-Step' if deck['timeStep'] > 0 else 'CFL':<12}")
+        for name in ("Res-Mass", "Res-Mom-X", "Res-Mom-Y", "Res-Mom-Z",
+                     "Res-Energy"):
+            cols.append(f"{name:<12}")
+        if deck.is_rans:
+            cols.append(f"{'Res-Tke':<12}")
+            cols.append(f"{'Res-Omega':<12}")
+        for name in ("Max-Eqn", "Max-Blk", "Max-I", "Max-J", "Max-K"):
+            cols.append(f"{name:<8}")
+        cols.append(f"{'Max-Res':<12}")
+        cols.append(f"{'Res-Matrix':<12}")
+        f.write("".join(cols) + "\n")
+
+    def _update_l2_first(self, l2, nn, mm):
+        """First-iteration normalization, re-maxed over the first 5 steps
+        (reference: output.cpp:1028-1046)."""
+        ns = self.phys.ns
+        if nn == 0 and mm == 0:
+            self.l2_first = l2.copy()
+        elif nn < 5 and mm == 0:
+            if l2[:ns].sum() > self.l2_first[:ns].sum():
+                self.l2_first[:ns] = l2[:ns]
+            self.l2_first[ns:] = np.maximum(self.l2_first[ns:], l2[ns:])
+
+    def _write_residuals(self, nn, mm, cfl, l2, linf_val, linf_loc,
+                         matrix_resid=0.0):
+        deck = self.deck
+        self._update_l2_first(l2, nn, mm)
+        first = self.l2_first
+        ns = self.phys.ns
+        res_mass = (l2[:ns].sum() + EPS) / (first[:ns].sum() + EPS)
+        res = (l2 + EPS) / (first + EPS)
+        parts = [f"{nn:<7d}{mm:<8d}"]
+        lead = deck["timeStep"] if deck["timeStep"] > 0 else cfl
+        parts.append(f"{lead:<12.4e}")
+        vals = [res_mass, res[self.phys.mx], res[self.phys.my],
+                res[self.phys.mz], res[self.phys.ie]]
+        if deck.is_rans:
+            vals += [res[self.phys.it], res[self.phys.it + 1]]
+        parts += [f"{v:<12.4e}" for v in vals]
+        eqn, blk, iloc, jloc, kloc = linf_loc
+        parts += [f"{eqn:<8d}{blk:<8d}{iloc:<8d}{jloc:<8d}{kloc:<8d}"]
+        parts += [f"{linf_val:<12.4e}{matrix_resid:<12.4e}"]
+        line = "".join(parts)
+        self.resid_file.write(line + "\n")
+        print(line)
+
+    def _decode_linf(self, linfs):
+        vals = torch.stack([v for v, _ in linfs]).cpu().numpy()
+        locs = torch.stack([loc for _, loc in linfs]).cpu().numpy()
+        bi = int(np.argmax(vals))
+        b = self.case.blocks[bi]
+        ncell = b.nj * b.nk
+        eqn, rem = divmod(int(locs[bi]), b.ni * ncell)
+        i, rem = divmod(rem, ncell)
+        j, k = divmod(rem, b.nk)
+        return float(vals[bi]), (eqn + 1, b.parent, i, j, k)
+
+    # -- main loop -----------------------------------------------------------
+    def run(self, iterations=None, write_files=False):
+        """March ``iterations`` steps (default: the deck's), one nonlinear
+        iteration each, logging every step to ``.resid`` / ``.tme``."""
+        if write_files:
+            refuse("output", ".fun/.rst files")
+        deck = self.deck
+        iterations = iterations or deck["iterations"]
+        self._open_logs()
+        sim_start = time.perf_counter()
+        total_dof = self.case.total_cells * self.phys.neq
+        try:
+            for nn in range(iterations):
+                iter_start = time.perf_counter()
+                cfl = deck.cfl(nn)
+                self.cons_n = self.store_old_solution()
+                for mm in range(deck["nonlinearIterations"]):
+                    self.prims, l2, linfs, matrix_resid = self._iteration(
+                        self.prims, self.cons_n, cfl)
+                    l2 = np.sqrt(l2.cpu().numpy())
+                    self.l2_history.append(l2)
+                    linf_val, linf_loc = self._decode_linf(linfs)
+                    mr = float(matrix_resid)
+                    mr = np.sqrt(mr / total_dof) if mr > 0 else 0.0
+                    self._write_residuals(nn, mm, cfl, l2, linf_val,
+                                          linf_loc, mr)
+                now = time.perf_counter()
+                self.time_file.write(f"{nn:<7d}{now - iter_start:<16.6e}"
+                                     f"{now - sim_start:<16.6e}\n")
+        finally:
+            self.resid_file.close()
+            self.time_file.close()
+        return self

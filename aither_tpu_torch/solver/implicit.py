@@ -1,0 +1,332 @@
+"""Implicit operator pieces for scalar LU-SGS: off-diagonals, diagonal,
+right-hand side, matrix residual, and the hyperplane plan the sweeps walk.
+
+Port of ``aither_tpu/solver/implicit.py`` (``:42-110`` spectral radii and
+the Rusanov off-diagonal, ``:254-309`` neighbour masks, ``:441-481``
+off-diagonal sums, ``:497-545`` rhs/diagonal, ``:1130`` matrix residual;
+reference: src/linearSolver.cpp:45-428, src/fluxJacobian.cpp
+RusanovScalarOffDiagonal).
+
+The JAX package walks the LU-SGS hyperplanes i+j+k=p in a skewed layout
+built for the TPU.  Here the sweep works in the physical padded layout:
+``SweepPlan`` lists each hyperplane's physical cells once on the host
+(plane-ordered flat indices, ``plane_ptr`` offsets) together with the
+per-cell face geometry and masks of both sweep sides.  The sweeps
+themselves (plain PyTorch and the CUDA kernel) live in
+``aither_tpu_torch/kernels/lusgs_sweep.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from aither_tpu.grid.geometry import AX
+
+from ..physics.models import Physics, prandtl
+from . import state as st
+from .flux import physical_flux
+from .viscous import sigma_k
+
+
+# ---------------------------------------------------------------------------
+# scalar approximate off-diagonal (Rusanov):
+#   0.5*|A|*(F(q+du) - F(q)).n  [turb zeroed]  +- specRad_face * du
+
+
+def viscous_face_spectral_radius(phys: Physics, q, mag, dist, mu, mut=None):
+    """|A|/d . max(4/3rho, gamma/rho) . (mu/Pr + mut/Prt)
+    (reference: spectralRadius.hpp:126-151 ViscFaceSpectralRadius)."""
+    t = st.temperature(phys, q)
+    r = st.rho(phys, q)
+    max_term = torch.maximum(4.0 / (3.0 * r), phys.gamma(t) / r)
+    visc_term = phys.nondim_scaling * (
+        mu / prandtl(phys)
+        + (mut / phys.turb_prandtl() if mut is not None else 0.0))
+    return mag / dist * max_term * visc_term
+
+
+def face_spectral_radius(phys: Physics, q, n, mag, dist=None, mu=None,
+                         mut=None, viscous=False):
+    """0.5*|A|*(|v.n| + a) (+ viscous term)
+    (reference: spectralRadius.hpp:66-80, 126-151)."""
+    vel = st.velocity(phys, q)
+    sr = 0.5 * mag * (torch.abs((vel * n).sum(dim=0)) + st.sos(phys, q))
+    if viscous:
+        sr = sr + viscous_face_spectral_radius(phys, q, mag, dist, mu, mut)
+    return sr
+
+
+def _turb_viscous_face_sr(phys: Physics, q_nb, mag, dist, mu, mut, f1):
+    """SST turbulence-equation viscous face spectral radius
+    |A|/d.(mu + sigma_k.mut)/rho
+    (reference: turbulence.cpp ViscFaceSpecRad)."""
+    r = st.rho(phys, q_nb)
+    return phys.nondim_scaling * (mag / dist) / r * (mu + sigma_k(f1) * mut)
+
+
+def offdiagonal_scalar(phys: Physics, cfg, q_nb, du_nb, n, mag, positive,
+                       dist=None, mu=None, mut=None, f1=None):
+    """Scalar Rusanov off-diagonal contribution of one neighbour."""
+    q_up = st.update_prim_with_cons(phys, q_nb, du_nb)
+    dflux = 0.5 * mag[None] * (physical_flux(phys, q_up, n)
+                               - physical_flux(phys, q_nb, n))
+    viscous = cfg.get("viscous", False)
+    sr = face_spectral_radius(phys, q_nb, n, mag, dist, mu, mut, viscous)
+    term = sr[None] * du_nb
+    if phys.nturb:
+        dflux = torch.cat([dflux[:phys.it],
+                           torch.zeros_like(dflux[phys.it:])])
+        # turbulence inviscid face spectral radius (turbulence.cpp:112-120)
+        vn = (st.velocity(phys, q_nb) * n).sum(dim=0)
+        sr_t = (0.5 * mag * torch.abs(vn + torch.abs(vn)) if positive
+                else 0.5 * mag * torch.abs(vn - torch.abs(vn)))
+        if viscous and mut is not None:
+            sr_t = sr_t + _turb_viscous_face_sr(phys, q_nb, mag, dist, mu,
+                                                mut, f1)
+        term = torch.cat([term[:phys.it], sr_t[None] * du_nb[phys.it:]])
+    return dflux + term if positive else dflux - term
+
+
+# ---------------------------------------------------------------------------
+# neighbour masks and vectorized off-diagonal sums
+
+
+def _connection_face_mask(block, d: str, lower: bool):
+    """cells whose face on (d, side) is a connection (ni,nj,nk boolean on
+    the boundary layer, False elsewhere)."""
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    mask = np.zeros((block.ni, block.nj, block.nk), dtype=bool)
+    for spec in block.surfaces:
+        if spec.bc_type not in ("interblock", "periodic"):
+            continue
+        if spec.direction != d or spec.lower != lower:
+            continue
+        sl = [None, None, None]
+        sl[AX[d]] = 0 if lower else dims[d] - 1
+        taxes = [a for a in range(3) if a != AX[d]]
+        for a, (lo, hi) in zip(taxes, spec.patch):
+            sl[a] = slice(lo - block.g, hi - block.g)
+        mask[tuple(sl)] = True
+    return mask
+
+
+def neighbor_masks(block, side: str):
+    """{d: (ni, nj, nk) bool}: True where the cell's neighbour across its
+    lower (upper) face contributes — an interior neighbour or a
+    connection ghost (the JAX package's mask_lower / mask_upper)."""
+    ii, jj, kk = np.meshgrid(np.arange(block.ni), np.arange(block.nj),
+                             np.arange(block.nk), indexing="ij")
+    out = {}
+    for d in "ijk":
+        idx = [ii, jj, kk][AX[d]]
+        n = [block.ni, block.nj, block.nk][AX[d]]
+        conn = _connection_face_mask(block, d, side == "lower")
+        out[d] = ((idx > 0) if side == "lower" else (idx < n - 1)) | conn
+    return out
+
+
+def _neighbor_slices(block, d: str, side: str):
+    """padded slices: (neighbour cells, shared faces) for each physical cell
+    along direction d."""
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    cell = [slice(g, g + dims[dd]) for dd in "ijk"]
+    nb = list(cell)
+    face = list(cell)
+    ax = AX[d]
+    n = dims[d]
+    if side == "lower":
+        nb[ax] = slice(g - 1, g + n - 1)
+        face[ax] = slice(g, g + n)
+    else:
+        nb[ax] = slice(g + 1, g + n + 1)
+        face[ax] = slice(g + 1, g + n + 1)
+    return tuple(nb), tuple(face)
+
+
+def offdiag_sum(phys: Physics, cfg, block, prim, du, side: str, aux=None):
+    """Sum of lower (or upper) off-diagonal contributions for every physical
+    cell, in one vectorized pass
+    (reference: procBlock::ImplicitLower/Upper)."""
+    key = ("nbr_mask", side)
+    if key not in block.cache:
+        block.cache[key] = {d: torch.as_tensor(m, device=prim.device)
+                            for d, m in neighbor_masks(block, side).items()}
+    masks = block.cache[key]
+    positive = side == "lower"
+    total = 0.0
+    for d in "ijk":
+        nb, face = _neighbor_slices(block, d, side)
+        kw = {}
+        if cfg.get("viscous", False):
+            kw = _viscous_offdiag_kw(block, d, nb, face, aux)
+        contrib = offdiagonal_scalar(
+            phys, cfg, prim[(slice(None),) + nb], du[(slice(None),) + nb],
+            block.geom[f"n_{d}"][(slice(None),) + face],
+            block.geom[f"mag_{d}"][face], positive, **kw)
+        total = total + torch.where(masks[d][None], contrib, 0.0)
+    return total
+
+
+def _viscous_offdiag_kw(block, d, nb, face, aux):
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    cell = tuple(slice(g, g + dims[dd]) for dd in "ijk")
+    center = block.geom["center"]
+    c2c = center[(slice(None),) + cell] - center[(slice(None),) + nb]
+    nvec = block.geom[f"n_{d}"][(slice(None),) + face]
+    dist = torch.abs((c2c * nvec).sum(dim=0))
+    return dict(dist=dist, mu=aux["mu"][nb], mut=aux["mut"][nb],
+                f1=aux["f1"][nb])
+
+
+# ---------------------------------------------------------------------------
+# time terms, diagonal and rhs (reference: procBlock.cpp:1000-1034,
+# linearSolver.cpp:56-160)
+
+
+def rhs_b(phys: Physics, block, cfg, prim, resid, cons_n, dt):
+    """b = -1/theta.R - (1+zeta)V/(dt theta)(cons - consN)
+    (reference: linearSolver.cpp:56-76; single-level time, no forcing)."""
+    g = block.g
+    P = tuple(slice(g, g + n) for n in (block.ni, block.nj, block.nk))
+    theta, zeta = cfg["theta"], cfg["zeta"]
+    coeff_n = block.geom["vol"][P] * (1.0 + zeta) / (dt * theta)
+    b = -(1.0 / theta) * resid
+    cons_m = st.cons_from_prim(phys, prim[block.interior])
+    return b - coeff_n[None] * (cons_m - cons_n)
+
+
+def build_diagonal(phys: Physics, block, cfg, diag_flow, diag_turb, sr_max,
+                   dt):
+    """A = a*relax + (1+zeta)V/(dt theta) [+ max(specrad)/dualCFL]; returns
+    (inv_flow, inv_turb) (reference: linearSolver.cpp:127-160)."""
+    g = block.g
+    P = tuple(slice(g, g + n) for n in (block.ni, block.nj, block.nk))
+    vol = block.geom["vol"][P]
+    theta, zeta = cfg["theta"], cfg["zeta"]
+    diag_vol_time = vol * (1.0 + zeta) / (dt * theta)
+    if cfg["dual_time_cfl"] > 0.0:
+        diag_vol_time = diag_vol_time + sr_max / cfg["dual_time_cfl"]
+    relax = cfg["matrix_relaxation"]
+    inv_flow = 1.0 / (diag_flow * relax + diag_vol_time)
+    inv_turb = None
+    if phys.nturb:
+        inv_turb = 1.0 / (diag_turb * relax + diag_vol_time)
+    return inv_flow, inv_turb
+
+
+def diag_mult(phys: Physics, inv_flow, inv_turb, x):
+    """apply the (inverted) scalar diagonal pair."""
+    out = x * inv_flow[None]
+    if phys.nturb and inv_turb is not None:
+        out = torch.cat([out[:phys.it], x[phys.it:] * inv_turb[None]])
+    return out
+
+
+def matrix_residual(phys: Physics, cfg, block, prim, du_padded, b, a_flow,
+                    a_turb, aux=None):
+    """-(A.x - b) per cell (reference: linearSolver.cpp:45-100)."""
+    x = du_padded[block.interior]
+    L = offdiag_sum(phys, cfg, block, prim, du_padded, "lower", aux)
+    U = offdiag_sum(phys, cfg, block, prim, du_padded, "upper", aux)
+    ax = x * a_flow[None]
+    if phys.nturb and a_turb is not None:
+        ax = torch.cat([ax[:phys.it], x[phys.it:] * a_turb[None]])
+    return -(ax - (L - U) - b)
+
+
+# ---------------------------------------------------------------------------
+# hyperplane plan for the LU-SGS sweeps
+
+# per-cell static channels of one sweep side, per direction
+STATIC_CHANNELS = ("nx", "ny", "nz", "mag", "dist")
+
+
+@dataclasses.dataclass
+class SweepPlan:
+    """One block's hyperplanes p = i+j+k in physical layout.
+
+    ``cells`` holds every physical cell's flat index into the padded
+    (NI, NJ, NK) block, ordered by hyperplane (then i, then j);
+    plane p owns ``cells[plane_ptr[p]:plane_ptr[p+1]]``.  ``phys_cells``
+    are the same cells' flat indices into the unpadded (ni, nj, nk) block.
+    ``static[side]`` is (ncell, 3, 5) float: per direction the unit normal
+    and area of the face shared with the lower (upper) neighbour and the
+    face-projected cell-centre distance to it; ``mask[side]`` is
+    (ncell, 3) bool: the neighbour contributes (an interior cell or a
+    connection ghost)."""
+
+    dims: tuple               # (ni, nj, nk)
+    g: int
+    padded: tuple             # (NI, NJ, NK)
+    plane_ptr: np.ndarray     # (nplanes + 1,) int32, host
+    cells: torch.Tensor       # (ncell,) int64
+    phys_cells: torch.Tensor  # (ncell,) int64
+    static: dict              # side -> (ncell, 3, 5)
+    mask: dict                # side -> (ncell, 3) bool
+    # int32 / uint8 copies the CUDA kernel reads (kernels/lusgs_sweep.py)
+    kernel_ops: dict = dataclasses.field(default=None, repr=False)
+
+    @property
+    def nplanes(self) -> int:
+        return len(self.plane_ptr) - 1
+
+    @property
+    def strides(self) -> tuple:
+        """flat-index step of one cell in i, j and k (padded layout)"""
+        _, NJ, NK = self.padded
+        return (NJ * NK, NK, 1)
+
+
+def build_sweep_plan(block, dtype, device) -> SweepPlan:
+    """Hyperplane cell lists and per-side static face geometry for one
+    block, built once on the host from ``block.geom_host`` (the values of
+    the JAX package's ``_static_neighbor_geom``)."""
+    ni, nj, nk, g = block.ni, block.nj, block.nk, block.g
+    NI, NJ, NK = block.shape
+    ii, jj, kk = np.meshgrid(np.arange(ni), np.arange(nj), np.arange(nk),
+                             indexing="ij")
+    ii, jj, kk = ii.ravel(), jj.ravel(), kk.ravel()
+    p = ii + jj + kk
+    order = np.lexsort((jj, ii, p))          # by plane, then i, then j
+    ii, jj, kk, p = ii[order], jj[order], kk[order], p[order]
+    nplanes = ni + nj + nk - 2
+    plane_ptr = np.zeros(nplanes + 1, dtype=np.int32)
+    plane_ptr[1:] = np.cumsum(np.bincount(p, minlength=nplanes))
+    pi, pj, pk = ii + g, jj + g, kk + g
+    cells = (pi * NJ + pj) * NK + pk
+    phys_cells = (ii * nj + jj) * nk + kk
+
+    center = block.geom_host["center"]
+    static, mask = {}, {}
+    for side in ("lower", "upper"):
+        off = -1 if side == "lower" else 1
+        fo = 0 if side == "lower" else 1
+        masks = neighbor_masks(block, side)
+        stat = np.zeros((len(cells), 3, len(STATIC_CHANNELS)))
+        msk = np.zeros((len(cells), 3), dtype=bool)
+        for a, d in enumerate("ijk"):
+            nb = [pi, pj, pk]
+            face = [pi, pj, pk]
+            nb[a] = nb[a] + off
+            face[a] = face[a] + fo
+            nvec = block.geom_host[f"n_{d}"][:, face[0], face[1], face[2]]
+            c2c = (center[:, pi, pj, pk]
+                   - center[:, nb[0], nb[1], nb[2]])
+            stat[:, a, 0:3] = nvec.T
+            stat[:, a, 3] = block.geom_host[f"mag_{d}"][face[0], face[1],
+                                                        face[2]]
+            stat[:, a, 4] = np.abs((c2c * nvec).sum(axis=0))
+            msk[:, a] = masks[d][ii, jj, kk]
+        static[side] = torch.as_tensor(stat, dtype=dtype, device=device)
+        mask[side] = torch.as_tensor(msk, device=device)
+    return SweepPlan(
+        dims=(ni, nj, nk), g=g, padded=(NI, NJ, NK), plane_ptr=plane_ptr,
+        cells=torch.as_tensor(cells, dtype=torch.int64, device=device),
+        phys_cells=torch.as_tensor(phys_cells, dtype=torch.int64,
+                                   device=device),
+        static=static, mask=mask)

@@ -1,0 +1,520 @@
+"""One solver step's building blocks: ghost fill, connection swaps,
+residual, time step, update and norms.
+
+Port of ``aither_tpu/solver/step.py`` (``:31-436`` ghosts and swaps,
+``:443-524`` inviscid residual, ``:556-695`` full residual, ``:698-746``
+time step, update and norms).  Arrays are padded equation-first blocks
+``(neq, NI, NJ, NK)`` as in the JAX package.  The ghost fills return a
+filled copy of their input; the connection swap updates in place.
+
+Connection swaps are index maps built once on the host (the JAX package's
+orientation helpers run on numpy index arrays), so a swap on the device is
+one gather and one scatter per connection side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from aither_tpu.grid.connections import orient_to_first, orient_to_second
+from aither_tpu.grid.geometry import AX
+
+from ..physics.models import Physics
+from . import bc as bc_mod
+from . import state as st
+from .flux import inviscid_flux
+from .reconstruction import reconstruct_faces
+
+
+# ---------------------------------------------------------------------------
+# ghost-state assignment
+
+
+def _cell_indices(g, n, lower: bool, layer: int):
+    """(gcell, icell, acell) padded indices per ghost layer
+    (reference: procBlock.cpp:2470-2500)."""
+    if lower:
+        gcell = g - layer
+        icell = min(g + layer - 1, g + n - 1)
+        acell = g
+    else:
+        gcell = g + n + layer - 1
+        icell = max(g + n - layer, g)
+        acell = g + n - 1
+    return gcell, icell, acell
+
+
+def _plane(arr, axis, idx, patch):
+    """index plane `idx` on `axis` (1-based spatial axis within an
+    equation-first array), patch slices elsewhere."""
+    out = [slice(None)] * arr.dim()
+    out[axis] = idx
+    taxes = [a for a in range(arr.dim() - 3, arr.dim()) if a != axis]
+    out[taxes[0]] = slice(*patch[0])
+    out[taxes[1]] = slice(*patch[1])
+    return tuple(out)
+
+
+def boundary_normal(geom, spec, g, n):
+    """Outward unit normal on the boundary faces of a surface patch:
+    (3, ...)."""
+    normals = geom[f"n_{spec.direction}"]
+    bnd = g if spec.lower else g + n
+    nvec = normals[_plane(normals, 1 + spec.axis, bnd, spec.patch)]
+    return -nvec if spec.lower else nvec
+
+
+def _apply(prim, updates):
+    """Write (index, value) pairs into a copy of prim, in order; every
+    value was computed from the input before any write (the JAX package's
+    merged-region semantics)."""
+    out = prim.clone()
+    for idx, val in updates:
+        out[idx] = val
+    return out
+
+
+def apply_boundary_ghosts(phys: Physics, block, prim, viscous_pass=False):
+    """Assign ghost states for all non-connection surfaces
+    (reference: procBlock.cpp:2449-2563).  For the inviscid pass
+    viscousWall degrades to slipWall; the viscous pass re-does viscousWall
+    surfaces with the full wall model (interior = mirrored cell,
+    wall distance and wall kinematic viscosity from the adjacent cell).
+    Every value reads physical cells only, so all writes are independent."""
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    updates = []
+    for layer in range(1, g + 1):
+        for spec in block.surfaces:
+            if spec.bc_type in ("interblock", "periodic"):
+                continue
+            bct = spec.bc_type
+            if bct == "viscousWall" and not viscous_pass:
+                bct = "slipWall"
+            if viscous_pass and spec.bc_type != "viscousWall":
+                continue
+            n = dims[spec.direction]
+            ax = 1 + spec.axis
+            gcell, icell, acell = _cell_indices(g, n, spec.lower, layer)
+            norm = boundary_normal(block.geom, spec, g, n)
+            kw = {}
+            if bct == "viscousWall":
+                src = icell
+                adj = prim[_plane(prim, ax, acell, spec.patch)]
+                wd = block.geom["wall_dist"]
+                kw["wall_dist"] = wd[_plane(wd, ax - 1, acell, spec.patch)]
+                rho_adj = st.rho(phys, adj)
+                t_adj = phys.temperature(adj[phys.ie], adj[:phys.ns])
+                kw["nu_w"] = phys.viscosity(t_adj) / rho_adj
+            else:
+                src = icell if bct == "slipWall" else acell
+            interior = prim[_plane(prim, ax, src, spec.patch)]
+            ghost = bc_mod.ghost_state(phys, bct, interior, norm, spec.data,
+                                       layer, **kw)
+            updates.append((_plane(prim, ax, gcell, spec.patch), ghost))
+    return _apply(prim, updates)
+
+
+# direction-2/3 pairs for the edge pass (procBlock edge convention:
+# i-line -> d2=j, d3=k; j-line -> d2=k, d3=i; k-line -> d2=i, d3=j)
+EDGE_DIRS = {"i": ("j", "k"), "j": ("k", "i"), "k": ("i", "j")}
+
+
+def _surface_bc_types(block, d: str, lower: bool):
+    """host-side map of bc type over a block face: object array (n1, n2) in
+    the face's transverse axes order."""
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    taxes = [a for a in "ijk" if a != d]
+    types = np.empty((dims[taxes[0]], dims[taxes[1]]), dtype=object)
+    types[:] = "none"
+    for spec in block.surfaces:
+        if spec.direction != d or spec.lower != lower:
+            continue
+        sl = tuple(slice(lo - block.g, hi - block.g) for lo, hi in spec.patch)
+        types[sl] = spec.bc_type
+    return types
+
+
+def _wall_mask(block, dface: str, lower: bool, dline: str, upper_other: bool,
+               wall_types):
+    """Boolean mask over the edge line (device tensor, cached on the block):
+    True where the bounding surface in `dface` direction is a wall at the
+    corner position."""
+    key = ("wall_mask", dface, lower, dline, upper_other, wall_types)
+    if key not in block.cache:
+        types = _surface_bc_types(block, dface, lower)
+        taxes = [a for a in "ijk" if a != dface]
+        li = taxes.index(dline)
+        oi = 1 - li
+        oidx = types.shape[oi] - 1 if upper_other else 0
+        line_vals = np.take(types, oidx, axis=oi)
+        mask = np.isin(line_vals.astype(str), wall_types)
+        block.cache[key] = torch.as_tensor(
+            mask, device=block.geom["vol"].device)
+    return block.cache[key]
+
+
+def _edge_face_normal(block, d, d2, d3, upper2, upper3, other_idx, which):
+    """Outward unit normal of the wall face bounding an edge corner, along
+    the edge line (3, n1)."""
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    if which == 2:
+        dface, upper, dother = d2, upper2, d3
+    else:
+        dface, upper, dother = d3, upper3, d2
+    normals = block.geom[f"n_{dface}"]
+    fidx = g + dims[dface] if upper else g
+    out = [slice(None)] * 4
+    out[1 + AX[dface]] = fidx
+    out[1 + AX[d]] = slice(g, g + dims[d])
+    out[1 + AX[dother]] = other_idx
+    nvec = normals[tuple(out)]
+    return nvec if upper else -nvec
+
+
+def apply_edge_ghosts(phys: Physics, block, prim, viscous_pass=False):
+    """Corner/edge ghost states (reference: procBlock.cpp:2565-2804 inviscid,
+    :2806-3049 viscous): wall surfaces extend their reflection into the
+    corner; otherwise equal layers average and unequal layers copy from the
+    deeper direction.  The viscous pass treats only viscousWall corners.
+
+    One write per (layer3, layer2) pair: within a pair the 3 edge
+    directions x 4 corners write disjoint cells and read only cells of
+    earlier pairs or the surface pass (the JAX package's pair order)."""
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    for layer3 in range(1, g + 1):
+        for layer2 in range(1, g + 1):
+            updates = []
+            for d in "ijk":
+                d2, d3 = EDGE_DIRS[d]
+                ax1, ax2, ax3 = 1 + AX[d], 1 + AX[d2], 1 + AX[d3]
+                max2, max3 = dims[d2], dims[d3]
+                line = slice(g, g + dims[d])
+                for upper2 in (False, True):
+                    for upper3 in (False, True):
+                        if upper2:
+                            p2 = g + max2 + layer2 - 2
+                            c2 = p2 + 1
+                        else:
+                            p2 = g + 1 - layer2
+                            c2 = p2 - 1
+                        if upper3:
+                            p3 = g + max3 + layer3 - 2
+                            c3 = p3 + 1
+                        else:
+                            p3 = g + 1 - layer3
+                            c3 = p3 - 1
+
+                        def sl(i2, i3):
+                            out = [slice(None)] * prim.dim()
+                            out[ax1] = line
+                            out[ax2] = i2
+                            out[ax3] = i3
+                            return tuple(out)
+
+                        s_d2 = prim[sl(p2, c3)]   # toward direction 2
+                        s_d3 = prim[sl(c2, p3)]   # toward direction 3
+                        norm2 = _edge_face_normal(block, d, d2, d3, upper2,
+                                                  upper3, c3, which=2)
+                        norm3 = _edge_face_normal(block, d, d2, d3, upper2,
+                                                  upper3, c2, which=3)
+                        ghost_w2 = bc_mod.slip_wall(phys, s_d2, norm2,
+                                                    None, layer2)
+                        ghost_w3 = bc_mod.slip_wall(phys, s_d3, norm3,
+                                                    None, layer3)
+                        if layer2 == layer3:
+                            normal = 0.5 * (s_d2 + s_d3)
+                        elif layer2 > layer3:
+                            normal = s_d3
+                        else:
+                            normal = s_d2
+
+                        if viscous_pass:
+                            # a slipWall surface extends its reflection over
+                            # a mixed corner; viscousWall/viscousWall
+                            # corners use the average/copy rules; others
+                            # are untouched (procBlock.cpp:2925-2960)
+                            s2 = _wall_mask(block, d2, not upper2, d, upper3,
+                                            ("slipWall",))
+                            s3 = _wall_mask(block, d3, not upper3, d, upper2,
+                                            ("slipWall",))
+                            v2 = _wall_mask(block, d2, not upper2, d, upper3,
+                                            ("viscousWall",))
+                            v3 = _wall_mask(block, d3, not upper3, d, upper2,
+                                            ("viscousWall",))
+                            ghost = torch.where(
+                                (s2 & ~s3)[None], ghost_w2,
+                                torch.where((~s2 & s3)[None], ghost_w3,
+                                            torch.where((v2 & v3)[None],
+                                                        normal,
+                                                        prim[sl(c2, c3)])))
+                        else:
+                            # inviscid pass: slipWall OR viscousWall counts
+                            # as a wall (procBlock.cpp:2674-2710)
+                            walls = ("slipWall", "viscousWall")
+                            w2 = _wall_mask(block, d2, not upper2, d, upper3,
+                                            walls)
+                            w3 = _wall_mask(block, d3, not upper3, d, upper2,
+                                            walls)
+                            ghost = torch.where(
+                                (w2 & ~w3)[None], ghost_w2,
+                                torch.where((~w2 & w3)[None], ghost_w3,
+                                            normal))
+                        updates.append((sl(c2, c3), ghost))
+            prim = _apply(prim, updates)
+    return prim
+
+
+# ---------------------------------------------------------------------------
+# interblock / periodic connection swaps as host-built index maps
+
+
+def connection_index_maps(blocks, conns, g, device):
+    """For each connection, its two sides as (acceptor block, acceptor flat
+    indices, donor block, donor flat indices), indices into a block's
+    flattened padded (NI*NJ*NK) cells.
+
+    Built by running the JAX package's ``swap_all_connection_states``
+    slab logic (reference: multiArray3d.hpp:790-870 SwapSliceLocal) on
+    numpy index arrays: the ghost slab of the acceptor, extended by g in
+    the patch directions except where the patch borders another
+    connection, takes the donor's first g interior layers, reoriented."""
+    out = []
+    for conn in conns:
+        sides = []
+        for acceptor, donor, to_first, border in (
+                (conn.first, conn.second, True, conn.border_first),
+                (conn.second, conn.first, False, conn.border_second)):
+            blk_a = blocks[acceptor.block]
+            blk_d = blocks[donor.block]
+            n_a = {"i": blk_a.ni, "j": blk_a.nj,
+                   "k": blk_a.nk}[acceptor.direction]
+            n_d = {"i": blk_d.ni, "j": blk_d.nj,
+                   "k": blk_d.nk}[donor.direction]
+            ea = [0 if border[idx] else g for idx in range(4)]
+            a1 = slice(g + acceptor.d1_range[0] - ea[0],
+                       g + acceptor.d1_range[1] + ea[1])
+            a2 = slice(g + acceptor.d2_range[0] - ea[2],
+                       g + acceptor.d2_range[1] + ea[3])
+            d1 = slice(donor.d1_range[0], g + donor.d1_range[1] + g)
+            d2 = slice(donor.d2_range[0], g + donor.d2_range[1] + g)
+            ids_d = np.arange(np.prod(blk_d.shape)).reshape(blk_d.shape)
+            ids_a = np.arange(np.prod(blk_a.shape)).reshape(blk_a.shape)
+            rem_d = [a for a in range(3) if a != AX[donor.direction]]
+            rem_a = [a for a in range(3) if a != AX[acceptor.direction]]
+            full1 = acceptor.d1_range[1] - acceptor.d1_range[0] + 2 * g
+            lo1, hi1 = g - ea[0], full1 - (g - ea[1])
+            full2 = acceptor.d2_range[1] - acceptor.d2_range[0] + 2 * g
+            lo2, hi2 = g - ea[2], full2 - (g - ea[3])
+            orient = orient_to_first if to_first else orient_to_second
+            acc_idx, don_idx = [], []
+            for layer in range(1, g + 1):
+                didx = g + layer - 1 if donor.lower else g + n_d - layer
+                idx = [None] * 3
+                idx[AX[donor.direction]] = didx
+                idx[AX[donor.d1]] = d1
+                idx[AX[donor.d2]] = d2
+                plane = ids_d[tuple(idx)]
+                if rem_d.index(AX[donor.d1]) != 0:
+                    plane = np.swapaxes(plane, 0, 1)
+                plane = orient(plane, conn.orientation, 0, 1,
+                               conn.second.direction)[lo1:hi1, lo2:hi2]
+                if rem_a.index(AX[acceptor.d1]) != 0:
+                    plane = np.swapaxes(plane, 0, 1)
+                gidx = g - layer if acceptor.lower else g + n_a + layer - 1
+                idx = [None] * 3
+                idx[AX[acceptor.direction]] = gidx
+                idx[AX[acceptor.d1]] = a1
+                idx[AX[acceptor.d2]] = a2
+                region = ids_a[tuple(idx)]
+                assert region.shape == plane.shape, (region.shape,
+                                                     plane.shape)
+                acc_idx.append(region.ravel())
+                don_idx.append(plane.ravel())
+            sides.append((acceptor.block,
+                          torch.as_tensor(np.concatenate(acc_idx),
+                                          device=device),
+                          donor.block,
+                          torch.as_tensor(np.concatenate(don_idx),
+                                          device=device)))
+        out.append(sides)
+    return out
+
+
+def swap_connections(fields: dict, maps) -> dict:
+    """Ghost-slab swaps of padded (C, NI, NJ, NK) fields across every
+    connection, IN PLACE, one connection at a time (a later connection's
+    extended donor slab may read an earlier one's corner writes, exactly
+    as the reference's sequential SwapSlice loop, gridLevel.cpp:299-313).
+    Within one connection both sides gather before either scatters.
+    Returns ``fields``."""
+    for sides in maps:
+        vals = [fields[don_b].reshape(fields[don_b].shape[0], -1)[:, don_idx]
+                for _, _, don_b, don_idx in sides]
+        for (acc_b, acc_idx, _, _), v in zip(sides, vals):
+            dst = fields[acc_b]
+            dst.view(dst.shape[0], -1)[:, acc_idx] = v
+    return fields
+
+
+def apply_all_bcs(phys: Physics, case, prims):
+    """Full ghost update: boundary surfaces, connection swaps, edges
+    (reference ordering: procBlock::GetBoundaryConditions ->
+    gridLevel.cpp:287-370)."""
+    prims = {b.index: apply_boundary_ghosts(phys, b, prims[b.index])
+             for b in case.blocks}
+    swap_connections(prims, case.swap_maps)
+    return {b.index: apply_edge_ghosts(phys, b, prims[b.index])
+            for b in case.blocks}
+
+
+# ---------------------------------------------------------------------------
+# residual + spectral radius
+
+
+def inviscid_residual(phys: Physics, cfg, block, prim):
+    """Net inviscid outflux per physical cell + inviscid spectral radii
+    (flow & turbulence) (reference: procBlock.cpp:384-824)."""
+    g = block.g
+    geom = block.geom
+    dims = dict(i=block.ni, j=block.nj, k=block.nk)
+    kw = dict(dtype=prim.dtype, device=prim.device)
+    shape_c = (block.ni, block.nj, block.nk)
+    resid = torch.zeros((phys.neq,) + shape_c, **kw)
+    specrad = torch.zeros(shape_c, **kw)
+    specrad_turb = torch.zeros(shape_c, **kw)
+    P = [slice(g, g + dims[d]) for d in "ijk"]
+    cell = prim[tuple([slice(None)] + P)]
+    vel = st.velocity(phys, cell)
+    a = st.sos(phys, cell)
+
+    for d in "ijk":
+        ax = 1 + AX[d]
+        n = dims[d]
+        # restrict transverse extents to physical cells; keep ghosts along d
+        tsl = [slice(None)] * 4
+        for aa, dd in enumerate("ijk"):
+            if dd != d:
+                tsl[1 + aa] = slice(g, g + dims[dd])
+        prim_d = prim[tuple(tsl)]
+        widths = geom[f"width_{d}"][tuple(tsl[1:])]
+        ql, qr = reconstruct_faces(prim_d, widths, ax, g, n, cfg["recon"],
+                                   cfg["kappa"], cfg["limiter"])
+        fidx = [slice(None)] * 4
+        for aa, dd in enumerate("ijk"):
+            fidx[1 + aa] = slice(g, g + dims[dd] + (1 if dd == d else 0))
+        nvec = geom[f"n_{d}"][tuple(fidx)]
+        mag = geom[f"mag_{d}"][tuple(fidx[1:])]
+        flux = inviscid_flux(phys, ql, qr, nvec, cfg["flux"]) * mag[None]
+
+        lo = [slice(None)] * 4
+        hi = [slice(None)] * 4
+        lo[ax] = slice(0, n)
+        hi[ax] = slice(1, n + 1)
+        resid = resid + flux[tuple(hi)] - flux[tuple(lo)]
+
+        # inviscid cell spectral radius (spectralRadius.hpp:43-64)
+        nl = nvec[tuple(lo)]
+        nh = nvec[tuple(hi)]
+        navg = 0.5 * (nl + nh)
+        navg = navg / torch.sqrt((navg * navg).sum(dim=0))[None]
+        fmag = 0.5 * (mag[tuple(lo[1:])] + mag[tuple(hi[1:])])
+        vn = torch.abs((vel * navg).sum(dim=0))
+        specrad = specrad + (vn + a) * fmag
+        if phys.nturb:
+            # turbulence inviscid spectral radius (turbulence.cpp:100-110)
+            specrad_turb = specrad_turb + vn * fmag
+    return resid, specrad, specrad_turb
+
+
+def full_residual(phys: Physics, cfg, block, prim):
+    """Residual + spectral radii + diagonal terms for one block: inviscid
+    fluxes, viscous fluxes, turbulence sources (reference:
+    procBlock.cpp:6111-6147 CalcResidualNoSource + :5956 CalcSrcTerms).
+
+    The JAX package's per-iteration form (``need_aux=False``): the
+    output-only gradient fields are not accumulated.  Returns
+    (resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg, prim, aux)
+    where prim carries the viscous-wall ghosts and aux the padded mu, mut
+    and f1 the implicit off-diagonals read."""
+    from . import viscous as vis
+
+    resid, sr_flow, sr_turb = inviscid_residual(phys, cfg, block, prim)
+    diag_flow = sr_flow
+    diag_turb = sr_turb
+    cellavg = None
+    aux = None
+    g = block.g
+    P = tuple(slice(g, g + n) for n in (block.ni, block.nj, block.nk))
+
+    if cfg.get("viscous"):
+        prim = apply_boundary_ghosts(phys, block, prim, viscous_pass=True)
+        prim = apply_edge_ghosts(phys, block, prim, viscous_pass=True)
+        t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
+        mu_all = phys.viscosity(t_all)
+        (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
+         cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
+                                         mu_all)
+        resid = resid + rv
+        sr_flow = sr_flow + vsr_f
+        sr_turb = sr_turb + vsr_t
+        diag_flow = diag_flow + vdiag_f
+        diag_turb = diag_turb + vdiag_t
+
+        # padded aux arrays for implicit off-diagonal Jacobians
+        mut_pad = torch.zeros_like(mu_all)
+        mut_pad[P] = cellavg["mut"]
+        f1_pad = torch.zeros_like(mu_all)
+        f1_pad[P] = cellavg["f1"]
+        aux = {"mu": mu_all, "mut": mut_pad, "f1": f1_pad,
+               "vel_grad": cellavg["vel"], "cellavg": cellavg}
+
+    if phys.nturb and cfg.get("viscous"):
+        cell_q = prim[(slice(None),) + P]
+        vol = block.geom["vol"][P]
+        width = torch.maximum(torch.maximum(block.geom["width_i"][P],
+                                            block.geom["width_j"][P]),
+                              block.geom["width_k"][P])
+        src_k, src_w, src_rad = vis.turb_source(
+            phys, cfg["turb_model"], cell_q, cellavg["vel"], cellavg["tke"],
+            cellavg["omega"], cellavg["mut"], cellavg["f1"], cellavg["f2"],
+            width)
+        # residual -= src * vol (sources on the RHS; procBlock.cpp:6020)
+        resid = torch.cat([resid[:phys.it],
+                           (resid[phys.it] + (-src_k * vol))[None],
+                           (resid[phys.it + 1] + (-src_w * vol))[None],
+                           resid[phys.it + 2:]])
+        # spectral radius / diagonal: subtract (negative) source jacobian
+        sr_turb = sr_turb - src_rad * vol
+        diag_turb = diag_turb - src_rad * vol
+
+    return resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg, prim, aux
+
+
+def local_dt(cfg, geom, specrad, g, dims, cfl):
+    """Local or global time step (reference: procBlock.cpp:6397-6420
+    CalcBlockTimeStep/CalcCellDt)."""
+    P = tuple(slice(g, g + n) for n in dims)
+    vol = geom["vol"][P]
+    if cfg["dt"] > 0.0:
+        return torch.full_like(vol, cfg["dt_nondim"])
+    return cfl * vol / specrad
+
+
+def implicit_update(phys: Physics, block, prim, du):
+    """(reference: procBlock.cpp:902-925)"""
+    out = prim.clone()
+    out[block.interior] = st.update_prim_with_cons(
+        phys, prim[block.interior], du)
+    return out
+
+
+def residual_norms(resid):
+    """per-equation sum of squares + (max value, flat location)
+    (reference: procBlock.cpp:826-864 UpdateBlock accumulation)."""
+    l2 = (resid * resid).sum(dim=(1, 2, 3))
+    flat = resid.reshape(-1)
+    return l2, flat.max(), torch.argmax(flat)

@@ -1,0 +1,397 @@
+"""Viscous fluxes, face-CV Green-Gauss gradients and the SST 2003 model.
+
+Port of ``aither_tpu/solver/viscous.py`` for the slice: SST k-omega 2003,
+low-Re walls (no wall law), one species, central viscous reconstruction,
+and the per-iteration form of ``viscous_residual`` (``need_aux=False,
+need_pgrad=False``: only the cell-average gradients the turbulence
+sources read are accumulated).  Reference: src/procBlock.cpp:1233-1879
+CalcViscFluxI/J/K, :5173-5955 CalcGradsI/J/K, src/turbulence.cpp.
+
+Gradients use the face-centered auxiliary control volume: per face the CV
+spans the two adjacent cells; transverse CV faces average 4 cells; each
+face gradient is also accumulated to the two adjacent cells with weight
+1/6 for the source terms.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from aither_tpu.grid.geometry import AX
+
+from ..physics.models import Physics
+from . import state as st
+from .reconstruction import central
+
+EPS = 1.0e-30
+
+SST = dict(beta_star=0.09, sigma_k1=0.85, sigma_k2=1.0, sigma_w1=0.5,
+           sigma_w2=0.856, beta1=0.075, beta2=0.0828, gamma1=5.0 / 9.0,
+           gamma2=0.44, a1=0.31, prt=0.9, k_prod2dest=10.0)
+
+
+def sigma_k(f1):
+    return f1 * SST["sigma_k1"] + (1.0 - f1) * SST["sigma_k2"]
+
+
+def sigma_w(f1):
+    return f1 * SST["sigma_w1"] + (1.0 - f1) * SST["sigma_w2"]
+
+
+def _strain(vgrad):
+    """mean strain rate 0.5(G + G^T); vgrad[a][b] = d v_b / d x_a"""
+    return 0.5 * (vgrad + vgrad.transpose(0, 1))
+
+
+def _ddot_trans(a, b):
+    """A : B^T double dot = sum_ij A_ij B_ij (tensor.DoubleDotTrans)."""
+    return (a * b).sum(dim=(0, 1))
+
+
+def eddy_visc_and_blending(phys: Physics, q, vgrad, kgrad, wgrad, mu,
+                           wall_dist):
+    """SST 2003 (mut, f1, f2) at a point set (reference:
+    turbulence.cpp:560-700)."""
+    scaling = phys.nondim_scaling
+    r = st.rho(phys, q)
+    tke = q[phys.it]
+    omega = q[phys.it + 1]
+    alpha1 = scaling * torch.sqrt(tke) / (
+        SST["beta_star"] * omega * (wall_dist + EPS))
+    alpha2 = scaling * scaling * 500.0 * mu / (
+        (wall_dist + EPS) ** 2 * r * omega)
+    cdkw = torch.clamp(
+        2.0 * r * SST["sigma_w2"] / omega * (kgrad * wgrad).sum(dim=0),
+        min=1.0e-10)
+    alpha3 = 4.0 * r * SST["sigma_w2"] * tke / (
+        cdkw * (wall_dist + EPS) ** 2)
+    f1 = torch.tanh(torch.minimum(torch.maximum(alpha1, alpha2),
+                                  alpha3) ** 4)
+    f2 = torch.tanh(torch.maximum(2.0 * alpha1, alpha2) ** 2)
+    sr = _strain(vgrad)
+    mean_sr = torch.sqrt(2.0 * _ddot_trans(sr, sr))
+    mut = r * SST["a1"] * tke / torch.maximum(
+        SST["a1"] * omega, scaling * mean_sr * f2)
+    return mut, f1, f2
+
+
+def turb_source(phys: Physics, model: str, q, vgrad, kgrad, wgrad, mut, f1,
+                f2, width):
+    """SST 2003 (src_k, src_w, src_spec_rad) per cell
+    (reference: turbulence.cpp:560-610)."""
+    scaling = phys.nondim_scaling
+    inv_scaling = 1.0 / scaling
+    r = st.rho(phys, q)
+    tke = q[phys.it]
+    omega = q[phys.it + 1]
+
+    # Boussinesq Reynolds stress : velGrad
+    lam = -2.0 / 3.0 * mut
+    trace = vgrad[0, 0] + vgrad[1, 1] + vgrad[2, 2]
+    ident = torch.eye(3, dtype=q.dtype, device=q.device).reshape(
+        (3, 3) + (1,) * (q.dim() - 1))
+    tau = (lam * trace - 2.0 / 3.0 * r * tke)[None, None] * ident \
+        + mut[None, None] * (vgrad + vgrad.transpose(0, 1))
+    rs_ddot = _ddot_trans(tau, vgrad)
+
+    s = SST
+    cdkw = torch.clamp(
+        2.0 * r * s["sigma_w2"] / omega * (kgrad * wgrad).sum(dim=0),
+        min=1.0e-10)
+    gamma = f1 * s["gamma1"] + (1.0 - f1) * s["gamma2"]
+    beta = f1 * s["beta1"] + (1.0 - f1) * s["beta2"]
+    tke_dest = inv_scaling * s["beta_star"] * r * tke * omega
+    omg_dest = inv_scaling * beta * r * omega * omega
+    tke_prod = torch.clamp(
+        torch.minimum(scaling * rs_ddot, s["k_prod2dest"] * tke_dest),
+        min=0.0)
+    omg_prod = torch.clamp(gamma * r / mut * tke_prod, min=0.0)
+    omg_cd = scaling * (1.0 - f1) * cdkw
+    src_k = tke_prod - tke_dest
+    src_w = omg_prod - omg_dest + omg_cd
+    src_rad = -2.0 * s["beta_star"] * omega * inv_scaling
+    return src_k, src_w, src_rad
+
+
+# ---------------------------------------------------------------------------
+# gradients
+
+
+def area_vectors(block, d):
+    """face area vectors n_d * mag_d (3, ...) of a block, built once and
+    cached on the block."""
+    key = ("area", d)
+    if key not in block.cache:
+        block.cache[key] = block.geom[f"n_{d}"] * block.geom[f"mag_{d}"][None]
+    return block.cache[key]
+
+
+def face_cv_gradients(phys: Physics, block, prim, t_all, d: str):
+    """Face-centered-CV Green-Gauss gradients along direction d: 'vel'
+    (3, 3, nf...) [a][b] = d v_b / d x_a, 'temp' (3, nf...) and, for RANS,
+    'tke' and 'omega'.  Shapes trimmed to physical transverse extents,
+    nf = n+1 faces along d."""
+    g = block.g
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    n = dims[d]
+    ax = 1 + AX[d]
+    nf = n + 1
+    d1, d2 = [x for x in "ijk" if x != d]
+
+    def cells(off_d, off1=0, off2=0):
+        """cell slab at (face-1+off_d) along d with transverse offsets
+        (reads ghost neighbors at transverse boundaries)."""
+        sl = [slice(None)] * 4
+        sl[ax] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+        sl[1 + AX[d1]] = slice(g + off1, g + off1 + dims[d1])
+        sl[1 + AX[d2]] = slice(g + off2, g + off2 + dims[d2])
+        return prim[tuple(sl)]
+
+    def tcells(off_d, off1=0, off2=0):
+        sl = [slice(None)] * 3
+        sl[ax - 1] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+        sl[AX[d1]] = slice(g + off1, g + off1 + dims[d1])
+        sl[AX[d2]] = slice(g + off2, g + off2 + dims[d2])
+        return t_all[tuple(sl)]
+
+    def fvec(dd, off_d, off_own):
+        """area vector of face array dd; off_d shifts along d, off_own
+        along dd's own axis."""
+        arr = area_vectors(block, dd)
+        sl = [slice(None)] * 4
+        for a, x in enumerate("ijk"):
+            if x == d and dd == d:
+                sl[1 + a] = slice(g + off_d, g + off_d + nf)
+            elif x == d:
+                sl[1 + a] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+            elif x == dd:
+                sl[1 + a] = slice(g + off_own, g + off_own + dims[x])
+            else:
+                sl[1 + a] = slice(g, g + dims[x])
+        return arr[tuple(sl)]
+
+    # normal-direction CV faces: avg of face f with f+-1
+    a_du = 0.5 * (fvec(d, 0, 0) + fvec(d, 1, 0))
+    a_dl = 0.5 * (fvec(d, 0, 0) + fvec(d, -1, 0))
+    # transverse CV faces: avg over the two cells (f-1, f) of their dd-faces
+    a_1u = 0.5 * (fvec(d1, 1, 1) + fvec(d1, 0, 1))
+    a_1l = 0.5 * (fvec(d1, 1, 0) + fvec(d1, 0, 0))
+    a_2u = 0.5 * (fvec(d2, 1, 1) + fvec(d2, 0, 1))
+    a_2l = 0.5 * (fvec(d2, 1, 0) + fvec(d2, 0, 0))
+
+    # CV volume
+    volp = block.geom["vol"]
+    sl_lo = [slice(None)] * 3
+    sl_hi = [slice(None)] * 3
+    for a, x in enumerate("ijk"):
+        if x == d:
+            sl_lo[a] = slice(g - 1, g - 1 + nf)
+            sl_hi[a] = slice(g, g + nf)
+        else:
+            sl_lo[a] = slice(g, g + dims[x])
+            sl_hi[a] = slice(g, g + dims[x])
+    vol_cv = 0.5 * (volp[tuple(sl_lo)] + volp[tuple(sl_hi)])
+
+    def face_vals(q_lo, q_hi, qs):
+        v_1u = 0.25 * (q_lo + q_hi + qs(1, 1, 0) + qs(0, 1, 0))
+        v_1l = 0.25 * (q_lo + q_hi + qs(1, -1, 0) + qs(0, -1, 0))
+        v_2u = 0.25 * (q_lo + q_hi + qs(1, 0, 1) + qs(0, 0, 1))
+        v_2l = 0.25 * (q_lo + q_hi + qs(1, 0, -1) + qs(0, 0, -1))
+        return v_1l, v_1u, v_2l, v_2u
+
+    def scalar_grad_from(q_lo, q_hi, qs):
+        """Green-Gauss: sum over CV faces of v*A / vol (ScalarGradGG)."""
+        v1l, v1u, v2l, v2u = face_vals(q_lo, q_hi, qs)
+        num = (q_hi[None] * a_du - q_lo[None] * a_dl
+               + v1u[None] * a_1u - v1l[None] * a_1l
+               + v2u[None] * a_2u - v2l[None] * a_2l)
+        return num / vol_cv[None]
+
+    out = {}
+    vel_lo = cells(0)[phys.mx:phys.mx + 3]
+    vel_hi = cells(1)[phys.mx:phys.mx + 3]
+
+    def vel_at(od, o1, o2):
+        return cells(od, o1, o2)[phys.mx:phys.mx + 3]
+
+    v1l, v1u, v2l, v2u = face_vals(vel_lo, vel_hi, vel_at)
+    vg = (vel_hi[None] * a_du[:, None] - vel_lo[None] * a_dl[:, None]
+          + v1u[None] * a_1u[:, None] - v1l[None] * a_1l[:, None]
+          + v2u[None] * a_2u[:, None] - v2l[None] * a_2l[:, None])
+    out["vel"] = vg / vol_cv[None, None]
+
+    out["temp"] = scalar_grad_from(tcells(0), tcells(1), tcells)
+    if phys.nturb:
+        out["tke"] = scalar_grad_from(
+            cells(0)[phys.it], cells(1)[phys.it],
+            lambda *o: cells(*o)[phys.it])
+        out["omega"] = scalar_grad_from(
+            cells(0)[phys.it + 1], cells(1)[phys.it + 1],
+            lambda *o: cells(*o)[phys.it + 1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# viscous flux assembly
+
+
+def tau_normal(vgrad, n, mu_eff):
+    """lambda*tr(G)*n + mu*(G+G^T).n (reference: utility.cpp:426-436)."""
+    lam = -2.0 / 3.0 * mu_eff
+    trace = vgrad[0, 0] + vgrad[1, 1] + vgrad[2, 2]
+    sym = vgrad + vgrad.transpose(0, 1)
+    matvec = torch.stack([sym[a, 0] * n[0] + sym[a, 1] * n[1]
+                          + sym[a, 2] * n[2] for a in range(3)])
+    return lam[None] * trace[None] * n + mu_eff[None] * matvec
+
+
+def _face_lohi(axd, n):
+    """3-tuples selecting the lower/upper face of each cell along spatial
+    axis `axd` (0..2); apply to the last 3 dims."""
+    lo = [slice(None)] * 3
+    hi = [slice(None)] * 3
+    lo[axd] = slice(0, n)
+    hi[axd] = slice(1, n + 1)
+    return tuple(lo), tuple(hi)
+
+
+def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
+    """Viscous flux residual contribution + gradients + eddy viscosity +
+    viscous spectral radii (reference: procBlock.cpp:1233-1879).
+
+    Returns (resid_v, sr_flow, sr_turb, diag_flow, diag_turb, cellavg)
+    where resid_v is ADDED to the inviscid residual (sign handled here)
+    and cellavg holds the 1/6-weighted cell gradients ('vel', 'tke',
+    'omega') and mut / f1 / f2."""
+    g = block.g
+    geom = block.geom
+    dims = dict(i=block.ni, j=block.nj, k=block.nk)
+    is_rans = phys.nturb > 0
+    is_turb = cfg.get("turbulent", is_rans)
+    visc_coeff = cfg["viscous_cfl_coeff"]
+    scaling = phys.nondim_scaling
+    wd_all = geom["wall_dist"]
+    prt = SST["prt"]
+
+    shape_c = (block.ni, block.nj, block.nk)
+    kw = dict(dtype=prim.dtype, device=prim.device)
+    resid = torch.zeros((phys.neq,) + shape_c, **kw)
+    sr_flow = torch.zeros(shape_c, **kw)
+    sr_turb = torch.zeros(shape_c, **kw)
+    diag_flow = torch.zeros(shape_c, **kw)
+    diag_turb = torch.zeros(shape_c, **kw)
+    ca_keys = ["vel"] + (["tke", "omega"] if is_rans else [])
+    cellavg = dict(mut=torch.zeros(shape_c, **kw),
+                   f1=torch.zeros(shape_c, **kw),
+                   f2=torch.zeros(shape_c, **kw))
+    for key in ca_keys:
+        lead = (3, 3) if key == "vel" else (3,)
+        cellavg[key] = torch.zeros(lead + shape_c, **kw)
+
+    P = tuple(slice(g, g + dims[dd]) for dd in "ijk")
+    cell_q = prim[(slice(None),) + P]
+    cell_mu = mu_all[P]
+    r_c = st.rho(phys, cell_q)
+    gam = phys.gamma(t_all[P])
+    max_term = torch.maximum(4.0 / (3.0 * r_c), gam / r_c)
+    prand = 4.0 * gam / (9.0 * gam - 5.0)
+    vol_c = geom["vol"][P]
+
+    for d in "ijk":
+        ax = 1 + AX[d]
+        n = dims[d]
+        nf = n + 1
+        d1, d2 = [x for x in "ijk" if x != d]
+        grads = face_cv_gradients(phys, block, prim, t_all, d)
+
+        def cellslab(arr, off_d, eqdim=True):
+            sl = [slice(None)] * (4 if eqdim else 3)
+            o = 1 if eqdim else 0
+            sl[o + AX[d]] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+            sl[o + AX[d1]] = slice(g, g + dims[d1])
+            sl[o + AX[d2]] = slice(g, g + dims[d2])
+            return arr[tuple(sl)]
+
+        w_all = geom[f"width_{d}"]
+        w_lo = cellslab(w_all, 0, False)
+        w_hi = cellslab(w_all, 1, False)
+        qf = central(cellslab(prim, 0), cellslab(prim, 1), w_lo, w_hi)
+        muf = central(cellslab(mu_all, 0, False)[None],
+                      cellslab(mu_all, 1, False)[None], w_lo, w_hi)[0]
+        wdf = central(cellslab(wd_all, 0, False)[None],
+                      cellslab(wd_all, 1, False)[None], w_lo, w_hi)[0]
+        wdf = torch.where((wdf < 0.0) & (wdf > -1.0e-10), 0.0, wdf)
+        if is_rans:
+            tmin = phys.turb_min()
+            qf = torch.cat([qf[:phys.it],
+                            torch.clamp(qf[phys.it], min=tmin[0])[None],
+                            torch.clamp(qf[phys.it + 1], min=tmin[1])[None],
+                            qf[phys.it + 2:]])
+
+        vgrad = grads["vel"]
+        tgrad = grads["temp"]
+        mutf = torch.zeros_like(muf)
+        f1f = torch.zeros_like(muf)
+        f2f = torch.zeros_like(muf)
+        if is_turb:
+            mutf, f1f, f2f = eddy_visc_and_blending(
+                phys, qf, vgrad, grads["tke"], grads["omega"], muf, wdf)
+
+        # face unit normals at physical faces
+        fsl = [slice(None)] * 4
+        fsl[ax] = slice(g, g + nf)
+        fsl[1 + AX[d1]] = slice(g, g + dims[d1])
+        fsl[1 + AX[d2]] = slice(g, g + dims[d2])
+        nvec = geom[f"n_{d}"][tuple(fsl)]
+        mag = geom[f"mag_{d}"][tuple(fsl[1:])]
+
+        mu_s = scaling * muf
+        mut_s = scaling * mutf
+        tau = tau_normal(vgrad, nvec, mu_s + mut_s)
+        tf = st.temperature(phys, qf)
+        k_eff = scaling * phys.conductivity(tf)
+        kt = mut_s * phys.cp / prt if is_turb else 0.0
+        velf = st.velocity(phys, qf)
+        e_flux = ((tau * velf).sum(dim=0)
+                  + (k_eff + kt) * (tgrad * nvec).sum(dim=0))
+        rows = [torch.zeros_like(muf)[None].expand(phys.ns, *muf.shape),
+                tau, e_flux[None]]
+        if is_rans:
+            rows += [((mu_s + sigma_k(f1f) * mut_s)
+                      * (grads["tke"] * nvec).sum(dim=0))[None],
+                     ((mu_s + sigma_w(f1f) * mut_s)
+                      * (grads["omega"] * nvec).sum(dim=0))[None]]
+        fa = torch.cat(rows) * mag[None]
+        lo = [slice(None)] * 4
+        hi = [slice(None)] * 4
+        lo[ax] = slice(0, n)
+        hi[ax] = slice(1, n + 1)
+        # viscous fluxes subtract where inviscid adds (procBlock.cpp:1395)
+        resid = resid - (fa[tuple(hi)] - fa[tuple(lo)])
+
+        # cell-average gradient/mut accumulation (1/6 per face)
+        sixth = 1.0 / 6.0
+        flo3, fhi3 = _face_lohi(AX[d], n)
+        for key in ca_keys:
+            garr = grads[key]
+            cellavg[key] = cellavg[key] + sixth * (
+                garr[(Ellipsis,) + flo3] + garr[(Ellipsis,) + fhi3])
+        for key, farr in (("mut", mutf), ("f1", f1f), ("f2", f2f)):
+            cellavg[key] = cellavg[key] + sixth * (farr[flo3] + farr[fhi3])
+
+        # viscous spectral radius (cell): uses mut at the cell's lower face
+        mut_lo_face = mutf[flo3]
+        f1_lo_face = f1f[flo3]
+        fmag = 0.5 * (mag[flo3] + mag[fhi3])
+        visc_term = scaling * (cell_mu / prand
+                               + (mut_lo_face / prt if is_turb else 0.0))
+        vsr = max_term * visc_term * fmag * fmag / vol_c
+        sr_flow = sr_flow + visc_coeff * vsr
+        diag_flow = diag_flow + 2.0 * vsr
+        if is_rans:
+            tvsr = scaling * (fmag * fmag / vol_c) / r_c * (
+                cell_mu + sigma_k(f1_lo_face) * mut_lo_face)
+            sr_turb = sr_turb + visc_coeff * tvsr
+            diag_turb = diag_turb + 2.0 * tvsr
+
+    return resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg

@@ -1,0 +1,37 @@
+"""Deck settings the port does not cover yet, with the ROADMAP.md item that
+carries each.  The port raises instead of silently taking another path."""
+
+from __future__ import annotations
+
+_Q1 = "ROADMAP.md queue 1 item"
+
+ITEMS = {
+    "matrixSweeps > 1": f"{_Q1} 2 (LU-SGS kernel variant (b), lagged term)",
+    "blusgs": f"{_Q1} 2 (LU-SGS kernel variant (c), block matrices)",
+    "dplur": f"{_Q1} 3 (linear-solver variants)",
+    "bdplur": f"{_Q1} 3 (linear-solver variants)",
+    "approximateRoe": f"{_Q1} 3 (linear-solver variants)",
+    "timeIntegration": f"{_Q1} 4 (time integration)",
+    "multigrid": f"{_Q1} 5 (multigrid)",
+    "equationSet": f"{_Q1} 6 (remaining physics)",
+    "turbulenceModel": f"{_Q1} 6 (remaining physics)",
+    "wallLaw": f"{_Q1} 6 (remaining physics: wall law)",
+    "faceReconstruction": f"{_Q1} 6 (remaining physics: WENO)",
+    "viscousFaceReconstruction": f"{_Q1} 6 (remaining physics: centralFourth)",
+    "inviscidFlux": f"{_Q1} 6 (remaining physics: AUSM)",
+    "thermallyPerfect": f"{_Q1} 6 (remaining physics: thermallyPerfect)",
+    "multispecies": f"{_Q1} 6 (remaining physics: multispecies)",
+    "chemistry": f"{_Q1} 6 (remaining physics: chemistry)",
+    "nonreflecting": f"{_Q1} 6 (remaining physics: LODI)",
+    "boundaryCondition": f"{_Q1} 6 (remaining physics: boundary conditions)",
+    "output": f"{_Q1} 7 (output and restart)",
+    "restart": f"{_Q1} 7 (output and restart)",
+    "fileInitialCondition": f"{_Q1} 7 (output and restart: cloud ICs)",
+}
+
+
+def refuse(feature: str, detail: str = "") -> None:
+    """Raise NotImplementedError naming the ROADMAP item for ``feature``."""
+    what = f"{feature} ({detail})" if detail else feature
+    raise NotImplementedError(
+        f"{what} is not in the PyTorch port yet: see {ITEMS[feature]}")

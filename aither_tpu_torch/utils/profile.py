@@ -1,0 +1,137 @@
+"""Where the main path's time goes on one GPU, per layer and per kernel.
+
+    python -m aither_tpu_torch.utils.profile [--dims NI NJ NK]
+                                             [--iterations N] [--warmup W]
+
+Writes the generated two-block plate (each block NI x NJ x NK cells;
+default the 1.05M-cell case) to ``smoke_run/profile/``, runs W warm-up
+iterations, then N iterations three times:
+
+1. plain, ending in one synchronise: the iteration time;
+2. with a device synchronise around each layer (ghosts, residual, linear
+   setup, sweeps with their du swaps, matrix residual, update, norms),
+   timing each layer on the host clock; "other" is the rest of the
+   iteration (mut/f1 swaps, local dt, Python);
+3. under ``torch.profiler``: the device's busy time per iteration (sum of
+   kernel times; one stream, so kernels do not overlap), kernel launches
+   per iteration and the top kernels by device time.  The profiler slows
+   the host many times over, so the idle share is taken against the
+   plain iteration time of window 1.
+
+Prints one JSON line.  Requires CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from .. import cases
+from ..solver import driver, implicit, step
+
+LAYERS = (("ghosts", step, "apply_all_bcs"),
+          ("residual", step, "full_residual"),
+          ("linear_setup", driver.Solver, "_setup_linear"),
+          ("sweeps", driver.Solver, "_relax"),
+          ("matrix_residual", implicit, "matrix_residual"),
+          ("update", step, "implicit_update"),
+          ("norms", step, "residual_norms"))
+
+
+@contextlib.contextmanager
+def layer_timers(totals: dict):
+    """Wrap each layer function so that it adds its synchronised wall time
+    to ``totals[name]``; restores the functions on exit."""
+    saved = []
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for name, owner, attr in LAYERS:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrap(name, fn))
+    try:
+        yield totals
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def iterate(solver, n):
+    for _ in range(n):
+        solver.cons_n = solver.store_old_solution()
+        solver.prims, *_ = solver._iteration(
+            solver.prims, solver.cons_n, solver.deck.cfl(0))
+    torch.cuda.synchronize()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="aither_tpu_torch.utils.profile")
+    parser.add_argument("--dims", type=int, nargs=3,
+                        default=list(cases.SMOKE_3D_DIMS))
+    parser.add_argument("--iterations", type=int, default=3)
+    parser.add_argument("--warmup", type=int, default=3)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("the profile needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    wd = os.path.join(os.getcwd(), "smoke_run", "profile")
+    solver = driver.Solver(cases.write_plate_case(wd, *args.dims),
+                           device="cuda", workdir=wd)
+    n = args.iterations
+    iterate(solver, args.warmup)
+
+    t0 = time.perf_counter()
+    iterate(solver, n)
+    iteration_ms = 1e3 * (time.perf_counter() - t0) / n
+
+    totals = {}
+    t0 = time.perf_counter()
+    with layer_timers(totals):
+        iterate(solver, n)
+    synced_ms = 1e3 * (time.perf_counter() - t0) / n
+    layers = {k: 1e3 * v / n for k, v in totals.items()}
+    layers["other"] = synced_ms - sum(layers.values())
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        iterate(solver, n)
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((evt.key, dev_us / 1e3 / n, evt.count / n))
+    kernels.sort(key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    print(json.dumps({
+        "card": card, "dims": args.dims, "cells": solver.case.total_cells,
+        "iterations": n, "iteration_ms": iteration_ms,
+        "iteration_ms_synced": synced_ms, "layers_ms": layers,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / iteration_ms,
+        "kernel_launches_per_iteration": sum(k[2] for k in kernels),
+        "top_kernels": [[k[0][:80], k[1], k[2]] for k in kernels[:12]]}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
