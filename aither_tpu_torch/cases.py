@@ -28,7 +28,7 @@ import os
 
 import numpy as np
 
-from aither_tpu.io.plot3d import write_p3d
+from .io.plot3d import write_p3d
 
 # sizes used by the tests and by chip_smoke.py: (ni, nj, nk) of EACH block
 TEST_DIMS = (12, 8, 3)
@@ -51,7 +51,7 @@ equationSet: rans
 turbulenceModel: sst2003
 timeIntegration: implicitEuler
 matrixSolver: lusgs
-matrixSweeps: 1
+matrixSweeps: {matrix_sweeps}
 matrixRelaxation: 1.0
 inviscidFlux: roe
 inviscidFluxJacobian: rusanov
@@ -98,13 +98,14 @@ def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
 
 
 def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
-                     iterations: int = 10, name: str = "plate") -> str:
+                     iterations: int = 10, name: str = "plate",
+                     matrix_sweeps: int = 1) -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
-    the deck path."""
+    the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS."""
     os.makedirs(out_dir, exist_ok=True)
     write_p3d(os.path.join(out_dir, f"{name}.xyz"), plate_nodes(ni, nj, nk))
     deck_path = os.path.join(out_dir, f"{name}.inp")
     with open(deck_path, "w") as f:
         f.write(_DECK.format(grid=name, iterations=iterations, ni=ni, nj=nj,
-                             nk=nk))
+                             nk=nk, matrix_sweeps=matrix_sweeps))
     return deck_path

@@ -1,15 +1,20 @@
 // LU-SGS hyperplane sweep for NVIDIA Hopper (sm_90a), float64.
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
-// (pallas_call at pallas_sweep.py:342), variant (a): scalar LU-SGS, one
-// species, SST k-omega (7 equations), Rusanov off-diagonal, no lagged
-// opposite-side term (matrixSweeps: 1).
+// (pallas_call at pallas_sweep.py:342), variants (a) and (b): scalar
+// LU-SGS, one species, SST k-omega (7 equations), Rusanov off-diagonal,
+// without and with the lagged opposite-side term `extra` (matrixSweeps > 1,
+// pallas_sweep.py:315-324).
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
 // decreasing), every physical cell c of the plane becomes
-//   forward:  du[c] = D^-1 (b[c] + sum_d L_d)
+//   forward:  du[c] = D^-1 (b[c] + sum_d L_d [- extra[c]])
 //   backward: du[c] = du[c] - D^-1 sum_d U_d
+//             or, with extra, D^-1 (b[c] + extra[c] - sum_d U_d)
+// extra is the previous sweep's opposite-side sum (upper for the forward
+// sweep, lower for the backward one), computed before the sweep on the
+// host side (aither_tpu_torch/solver/implicit.py offdiag_sum).
 // where L_d / U_d is the scalar Rusanov off-diagonal product of the lower /
 // upper neighbour across direction d (aither_tpu implicit.offdiagonal_scalar:
 // the flux change 0.5|A|(F(q+du)-F(q)).n with turbulence rows zeroed, plus
@@ -20,18 +25,21 @@
 // one stream is the whole dependency chain.
 //
 // Layout: prim, du (7, NI, NJ, NK) and mu, mut, f1 (NI, NJ, NK) padded
-// blocks; b (7, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical.  The host
-// plan (aither_tpu_torch/solver/implicit.py SweepPlan) lists each plane's
+// blocks; b, extra (7, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical.
+// The host
+// plan (SweepPlan) lists each plane's
 // cells (padded and physical flat indices) and per cell and direction the
 // face normal, area and centre distance (stat, 15 doubles) and whether the
 // neighbour contributes (mask).  A masked face is skipped by a branch, never
 // multiplied by zero: a ghost state there may be garbage and 0*NaN is NaN.
 //
-// What bounds it on the card: at 1M cells one sweep moves about 0.8 GB
-// (~100 doubles per cell), ~0.25 ms at 3.35 TB/s, while the sweep is
-// ni+nj+nk-2 dependent plane launches per block of a few thousand cells
-// each.  Launch latency and the small planes' occupancy, not
-// bandwidth, bound it; a persistent kernel or a CUDA graph is the next step.
+// What bounds it on the card: at 1M cells a forward+backward pair moves
+// 0.89 GB (0.27 ms at 3.35 TB/s; kernels/lusgs_sweep.py sweep_cost), while
+// the pair is 2 x (ni+nj+nk-2) dependent plane launches per block of a few
+// hundred to a few thousand cells each.  Neither bandwidth nor the launch
+// floor (an empty dependent launch takes ~2.3 us on the H100, 3.2 ms for
+// 1,400 planes) holds it at its ~27 ms: each plane's one wave of serial
+// per-thread work does; a persistent kernel is the next step.
 
 #include <cuda_runtime.h>
 
@@ -56,6 +64,7 @@ struct Fields {
   const double* __restrict__ mut;
   const double* __restrict__ f1;
   const double* __restrict__ b;
+  const double* __restrict__ extra;  // nullptr: no lagged term
   const double* __restrict__ inv_f;
   const double* __restrict__ inv_t;
   const int* __restrict__ cells;
@@ -175,8 +184,12 @@ __global__ void __launch_bounds__(THREADS)
   for (int e = 0; e < NEQ; ++e) {
     const double inv = e < IT ? inv_f : inv_t;
     double* x = fl.du + e * fl.nc + c;
+    const double b = fl.b[e * fl.ncp + pc];
     if (FORWARD)
-      *x = (fl.b[e * fl.ncp + pc] + acc[e]) * inv;
+      *x = (fl.extra ? (b + acc[e]) - fl.extra[e * fl.ncp + pc]
+                     : b + acc[e]) * inv;
+    else if (fl.extra)
+      *x = (b + fl.extra[e * fl.ncp + pc] - acc[e]) * inv;
     else
       *x = *x - acc[e] * inv;
   }
@@ -186,21 +199,23 @@ __global__ void __launch_bounds__(THREADS)
 
 // One whole sweep of one block: one launch per hyperplane on `stream`, in
 // plane order.  plane_ptr is a HOST array of nplanes+1 offsets into the
-// plane-ordered cell lists.  Returns the first non-zero cudaGetLastError()
-// after a launch (0 when every launch was accepted).
+// plane-ordered cell lists; extra may be null (variant (a)).  Returns the
+// first non-zero cudaGetLastError() after a launch (0 when every launch was
+// accepted).
 extern "C" int lusgs_sweep_f64(
     int forward, const double* prim, double* du, const double* mu,
     const double* mut, const double* f1, const double* b,
-    const double* inv_f, const double* inv_t, const int* cells,
+    const double* extra, const double* inv_f, const double* inv_t,
+    const int* cells,
     const int* phys_cells, const double* stat, const unsigned char* mask,
     long long nc, long long ncp, long long stride_i, long long stride_j,
     long long stride_k, int nplanes, const int* plane_ptr, double R,
     double cv, double cp, double hf, double gamma, double prandtl, double prt,
     double scaling, double tmin_k, double tmin_w, double sigma_k1,
     double sigma_k2, void* stream) {
-  Fields fl{prim, du,    mu,         mut,  f1,   b,  inv_f, inv_t,
-            cells, phys_cells, stat, mask, nc, ncp, {stride_i, stride_j,
-                                                      stride_k}};
+  Fields fl{prim,  du,         mu,   mut,  f1,  b,   extra,
+            inv_f, inv_t,      cells, phys_cells, stat, mask, nc,
+            ncp,   {stride_i, stride_j, stride_k}};
   Phys ph{R, cv, cp, hf, gamma, prandtl, prt, scaling,
           tmin_k, tmin_w, sigma_k1, sigma_k2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -213,6 +228,22 @@ extern "C" int lusgs_sweep_f64(
       sweep_plane<true><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
     else
       sweep_plane<false><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The floor under one dependent plane launch: n launches of an empty plane
+// (one block of THREADS threads, none with a cell) on `stream`, issued by
+// the same host loop as a sweep.  Timed by chip_smoke.py; the sweep pair's
+// dependent-launch floor is its plane count times this time.
+extern "C" int lusgs_sweep_empty_planes(int n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Fields fl{};
+  Phys ph{};
+  for (int p = 0; p < n; ++p) {
+    sweep_plane<true><<<1, THREADS, 0, st>>>(fl, ph, 0, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -1,8 +1,9 @@
 """Case construction: deck + grid -> per-block solver context on a device.
 
 Port of ``aither_tpu/solver/case.py:347-465``.  The deck parser, Plot3D
-reader, geometry, ghost nodes, connections and decomposition are the JAX
-package's own host layers, imported (they never import jax).  What differs:
+reader, geometry, ghost nodes, connections and decomposition are the
+port's own copies of the JAX package's host layers (``io/``, ``grid/``,
+``parallel/``, ``physics/fluid.py``).  What differs:
 
 * the initial state is computed with plain floats (no jax device),
 * the wall distance is an exact chunked brute-force nearest viscous-face
@@ -22,13 +23,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from aither_tpu.grid import connections as conn_mod
-from aither_tpu.grid.geometry import (AX, BlockGeometry, build_block_geometry,
-                                      finalize_block_geometry)
-from aither_tpu.grid.ghost_nodes import fill_interblock_geometry
-from aither_tpu.io.deck import Deck, parse_deck
-from aither_tpu.io.plot3d import read_p3d
-
+from ..grid import connections as conn_mod
+from ..grid.geometry import (AX, BlockGeometry, build_block_geometry,
+                             finalize_block_geometry)
+from ..grid.ghost_nodes import fill_interblock_geometry
+from ..io.deck import Deck, parse_deck
+from ..io.plot3d import read_p3d
 from ..physics.models import Physics
 from ..unsupported import refuse
 from .bc import BCData, make_bc_data
@@ -257,7 +257,7 @@ def build_case(deck_path: str, device, dtype=torch.float64,
     bcs = deck.bcs
     parents = None
     if nproc > 1:
-        from aither_tpu.parallel.decompose import decompose
+        from ..parallel.decompose import decompose
         grids, bcs, decomp = decompose(grids, bcs, nproc,
                                        method=deck["decompositionMethod"])
         parents = decomp.parent

@@ -3,7 +3,9 @@ logging in the reference format.
 
 Port of ``aither_tpu/solver/driver.py`` for the slice the port runs:
 ``Solver.__init__`` (the subset the main-path deck needs), ``_iteration``,
-``_setup_linear``, the lusgs branch of ``_relax``, ``_implicit_update``,
+``_setup_linear`` (with the matrix initialisation ``matrixSweeps > 1``
+needs), the lusgs branch of ``_relax`` at one grid level,
+``_implicit_update``,
 ``store_old_solution``, the ``.resid`` / ``.tme`` writers with the
 first-5-iteration re-max normalisation, and the per-step branch of
 ``run`` (reference: src/main.cpp:231-302, output.cpp:1007-1089).
@@ -20,8 +22,7 @@ import time
 import numpy as np
 import torch
 
-from aither_tpu.io.deck import parse_deck
-
+from ..io.deck import parse_deck
 from ..kernels import lusgs_sweep
 from ..unsupported import refuse
 from . import implicit as imp
@@ -29,6 +30,7 @@ from . import state as st
 from . import step as step_mod
 from .case import build_case
 from .convert import state_from_numpy
+from .viscous import viscous_statics
 
 EPS = 1.0e-30
 
@@ -46,8 +48,6 @@ def check_supported(deck):
         refuse("timeIntegration", v["timeIntegration"])
     if v["matrixSolver"] != "lusgs":
         refuse(v["matrixSolver"])
-    if v["matrixSweeps"] > 1:
-        refuse("matrixSweeps > 1")
     if v["inviscidFluxJacobian"] != "rusanov":
         refuse("approximateRoe")
     if v["multigridLevels"] > 1:
@@ -105,7 +105,15 @@ class Solver:
             turbulent=deck.is_turbulent,
             turb_model=deck["turbulenceModel"],
             viscous_cfl_coeff=deck.viscous_cfl_coefficient(),
+            viscous_recon=deck["viscousFaceReconstruction"],
+            block_matrix=deck["matrixSolver"] in ("blusgs", "bdplur"),
+            matrix_sweeps=deck["matrixSweeps"],
+            matrix_init=deck.matrix_requires_initialization(),
         )
+        if deck.is_viscous:
+            # static face geometry of the viscous residual, once per block
+            for b in self.case.blocks:
+                viscous_statics(b)
         self.prims = {b.index: b.prim0.clone() for b in self.case.blocks}
         self.plans = {b.index: imp.build_sweep_plan(b, dtype, self.device)
                       for b in self.case.blocks}
@@ -177,10 +185,10 @@ class Solver:
     # -- implicit path (reference: mgSolution::ImplicitUpdate) ---------------
     def _setup_linear(self, prims, residuals, specrads, diags, dts, auxs,
                       cons_n):
-        """Inverted diagonal, diagonal, rhs b and zero initial update per
-        block (reference: linearSolver::AddDiagonalTerms / Invert /
-        InitializeMatrixUpdate; lusgs with one sweep needs no
-        initialisation)."""
+        """Inverted diagonal, diagonal, rhs b and initial update per block:
+        zero, or D^-1 b on the interior when the deck needs the matrix
+        initialised (matrixSweeps > 1) (reference:
+        linearSolver::AddDiagonalTerms / Invert / InitializeMatrixUpdate)."""
         phys, cfg = self.phys, self.cfg
         inv_diag, a_diag, bs, dus = {}, {}, {}, {}
         for b in self.case.blocks:
@@ -192,22 +200,35 @@ class Solver:
             bs[b.index] = imp.rhs_b(phys, b, cfg, prims[b.index],
                                     residuals[b.index], cons_n[b.index],
                                     dts[b.index])
-            dus[b.index] = torch.zeros((phys.neq,) + b.shape,
-                                       dtype=self.case.dtype,
-                                       device=self.device)
+            du = torch.zeros((phys.neq,) + b.shape, dtype=self.case.dtype,
+                             device=self.device)
+            if cfg["matrix_init"]:
+                du[b.interior] = imp.diag_mult(phys, inv_flow, inv_turb,
+                                               bs[b.index])
+            dus[b.index] = du
         return inv_diag, a_diag, bs, dus
 
     def _relax(self, prims, auxs, inv_diag, bs, dus):
-        """One forward and one backward LU-SGS sweep over every block, with
-        connection swaps of du before, between and after (reference:
-        lusgs::Relax, matrixSweeps: 1).  The sweeps update du in place."""
+        """matrixSweeps pairs of a forward and a backward LU-SGS sweep over
+        every block, with connection swaps of du before each sweep and once
+        after the last (reference: lusgs::Relax).  After the first pair, or
+        from the first when the matrix was initialised, each sweep takes the
+        lagged opposite-side sum of the du it starts from (the upper sum
+        forward, the lower sum backward).  The sweeps update du in place."""
+        phys, cfg = self.phys, self.cfg
         maps = self.case.swap_maps
-        for sweep in (lusgs_sweep.forward, lusgs_sweep.backward):
-            step_mod.swap_connections(dus, maps)
-            for b in self.case.blocks:
-                bi = b.index
-                sweep(self.phys, self.cfg, self.plans[bi], prims[bi],
-                      dus[bi], bs[bi], *inv_diag[bi], auxs[bi])
+        for sweep in range(cfg["matrix_sweeps"]):
+            with_extra = sweep > 0 or cfg["matrix_init"]
+            for fn, side in ((lusgs_sweep.forward, "upper"),
+                             (lusgs_sweep.backward, "lower")):
+                step_mod.swap_connections(dus, maps)
+                for b in self.case.blocks:
+                    bi = b.index
+                    extra = (imp.offdiag_sum(phys, cfg, b, prims[bi],
+                                             dus[bi], side, auxs[bi])
+                             if with_extra else None)
+                    fn(phys, cfg, self.plans[bi], prims[bi], dus[bi],
+                       bs[bi], *inv_diag[bi], auxs[bi], extra=extra)
         return step_mod.swap_connections(dus, maps)
 
     def _implicit_update(self, prims, residuals, specrads, diags, dts,

@@ -23,8 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from aither_tpu.grid.geometry import AX
-
+from ..grid.geometry import AX
 from ..physics.models import Physics, prandtl
 from . import state as st
 from .flux import physical_flux

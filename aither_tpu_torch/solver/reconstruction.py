@@ -81,11 +81,18 @@ def _lagrange_coeff(cw, degree, rr, ii):
     return coeffs
 
 
+def central_coeffs(w_u1, w_d1):
+    """(c0, c1) of the 2-point central (Lagrange degree-1) reconstruction
+    c0 * d1 + c1 * u1 (reconstruction.hpp:333-347)."""
+    c = _lagrange_coeff([w_u1, w_d1], 1, 0, 0)
+    return c[0], c[1]
+
+
 def central(u1, d1, w_u1, w_d1):
     """2-point central (Lagrange degree-1) reconstruction
     (reconstruction.hpp:333-347)."""
-    c = _lagrange_coeff([w_u1[None], w_d1[None]], 1, 0, 0)
-    return c[0] * d1 + c[1] * u1
+    c0, c1 = central_coeffs(w_u1[None], w_d1[None])
+    return c0 * d1 + c1 * u1
 
 
 def reconstruct_faces(prim, widths, axis: int, g: int, n: int, scheme: str,

@@ -7,8 +7,8 @@ time step, update and norms).  Arrays are padded equation-first blocks
 ``(neq, NI, NJ, NK)`` as in the JAX package.  The ghost fills return a
 filled copy of their input; the connection swap updates in place.
 
-Connection swaps are index maps built once on the host (the JAX package's
-orientation helpers run on numpy index arrays), so a swap on the device is
+Connection swaps are index maps built once on the host (the orientation
+helpers of ``grid/connections.py`` run on numpy index arrays), so a swap on the device is
 one gather and one scatter per connection side.
 """
 
@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aither_tpu.grid.connections import orient_to_first, orient_to_second
-from aither_tpu.grid.geometry import AX
-
+from ..grid.connections import orient_to_first, orient_to_second
+from ..grid.geometry import AX
+from ..kernels import viscous_march
 from ..physics.models import Physics
 from . import bc as bc_mod
 from . import state as st
@@ -455,9 +455,11 @@ def full_residual(phys: Physics, cfg, block, prim):
         prim = apply_edge_ghosts(phys, block, prim, viscous_pass=True)
         t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
         mu_all = phys.viscosity(t_all)
+        # the fused viscous residual: the CUDA kernel on the card, its
+        # plain version on the CPU
         (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
-         cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
-                                         mu_all)
+         cellavg) = viscous_march.viscous_residual(phys, cfg, block, prim,
+                                                   t_all, mu_all)
         resid = resid + rv
         sr_flow = sr_flow + vsr_f
         sr_turb = sr_turb + vsr_t

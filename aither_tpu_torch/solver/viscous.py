@@ -17,11 +17,10 @@ from __future__ import annotations
 
 import torch
 
-from aither_tpu.grid.geometry import AX
-
+from ..grid.geometry import AX
 from ..physics.models import Physics
 from . import state as st
-from .reconstruction import central
+from .reconstruction import central_coeffs
 
 EPS = 1.0e-30
 
@@ -117,13 +116,108 @@ def turb_source(phys: Physics, model: str, q, vgrad, kgrad, wgrad, mut, f1,
 # gradients
 
 
-def area_vectors(block, d):
-    """face area vectors n_d * mag_d (3, ...) of a block, built once and
-    cached on the block."""
-    key = ("area", d)
+# per-face static channels of one direction, in this order (the values of
+# the JAX package's prepack_march_static, laid out physically): the six
+# face-CV area vectors, the CV volume, the face unit normal and area, the
+# central interpolation coefficients (qf = c0 q_hi + c1 q_lo) and the
+# face wall distance
+FACE_CHANNELS = (("adu", 3), ("adl", 3), ("a1u", 3), ("a1l", 3), ("a2u", 3),
+                 ("a2l", 3), ("vcv", 1), ("n", 3), ("mag", 1), ("c0", 1),
+                 ("c1", 1), ("wdf", 1))
+
+
+def viscous_statics(block):
+    """Static face and cell geometry of the viscous residual, built once
+    per block from its geometry and kept in ``block.cache``.
+
+    ``{"face": {d: (26, *F_d)}, "cell": (4, ni, nj, nk)}``: F_d is the
+    grid of the n_d + 1 physical faces along d by the physical cells
+    across (channels ``FACE_CHANNELS``); the cell channels are the volume
+    and, per direction i, j, k, the mean area of the cell's two faces.
+    Both the plain residual below and the CUDA kernel
+    (``kernels/viscous_march.py``) read it."""
+    key = "viscous_statics"
     if key not in block.cache:
-        block.cache[key] = block.geom[f"n_{d}"] * block.geom[f"mag_{d}"][None]
+        block.cache[key] = _build_statics(block)
     return block.cache[key]
+
+
+def face_fields(statics, d: str) -> dict:
+    """name -> view of direction d's face statics ((3, *F) or (*F))."""
+    arr = statics["face"][d]
+    out, c = {}, 0
+    for name, k in FACE_CHANNELS:
+        out[name] = arr[c:c + k] if k > 1 else arr[c]
+        c += k
+    return out
+
+
+def _build_statics(block):
+    g = block.g
+    geom = block.geom
+    dims = {"i": block.ni, "j": block.nj, "k": block.nk}
+    area = {d: geom[f"n_{d}"] * geom[f"mag_{d}"][None] for d in "ijk"}
+    wd_all = geom["wall_dist"]
+    face = {}
+    fmag = {}
+    for d in "ijk":
+        ax = 1 + AX[d]
+        n = dims[d]
+        nf = n + 1
+        d1, d2 = [x for x in "ijk" if x != d]
+
+        def fvec(dd, off_d, off_own):
+            """area vector of face array dd; off_d shifts along d, off_own
+            along dd's own axis."""
+            sl = [slice(None)] * 4
+            for a, x in enumerate("ijk"):
+                if x == d and dd == d:
+                    sl[1 + a] = slice(g + off_d, g + off_d + nf)
+                elif x == d:
+                    sl[1 + a] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+                elif x == dd:
+                    sl[1 + a] = slice(g + off_own, g + off_own + dims[x])
+                else:
+                    sl[1 + a] = slice(g, g + dims[x])
+            return area[dd][tuple(sl)]
+
+        def cellslab(arr, off_d):
+            sl = [slice(None)] * 3
+            sl[AX[d]] = slice(g - 1 + off_d, g - 1 + off_d + nf)
+            sl[AX[d1]] = slice(g, g + dims[d1])
+            sl[AX[d2]] = slice(g, g + dims[d2])
+            return arr[tuple(sl)]
+
+        f = {}
+        # normal-direction CV faces: avg of face f with f+-1
+        f["adu"] = 0.5 * (fvec(d, 0, 0) + fvec(d, 1, 0))
+        f["adl"] = 0.5 * (fvec(d, 0, 0) + fvec(d, -1, 0))
+        # transverse CV faces: avg over the two cells (f-1, f) of their
+        # dd-faces
+        f["a1u"] = 0.5 * (fvec(d1, 1, 1) + fvec(d1, 0, 1))
+        f["a1l"] = 0.5 * (fvec(d1, 1, 0) + fvec(d1, 0, 0))
+        f["a2u"] = 0.5 * (fvec(d2, 1, 1) + fvec(d2, 0, 1))
+        f["a2l"] = 0.5 * (fvec(d2, 1, 0) + fvec(d2, 0, 0))
+        vol = geom["vol"]
+        f["vcv"] = 0.5 * (cellslab(vol, 0) + cellslab(vol, 1))
+        fsl = [slice(None)] * 4
+        fsl[ax] = slice(g, g + nf)
+        fsl[1 + AX[d1]] = slice(g, g + dims[d1])
+        fsl[1 + AX[d2]] = slice(g, g + dims[d2])
+        f["n"] = geom[f"n_{d}"][tuple(fsl)]
+        f["mag"] = geom[f"mag_{d}"][tuple(fsl[1:])]
+        w_all = geom[f"width_{d}"]
+        f["c0"], f["c1"] = central_coeffs(cellslab(w_all, 0),
+                                          cellslab(w_all, 1))
+        wdf = f["c0"] * cellslab(wd_all, 1) + f["c1"] * cellslab(wd_all, 0)
+        f["wdf"] = torch.where((wdf < 0.0) & (wdf > -1.0e-10), 0.0, wdf)
+        face[d] = torch.cat([f[name].reshape((k,) + f["mag"].shape)
+                             for name, k in FACE_CHANNELS]).contiguous()
+        lo, hi = _face_lohi(AX[d], n)
+        fmag[d] = 0.5 * (f["mag"][lo] + f["mag"][hi])
+    P = tuple(slice(g, g + dims[d]) for d in "ijk")
+    cell = torch.stack([geom["vol"][P]] + [fmag[d] for d in "ijk"])
+    return {"face": face, "cell": cell.contiguous()}
 
 
 def face_cv_gradients(phys: Physics, block, prim, t_all, d: str):
@@ -137,6 +231,11 @@ def face_cv_gradients(phys: Physics, block, prim, t_all, d: str):
     ax = 1 + AX[d]
     nf = n + 1
     d1, d2 = [x for x in "ijk" if x != d]
+    sf = face_fields(viscous_statics(block), d)
+    a_du, a_dl = sf["adu"], sf["adl"]
+    a_1u, a_1l = sf["a1u"], sf["a1l"]
+    a_2u, a_2l = sf["a2u"], sf["a2l"]
+    vol_cv = sf["vcv"]
 
     def cells(off_d, off1=0, off2=0):
         """cell slab at (face-1+off_d) along d with transverse offsets
@@ -153,44 +252,6 @@ def face_cv_gradients(phys: Physics, block, prim, t_all, d: str):
         sl[AX[d1]] = slice(g + off1, g + off1 + dims[d1])
         sl[AX[d2]] = slice(g + off2, g + off2 + dims[d2])
         return t_all[tuple(sl)]
-
-    def fvec(dd, off_d, off_own):
-        """area vector of face array dd; off_d shifts along d, off_own
-        along dd's own axis."""
-        arr = area_vectors(block, dd)
-        sl = [slice(None)] * 4
-        for a, x in enumerate("ijk"):
-            if x == d and dd == d:
-                sl[1 + a] = slice(g + off_d, g + off_d + nf)
-            elif x == d:
-                sl[1 + a] = slice(g - 1 + off_d, g - 1 + off_d + nf)
-            elif x == dd:
-                sl[1 + a] = slice(g + off_own, g + off_own + dims[x])
-            else:
-                sl[1 + a] = slice(g, g + dims[x])
-        return arr[tuple(sl)]
-
-    # normal-direction CV faces: avg of face f with f+-1
-    a_du = 0.5 * (fvec(d, 0, 0) + fvec(d, 1, 0))
-    a_dl = 0.5 * (fvec(d, 0, 0) + fvec(d, -1, 0))
-    # transverse CV faces: avg over the two cells (f-1, f) of their dd-faces
-    a_1u = 0.5 * (fvec(d1, 1, 1) + fvec(d1, 0, 1))
-    a_1l = 0.5 * (fvec(d1, 1, 0) + fvec(d1, 0, 0))
-    a_2u = 0.5 * (fvec(d2, 1, 1) + fvec(d2, 0, 1))
-    a_2l = 0.5 * (fvec(d2, 1, 0) + fvec(d2, 0, 0))
-
-    # CV volume
-    volp = block.geom["vol"]
-    sl_lo = [slice(None)] * 3
-    sl_hi = [slice(None)] * 3
-    for a, x in enumerate("ijk"):
-        if x == d:
-            sl_lo[a] = slice(g - 1, g - 1 + nf)
-            sl_hi[a] = slice(g, g + nf)
-        else:
-            sl_lo[a] = slice(g, g + dims[x])
-            sl_hi[a] = slice(g, g + dims[x])
-    vol_cv = 0.5 * (volp[tuple(sl_lo)] + volp[tuple(sl_hi)])
 
     def face_vals(q_lo, q_hi, qs):
         v_1u = 0.25 * (q_lo + q_hi + qs(1, 1, 0) + qs(0, 1, 0))
@@ -264,14 +325,13 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     and cellavg holds the 1/6-weighted cell gradients ('vel', 'tke',
     'omega') and mut / f1 / f2."""
     g = block.g
-    geom = block.geom
     dims = dict(i=block.ni, j=block.nj, k=block.nk)
     is_rans = phys.nturb > 0
     is_turb = cfg.get("turbulent", is_rans)
     visc_coeff = cfg["viscous_cfl_coeff"]
     scaling = phys.nondim_scaling
-    wd_all = geom["wall_dist"]
     prt = SST["prt"]
+    statics = viscous_statics(block)
 
     shape_c = (block.ni, block.nj, block.nk)
     kw = dict(dtype=prim.dtype, device=prim.device)
@@ -295,14 +355,15 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     gam = phys.gamma(t_all[P])
     max_term = torch.maximum(4.0 / (3.0 * r_c), gam / r_c)
     prand = 4.0 * gam / (9.0 * gam - 5.0)
-    vol_c = geom["vol"][P]
+    vol_c = statics["cell"][0]
 
-    for d in "ijk":
+    for a, d in enumerate("ijk"):
         ax = 1 + AX[d]
         n = dims[d]
         nf = n + 1
         d1, d2 = [x for x in "ijk" if x != d]
         grads = face_cv_gradients(phys, block, prim, t_all, d)
+        sf = face_fields(statics, d)
 
         def cellslab(arr, off_d, eqdim=True):
             sl = [slice(None)] * (4 if eqdim else 3)
@@ -312,15 +373,11 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
             sl[o + AX[d2]] = slice(g, g + dims[d2])
             return arr[tuple(sl)]
 
-        w_all = geom[f"width_{d}"]
-        w_lo = cellslab(w_all, 0, False)
-        w_hi = cellslab(w_all, 1, False)
-        qf = central(cellslab(prim, 0), cellslab(prim, 1), w_lo, w_hi)
-        muf = central(cellslab(mu_all, 0, False)[None],
-                      cellslab(mu_all, 1, False)[None], w_lo, w_hi)[0]
-        wdf = central(cellslab(wd_all, 0, False)[None],
-                      cellslab(wd_all, 1, False)[None], w_lo, w_hi)[0]
-        wdf = torch.where((wdf < 0.0) & (wdf > -1.0e-10), 0.0, wdf)
+        c0, c1 = sf["c0"], sf["c1"]
+        qf = c0[None] * cellslab(prim, 1) + c1[None] * cellslab(prim, 0)
+        muf = c0 * cellslab(mu_all, 1, False) + c1 * cellslab(mu_all, 0,
+                                                              False)
+        wdf = sf["wdf"]
         if is_rans:
             tmin = phys.turb_min()
             qf = torch.cat([qf[:phys.it],
@@ -337,13 +394,8 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
             mutf, f1f, f2f = eddy_visc_and_blending(
                 phys, qf, vgrad, grads["tke"], grads["omega"], muf, wdf)
 
-        # face unit normals at physical faces
-        fsl = [slice(None)] * 4
-        fsl[ax] = slice(g, g + nf)
-        fsl[1 + AX[d1]] = slice(g, g + dims[d1])
-        fsl[1 + AX[d2]] = slice(g, g + dims[d2])
-        nvec = geom[f"n_{d}"][tuple(fsl)]
-        mag = geom[f"mag_{d}"][tuple(fsl[1:])]
+        # face unit normals and areas at physical faces
+        nvec, mag = sf["n"], sf["mag"]
 
         mu_s = scaling * muf
         mut_s = scaling * mutf
@@ -382,7 +434,7 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
         # viscous spectral radius (cell): uses mut at the cell's lower face
         mut_lo_face = mutf[flo3]
         f1_lo_face = f1f[flo3]
-        fmag = 0.5 * (mag[flo3] + mag[fhi3])
+        fmag = statics["cell"][1 + a]
         visc_term = scaling * (cell_mu / prand
                                + (mut_lo_face / prt if is_turb else 0.0))
         vsr = max_term * visc_term * fmag * fmag / vol_c

@@ -7,6 +7,7 @@ unchanged one is reused within a checkout.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
+    load_cuda_libraries(["lusgs_sweep", "viscous_march"])  # parallel nvcc
 """
 
 from __future__ import annotations
@@ -39,33 +40,60 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def load_cuda_library(name: str):
-    """(ctypes.CDLL, info) for ``csrc/<name>.cu``, building it if needed.
-    ``info`` has the library path, whether it was built in this call, the
-    build seconds and the compiler's ``-Xptxas -v`` lines."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _paths(name: str):
+    """(source, library) paths of ``csrc/<name>.cu``"""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"lib{name}_{digest.hexdigest()[:16]}.so")
-    info = dict(path=lib_path, built=False, seconds=0.0, ptxas="")
-    if not os.path.isfile(lib_path):
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def load_cuda_libraries(names):
+    """{name: (ctypes.CDLL, info)} for ``csrc/<name>.cu`` of every name.
+    The libraries not built yet are compiled by one nvcc each, all started
+    together.  ``info`` has the library path, whether it was built in this
+    call, the build seconds and the compiler's ``-Xptxas -v`` lines."""
+    infos = {}
+    for name in names:
+        if name not in _LOADED:
+            src, lib_path = _paths(name)
+            infos[name] = dict(src=src, path=lib_path, built=False,
+                               seconds=0.0, ptxas="")
+    missing = [n for n, i in infos.items() if not os.path.isfile(i["path"])]
+    if missing:
+        nvcc = nvcc_path()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, lib_path)
-        info["built"] = True
-        info["ptxas"] = "\n".join(
-            ln for ln in (proc.stdout + proc.stderr).splitlines()
-            if "ptxas" in ln or "spill" in ln)
-    _LOADED[name] = (ctypes.CDLL(lib_path), info)
-    return _LOADED[name]
+        builds = {}
+        for name in missing:
+            tmp = f"{infos[name]['path']}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, infos[name]["src"]]
+            builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE,
+                                             text=True),
+                            cmd, tmp, time.perf_counter())
+        failed = []
+        for name, (proc, cmd, tmp, t0) in builds.items():
+            out, err = proc.communicate()
+            info = infos[name]
+            info["seconds"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+                continue
+            os.replace(tmp, info["path"])
+            info["built"] = True
+            info["ptxas"] = "\n".join(
+                ln for ln in (out + err).splitlines()
+                if "ptxas" in ln or "spill" in ln)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    for name, info in infos.items():
+        _LOADED[name] = (ctypes.CDLL(info["path"]), info)
+    return {name: _LOADED[name] for name in names}
+
+
+def load_cuda_library(name: str):
+    """(ctypes.CDLL, info) for ``csrc/<name>.cu``, building it if needed
+    (see ``load_cuda_libraries``)."""
+    return load_cuda_libraries([name])[name]

@@ -3,26 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — implicit SST RANS with one forward and one
-backward LU-SGS sweep per iteration, the sweep on the hand-written CUDA
-kernel — on the generated two-block flat plate (aither_tpu_torch/cases.py)
-and checks it.  Phases, each printing its own lines:
+Drives the port's main path — implicit SST RANS, the viscous residual on
+the hand-written fused kernel (csrc/viscous_march.cu), LU-SGS sweeps on
+the hand-written sweep kernel (csrc/lusgs_sweep.cu) — on the generated
+two-block flat plate (aither_tpu_torch/cases.py) and checks it.  Phases,
+each printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
- 2. build: the sweep kernel from csrc/ with nvcc (time, ptxas report);
- 3. kernel against the plain PyTorch sweep at the main path's shapes, on
-    case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32, 1.05M
-    cells): identical inputs, max relative difference per equation within
-    SWEEP_RTOL, times with CUDA events in the order plain, kernel, kernel,
-    plain;
- 4. main path: Solver(case B, device="cuda").run(MAIN_ITERATIONS) with the
-    launch counter reset before and read after: it must equal
-    iterations x 2 x sum over blocks of the hyperplane count; every L2
-    finite; one .resid row per iteration; iterations/s from iteration 3
-    on, Mcell-iterations/s and peak device memory;
- 5. reference: the small test case run on cuda and on cpu (plain sweep)
-    give the same raw residual L2 history within REF_RTOL.
+ 2. build: both kernels from csrc/, one nvcc each, started together
+    (time, ptxas report: registers and spills);
+ 3. kernels against their plain PyTorch versions at the main path's
+    shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
+    1.05M cells), identical inputs, times with CUDA events in the order
+    plain, kernel, kernel, plain:
+    - the sweep pair without (variant a) and with (variant b) the lagged
+      term: max relative difference per equation within SWEEP_RTOL;
+    - the viscous residual of every block on a seeded 1%-perturbed state:
+      every output within |kernel - plain| <= VISC_ATOL max|plain| +
+      VISC_RTOL |plain|;
+    - the floor under one dependent sweep-plane launch (empty planes);
+ 4. main path, matrixSweeps 1: Solver(case B, device="cuda").run(
+    MAIN_ITERATIONS) with the launch counters set to 0 before and read
+    after: sweep launches = iterations x 2 x hyperplanes, viscous kernel
+    launches = iterations x blocks; every L2 finite; one .resid row per
+    iteration; iterations/s from iteration 3 on, Mcell-iterations/s and
+    peak device memory;
+ 5. the lagged-term path, matrixSweeps 2: the same on case B for
+    LAGGED_ITERATIONS, sweep launches = iterations x 2 x 2 x hyperplanes
+    (every sweep takes the lagged term: the matrix is initialised);
+ 6. reference: the small test case with matrixSweeps 1 and 2 run on cuda
+    and on cpu (plain versions) give the same raw residual L2 history
+    within REF_RTOL.
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object, and last {"ok": true, "device": {...}}.  Any failure exits
@@ -44,18 +56,33 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "smoke_run")
 
 MAIN_ITERATIONS = 12
+LAGGED_ITERATIONS = 8
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
-KERNEL_REPS = 5          # timed kernel sweep pairs per window
-# kernel vs plain: max |kernel - plain| / max |plain| per equation.  The
-# two differ by FMA contraction and the order of the three directions'
+KERNEL_REPS = 5          # timed kernel calls per window
+FLOOR_PLANES = 2000      # empty plane launches timed for the floor
+# one NVIDIA H100 SXM (data sheet): HBM rate; FP64 peak outside the tensor
+# cores (both kernels are elementwise FP64)
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+# sweep kernel vs plain: max |kernel - plain| / max |plain| per equation.
+# The two differ by FMA contraction and the order of the three directions'
 # sums (~1e-16 relative per operation), carried through the plane
 # recurrence and the flux-difference cancellation (~2 digits).  The
 # plate's spanwise momentum update is orders of magnitude smaller than
 # the others' and shows the largest relative difference (2.1e-10 at case
 # B, max abs 4.5e-16, on the H100).
 SWEEP_RTOL = 1e-9
+# viscous kernel vs plain, elementwise |kernel - plain| <= VISC_RTOL |plain|
+# + VISC_ATOL max|plain of that output|: the bound the JAX package holds its
+# own fused march to (rtol 1e-9, atol 1e-13; tests/test_pallas_residual.py),
+# with the atol taken relative to each output's scale.  FMA contraction and
+# the order of the six faces' sums are the differences.  The velocity and
+# omega gradient averages reach 1.6e4 at the plate's wall clustering (case
+# A), where one ulp is ~2e-12: an absolute atol of 1e-13 failed at case B
+# by a factor 1.005, the largest difference there being 1.8e-12 (H100).
+VISC_RTOL, VISC_ATOL = 1e-9, 1e-13
 # cuda vs cpu raw L2 history of the small case: reduction order on the
-# card, FMA in the kernel, amplified over REF_ITERATIONS implicit steps.
+# card, FMA in the kernels, amplified over REF_ITERATIONS implicit steps.
 REF_RTOL = 1e-8
 REF_ITERATIONS = 3
 
@@ -74,31 +101,11 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def linear_system(solver):
-    """The first iteration's state, residual and linear system, and a du
-    with realistic connection ghosts (one relaxation on the kernel)."""
-    cfl = solver.deck.cfl(0)
-    prims, res, sr, dg, dts, auxs = solver._residuals(dict(solver.prims),
-                                                      cfl)
-    inv_diag, _, bs, dus = solver._setup_linear(prims, res, sr, dg, dts,
-                                                auxs, solver.cons_n)
-    dus = solver._relax(prims, auxs, inv_diag, bs, dus)
-    return prims, auxs, inv_diag, bs, dus
-
-
-def sweep_pair(solver, system, forward, backward, du0):
-    """forward then backward sweep of every block from copies of du0."""
-    prims, auxs, inv_diag, bs, _ = system
-    out = {}
-    for b in solver.case.blocks:
-        bi = b.index
-        du = du0[bi].clone()
-        forward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
-                bs[bi], *inv_diag[bi], auxs[bi])
-        backward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
-                 bs[bi], *inv_diag[bi], auxs[bi])
-        out[bi] = du
-    return out
+def check_no_jax_package():
+    loaded = [m for m, v in sys.modules.items()
+              if v is not None and m.split(".")[0] in ("jax", "aither_tpu")]
+    if loaded:
+        fail(f"the port loaded the JAX side: {sorted(loaded)[:5]}")
 
 
 def timed_ms(torch, fn, reps: int) -> float:
@@ -113,66 +120,218 @@ def timed_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare_kernel(torch, solver, label, card):
-    """Phase 3 on one case: (max_abs_err, kernel ms, plain ms)."""
+def in_turns(torch, plain, kernel):
+    """(kernel ms, plain ms, [p1, k1, k2, p2]) timed plain, kernel, kernel,
+    plain."""
+    p1 = timed_ms(torch, plain, 1)
+    k1 = timed_ms(torch, kernel, KERNEL_REPS)
+    k2 = timed_ms(torch, kernel, KERNEL_REPS)
+    p2 = timed_ms(torch, plain, 1)
+    return 0.5 * (k1 + k2), 0.5 * (p1 + p2), [p1, k1, k2, p2]
+
+
+def bound_ms(nbytes, ops):
+    """(least ms, what bounds it): bytes over the HBM rate against FP64
+    operations over the FP64 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the sweep kernel
+
+
+def linear_system(solver):
+    """The first iteration's state, residual and linear system, and a du
+    with realistic connection ghosts (one relaxation on the kernel)."""
+    cfl = solver.deck.cfl(0)
+    prims, res, sr, dg, dts, auxs = solver._residuals(dict(solver.prims),
+                                                      cfl)
+    inv_diag, _, bs, dus = solver._setup_linear(prims, res, sr, dg, dts,
+                                                auxs, solver.cons_n)
+    dus = solver._relax(prims, auxs, inv_diag, bs, dus)
+    return prims, auxs, inv_diag, bs, dus
+
+
+def sweep_pair(solver, system, forward, backward, du0, extras):
+    """forward then backward sweep of every block from copies of du0, with
+    the given lagged terms ({block: (forward extra, backward extra)}) or
+    none."""
+    prims, auxs, inv_diag, bs, _ = system
+    out = {}
+    for b in solver.case.blocks:
+        bi = b.index
+        ef, eb = extras[bi] if extras else (None, None)
+        du = du0[bi].clone()
+        forward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
+                bs[bi], *inv_diag[bi], auxs[bi], extra=ef)
+        backward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
+                 bs[bi], *inv_diag[bi], auxs[bi], extra=eb)
+        out[bi] = du
+    return out
+
+
+def compare_sweeps(torch, solver, system, label, card, with_extra):
+    """Phase 3, the sweep pair on one case: (max_abs_err, kernel ms, plain
+    ms, bound ms, bound_by)."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
-    system = linear_system(solver)
-    du0 = system[4]
-    kern = sweep_pair(solver, system, ls.forward, ls.backward, du0)
+    from aither_tpu_torch.solver import implicit as imp
+    prims, auxs, _, _, du0 = system
+    variant = "b (lagged term)" if with_extra else "a"
+    extras = None
+    if with_extra:
+        extras = {b.index: tuple(imp.offdiag_sum(
+            solver.phys, solver.cfg, b, prims[b.index], du0[b.index], side,
+            auxs[b.index]) for side in ("upper", "lower"))
+            for b in solver.case.blocks}
+    kern = sweep_pair(solver, system, ls.forward, ls.backward, du0, extras)
     plain = sweep_pair(solver, system, ls.forward_plain, ls.backward_plain,
-                       du0)
+                       du0, extras)
     torch.cuda.synchronize()
     max_abs = 0.0
     rel = np.zeros(solver.phys.neq)     # per equation, worst block
     for bi, p in plain.items():
         k = kern[bi]
         if not bool(torch.isfinite(k).all()):
-            fail(f"{label}: kernel sweep gave non-finite values")
+            fail(f"{label}: sweep kernel variant {variant} gave non-finite "
+                 f"values")
         for e in range(p.shape[0]):
             scale = float(p[e].abs().max())
             err = float((k[e] - p[e]).abs().max())
             max_abs = max(max_abs, err)
             rel[e] = max(rel[e], err / scale if scale > 0 else err)
-    print(f"phase 3 {label}: kernel vs plain max rel diff per equation "
-          f"{[f'{r:.2e}' for r in rel]} (tol {SWEEP_RTOL:.0e}), max abs "
-          f"diff {max_abs:.3e}", flush=True)
+    print(f"phase 3 {label}: sweep variant {variant}, kernel vs plain max "
+          f"rel diff per equation {[f'{r:.2e}' for r in rel]} (tol "
+          f"{SWEEP_RTOL:.0e}), max abs diff {max_abs:.3e}", flush=True)
     if not rel.max() <= SWEEP_RTOL:
-        fail(f"{label}: kernel disagrees with the plain sweep")
-
-    def run_kernel():
-        sweep_pair(solver, system, ls.forward, ls.backward, du0)
-
-    def run_plain():
-        sweep_pair(solver, system, ls.forward_plain, ls.backward_plain, du0)
-
-    p1 = timed_ms(torch, run_plain, 1)
-    k1 = timed_ms(torch, run_kernel, KERNEL_REPS)
-    k2 = timed_ms(torch, run_kernel, KERNEL_REPS)
-    p2 = timed_ms(torch, run_plain, 1)
-    kernel_ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-    cells = sum(b.ni * b.nj * b.nk for b in solver.case.blocks)
-    print(f"phase 3 {label}: {cells} cells, one forward+backward sweep "
+        fail(f"{label}: sweep kernel variant {variant} disagrees with the "
+             f"plain sweep")
+    kernel_ms, plain_ms, t = in_turns(
+        torch,
+        lambda: sweep_pair(solver, system, ls.forward_plain,
+                           ls.backward_plain, du0, extras),
+        lambda: sweep_pair(solver, system, ls.forward, ls.backward, du0,
+                           extras))
+    costs = [ls.sweep_cost(p, fwd, with_extra)
+             for p in solver.plans.values() for fwd in (True, False)]
+    bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+    print(f"phase 3 {label}: sweep variant {variant}, forward+backward "
           f"pair over all blocks: kernel {kernel_ms:.4f} ms "
-          f"[{k1:.4f}, {k2:.4f}], plain {plain_ms:.2f} ms "
-          f"[{p1:.2f}, {p2:.2f}] ({card})", flush=True)
-    return max_abs, kernel_ms, plain_ms
+          f"[{t[1]:.4f}, {t[2]:.4f}], plain {plain_ms:.2f} ms "
+          f"[{t[0]:.2f}, {t[3]:.2f}], bound {bound:.4f} ms ({by}) ({card})",
+          flush=True)
+    return max_abs, kernel_ms, plain_ms, bound, by
 
 
-def reference_history(Solver, write_plate_case, dims, device):
-    """raw L2 history (REF_ITERATIONS, neq) of the small case from a
-    state perturbed by up to 1% on the interior (seeded; the unperturbed
-    plate has roundoff-level residual components)."""
-    wd = os.path.join(RUN_DIR, f"reference_{device}")
-    s = Solver(write_plate_case(wd, *dims), device=device, workdir=wd)
-    rng = np.random.default_rng(7)
+def launch_floor(torch, solver, label, card):
+    """Phase 3: ms of one empty dependent plane launch, and the sweep
+    pair's dependent-launch floor (2 x hyperplanes x that)."""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    dev = solver.device
+    ls.empty_planes(100, dev)                   # warm up
+    per = timed_ms(torch, lambda: ls.empty_planes(FLOOR_PLANES, dev),
+                   3) / FLOOR_PLANES
+    planes = 2 * sum(p.nplanes for p in solver.plans.values())
+    print(f"phase 3 {label}: one empty dependent plane launch "
+          f"{1e3 * per:.3f} us; sweep pair floor {planes} planes x that = "
+          f"{planes * per:.4f} ms ({card})", flush=True)
+    return per, planes * per
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the viscous residual kernel
+
+
+def viscous_inputs(torch, solver, seed=3):
+    """{block: (prim, T, mu)}: the initial state perturbed by up to 1% on
+    the interior (seeded), after the full and the viscous ghost fill."""
+    from aither_tpu_torch.solver import step
+    phys = solver.phys
+    rng = np.random.default_rng(seed)
     prims = {}
-    for b in s.case.blocks:
+    for b in solver.case.blocks:
         prim = b.prim0.cpu().numpy().copy()
         prim[b.interior] *= 1.0 + 0.01 * rng.random(prim[b.interior].shape)
-        prims[b.index] = prim
-    s.set_state(prims)
-    s.run(iterations=REF_ITERATIONS)
-    return np.asarray(s.l2_history)
+        prims[b.index] = torch.as_tensor(prim, device=solver.device)
+    prims = step.apply_all_bcs(phys, solver.case, prims)
+    out = {}
+    for b in solver.case.blocks:
+        prim = step.apply_boundary_ghosts(phys, b, prims[b.index],
+                                          viscous_pass=True)
+        prim = step.apply_edge_ghosts(phys, b, prim, viscous_pass=True)
+        t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
+        out[b.index] = (prim, t_all, phys.viscosity(t_all))
+    return out
+
+
+def flat_outputs(res):
+    """the viscous_residual tuple as {name: tensor}"""
+    out = dict(zip(("resid", "sr_flow", "sr_turb", "diag_flow",
+                    "diag_turb"), res[:5]))
+    out.update({f"cellavg_{k}": v for k, v in res[5].items()})
+    return out
+
+
+def compare_viscous(torch, solver, label, card):
+    """Phase 3, the viscous residual of every block on one case:
+    (max_abs_err, kernel ms, plain ms, bound ms, bound_by, statics
+    bytes)."""
+    from aither_tpu_torch.kernels import viscous_march as vm
+    from aither_tpu_torch.solver import viscous as vis
+    phys, cfg = solver.phys, solver.cfg
+    inputs = viscous_inputs(torch, solver)
+    blocks = solver.case.blocks
+    max_abs, worst, worst_name = 0.0, 0.0, ""
+    for b in blocks:
+        got = flat_outputs(vm.viscous_residual(phys, cfg, b,
+                                               *inputs[b.index]))
+        want = flat_outputs(vis.viscous_residual(phys, cfg, b,
+                                                 *inputs[b.index]))
+        torch.cuda.synchronize()
+        if set(got) != set(want):
+            fail(f"{label}: viscous kernel outputs {sorted(got)}")
+        for name, w in want.items():
+            g = got[name]
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"{label}: viscous kernel {name} shape {g.shape} or "
+                     f"non-finite")
+            err = (g - w).abs()
+            scale = float(w.abs().max())
+            ratio = float((err / (VISC_ATOL * scale + VISC_RTOL * w.abs()
+                                  + 1e-300)).max())
+            max_abs = max(max_abs, float(err.max()))
+            if ratio > worst:
+                worst, worst_name = ratio, (f"{name} of block {b.index} "
+                                            f"(max |diff| {err.max():.3e}, "
+                                            f"scale {scale:.3e})")
+    print(f"phase 3 {label}: viscous residual, kernel vs plain max abs diff "
+          f"{max_abs:.3e}, worst |diff| / (atol scale + rtol |plain|) "
+          f"{worst:.3e} at {worst_name} (rtol {VISC_RTOL:.0e}, atol "
+          f"{VISC_ATOL:.0e} x scale)", flush=True)
+    if not worst <= 1.0:
+        fail(f"{label}: the viscous kernel disagrees with the plain version")
+
+    def run(fn):
+        return lambda: [fn(phys, cfg, b, *inputs[b.index]) for b in blocks]
+
+    kernel_ms, plain_ms, t = in_turns(torch, run(vis.viscous_residual),
+                                      run(vm.viscous_residual))
+    costs = [vm.cost(b) for b in blocks]
+    bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+    statics = sum(sum(v.numel() for v in vis.viscous_statics(b)["face"]
+                      .values()) + vis.viscous_statics(b)["cell"].numel()
+                  for b in blocks) * 8
+    print(f"phase 3 {label}: viscous residual of all blocks: kernel "
+          f"{kernel_ms:.4f} ms [{t[1]:.4f}, {t[2]:.4f}], plain "
+          f"{plain_ms:.2f} ms [{t[0]:.2f}, {t[3]:.2f}], bound {bound:.4f} "
+          f"ms ({by}); static face geometry {statics / 2**30:.3f} GiB "
+          f"({card})", flush=True)
+    return max_abs, kernel_ms, plain_ms, bound, by
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6
 
 
 def read_tme(path):
@@ -183,6 +342,70 @@ def read_tme(path):
             if t and t[0] != "Step":
                 rows.append((int(t[0]), float(t[1])))
     return rows
+
+
+def drive(torch, solver, iterations, sweep_pairs, label, card):
+    """Solver.run on the card with the launch counters set to 0 just
+    before and read just after; checks and prints; returns the launch
+    counts {kernel: n}."""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    cells = solver.case.total_cells
+    nblocks = len(solver.case.blocks)
+    planes = sum(p.nplanes for p in solver.plans.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ls.LAUNCHES.reset()
+    vm.LAUNCHES.reset()
+    solver.run(iterations=iterations)
+    launches = {"lusgs_sweep": ls.LAUNCHES.count,
+                "viscous_march": vm.LAUNCHES.count}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"lusgs_sweep": iterations * sweep_pairs * 2 * planes,
+              "viscous_march": iterations * nblocks}
+    print(f"{label}: {iterations} iterations of case B ({cells} cells, "
+          f"matrixSweeps {sweep_pairs}), kernel launches {launches} "
+          f"(expected {expect})", flush=True)
+    for name, n in expect.items():
+        if launches[name] != n or n == 0:
+            fail(f"{label}: {name} launched {launches[name]} times, "
+                 f"expected {n}")
+    l2 = solver.l2_history
+    if len(l2) != iterations or not np.isfinite(l2).all():
+        fail(f"{label}: non-finite or missing residual L2: {l2}")
+    with open(solver.sim_root + ".resid") as f:
+        rows = [ln for ln in f.read().splitlines()[1:] if ln.strip()]
+    if len(rows) != iterations:
+        fail(f"{label}: .resid has {len(rows)} rows for {iterations} "
+             f"iterations")
+    steady = [t for n, t in read_tme(solver.sim_root + ".tme")
+              if n >= STEADY_FROM]
+    its = len(steady) / sum(steady)
+    print(f"{label}: {its:.4f} iterations/s steady (iterations "
+          f"{STEADY_FROM}-{iterations - 1}), {its * cells / 1e6:.4f} "
+          f"Mcell-iterations/s, peak device memory {peak / 2**30:.3f} GiB "
+          f"({card})", flush=True)
+    print(f"{label}: last L2 {[f'{v:.4e}' for v in l2[-1]]}", flush=True)
+    return launches
+
+
+def reference_history(Solver, write_plate_case, dims, device, sweeps):
+    """raw L2 history (REF_ITERATIONS, neq) of the small case from a
+    state perturbed by up to 1% on the interior (seeded; the unperturbed
+    plate has roundoff-level residual components)."""
+    wd = os.path.join(RUN_DIR, f"reference_{device}_{sweeps}")
+    s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps),
+               device=device, workdir=wd)
+    rng = np.random.default_rng(7)
+    prims = {}
+    for b in s.case.blocks:
+        prim = b.prim0.cpu().numpy().copy()
+        prim[b.interior] *= 1.0 + 0.01 * rng.random(prim[b.interior].shape)
+        prims[b.index] = prim
+    s.set_state(prims)
+    s.run(iterations=REF_ITERATIONS)
+    return np.asarray(s.l2_history)
 
 
 def main():
@@ -197,14 +420,13 @@ def main():
     try:
         from aither_tpu_torch.cases import (SMOKE_2D_DIMS, SMOKE_3D_DIMS,
                                             TEST_DIMS, write_plate_case)
-        from aither_tpu_torch.kernels import lusgs_sweep as ls
         from aither_tpu_torch.solver.driver import Solver
-        from aither_tpu_torch.utils.build import load_cuda_library, nvcc_path
+        from aither_tpu_torch.utils.build import (load_cuda_libraries,
+                                                  nvcc_path)
     except ImportError as exc:
         fail(f"the aither_tpu_torch package is not beside this script: "
              f"{exc}")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_no_jax_package()
 
     # -- phase 1: device facts ------------------------------------------------
     card = card_line()
@@ -216,87 +438,89 @@ def main():
           f"{torch.version.cuda} | nvcc: {nvcc}", flush=True)
 
     # -- phase 2: build -------------------------------------------------------
-    _, info = load_cuda_library("lusgs_sweep")
-    print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
-          f"built={info['built']} in {info['seconds']:.2f} s", flush=True)
-    for ln in info["ptxas"].splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"phase 2 ptxas: {ln.strip()}", flush=True)
+    t0 = time.perf_counter()
+    libs = load_cuda_libraries(["lusgs_sweep", "viscous_march"])
+    print(f"phase 2 build: both libraries in {time.perf_counter() - t0:.2f} "
+          f"s (one nvcc each, in parallel)", flush=True)
+    for name, (_, info) in libs.items():
+        print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
+              f"built={info['built']} in {info['seconds']:.2f} s",
+              flush=True)
+        for ln in info["ptxas"].splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"phase 2 ptxas {name}: {ln.strip()}", flush=True)
 
-    # -- phase 3: kernel vs plain at main-path shapes -------------------------
+    # -- phase 3: kernels vs plain at main-path shapes ------------------------
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     results = {}
-    solvers = {}
+    solver = None
     for label, dims in (("case A", SMOKE_2D_DIMS), ("case B", SMOKE_3D_DIMS)):
+        del solver
         wd = os.path.join(RUN_DIR, label.replace(" ", "_"))
         t0 = time.perf_counter()
         solver = Solver(write_plate_case(wd, *dims), device="cuda",
                         workdir=wd)
         print(f"phase 3 {label}: 2 blocks of {dims} built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        results[label] = compare_kernel(torch, solver, label, card)
-        solvers[label] = solver
-    del solvers["case A"]
+        system = linear_system(solver)
+        results[label] = dict(
+            sweep_a=compare_sweeps(torch, solver, system, label, card,
+                                   False),
+            sweep_b=compare_sweeps(torch, solver, system, label, card, True),
+            viscous=compare_viscous(torch, solver, label, card),
+            floor=launch_floor(torch, solver, label, card))
+        del system
 
-    # -- phase 4: main path ---------------------------------------------------
-    solver = solvers["case B"]
-    cells = solver.case.total_cells
-    planes = sum(p.nplanes for p in solver.plans.values())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ls.LAUNCHES.reset()
-    solver.run(iterations=MAIN_ITERATIONS)
-    launches = ls.LAUNCHES.count
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    expect = MAIN_ITERATIONS * 2 * planes
-    print(f"phase 4 main path: {MAIN_ITERATIONS} iterations of case B "
-          f"({cells} cells), kernel launches {launches} (expected "
-          f"{expect})", flush=True)
-    if launches != expect:
-        fail(f"the main path launched the sweep kernel {launches} times, "
-             f"expected {expect}")
-    l2 = solver.l2_history
-    if len(l2) != MAIN_ITERATIONS or not np.isfinite(l2).all():
-        fail(f"non-finite or missing residual L2: {l2}")
-    with open(solver.sim_root + ".resid") as f:
-        rows = [ln for ln in f.read().splitlines()[1:] if ln.strip()]
-    if len(rows) != MAIN_ITERATIONS:
-        fail(f".resid has {len(rows)} rows for {MAIN_ITERATIONS} "
-             f"iterations")
-    steady = [t for n, t in read_tme(solver.sim_root + ".tme")
-              if n >= STEADY_FROM]
-    its = len(steady) / sum(steady)
-    print(f"phase 4 main path: {its:.4f} iterations/s steady (iterations "
-          f"{STEADY_FROM}-{MAIN_ITERATIONS - 1}), "
-          f"{its * cells / 1e6:.4f} Mcell-iterations/s, peak device memory "
-          f"{peak / 2**30:.3f} GiB ({card})", flush=True)
-    print(f"phase 4 main path: last L2 {[f'{v:.4e}' for v in l2[-1]]}",
-          flush=True)
-    del solvers, solver
+    # -- phase 4: main path, matrixSweeps 1 ----------------------------------
+    launches_a = drive(torch, solver, MAIN_ITERATIONS, 1, "phase 4 main path",
+                       card)
+    del solver
 
-    # -- phase 5: small-case reference, cuda against cpu ----------------------
-    hist = {dev: reference_history(Solver, write_plate_case, TEST_DIMS, dev)
-            for dev in ("cuda", "cpu")}
-    # per equation, relative to that equation's largest L2 in the history
-    worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
-                   / np.abs(hist["cpu"]).max(axis=0)).max())
-    print(f"phase 5 reference: {TEST_DIMS} x 2 blocks, {REF_ITERATIONS} "
-          f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
-          f"(tol {REF_RTOL:.0e})", flush=True)
-    if not worst <= REF_RTOL:
-        fail("the cuda run disagrees with the cpu run")
+    # -- phase 5: the lagged-term path, matrixSweeps 2 ------------------------
+    wd = os.path.join(RUN_DIR, "case_B_matrixSweeps_2")
+    solver = Solver(write_plate_case(wd, *SMOKE_3D_DIMS, matrix_sweeps=2),
+                    device="cuda", workdir=wd)
+    launches_b = drive(torch, solver, LAGGED_ITERATIONS, 2,
+                       "phase 5 matrixSweeps 2", card)
+    del solver
 
-    max_abs = max(r[0] for r in results.values())
-    _, kernel_ms, plain_ms = results["case B"]
+    # -- phase 6: small-case reference, cuda against cpu ----------------------
+    for sweeps in (1, 2):
+        hist = {dev: reference_history(Solver, write_plate_case, TEST_DIMS,
+                                       dev, sweeps)
+                for dev in ("cuda", "cpu")}
+        # per equation, relative to that equation's largest L2
+        worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
+                       / np.abs(hist["cpu"]).max(axis=0)).max())
+        print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, matrixSweeps "
+              f"{sweeps}, {REF_ITERATIONS} iterations, cuda vs cpu raw L2 "
+              f"max rel diff {worst:.3e} (tol {REF_RTOL:.0e})", flush=True)
+        if not worst <= REF_RTOL:
+            fail(f"matrixSweeps {sweeps}: the cuda run disagrees with the "
+                 f"cpu run")
+    check_no_jax_package()
+
+    def row(name, key, launches, replaces, source):
+        max_abs = max(r[key][0] for r in results.values())
+        _, ms, plain_ms, bound, by = results["case B"][key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+    sweep_src = "aither_tpu_torch/csrc/lusgs_sweep.cu"
+    sweep_tpu = "aither_tpu/solver/pallas_sweep.py:239"
+    kernels = [
+        row("lusgs_sweep (variant a)", "sweep_a", launches_a["lusgs_sweep"],
+            sweep_tpu, sweep_src),
+        row("lusgs_sweep (variant b, lagged term)", "sweep_b",
+            launches_b["lusgs_sweep"], sweep_tpu, sweep_src),
+        row("viscous_march", "viscous", launches_a["viscous_march"],
+            "aither_tpu/solver/pallas_residual.py:602",
+            "aither_tpu_torch/csrc/viscous_march.cu")]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "lusgs_sweep", "route": "cuda",
-        "source": "aither_tpu_torch/csrc/lusgs_sweep.cu",
-        "replaces": "aither_tpu/solver/pallas_sweep.py:239",
-        "launches": launches, "max_abs_err": max_abs, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 """PyTorch port, case and ghost parity with aither_tpu on the generated
 two-block SST plate: geometry, wall distance, initial state, boundary and
 edge ghosts, the connection swap, plus the port's import boundary (no
-jax) and its refusal of deck settings outside the slice.
+jax, no aither_tpu) and its refusal of deck settings outside the slice.
 
 Tolerances: geometry comes from the same host code (exact); the wall
 distance from a brute-force search in torch against the JAX package's
@@ -99,17 +99,20 @@ def test_ghosts(pair, what):
         assert_close(got, want, 1e-12, 0.0, f"{what} block {tb.index}")
 
 
-def test_port_never_imports_jax(tmp_path):
-    """The port builds and runs a case with jax unimportable."""
+@pytest.mark.parametrize("blocked", ["jax", "aither_tpu"])
+def test_port_never_imports_jax(tmp_path, blocked):
+    """The port builds and runs a case (decomposed, with matrixSweeps: 2)
+    with jax, or the JAX package, unimportable, and loads neither."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        f"sys.modules[{blocked!r}] = None\n"
         "from aither_tpu_torch.cases import write_plate_case\n"
         "from aither_tpu_torch.solver.driver import Solver\n"
-        f"p = write_plate_case({str(tmp_path)!r}, 4, 3, 2)\n"
-        f"s = Solver(p, device='cpu', workdir={str(tmp_path)!r})\n"
+        f"p = write_plate_case({str(tmp_path)!r}, 4, 3, 2,\n"
+        "                     matrix_sweeps=2)\n"
+        f"s = Solver(p, device='cpu', workdir={str(tmp_path)!r}, nproc=2)\n"
         "s.run(iterations=1)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')\n"
+        "assert not any(m.split('.')[0] in ('jax', 'aither_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('NOJAX_OK')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -120,7 +123,7 @@ def test_port_never_imports_jax(tmp_path):
 
 
 @pytest.mark.parametrize("patch", [
-    ("matrixSweeps", "2"), ("matrixSolver", "dplur"),
+    ("matrixSolver", "blusgs"), ("matrixSolver", "dplur"),
     ("multigridLevels", "2"), ("inviscidFluxJacobian", "approximateRoe"),
     ("faceReconstruction", "weno"), ("inviscidFlux", "ausm"),
     ("timeIntegration", "bdf2"), ("turbulenceModel", "kOmegaWilcox2006"),

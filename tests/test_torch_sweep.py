@@ -1,7 +1,9 @@
 """PyTorch port, LU-SGS sweep parity: one plain forward + backward sweep
 pair in physical layout against aither_tpu's lusgs_forward_group /
 lusgs_backward_group, whose hyperplane recurrence runs through the Pallas
-sweep kernel (pallas_sweep.sweep) in interpret mode.
+sweep kernel (pallas_sweep.sweep) in interpret mode — without the lagged
+opposite-side term (variant a) and with it (variant b, ``with_extra``: the
+port passes ``implicit.offdiag_sum`` of the du each sweep starts from).
 
 Both sides get identical numpy inputs (the port's linear system of the
 perturbed plate, plus random du in the ghosts so connection ghosts feed
@@ -46,7 +48,7 @@ def system(tmp_path_factory):
     return js, ts, inputs
 
 
-def _jax_sweeps(js, inputs):
+def _jax_sweeps(js, inputs, with_extra=False):
     """forward then backward group sweep over both (same-shape) blocks."""
     from aither_tpu.solver import implicit as jim
     blocks = js.case.blocks
@@ -62,10 +64,10 @@ def _jax_sweeps(js, inputs):
                 inv_f=jim.skew_from_physical(ctx, a["inv_f"]),
                 inv_t=jim.skew_from_physical(ctx, a["inv_t"]),
                 aux={k: a[k] for k in ("mu", "mut", "f1")}))
-        fwd = jim.lusgs_forward_group(js.phys, js.cfg, items, False)
+        fwd = jim.lusgs_forward_group(js.phys, js.cfg, items, with_extra)
         for it, du in zip(items, fwd):
             it["du"] = du
-        bwd = jim.lusgs_backward_group(js.phys, js.cfg, items, False)
+        bwd = jim.lusgs_backward_group(js.phys, js.cfg, items, with_extra)
         return fwd, bwd
 
     from aither_tpu.solver import pallas_sweep as ps
@@ -99,6 +101,34 @@ def test_plain_sweep_pair_matches_pallas_kernel(system):
             assert err < TOL, ("backward", bi, e, err)
     # CPU tensors take the plain version: no kernel launch
     assert ls.LAUNCHES.count == launches
+
+
+def test_plain_sweep_pair_with_extra_matches_pallas_kernel(system):
+    """variant (b): the lagged upper sum in the forward sweep, the lagged
+    lower sum of the forward result in the backward sweep"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver import implicit as tim
+    js, ts, inputs = system
+    want_f, want_b = _jax_sweeps(js, inputs, with_extra=True)
+    for b in ts.case.blocks:
+        bi = b.index
+        a = {k: torch.as_tensor(v.copy()) for k, v in inputs[bi].items()}
+        aux = {k: a[k] for k in ("mu", "mut", "f1")}
+        plan = ts.plans[bi]
+        extra = tim.offdiag_sum(ts.phys, ts.cfg, b, a["prim"], a["du"],
+                                "upper", aux)
+        du = ls.forward(ts.phys, ts.cfg, plan, a["prim"], a["du"], a["b"],
+                        a["inv_f"], a["inv_t"], aux, extra=extra)
+        for e in range(ts.phys.neq):
+            err = rel_err(du[e], want_f[bi][e])
+            assert err < TOL, ("forward", bi, e, err)
+        extra = tim.offdiag_sum(ts.phys, ts.cfg, b, a["prim"], du, "lower",
+                                aux)
+        du = ls.backward(ts.phys, ts.cfg, plan, a["prim"], du, a["b"],
+                         a["inv_f"], a["inv_t"], aux, extra=extra)
+        for e in range(ts.phys.neq):
+            err = rel_err(du[e], want_b[bi][e])
+            assert err < TOL, ("backward", bi, e, err)
 
 
 def test_sweep_plan_covers_every_cell_once(system):

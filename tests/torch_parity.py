@@ -21,8 +21,9 @@ from aither_tpu_torch.cases import TEST_DIMS, write_plate_case
 SEED = 7
 
 
-def write_case(tmp_dir, dims=TEST_DIMS):
-    return write_plate_case(str(tmp_dir), *dims)
+def write_case(tmp_dir, dims=TEST_DIMS, matrix_sweeps=1):
+    return write_plate_case(str(tmp_dir), *dims,
+                            matrix_sweeps=matrix_sweeps)
 
 
 def jax_solver(deck_path, workdir):
@@ -30,6 +31,21 @@ def jax_solver(deck_path, workdir):
     from aither_tpu.solver.driver import Solver
     solver = Solver(deck_path, workdir=str(workdir))
     solver.cfg["pallas_interpret"] = True
+    return solver
+
+
+def enable_jax_march(solver):
+    """Put aither_tpu's fused viscous march (pallas_residual, interpret
+    mode) on its residual path: prepack every block's statics as its
+    Solver does at init when the march is on, and rebuild the geometry
+    arguments its jitted iteration takes."""
+    from aither_tpu.solver import pallas_residual as pres
+    solver.cfg["pallas_interpret"] = True
+    for b in solver.case.blocks:
+        assert pres.use_march(solver.phys, solver.cfg, b, solver.case.dtype,
+                              for_prepack=True)
+        pres.ensure_static(solver.phys, solver.cfg, b, solver.case.dtype)
+    solver._geo_args = solver._build_geo_args()
     return solver
 
 
