@@ -50,7 +50,7 @@ referenceLength: 1.0
 equationSet: rans
 turbulenceModel: sst2003
 timeIntegration: implicitEuler
-matrixSolver: lusgs
+matrixSolver: {matrix_solver}
 matrixSweeps: {matrix_sweeps}
 matrixRelaxation: 1.0
 inviscidFlux: roe
@@ -99,13 +99,16 @@ def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
 
 def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      iterations: int = 10, name: str = "plate",
-                     matrix_sweeps: int = 1) -> str:
+                     matrix_sweeps: int = 1,
+                     matrix_solver: str = "lusgs") -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
-    the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS."""
+    the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
+    ``matrix_solver`` "blusgs" the block-matrix LU-SGS."""
     os.makedirs(out_dir, exist_ok=True)
     write_p3d(os.path.join(out_dir, f"{name}.xyz"), plate_nodes(ni, nj, nk))
     deck_path = os.path.join(out_dir, f"{name}.inp")
     with open(deck_path, "w") as f:
         f.write(_DECK.format(grid=name, iterations=iterations, ni=ni, nj=nj,
-                             nk=nk, matrix_sweeps=matrix_sweeps))
+                             nk=nk, matrix_sweeps=matrix_sweeps,
+                             matrix_solver=matrix_solver))
     return deck_path

@@ -1,0 +1,290 @@
+// Block-matrix LU-SGS (BLU-SGS) hyperplane sweep for NVIDIA Hopper
+// (sm_90a), float64.
+//
+// Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
+// (pallas_call at pallas_sweep.py:342) with block_matrix set, variant (c):
+// one species, SST k-omega (7 equations), viscous, Rusanov off-diagonal,
+// without and with the lagged opposite-side term `extra` (matrixSweeps > 1,
+// variant (c)+(b)).  The scalar sweep of variants (a)/(b) is
+// csrc/lusgs_sweep.cu; this file keeps its structure.
+//
+// What it computes (reference: linearSolver.cpp:341-428): for every
+// hyperplane p = i+j+k in order (forward: increasing p, backward:
+// decreasing), every physical cell c of the plane becomes
+//   forward:  du[c] = D_c^-1 (b[c] + sum_d L_d [- extra[c]])
+//   backward: du[c] = du[c] - D_c^-1 sum_d U_d
+//             or, with extra, D_c^-1 (b[c] + extra[c] - sum_d U_d)
+// where L_d / U_d is the block off-diagonal product of the lower / upper
+// neighbour across direction d (aither_tpu implicit.
+// offdiagonal_block_channels): the Rusanov block Jacobian
+// 0.5|A|(dF/dU +- specRad I) times du (block_jac.rusanov_offdiag_matvec)
+// minus / plus the thin-shear-layer viscous Jacobian times du
+// (block_jac.tsl_offdiag_matvec: rows . (dPrim/dCons . du)), with the
+// 2x2 turbulence block 0.5|A|(vn +- |vn|) + the TSL turbulence diagonal.
+// D_c^-1 is the cell's inverted 5x5 flow and 2x2 turbulence block.
+// extra is computed before the sweep by implicit.offdiag_sum.  du is
+// updated IN PLACE, one launch per plane: a plane reads only neighbour
+// planes.
+//
+// Layout: prim, du (7, NI, NJ, NK), mu, mut, f1 (NI, NJ, NK) and the
+// neighbours' cell-average velocity gradient vgrad (3, 3, NI, NJ, NK),
+// vgrad[a][b] = d v_b / d x_a, padded; b, extra (7, ni, nj, nk) and the
+// inverse blocks inv_f (25, ni, nj, nk) row-major, inv_t (4, ni, nj, nk)
+// physical, channel first so that a warp reads each channel in one pass.
+// The host plan (SweepPlan) lists each plane's cells and per cell and
+// direction the face normal, area and centre distance (stat) and whether
+// the neighbour contributes (mask).  A masked face is skipped by a
+// branch, never multiplied by zero: a ghost state there may be garbage.
+//
+// Each Jacobian is built row by row into the running sum (as
+// block_jac.rows_matvec): no 5x5 matrix is held in registers.
+//
+// What bounds it on the card: the bytes a forward+backward pair at 1M cells
+// must move take under 0.5 ms at 3.35 TB/s, its ~2 GFLOP of FP64 ~0.06 ms
+// at 34 TFLOP/s (kernels/lusgs_sweep.py sweep_cost; PERF.md).  Like the
+// scalar sweep
+// it is held instead by the chain of 2 x (ni+nj+nk-2) dependent plane
+// launches per block, each one wave of serial per-thread work: the pair
+// takes 23.4 ms on the H100 (1,400 planes, ~16.7 us each against a
+// ~3.7 us empty-launch floor; chip_smoke.py).  115-122 registers, no
+// spill.  A persistent kernel is the next step, not taken here.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int NEQ = 7;
+constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
+constexpr int THREADS = 128;
+
+struct Phys {
+  double R, cv, cp, hf, gamma, prt, scaling;
+  double t_ref, cond_c1, cond_s, k_nondim;
+  double sigma_k1, sigma_k2, sigma_w1, sigma_w2;
+};
+
+struct Fields {
+  const double* __restrict__ prim;
+  double* du;
+  const double* __restrict__ mu;
+  const double* __restrict__ mut;
+  const double* __restrict__ f1;
+  const double* __restrict__ vgrad;
+  const double* __restrict__ b;
+  const double* __restrict__ extra;  // nullptr: no lagged term
+  const double* __restrict__ inv_f;
+  const double* __restrict__ inv_t;
+  const int* __restrict__ cells;
+  const int* __restrict__ phys_cells;
+  const double* __restrict__ stat;
+  const unsigned char* __restrict__ mask;
+  int64_t nc;        // NI*NJ*NK: channel stride of the padded fields
+  int64_t ncp;       // ni*nj*nk: channel stride of b, extra, inv_f, inv_t
+  int64_t stride[3]; // flat step of one cell in i, j, k
+};
+
+// block off-diagonal product of the neighbour nb across one face, added to
+// acc (aither_tpu implicit.offdiagonal_block_channels, viscous, SST, one
+// species).  FORWARD: the lower neighbour (positive, TSL "left").
+template <bool FORWARD>
+__device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
+                                                      const Fields& fl,
+                                                      int64_t nb,
+                                                      const double* st,
+                                                      double acc[NEQ]) {
+  const int64_t nc = fl.nc;
+  const double rho = fl.prim[nb];
+  const double u = fl.prim[nc + nb];
+  const double v = fl.prim[2 * nc + nb];
+  const double w = fl.prim[3 * nc + nb];
+  const double p = fl.prim[4 * nc + nb];
+  double dq[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * nc + nb];
+  const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3], dist = st[4];
+
+  const double t = p / (ph.R * rho);
+  const double vn = u * n0 + v * n1 + w * n2;
+  const double vmag2 = u * u + v * v + w * w;
+  const double gm1 = ph.gamma - 1.0;
+  const double sgn = FORWARD ? 1.0 : -1.0;
+
+  // Rusanov block: 0.5|A| dF/dU rows (mass fraction 1) +- spectral radius
+  {
+    const double phi = 0.5 * gm1 * vmag2;
+    const double a1 = ph.gamma * (ph.hf + ph.cv * t + 0.5 * vmag2) - phi;
+    const double a3 = ph.gamma - 2.0;
+    const double hm = 0.5 * mag;
+    const double spec = hm * (fabs(vn) + sqrt(ph.gamma * p / rho));
+    acc[0] += hm * (n0 * dq[1] + n1 * dq[2] + n2 * dq[3]) + sgn * spec * dq[0];
+    acc[1] += hm * ((phi * n0 - u * vn) * dq[0] + (vn - a3 * n0 * u) * dq[1] +
+                    (u * n1 - gm1 * v * n0) * dq[2] +
+                    (u * n2 - gm1 * w * n0) * dq[3] + gm1 * n0 * dq[4]) +
+              sgn * spec * dq[1];
+    acc[2] += hm * ((phi * n1 - v * vn) * dq[0] +
+                    (v * n0 - gm1 * u * n1) * dq[1] +
+                    (vn - a3 * n1 * v) * dq[2] +
+                    (v * n2 - gm1 * w * n1) * dq[3] + gm1 * n1 * dq[4]) +
+              sgn * spec * dq[2];
+    acc[3] += hm * ((phi * n2 - w * vn) * dq[0] +
+                    (w * n0 - gm1 * u * n2) * dq[1] +
+                    (w * n1 - gm1 * v * n2) * dq[2] +
+                    (vn - a3 * n2 * w) * dq[3] + gm1 * n2 * dq[4]) +
+              sgn * spec * dq[3];
+    acc[4] += hm * (vn * (phi - a1) * dq[0] + (a1 * n0 - gm1 * u * vn) * dq[1] +
+                    (a1 * n1 - gm1 * v * vn) * dq[2] +
+                    (a1 * n2 - gm1 * w * vn) * dq[3] +
+                    ph.gamma * vn * dq[4]) +
+              sgn * spec * dq[4];
+  }
+
+  // thin-shear-layer block, subtracted forward and added backward
+  // (s = -1 / +1); its turbulence diagonal carries fac = -1 / +1, so that
+  // part enters with s * fac = +1 in both sweeps
+  const double mu = fl.mu[nb], mut = fl.mut[nb], f1 = fl.f1[nb];
+  const double mu_s = ph.scaling * mu;
+  const double mut_s = ph.scaling * mut;
+  const double mu_tot = mu_s + mut_s;
+  {
+    const double s = FORWARD ? -1.0 : 1.0;
+    const double fac = FORWARD ? -1.0 : 1.0;
+    const double td = t * ph.t_ref;
+    const double k =
+        ph.scaling * (ph.cond_c1 * pow(td, 1.5) / (td + ph.cond_s) /
+                      ph.k_nondim);
+    const double kt = mut_s * ph.cp / ph.prt;
+    // tau = lambda tr(G) n + mu_tot (G + G^T) n
+    const double* g = fl.vgrad + nb;
+    const double g00 = g[0], g01 = g[nc], g02 = g[2 * nc];
+    const double g10 = g[3 * nc], g11 = g[4 * nc], g12 = g[5 * nc];
+    const double g20 = g[6 * nc], g21 = g[7 * nc], g22 = g[8 * nc];
+    const double lt = -2.0 / 3.0 * mu_tot * (g00 + g11 + g22);
+    const double tau0 = lt * n0 + mu_tot * ((g00 + g00) * n0 +
+                                            (g01 + g10) * n1 +
+                                            (g02 + g20) * n2);
+    const double tau1 = lt * n1 + mu_tot * ((g10 + g01) * n0 +
+                                            (g11 + g11) * n1 +
+                                            (g12 + g21) * n2);
+    const double tau2 = lt * n2 + mu_tot * ((g20 + g02) * n0 +
+                                            (g21 + g12) * n1 +
+                                            (g22 + g22) * n2);
+    // dPrim/dCons . du
+    const double ir = 1.0 / rho;
+    const double dp1 = -ir * u * dq[0] + ir * dq[1];
+    const double dp2 = -ir * v * dq[0] + ir * dq[2];
+    const double dp3 = -ir * w * dq[0] + ir * dq[3];
+    const double dp4 = 0.5 * gm1 * vmag2 * dq[0] - gm1 * u * dq[1] -
+                       gm1 * v * dq[2] - gm1 * w * dq[3] + gm1 * dq[4];
+    // TSL rows (primitive) . dp, times scale = |A| mu_tot / d
+    const double scale = s * (mag * mu_tot / dist);
+    const double third = 1.0 / 3.0;
+    const double ndp = third * (n0 * dp1 + n1 * dp2 + n2 * dp3);
+    acc[1] += scale * (dp1 + n0 * ndp);
+    acc[2] += scale * (dp2 + n1 * ndp);
+    acc[3] += scale * (dp3 + n2 * ndp);
+    const double kk = (k + kt) / (mu_tot * rho);
+    const double hd = fac * 0.5 * dist / mu_tot;
+    acc[4] += scale * (-kk * t * dq[0] +
+                       (hd * tau0 + third * n0 * vn + u) * dp1 +
+                       (hd * tau1 + third * n1 * vn + v) * dp2 +
+                       (hd * tau2 + third * n2 * vn + w) * dp3 + kk * dp4);
+  }
+
+  // turbulence: Rusanov 0.5|A|(vn +- |vn|) plus the TSL diagonal
+  {
+    const double length = ph.scaling * mag / dist / rho;
+    const double sk = f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+    const double sw = f1 * ph.sigma_w1 + (1.0 - f1) * ph.sigma_w2;
+    const double tdiag = 0.5 * vn * mag + sgn * (0.5 * fabs(vn) * mag);
+    acc[5] += (tdiag + length * (mu + sk * mut)) * dq[5];
+    acc[6] += (tdiag + length * (mu + sw * mut)) * dq[6];
+  }
+}
+
+template <bool FORWARD>
+__global__ void __launch_bounds__(THREADS)
+    sweep_plane(Fields fl, Phys ph, int start, int count) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= count) return;
+  const int s = start + t;
+  const int64_t c = fl.cells[s];
+  const int64_t pc = fl.phys_cells[s];
+  double r[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) r[e] = 0.0;
+  for (int d = 0; d < 3; ++d) {
+    if (!fl.mask[3 * s + d]) continue;
+    const int64_t nb = FORWARD ? c - fl.stride[d] : c + fl.stride[d];
+    const double* st = fl.stat + (3 * static_cast<int64_t>(s) + d) * NSTAT;
+    add_block_offdiagonal<FORWARD>(ph, fl, nb, st, r);
+  }
+  // right-hand side the inverse applies to (r holds the neighbour sum)
+  const bool plain_backward = !FORWARD && fl.extra == nullptr;
+  if (!plain_backward) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) {
+      const double b = fl.b[e * fl.ncp + pc];
+      if (FORWARD)
+        r[e] = fl.extra ? (b + r[e]) - fl.extra[e * fl.ncp + pc] : b + r[e];
+      else
+        r[e] = (b + fl.extra[e * fl.ncp + pc]) - r[e];
+    }
+  }
+  // D^-1 r: the 5x5 flow block row by row, then the 2x2 turbulence block
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    double y = 0.0;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) y += fl.inv_f[(5 * i + j) * fl.ncp + pc] * r[j];
+    double* x = fl.du + i * fl.nc + c;
+    *x = plain_backward ? *x - y : y;
+  }
+  const double* it = fl.inv_t + pc;
+  const double y5 = it[0] * r[5] + it[fl.ncp] * r[6];
+  const double y6 = it[2 * fl.ncp] * r[5] + it[3 * fl.ncp] * r[6];
+  double* x5 = fl.du + 5 * fl.nc + c;
+  double* x6 = fl.du + 6 * fl.nc + c;
+  *x5 = plain_backward ? *x5 - y5 : y5;
+  *x6 = plain_backward ? *x6 - y6 : y6;
+}
+
+}  // namespace
+
+// One whole block sweep of one block: one launch per hyperplane on
+// `stream`, in plane order.  plane_ptr is a HOST array of nplanes+1
+// offsets into the plane-ordered cell lists; extra may be null.  Returns
+// the first non-zero cudaGetLastError() after a launch (0 when every
+// launch was accepted).
+extern "C" int blusgs_sweep_f64(
+    int forward, const double* prim, double* du, const double* mu,
+    const double* mut, const double* f1, const double* vgrad, const double* b,
+    const double* extra, const double* inv_f, const double* inv_t,
+    const int* cells, const int* phys_cells, const double* stat,
+    const unsigned char* mask, long long nc, long long ncp, long long stride_i,
+    long long stride_j, long long stride_k, int nplanes, const int* plane_ptr,
+    double R, double cv, double cp, double hf, double gamma, double prt,
+    double scaling, double t_ref, double cond_c1, double cond_s,
+    double k_nondim, double sigma_k1, double sigma_k2, double sigma_w1,
+    double sigma_w2, void* stream) {
+  Fields fl{prim,  du,    mu,    mut,        f1,   vgrad, b,
+            extra, inv_f, inv_t, cells,      phys_cells, stat, mask,
+            nc,    ncp,   {stride_i, stride_j, stride_k}};
+  Phys ph{R,     cv,      cp,     hf,       gamma,    prt,      scaling, t_ref,
+          cond_c1, cond_s, k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int n = 0; n < nplanes; ++n) {
+    const int p = forward ? n : nplanes - 1 - n;
+    const int start = plane_ptr[p];
+    const int count = plane_ptr[p + 1] - start;
+    const int blocks = (count + THREADS - 1) / THREADS;
+    if (forward)
+      sweep_plane<true><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    else
+      sweep_plane<false><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}

@@ -33,8 +33,9 @@
 // neighbour contributes (mask).  A masked face is skipped by a branch, never
 // multiplied by zero: a ghost state there may be garbage and 0*NaN is NaN.
 //
-// What bounds it on the card: at 1M cells a forward+backward pair moves
-// 0.89 GB (0.27 ms at 3.35 TB/s; kernels/lusgs_sweep.py sweep_cost), while
+// What bounds it on the card: at 1M cells the bytes a forward+backward pair
+// must move take well under 1 ms at 3.35 TB/s (kernels/lusgs_sweep.py
+// sweep_cost; PERF.md), while
 // the pair is 2 x (ni+nj+nk-2) dependent plane launches per block of a few
 // hundred to a few thousand cells each.  Neither bandwidth nor the launch
 // floor (an empty dependent launch takes ~2.3 us on the H100, 3.2 ms for

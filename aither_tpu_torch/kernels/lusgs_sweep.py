@@ -1,16 +1,20 @@
-"""LU-SGS hyperplane sweeps: the hand-written CUDA kernel and its plain
+"""LU-SGS hyperplane sweeps: the hand-written CUDA kernels and their plain
 PyTorch version.
 
 ``forward`` / ``backward`` sweep one block in place.  On a CPU tensor they
 run the plain PyTorch version (``forward_plain`` / ``backward_plain``); on
-a CUDA tensor they launch ``csrc/lusgs_sweep.cu`` (built at first use) and
-raise if it cannot run — there is no fallback.  ``LAUNCHES`` counts the
+a CUDA tensor they launch a kernel (built at first use) and raise if it
+cannot run — there is no fallback: ``csrc/lusgs_sweep.cu`` for the scalar
+solver (lusgs), ``csrc/blusgs_sweep.cu`` for the block solver (blusgs,
+``cfg['block_matrix']``).  ``LAUNCHES`` / ``BLOCK_LAUNCHES`` count each
 kernel's launches (one per hyperplane).
 
 Replaces the TPU kernel ``aither_tpu/solver/pallas_sweep.py::sweep``,
-variants (a) (scalar LU-SGS, one species, SST, no lagged term) and (b)
-(``with_extra``: the lagged opposite-side term of ``matrixSweeps > 1``).
-The plain version has the semantics of the JAX package's
+variants (a) (scalar LU-SGS, one species, SST, no lagged term), (b)
+(``with_extra``: the lagged opposite-side term of ``matrixSweeps > 1``)
+and (c) (``block_matrix``: the block off-diagonal and the inverted 5x5
+flow and 2x2 turbulence diagonal blocks, with or without the lagged
+term).  The plain version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
 (``solver/implicit.py``).  With ``extra`` (neq, ni, nj, nk), the lagged
@@ -43,7 +47,8 @@ class LaunchCounter:
         self.count = 0
 
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()          # csrc/lusgs_sweep.cu (scalar)
+BLOCK_LAUNCHES = LaunchCounter()    # csrc/blusgs_sweep.cu (block)
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +58,25 @@ LAUNCHES = LaunchCounter()
 def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                  forward: bool, extra=None):
     """One sweep of one block over ``plan``'s hyperplanes; updates du IN
-    PLACE (each plane reads only the neighbour plane, already final)."""
+    PLACE (each plane reads only the neighbour plane, already final).
+    With ``cfg['block_matrix']`` the off-diagonal is the block form
+    (``implicit.offdiagonal_block_channels``, reading the neighbour's
+    vgrad) and the inverse the channel-first block diagonal."""
     side = "lower" if forward else "upper"
+    blk = bool(cfg.get("block_matrix"))
     C = prim.shape[0]
     qf = prim.reshape(C, -1)
     duf = du.view(C, -1)
     muf, mutf, f1f = (aux[k].reshape(-1) for k in ("mu", "mut", "f1"))
+    vgf = aux["vgrad"].reshape(9, -1) if blk else None
     bf = b.reshape(C, -1)
     ef = extra.reshape(C, -1) if extra is not None else None
-    invf, invt = inv_f.reshape(-1), inv_t.reshape(-1)
+    if blk:
+        invf, invt = inv_f.reshape(inv_f.shape[0], -1), inv_t.reshape(4, -1)
+        dmul = imp.diag_mult_channels
+    else:
+        invf, invt = inv_f.reshape(-1), inv_t.reshape(-1)
+        dmul = imp.diag_mult
     static, mask = plan.static[side], plan.mask[side]
     strides = plan.strides
     planes = range(plan.nplanes) if forward else range(plan.nplanes - 1,
@@ -74,22 +89,25 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         for d in range(3):
             nb = cells - strides[d] if forward else cells + strides[d]
             stat = static[s:e, d]
-            contrib = imp.offdiagonal_scalar(
+            kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb], f1=f1f[nb])
+            if blk:
+                kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
+            contrib = imp.offdiagonal(
                 phys, cfg, qf[:, nb], duf[:, nb], stat[:, 0:3].T,
-                stat[:, 3], forward, dist=stat[:, 4], mu=muf[nb],
-                mut=mutf[nb], f1=f1f[nb])
+                stat[:, 3], forward, **kw)
             acc = acc + torch.where(mask[s:e, d][None], contrib, 0.0)
-        inv = (invf[pcells], invt[pcells])
+        inv = ((invf[:, pcells], invt[:, pcells]) if blk
+               else (invf[pcells], invt[pcells]))
         if forward:
             rhs = bf[:, pcells] + acc
             if ef is not None:
                 rhs = rhs - ef[:, pcells]
-            duf[:, cells] = imp.diag_mult(phys, *inv, rhs)
+            duf[:, cells] = dmul(phys, *inv, rhs)
         elif ef is not None:
-            duf[:, cells] = imp.diag_mult(
-                phys, *inv, bf[:, pcells] + ef[:, pcells] - acc)
+            duf[:, cells] = dmul(phys, *inv,
+                                 bf[:, pcells] + ef[:, pcells] - acc)
         else:
-            duf[:, cells] = duf[:, cells] - imp.diag_mult(phys, *inv, acc)
+            duf[:, cells] = duf[:, cells] - dmul(phys, *inv, acc)
     return du
 
 
@@ -122,6 +140,19 @@ def _library():
     return fn
 
 
+def _block_library():
+    from ..utils.build import load_cuda_library
+    lib, _ = load_cuda_library("blusgs_sweep")
+    fn = lib.blusgs_sweep_f64
+    if fn.argtypes is None:
+        p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_double)
+        fn.argtypes = ([i] + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
+                       + [p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel_operands(plan):
     """int32 / uint8 device copies of the plan's lists the kernel reads,
     built once per plan."""
@@ -148,11 +179,13 @@ def _check(t, name, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
-                  forward: bool, extra=None):
+def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
+                    aux, extra):
+    """Raise ValueError unless the operands are what the kernel of this
+    solver (scalar or block) reads."""
     if phys.neq != 7 or phys.ns != 1 or phys.turb_model != "sst2003" \
             or not cfg.get("viscous", False):
-        raise ValueError("the CUDA sweep covers one species SST 2003 "
+        raise ValueError("the CUDA sweeps cover one species SST 2003 "
                          "(7 equations, viscous) only")
     dev = prim.device
     NI, NJ, NK = plan.padded
@@ -162,57 +195,116 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     for k in ("mu", "mut", "f1"):
         _check(aux[k], k, (NI, NJ, NK), dev)
     _check(b, "b", (7, ni, nj, nk), dev)
-    _check(inv_f, "inv_f", (ni, nj, nk), dev)
-    _check(inv_t, "inv_t", (ni, nj, nk), dev)
+    if cfg.get("block_matrix"):
+        _check(aux["vgrad"], "vgrad", (3, 3, NI, NJ, NK), dev)
+        _check(inv_f, "inv_f", (25, ni, nj, nk), dev)
+        _check(inv_t, "inv_t", (4, ni, nj, nk), dev)
+    else:
+        _check(inv_f, "inv_f", (ni, nj, nk), dev)
+        _check(inv_t, "inv_t", (ni, nj, nk), dev)
     if extra is not None:
         _check(extra, "extra", (7, ni, nj, nk), dev)
+
+
+def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
+                  forward: bool, extra=None):
+    _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
+    dev = prim.device
+    NI, NJ, NK = plan.padded
+    ni, nj, nk = plan.dims
     ops = _kernel_operands(plan)
     side = "lower" if forward else "upper"
-    fn = _library()
     g = phys.gamma_const
-    err = fn(int(forward), prim.data_ptr(), du.data_ptr(),
-             aux["mu"].data_ptr(), aux["mut"].data_ptr(),
-             aux["f1"].data_ptr(), b.data_ptr(),
-             extra.data_ptr() if extra is not None else None,
-             inv_f.data_ptr(),
-             inv_t.data_ptr(), ops["cells"].data_ptr(),
-             ops["phys_cells"].data_ptr(), ops["static"][side].data_ptr(),
-             ops["mask"][side].data_ptr(), NI * NJ * NK, ni * nj * nk,
-             *plan.strides, plan.nplanes,
-             ops["plane_ptr"].ctypes.data, phys.R, phys.cv, phys.cp,
-             phys.hf, g, prandtl(phys), phys.turb_prandtl(),
-             phys.nondim_scaling, *phys.turb_min(), SST["sigma_k1"],
-             SST["sigma_k2"], torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    geometry = (ops["cells"].data_ptr(), ops["phys_cells"].data_ptr(),
+                ops["static"][side].data_ptr(), ops["mask"][side].data_ptr(),
+                NI * NJ * NK, ni * nj * nk, *plan.strides, plan.nplanes,
+                ops["plane_ptr"].ctypes.data)
+    extra_ptr = extra.data_ptr() if extra is not None else None
+    if cfg.get("block_matrix"):
+        name = "blusgs_sweep_f64"
+        err = _block_library()(
+            int(forward), prim.data_ptr(), du.data_ptr(),
+            aux["mu"].data_ptr(), aux["mut"].data_ptr(),
+            aux["f1"].data_ptr(), aux["vgrad"].data_ptr(), b.data_ptr(),
+            extra_ptr, inv_f.data_ptr(), inv_t.data_ptr(), *geometry,
+            phys.R, phys.cv, phys.cp, phys.hf, g, phys.turb_prandtl(),
+            phys.nondim_scaling, phys.t_ref, phys.cond_c1, phys.cond_s,
+            phys.k_nondim, SST["sigma_k1"], SST["sigma_k2"],
+            SST["sigma_w1"], SST["sigma_w2"], stream)
+        counter = BLOCK_LAUNCHES
+    else:
+        name = "lusgs_sweep_f64"
+        err = _library()(
+            int(forward), prim.data_ptr(), du.data_ptr(),
+            aux["mu"].data_ptr(), aux["mut"].data_ptr(),
+            aux["f1"].data_ptr(), b.data_ptr(), extra_ptr,
+            inv_f.data_ptr(), inv_t.data_ptr(), *geometry, phys.R, phys.cv,
+            phys.cp, phys.hf, g, prandtl(phys), phys.turb_prandtl(),
+            phys.nondim_scaling, *phys.turb_min(), SST["sigma_k1"],
+            SST["sigma_k2"], stream)
+        counter = LAUNCHES
     if err != 0:
-        raise RuntimeError(f"lusgs_sweep_f64: CUDA error {err} at launch")
-    LAUNCHES.count += plan.nplanes
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    counter.count += plan.nplanes
     return du
 
 
-# FP64 operations counted from csrc/lusgs_sweep.cu (each add, subtract,
-# multiply, divide, sqrt, abs, min or max as one): one contributing
-# neighbour's off-diagonal product, and a cell's final update (the lagged
-# term adds one operation per equation)
+# FP64 operations counted from the kernels (each add, subtract, multiply,
+# divide, sqrt, pow, abs, min or max as one): one contributing neighbour's
+# off-diagonal product, and a cell's final update (the lagged term adds one
+# operation per equation).  csrc/lusgs_sweep.cu:
 NEIGHBOUR_OPS = 188
 CELL_OPS = 14
+# csrc/blusgs_sweep.cu: the Rusanov block rows (~155), the TSL rows with
+# the stress vector and dPrim/dCons (~127), the turbulence diagonal (30);
+# a cell's right-hand side and its 5x5 + 2x2 inverse product
+BLOCK_NEIGHBOUR_OPS = 312
+BLOCK_CELL_OPS = 63
 
 
-def sweep_cost(plan, forward: bool, with_extra: bool = False):
-    """(bytes, FP64 operations) of one sweep of one block over ``plan``:
-    each input read once (prim, du, mu, mut, f1 padded; b, inv_f, inv_t,
-    extra, the cell lists, the face statics and masks of the sweep side),
-    du's physical cells written once; NEIGHBOUR_OPS per contributing
-    neighbour of this run's masks, CELL_OPS (+7 with extra) per cell."""
+def neighbour_reads(plan, forward: bool):
+    """(distinct padded cells read as neighbours across the unmasked faces
+    of the sweep side, how many of them are ghosts)."""
+    mask = plan.mask["lower" if forward else "upper"]
+    sign = -1 if forward else 1
+    nbs = torch.unique(torch.cat([plan.cells[mask[:, d]]
+                                  + sign * plan.strides[d]
+                                  for d in range(3)]))
+    return nbs.numel(), nbs.numel() - int(torch.isin(nbs, plan.cells).sum())
+
+
+def sweep_cost(plan, forward: bool, with_extra: bool = False,
+               block: bool = False):
+    """(bytes, FP64 operations) of one sweep of one block over ``plan``,
+    each value the sweep needs read once and du's physical cells written
+    once.  Reads: prim, mu, mut, f1 (and for the block sweep vgrad) at the
+    distinct neighbours across this run's unmasked faces; du's input where
+    the sweep has not rewritten it first (the ghost neighbours, and every
+    cell of a backward sweep without extra: du - D^-1 U); per cell the
+    inverses, b (not in that backward form), extra, the cell lists and
+    masks; the face statics of the unmasked faces.  Operations: the
+    kernel's per contributing neighbour and per cell (+7 with extra)."""
     side = "lower" if forward else "upper"
+    mask = plan.mask[side]
     ncell = int(plan.cells.numel())
-    npad = int(np.prod(plan.padded))
+    nfaces = int(mask.sum())
+    nread, nghost = neighbour_reads(plan, forward)
     neq = 7
-    values = ((2 * neq + 3) * npad + (neq + 2) * ncell
-              + plan.static[side].numel() + neq * ncell
-              + (neq * ncell if with_extra else 0))
-    nbytes = 8 * values + 2 * 4 * ncell + plan.mask[side].numel()
-    ops = (NEIGHBOUR_OPS * int(plan.mask[side].sum())
-           + (CELL_OPS + (neq if with_extra else 0)) * ncell)
+    plain_backward = not forward and not with_extra
+    padded = neq + 3 + (9 if block else 0)
+    per_cell_in = ((25 + 4 if block else 2)
+                   + (0 if plain_backward else neq)
+                   + (neq if with_extra else 0))
+    values = (padded * nread
+              + neq * (nghost + (ncell if plain_backward else 0))
+              + per_cell_in * ncell
+              + plan.static[side].shape[-1] * nfaces
+              + neq * ncell)
+    nbytes = 8 * values + 2 * 4 * ncell + mask.numel()
+    per_nb, per_cell = ((BLOCK_NEIGHBOUR_OPS, BLOCK_CELL_OPS) if block
+                        else (NEIGHBOUR_OPS, CELL_OPS))
+    ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
     return nbytes, ops
 
 
@@ -248,8 +340,11 @@ def _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward, extra):
 def forward(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra=None):
     """Forward LU-SGS sweep of one block; updates and returns du (in
     place).  prim/du (neq, NI, NJ, NK), b and the optional lagged term
-    extra (neq, ni, nj, nk), inv_f/inv_t (ni, nj, nk),
-    aux['mu'|'mut'|'f1'] (NI, NJ, NK)."""
+    extra (neq, ni, nj, nk), aux['mu'|'mut'|'f1'] (NI, NJ, NK); scalar
+    inverses inv_f/inv_t (ni, nj, nk), or for the block solver the
+    channel-first inverse blocks inv_f (25, ni, nj, nk) and inv_t (4, ni,
+    nj, nk) (``implicit.blk_to_channels``) and aux['vgrad'] (3, 3, NI, NJ,
+    NK)."""
     return _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, True,
                   extra)
 

@@ -3,8 +3,9 @@ logging in the reference format.
 
 Port of ``aither_tpu/solver/driver.py`` for the slice the port runs:
 ``Solver.__init__`` (the subset the main-path deck needs), ``_iteration``,
-``_setup_linear`` (with the matrix initialisation ``matrixSweeps > 1``
-needs), the lusgs branch of ``_relax`` at one grid level,
+``_setup_linear`` (scalar or block diagonal, with the matrix
+initialisation ``matrixSweeps > 1`` needs), the lusgs / blusgs branch of
+``_relax`` at one grid level,
 ``_implicit_update``,
 ``store_old_solution``, the ``.resid`` / ``.tme`` writers with the
 first-5-iteration re-max normalisation, and the per-step branch of
@@ -46,7 +47,7 @@ def check_supported(deck):
         refuse("turbulenceModel", v["turbulenceModel"])
     if v["timeIntegration"] != "implicitEuler":
         refuse("timeIntegration", v["timeIntegration"])
-    if v["matrixSolver"] != "lusgs":
+    if v["matrixSolver"] not in ("lusgs", "blusgs"):
         refuse(v["matrixSolver"])
     if v["inviscidFluxJacobian"] != "rusanov":
         refuse("approximateRoe")
@@ -157,12 +158,17 @@ class Solver:
             dts[b.index] = step_mod.local_dt(cfg, b.geom, sr_max, b.g,
                                              (b.ni, b.nj, b.nk), cfl)
 
-        # connection swaps of eddy viscosity / f1 so the implicit
+        # connection swaps of eddy viscosity / f1 (and, for the block
+        # solver, the 9 velocity-gradient channels) so the implicit
         # off-diagonals see donor values at connection ghosts (reference:
         # gridLevel.cpp:343-395, procBlock.cpp:3057-3084)
         for key in ("mut", "f1"):
             step_mod.swap_connections(
                 {bi: auxs[bi][key][None] for bi in auxs}, case.swap_maps)
+        if cfg["block_matrix"]:
+            step_mod.swap_connections(
+                {bi: auxs[bi]["vgrad"].view((9,) + auxs[bi]["mu"].shape)
+                 for bi in auxs}, case.swap_maps)
         return prims, residuals, specrads, diags, dts, auxs
 
     def _iteration(self, prims, cons_n, cfl):
@@ -188,23 +194,35 @@ class Solver:
         """Inverted diagonal, diagonal, rhs b and initial update per block:
         zero, or D^-1 b on the interior when the deck needs the matrix
         initialised (matrixSweeps > 1) (reference:
-        linearSolver::AddDiagonalTerms / Invert / InitializeMatrixUpdate)."""
+        linearSolver::AddDiagonalTerms / Invert / InitializeMatrixUpdate).
+        For blusgs the diagonal is the (ni, nj, nk, N, N) flow and (ni, nj,
+        nk, 2, 2) turbulence blocks, and its inverse those blocks as the
+        sweeps take them: channels (N*N, ni, nj, nk) and (4, ni, nj, nk),
+        permuted once here."""
         phys, cfg = self.phys, self.cfg
         inv_diag, a_diag, bs, dus = {}, {}, {}, {}
         for b in self.case.blocks:
-            df, dtu = diags[b.index]
-            inv_flow, inv_turb = imp.build_diagonal(
-                phys, b, cfg, df, dtu, specrads[b.index], dts[b.index])
+            if cfg["block_matrix"]:
+                aux = auxs[b.index]
+                a_diag[b.index], inv = imp.build_block_diagonal(
+                    phys, b, cfg, aux["diag_flow_blk"], aux["diag_turb_blk"],
+                    specrads[b.index], dts[b.index])
+                inv_flow, inv_turb = (imp.blk_to_channels(m) for m in inv)
+                dmul = imp.diag_mult_channels
+            else:
+                df, dtu = diags[b.index]
+                inv_flow, inv_turb = imp.build_diagonal(
+                    phys, b, cfg, df, dtu, specrads[b.index], dts[b.index])
+                a_diag[b.index] = (1.0 / inv_flow, 1.0 / inv_turb)
+                dmul = imp.diag_mult
             inv_diag[b.index] = (inv_flow, inv_turb)
-            a_diag[b.index] = (1.0 / inv_flow, 1.0 / inv_turb)
             bs[b.index] = imp.rhs_b(phys, b, cfg, prims[b.index],
                                     residuals[b.index], cons_n[b.index],
                                     dts[b.index])
             du = torch.zeros((phys.neq,) + b.shape, dtype=self.case.dtype,
                              device=self.device)
             if cfg["matrix_init"]:
-                du[b.interior] = imp.diag_mult(phys, inv_flow, inv_turb,
-                                               bs[b.index])
+                du[b.interior] = dmul(phys, inv_flow, inv_turb, bs[b.index])
             dus[b.index] = du
         return inv_diag, a_diag, bs, dus
 

@@ -27,6 +27,9 @@ EPS = 1.0e-30
 SST = dict(beta_star=0.09, sigma_k1=0.85, sigma_k2=1.0, sigma_w1=0.5,
            sigma_w2=0.856, beta1=0.075, beta2=0.0828, gamma1=5.0 / 9.0,
            gamma2=0.44, a1=0.31, prt=0.9, k_prod2dest=10.0)
+# k-omega Wilcox 2006, read only by the block Jacobians' Wilcox branches
+# (solver/block_jac.py); the port's decks refuse the model itself
+WILCOX = dict(beta_star=0.09, sigma=0.5, sigma_star=0.6)
 
 
 def sigma_k(f1):
@@ -323,11 +326,15 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     Returns (resid_v, sr_flow, sr_turb, diag_flow, diag_turb, cellavg)
     where resid_v is ADDED to the inviscid residual (sign handled here)
     and cellavg holds the 1/6-weighted cell gradients ('vel', 'tke',
-    'omega') and mut / f1 / f2."""
+    'omega') and mut / f1 / f2.  With ``cfg['block_matrix']`` (blusgs) it
+    also returns the thin-shear-layer block diagonal, diag_flow_blk
+    (ni, nj, nk, N, N) and diag_turb_blk (ni, nj, nk, 2, 2)
+    (procBlock.cpp:1414-1470)."""
     g = block.g
     dims = dict(i=block.ni, j=block.nj, k=block.nk)
     is_rans = phys.nturb > 0
     is_turb = cfg.get("turbulent", is_rans)
+    blk = bool(cfg.get("block_matrix"))
     visc_coeff = cfg["viscous_cfl_coeff"]
     scaling = phys.nondim_scaling
     prt = SST["prt"]
@@ -347,6 +354,12 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     for key in ca_keys:
         lead = (3, 3) if key == "vel" else (3,)
         cellavg[key] = torch.zeros(lead + shape_c, **kw)
+    if blk:
+        from . import block_jac as bj     # block_jac imports this module
+        N = phys.ns + 4
+        diag_flow_blk = torch.zeros(shape_c + (N, N), **kw)
+        diag_turb_blk = (torch.zeros(shape_c + (2, 2), **kw) if is_rans
+                         else None)
 
     P = tuple(slice(g, g + dims[dd]) for dd in "ijk")
     cell_q = prim[(slice(None),) + P]
@@ -421,9 +434,27 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
         # viscous fluxes subtract where inviscid adds (procBlock.cpp:1395)
         resid = resid - (fa[tuple(hi)] - fa[tuple(lo)])
 
+        flo3, fhi3 = _face_lohi(AX[d], n)
+        if blk:
+            # TSL viscous block diagonal (procBlock.cpp:1414-1470): a cell
+            # gets +TSL(right) at its lower face, -TSL(left) at its upper
+            # face; the face distance is the centre-to-centre distance
+            # projected on the face normal
+            center = block.geom["center"]
+            c2c = cellslab(center, 1) - cellslab(center, 0)
+            dist_f = torch.abs((c2c * nvec).sum(dim=0))
+            jl_f, jl_t = bj.approx_tsl_jacobian(
+                phys, cfg, qf, muf, mutf, f1f, nvec, mag, dist_f, vgrad,
+                left=True)
+            jr_f, jr_t = bj.approx_tsl_jacobian(
+                phys, cfg, qf, muf, mutf, f1f, nvec, mag, dist_f, vgrad,
+                left=False)
+            diag_flow_blk = diag_flow_blk + jr_f[flo3] - jl_f[fhi3]
+            if is_rans:
+                diag_turb_blk = diag_turb_blk + jr_t[flo3] - jl_t[fhi3]
+
         # cell-average gradient/mut accumulation (1/6 per face)
         sixth = 1.0 / 6.0
-        flo3, fhi3 = _face_lohi(AX[d], n)
         for key in ca_keys:
             garr = grads[key]
             cellavg[key] = cellavg[key] + sixth * (
@@ -446,4 +477,7 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
             sr_turb = sr_turb + visc_coeff * tvsr
             diag_turb = diag_turb + 2.0 * tvsr
 
+    if blk:
+        return (resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg,
+                diag_flow_blk, diag_turb_blk)
     return resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg

@@ -6,7 +6,6 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "blusgs": f"{_Q1} 2 (LU-SGS kernel variant (c), block matrices)",
     "dplur": f"{_Q1} 3 (linear-solver variants)",
     "bdplur": f"{_Q1} 3 (linear-solver variants)",
     "approximateRoe": f"{_Q1} 3 (linear-solver variants)",

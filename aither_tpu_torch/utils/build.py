@@ -7,7 +7,8 @@ unchanged one is reused within a checkout.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
-    load_cuda_libraries(["lusgs_sweep", "viscous_march"])  # parallel nvcc
+    load_cuda_libraries(["lusgs_sweep", "blusgs_sweep", "viscous_march"])
+    # ^ one nvcc per library, all started together
 """
 
 from __future__ import annotations

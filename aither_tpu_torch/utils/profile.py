@@ -2,10 +2,12 @@
 
     python -m aither_tpu_torch.utils.profile [--dims NI NJ NK]
                                              [--iterations N] [--warmup W]
+                                             [--matrix-solver lusgs|blusgs]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
-default the 1.05M-cell case) to ``smoke_run/profile/``, runs W warm-up
-iterations, then N iterations three times:
+default the 1.05M-cell case; the deck's matrixSolver as given, default
+lusgs) to ``smoke_run/profile_<solver>/``, runs W warm-up iterations, then
+N iterations three times:
 
 1. plain, ending in one synchronise: the iteration time;
 2. with a device synchronise around each layer (ghosts, residual, linear
@@ -85,6 +87,8 @@ def main(argv=None):
                         default=list(cases.SMOKE_3D_DIMS))
     parser.add_argument("--iterations", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=3)
+    parser.add_argument("--matrix-solver", choices=("lusgs", "blusgs"),
+                        default="lusgs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -92,9 +96,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    wd = os.path.join(os.getcwd(), "smoke_run", "profile")
-    solver = driver.Solver(cases.write_plate_case(wd, *args.dims),
-                           device="cuda", workdir=wd)
+    wd = os.path.join(os.getcwd(), "smoke_run",
+                      f"profile_{args.matrix_solver}")
+    solver = driver.Solver(
+        cases.write_plate_case(wd, *args.dims,
+                               matrix_solver=args.matrix_solver),
+        device="cuda", workdir=wd)
     n = args.iterations
     iterate(solver, args.warmup)
 
@@ -124,6 +131,7 @@ def main(argv=None):
     busy_ms = sum(k[1] for k in kernels)
     print(json.dumps({
         "card": card, "dims": args.dims, "cells": solver.case.total_cells,
+        "matrix_solver": args.matrix_solver,
         "iterations": n, "iteration_ms": iteration_ms,
         "iteration_ms_synced": synced_ms, "layers_ms": layers,
         "device_busy_ms": busy_ms,

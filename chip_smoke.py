@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — implicit SST RANS, the viscous residual on
-the hand-written fused kernel (csrc/viscous_march.cu), LU-SGS sweeps on
-the hand-written sweep kernel (csrc/lusgs_sweep.cu) — on the generated
-two-block flat plate (aither_tpu_torch/cases.py) and checks it.  Phases,
-each printing its own lines:
+Drives the port's paths — implicit SST RANS with scalar LU-SGS (lusgs:
+the viscous residual on the hand-written fused kernel csrc/viscous_march.cu,
+the sweeps on the hand-written csrc/lusgs_sweep.cu) and with block-matrix
+LU-SGS (blusgs: the sweeps on the hand-written csrc/blusgs_sweep.cu) — on
+the generated two-block flat plate (aither_tpu_torch/cases.py) and checks
+them.  Phases, each printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
- 2. build: both kernels from csrc/, one nvcc each, started together
+ 2. build: the three kernels from csrc/, one nvcc each, started together
     (time, ptxas report: registers and spills);
- 3. kernels against their plain PyTorch versions at the main path's
+ 3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
     1.05M cells), identical inputs, times with CUDA events in the order
-    plain, kernel, kernel, plain:
-    - the sweep pair without (variant a) and with (variant b) the lagged
-      term: max relative difference per equation within SWEEP_RTOL;
+    plain, kernel, kernel, plain (a sweep pair's checked plain run is its
+    first plain time):
+    - the scalar sweep pair without (variant a) and with (variant b) the
+      lagged term, and the block sweep pair of the blusgs deck without
+      (variant c) and with (variant c+b) it: max relative difference per
+      equation within SWEEP_RTOL;
     - the viscous residual of every block on a seeded 1%-perturbed state:
       every output within |kernel - plain| <= VISC_ATOL max|plain| +
       VISC_RTOL |plain|;
@@ -32,9 +36,15 @@ each printing its own lines:
  5. the lagged-term path, matrixSweeps 2: the same on case B for
     LAGGED_ITERATIONS, sweep launches = iterations x 2 x 2 x hyperplanes
     (every sweep takes the lagged term: the matrix is initialised);
- 6. reference: the small test case with matrixSweeps 1 and 2 run on cuda
-    and on cpu (plain versions) give the same raw residual L2 history
-    within REF_RTOL.
+ 6. reference: the small test case, lusgs and blusgs, with matrixSweeps 1
+    and 2 run on cuda and on cpu (plain versions) give the same raw
+    residual L2 history within REF_RTOL;
+ 7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
+    BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
+    BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
+    phases 4-5: block sweep launches = iterations x matrixSweeps x 2 x
+    hyperplanes, no scalar sweep and no viscous kernel launch (the block
+    solvers take the plain viscous residual, as in the JAX package).
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object, and last {"ok": true, "device": {...}}.  Any failure exits
@@ -57,20 +67,24 @@ RUN_DIR = os.path.join(REPO, "smoke_run")
 
 MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 8
+BLOCK_ITERATIONS = 8
+BLOCK_LAGGED_ITERATIONS = 7
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 FLOOR_PLANES = 2000      # empty plane launches timed for the floor
 # one NVIDIA H100 SXM (data sheet): HBM rate; FP64 peak outside the tensor
-# cores (both kernels are elementwise FP64)
+# cores (the kernels are elementwise FP64)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
-# sweep kernel vs plain: max |kernel - plain| / max |plain| per equation.
+# sweep kernels vs plain: max |kernel - plain| / max |plain| per equation.
 # The two differ by FMA contraction and the order of the three directions'
-# sums (~1e-16 relative per operation), carried through the plane
-# recurrence and the flux-difference cancellation (~2 digits).  The
+# sums (~1e-16 relative per operation; the block kernel also sums each
+# Jacobian row in another order), carried through the plane recurrence and
+# the flux-difference cancellation (~2 digits).  The
 # plate's spanwise momentum update is orders of magnitude smaller than
 # the others' and shows the largest relative difference (2.1e-10 at case
-# B, max abs 4.5e-16, on the H100).
+# B, max abs 4.5e-16, on the H100).  The block sweep has no flux
+# difference to cancel: 1.1e-15 at most (case B, H100).
 SWEEP_RTOL = 1e-9
 # viscous kernel vs plain, elementwise |kernel - plain| <= VISC_RTOL |plain|
 # + VISC_ATOL max|plain of that output|: the bound the JAX package holds its
@@ -108,22 +122,28 @@ def check_no_jax_package():
         fail(f"the port loaded the JAX side: {sorted(loaded)[:5]}")
 
 
-def timed_ms(torch, fn, reps: int) -> float:
-    """mean milliseconds of fn() over reps, by CUDA events."""
+def timed_once(torch, fn):
+    """(fn(), milliseconds of that one call by CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return out, start.elapsed_time(stop)
 
 
-def in_turns(torch, plain, kernel):
+def timed_ms(torch, fn, reps: int) -> float:
+    """mean milliseconds of fn() over reps, by CUDA events."""
+    _, ms = timed_once(torch, lambda: [fn() for _ in range(reps)])
+    return ms / reps
+
+
+def in_turns(torch, plain, kernel, p1=None):
     """(kernel ms, plain ms, [p1, k1, k2, p2]) timed plain, kernel, kernel,
-    plain."""
-    p1 = timed_ms(torch, plain, 1)
+    plain; p1 is the first plain time when the caller has timed it."""
+    if p1 is None:
+        p1 = timed_ms(torch, plain, 1)
     k1 = timed_ms(torch, kernel, KERNEL_REPS)
     k2 = timed_ms(torch, kernel, KERNEL_REPS)
     p2 = timed_ms(torch, plain, 1)
@@ -178,17 +198,28 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as imp
     prims, auxs, _, _, du0 = system
-    variant = "b (lagged term)" if with_extra else "a"
+    block = bool(solver.cfg["block_matrix"])
+    variant = {(False, False): "a", (False, True): "b (lagged term)",
+               (True, False): "c (block)",
+               (True, True): "c+b (block, lagged term)"}[(block, with_extra)]
     extras = None
     if with_extra:
         extras = {b.index: tuple(imp.offdiag_sum(
             solver.phys, solver.cfg, b, prims[b.index], du0[b.index], side,
             auxs[b.index]) for side in ("upper", "lower"))
             for b in solver.case.blocks}
-    kern = sweep_pair(solver, system, ls.forward, ls.backward, du0, extras)
-    plain = sweep_pair(solver, system, ls.forward_plain, ls.backward_plain,
-                       du0, extras)
-    torch.cuda.synchronize()
+    def run_plain():
+        return sweep_pair(solver, system, ls.forward_plain,
+                          ls.backward_plain, du0, extras)
+
+    def run_kernel():
+        return sweep_pair(solver, system, ls.forward, ls.backward, du0,
+                          extras)
+
+    kern = run_kernel()
+    # the plain pair takes seconds: its checked run is also its first
+    # timed one
+    plain, p1 = timed_once(torch, run_plain)
     max_abs = 0.0
     rel = np.zeros(solver.phys.neq)     # per equation, worst block
     for bi, p in plain.items():
@@ -207,13 +238,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
     if not rel.max() <= SWEEP_RTOL:
         fail(f"{label}: sweep kernel variant {variant} disagrees with the "
              f"plain sweep")
-    kernel_ms, plain_ms, t = in_turns(
-        torch,
-        lambda: sweep_pair(solver, system, ls.forward_plain,
-                           ls.backward_plain, du0, extras),
-        lambda: sweep_pair(solver, system, ls.forward, ls.backward, du0,
-                           extras))
-    costs = [ls.sweep_cost(p, fwd, with_extra)
+    kernel_ms, plain_ms, t = in_turns(torch, run_plain, run_kernel, p1)
+    costs = [ls.sweep_cost(p, fwd, with_extra, block)
              for p in solver.plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
     print(f"phase 3 {label}: sweep variant {variant}, forward+backward "
@@ -347,28 +373,37 @@ def read_tme(path):
 def drive(torch, solver, iterations, sweep_pairs, label, card):
     """Solver.run on the card with the launch counters set to 0 just
     before and read just after; checks and prints; returns the launch
-    counts {kernel: n}."""
+    counts {kernel: n}.  lusgs launches the scalar sweep and the viscous
+    kernel, blusgs the block sweep only."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     cells = solver.case.total_cells
     nblocks = len(solver.case.blocks)
     planes = sum(p.nplanes for p in solver.plans.values())
+    counters = {"lusgs_sweep": ls.LAUNCHES, "blusgs_sweep": ls.BLOCK_LAUNCHES,
+                "viscous_march": vm.LAUNCHES}
+    sweeps = iterations * sweep_pairs * 2 * planes
+    if solver.cfg["block_matrix"]:
+        expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
+                  "viscous_march": 0}
+    else:
+        expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
+                  "viscous_march": iterations * nblocks}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ls.LAUNCHES.reset()
-    vm.LAUNCHES.reset()
+    for c in counters.values():
+        c.reset()
     solver.run(iterations=iterations)
-    launches = {"lusgs_sweep": ls.LAUNCHES.count,
-                "viscous_march": vm.LAUNCHES.count}
+    launches = {name: c.count for name, c in counters.items()}
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    expect = {"lusgs_sweep": iterations * sweep_pairs * 2 * planes,
-              "viscous_march": iterations * nblocks}
     print(f"{label}: {iterations} iterations of case B ({cells} cells, "
-          f"matrixSweeps {sweep_pairs}), kernel launches {launches} "
-          f"(expected {expect})", flush=True)
+          f"{solver.deck['matrixSolver']}, matrixSweeps {sweep_pairs}), "
+          f"kernel launches {launches} (expected {expect})", flush=True)
+    if sweeps == 0:
+        fail(f"{label}: no sweep launch expected")
     for name, n in expect.items():
-        if launches[name] != n or n == 0:
+        if launches[name] != n:
             fail(f"{label}: {name} launched {launches[name]} times, "
                  f"expected {n}")
     l2 = solver.l2_history
@@ -390,12 +425,14 @@ def drive(torch, solver, iterations, sweep_pairs, label, card):
     return launches
 
 
-def reference_history(Solver, write_plate_case, dims, device, sweeps):
+def reference_history(Solver, write_plate_case, dims, device, solver_name,
+                      sweeps):
     """raw L2 history (REF_ITERATIONS, neq) of the small case from a
     state perturbed by up to 1% on the interior (seeded; the unperturbed
     plate has roundoff-level residual components)."""
-    wd = os.path.join(RUN_DIR, f"reference_{device}_{sweeps}")
-    s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps),
+    wd = os.path.join(RUN_DIR, f"reference_{device}_{solver_name}_{sweeps}")
+    s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
+                                matrix_solver=solver_name),
                device=device, workdir=wd)
     rng = np.random.default_rng(7)
     prims = {}
@@ -439,9 +476,11 @@ def main():
 
     # -- phase 2: build -------------------------------------------------------
     t0 = time.perf_counter()
-    libs = load_cuda_libraries(["lusgs_sweep", "viscous_march"])
-    print(f"phase 2 build: both libraries in {time.perf_counter() - t0:.2f} "
-          f"s (one nvcc each, in parallel)", flush=True)
+    libs = load_cuda_libraries(["lusgs_sweep", "blusgs_sweep",
+                                "viscous_march"])
+    print(f"phase 2 build: {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)",
+          flush=True)
     for name, (_, info) in libs.items():
         print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
               f"built={info['built']} in {info['seconds']:.2f} s",
@@ -450,20 +489,35 @@ def main():
             if "registers" in ln or "spill" in ln:
                 print(f"phase 2 ptxas {name}: {ln.strip()}", flush=True)
 
+    def build(label, dims, solver_name, sweeps=1, tag=""):
+        wd = os.path.join(RUN_DIR, f"{label}_{solver_name}{tag}".replace(
+            " ", "_"))
+        t0 = time.perf_counter()
+        s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
+                                    matrix_solver=solver_name),
+                   device="cuda", workdir=wd)
+        print(f"{label}: 2 blocks of {dims} ({solver_name}, matrixSweeps "
+              f"{sweeps}) built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return s
+
     # -- phase 3: kernels vs plain at main-path shapes ------------------------
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     results = {}
     solver = None
     for label, dims in (("case A", SMOKE_2D_DIMS), ("case B", SMOKE_3D_DIMS)):
         del solver
-        wd = os.path.join(RUN_DIR, label.replace(" ", "_"))
-        t0 = time.perf_counter()
-        solver = Solver(write_plate_case(wd, *dims), device="cuda",
-                        workdir=wd)
-        print(f"phase 3 {label}: 2 blocks of {dims} built in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        solver = build(f"phase 3 {label}", dims, "blusgs")
         system = linear_system(solver)
         results[label] = dict(
+            sweep_c=compare_sweeps(torch, solver, system, label, card,
+                                   False),
+            sweep_cb=compare_sweeps(torch, solver, system, label, card,
+                                    True))
+        del system, solver
+        solver = build(f"phase 3 {label}", dims, "lusgs")
+        system = linear_system(solver)
+        results[label].update(
             sweep_a=compare_sweeps(torch, solver, system, label, card,
                                    False),
             sweep_b=compare_sweeps(torch, solver, system, label, card, True),
@@ -477,27 +531,38 @@ def main():
     del solver
 
     # -- phase 5: the lagged-term path, matrixSweeps 2 ------------------------
-    wd = os.path.join(RUN_DIR, "case_B_matrixSweeps_2")
-    solver = Solver(write_plate_case(wd, *SMOKE_3D_DIMS, matrix_sweeps=2),
-                    device="cuda", workdir=wd)
+    solver = build("phase 5", SMOKE_3D_DIMS, "lusgs", 2)
     launches_b = drive(torch, solver, LAGGED_ITERATIONS, 2,
                        "phase 5 matrixSweeps 2", card)
     del solver
 
     # -- phase 6: small-case reference, cuda against cpu ----------------------
-    for sweeps in (1, 2):
-        hist = {dev: reference_history(Solver, write_plate_case, TEST_DIMS,
-                                       dev, sweeps)
-                for dev in ("cuda", "cpu")}
-        # per equation, relative to that equation's largest L2
-        worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
-                       / np.abs(hist["cpu"]).max(axis=0)).max())
-        print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, matrixSweeps "
-              f"{sweeps}, {REF_ITERATIONS} iterations, cuda vs cpu raw L2 "
-              f"max rel diff {worst:.3e} (tol {REF_RTOL:.0e})", flush=True)
-        if not worst <= REF_RTOL:
-            fail(f"matrixSweeps {sweeps}: the cuda run disagrees with the "
-                 f"cpu run")
+    for solver_name in ("lusgs", "blusgs"):
+        for sweeps in (1, 2):
+            hist = {dev: reference_history(Solver, write_plate_case,
+                                           TEST_DIMS, dev, solver_name,
+                                           sweeps)
+                    for dev in ("cuda", "cpu")}
+            # per equation, relative to that equation's largest L2
+            worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
+                           / np.abs(hist["cpu"]).max(axis=0)).max())
+            print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, "
+                  f"{solver_name}, matrixSweeps {sweeps}, {REF_ITERATIONS} "
+                  f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
+                  f"(tol {REF_RTOL:.0e})", flush=True)
+            if not worst <= REF_RTOL:
+                fail(f"{solver_name}, matrixSweeps {sweeps}: the cuda run "
+                     f"disagrees with the cpu run")
+
+    # -- phase 7: the blusgs path, matrixSweeps 1 and 2 -----------------------
+    solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 1)
+    launches_c = drive(torch, solver, BLOCK_ITERATIONS, 1,
+                       "phase 7 blusgs", card)
+    del solver
+    solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 2, "_2")
+    launches_cb = drive(torch, solver, BLOCK_LAGGED_ITERATIONS, 2,
+                        "phase 7 blusgs matrixSweeps 2", card)
+    del solver
     check_no_jax_package()
 
     def row(name, key, launches, replaces, source):
@@ -510,11 +575,16 @@ def main():
 
     sweep_src = "aither_tpu_torch/csrc/lusgs_sweep.cu"
     sweep_tpu = "aither_tpu/solver/pallas_sweep.py:239"
+    block_src = "aither_tpu_torch/csrc/blusgs_sweep.cu"
     kernels = [
         row("lusgs_sweep (variant a)", "sweep_a", launches_a["lusgs_sweep"],
             sweep_tpu, sweep_src),
         row("lusgs_sweep (variant b, lagged term)", "sweep_b",
             launches_b["lusgs_sweep"], sweep_tpu, sweep_src),
+        row("blusgs_sweep (variant c, block)", "sweep_c",
+            launches_c["blusgs_sweep"], sweep_tpu, block_src),
+        row("blusgs_sweep (variant c+b, block, lagged term)", "sweep_cb",
+            launches_cb["blusgs_sweep"], sweep_tpu, block_src),
         row("viscous_march", "viscous", launches_a["viscous_march"],
             "aither_tpu/solver/pallas_residual.py:602",
             "aither_tpu_torch/csrc/viscous_march.cu")]

@@ -123,7 +123,7 @@ def test_port_never_imports_jax(tmp_path, blocked):
 
 
 @pytest.mark.parametrize("patch", [
-    ("matrixSolver", "blusgs"), ("matrixSolver", "dplur"),
+    ("matrixSolver", "bdplur"), ("matrixSolver", "dplur"),
     ("multigridLevels", "2"), ("inviscidFluxJacobian", "approximateRoe"),
     ("faceReconstruction", "weno"), ("inviscidFlux", "ausm"),
     ("timeIntegration", "bdf2"), ("turbulenceModel", "kOmegaWilcox2006"),
