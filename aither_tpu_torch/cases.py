@@ -1,4 +1,4 @@
-"""Generated main-path case: a two-block SST k-omega flat plate.
+"""Generated main-path case: a two-block flat plate, SST k-omega by default.
 
 The headline deck of the JAX package is RAE2822 (implicit RANS, SST 2003,
 scalar LU-SGS with one sweep, Rusanov off-diagonal, Roe + MUSCL, a C-grid
@@ -15,6 +15,12 @@ Interblock tags encode the partner as ``partnerSurface*1000 +
 partnerBlock`` with surfaces numbered 1-6 = i-lo, i-hi, j-lo, j-hi, k-lo,
 k-hi, so block 0's i-hi patch names surface 1 of block 1 (``1001``) and
 block 1's i-lo patch names surface 2 of block 0 (``2000``).
+
+``equation_set`` and ``turbulence_model`` select the other physics the
+port runs (euler, navierStokes, largeEddySimulation + wale, rans +
+kOmegaWilcox2006 / sst2003 / sstdes).  Without turbulence equations the
+states carry no turbulence entries; for ``euler`` the j-min patches are
+``slipWall`` and the ``viscousWall`` boundary state goes.
 
 Usage::
 
@@ -47,8 +53,8 @@ outputFrequency: 1000
 referenceDensity: 1.2256
 referenceTemperature: 288.0
 referenceLength: 1.0
-equationSet: rans
-turbulenceModel: sst2003
+equationSet: {equation_set}
+turbulenceModel: {turbulence_model}
 timeIntegration: implicitEuler
 matrixSolver: {matrix_solver}
 matrixSweeps: {matrix_sweeps}
@@ -62,20 +68,20 @@ cflStart: 10.0
 cflStep: 10.0
 cflMax: 1000.0
 fluids: <fluid(name=air; referenceMassFraction=1.0)>
-initialConditions: <icState(tag=-1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]; turbulenceIntensity=0.01; eddyViscosityRatio=10.0)>
-boundaryStates: <characteristic(tag=1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]; turbulenceIntensity=0.01; eddyViscosityRatio=10.0), viscousWall(tag=2; temperature=288.0)>
+initialConditions: <icState(tag=-1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]{turb})>
+boundaryStates: <characteristic(tag=1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]{turb}){wall_state}>
 boundaryConditions: 2
 2 2 2
   characteristic  0 0 0 {nj} 0 {nk} 1
   interblock  {ni} {ni} 0 {nj} 0 {nk} 1001
-  viscousWall  0 {ni} 0 0 0 {nk} 2
+  {wall}
   characteristic  0 {ni} {nj} {nj} 0 {nk} 1
   slipWall  0 {ni} 0 {nj} 0 0 0
   slipWall  0 {ni} 0 {nj} {nk} {nk} 0
 2 2 2
   interblock  0 0 0 {nj} 0 {nk} 2000
   characteristic  {ni} {ni} 0 {nj} 0 {nk} 1
-  viscousWall  0 {ni} 0 0 0 {nk} 2
+  {wall}
   characteristic  0 {ni} {nj} {nj} 0 {nk} 1
   slipWall  0 {ni} 0 {nj} 0 0 0
   slipWall  0 {ni} 0 {nj} {nk} {nk} 0
@@ -100,15 +106,27 @@ def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
 def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      iterations: int = 10, name: str = "plate",
                      matrix_sweeps: int = 1,
-                     matrix_solver: str = "lusgs") -> str:
+                     matrix_solver: str = "lusgs",
+                     equation_set: str = "rans",
+                     turbulence_model: str = "sst2003") -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
-    ``matrix_solver`` "blusgs" the block-matrix LU-SGS."""
+    ``matrix_solver`` "blusgs" the block-matrix LU-SGS; ``equation_set``
+    and ``turbulence_model`` the physics (module docstring)."""
+    turb = ("; turbulenceIntensity=0.01; eddyViscosityRatio=10.0"
+            if equation_set == "rans" else "")
+    inviscid = equation_set == "euler"
+    wall = (f"slipWall  0 {ni} 0 0 0 {nk} 0" if inviscid
+            else f"viscousWall  0 {ni} 0 0 0 {nk} 2")
+    wall_state = "" if inviscid else ", viscousWall(tag=2; temperature=288.0)"
     os.makedirs(out_dir, exist_ok=True)
     write_p3d(os.path.join(out_dir, f"{name}.xyz"), plate_nodes(ni, nj, nk))
     deck_path = os.path.join(out_dir, f"{name}.inp")
     with open(deck_path, "w") as f:
         f.write(_DECK.format(grid=name, iterations=iterations, ni=ni, nj=nj,
                              nk=nk, matrix_sweeps=matrix_sweeps,
-                             matrix_solver=matrix_solver))
+                             matrix_solver=matrix_solver,
+                             equation_set=equation_set,
+                             turbulence_model=turbulence_model, turb=turb,
+                             wall=wall, wall_state=wall_state))
     return deck_path

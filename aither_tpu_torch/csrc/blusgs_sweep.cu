@@ -3,10 +3,22 @@
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
 // (pallas_call at pallas_sweep.py:342) with block_matrix set, variant (c):
-// one species, SST k-omega (7 equations), viscous, Rusanov off-diagonal,
-// without and with the lagged opposite-side term `extra` (matrixSweeps > 1,
-// variant (c)+(b)).  The scalar sweep of variants (a)/(b) is
-// csrc/lusgs_sweep.cu; this file keeps its structure.
+// one species, Rusanov off-diagonal, without and with the lagged
+// opposite-side term `extra` (matrixSweeps > 1, variant (c)+(b)), in the
+// forms the single-species models need, each a compile-time instantiation
+// of one sweep_plane<NEQ, VISCOUS, WILCOX, FORWARD>:
+//   5 equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
+//     vgrad and the centre distance are not read;
+//   5 equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
+//     rows with mu + mut and no turbulent conductivity (as
+//     block_jac._tsl_rows without turbulence equations); 25 inverse
+//     channels, inv_t null;
+//   7 equations SST 2003 / SST-DES: plus the 2x2 turbulence block with the
+//     blended sigma_k, sigma_w and the mut field;
+//   7 equations Wilcox 2006: that block with sigma*, sigma constant and
+//     the unlimited rho k / omega of the neighbour state.
+// The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
+// keeps its structure.
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -26,9 +38,9 @@
 // updated IN PLACE, one launch per plane: a plane reads only neighbour
 // planes.
 //
-// Layout: prim, du (7, NI, NJ, NK), mu, mut, f1 (NI, NJ, NK) and the
+// Layout: prim, du (NEQ, NI, NJ, NK), mu, mut, f1 (NI, NJ, NK) and the
 // neighbours' cell-average velocity gradient vgrad (3, 3, NI, NJ, NK),
-// vgrad[a][b] = d v_b / d x_a, padded; b, extra (7, ni, nj, nk) and the
+// vgrad[a][b] = d v_b / d x_a, padded; b, extra (NEQ, ni, nj, nk) and the
 // inverse blocks inv_f (25, ni, nj, nk) row-major, inv_t (4, ni, nj, nk)
 // physical, channel first so that a warp reads each channel in one pass.
 // The host plan (SweepPlan) lists each plane's cells and per cell and
@@ -55,13 +67,13 @@
 
 namespace {
 
-constexpr int NEQ = 7;
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 constexpr int THREADS = 128;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prt, scaling;
   double t_ref, cond_c1, cond_s, k_nondim;
+  // SST blends; Wilcox: sigma* in sigma_k1 and sigma in sigma_w1
   double sigma_k1, sigma_k2, sigma_w1, sigma_w2;
 };
 
@@ -86,9 +98,9 @@ struct Fields {
 };
 
 // block off-diagonal product of the neighbour nb across one face, added to
-// acc (aither_tpu implicit.offdiagonal_block_channels, viscous, SST, one
-// species).  FORWARD: the lower neighbour (positive, TSL "left").
-template <bool FORWARD>
+// acc (aither_tpu implicit.offdiagonal_block_channels, one species).
+// FORWARD: the lower neighbour (positive, TSL "left").
+template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
                                                       const Fields& fl,
                                                       int64_t nb,
@@ -103,7 +115,7 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   double dq[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * nc + nb];
-  const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3], dist = st[4];
+  const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3];
 
   const double t = p / (ph.R * rho);
   const double vn = u * n0 + v * n1 + w * n2;
@@ -143,18 +155,23 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   // thin-shear-layer block, subtracted forward and added backward
   // (s = -1 / +1); its turbulence diagonal carries fac = -1 / +1, so that
   // part enters with s * fac = +1 in both sweeps
-  const double mu = fl.mu[nb], mut = fl.mut[nb], f1 = fl.f1[nb];
-  const double mu_s = ph.scaling * mu;
-  const double mut_s = ph.scaling * mut;
-  const double mu_tot = mu_s + mut_s;
-  {
+  double mu = 0.0, mut = 0.0, dist = 0.0;
+  if constexpr (VISCOUS) {
+    mu = fl.mu[nb];
+    mut = fl.mut[nb];
+    dist = st[4];
+    const double mu_s = ph.scaling * mu;
+    const double mut_s = ph.scaling * mut;
+    const double mu_tot = mu_s + mut_s;
     const double s = FORWARD ? -1.0 : 1.0;
     const double fac = FORWARD ? -1.0 : 1.0;
     const double td = t * ph.t_ref;
     const double k =
         ph.scaling * (ph.cond_c1 * pow(td, 1.5) / (td + ph.cond_s) /
                       ph.k_nondim);
-    const double kt = mut_s * ph.cp / ph.prt;
+    // the turbulent conductivity only with turbulence equations
+    // (block_jac._tsl_rows)
+    const double kt = NEQ == 7 ? mut_s * ph.cp / ph.prt : 0.0;
     // tau = lambda tr(G) n + mu_tot (G + G^T) n
     const double* g = fl.vgrad + nb;
     const double g00 = g[0], g01 = g[nc], g02 = g[2 * nc];
@@ -193,17 +210,31 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   }
 
   // turbulence: Rusanov 0.5|A|(vn +- |vn|) plus the TSL diagonal
-  {
-    const double length = ph.scaling * mag / dist / rho;
-    const double sk = f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
-    const double sw = f1 * ph.sigma_w1 + (1.0 - f1) * ph.sigma_w2;
+  if constexpr (NEQ == 7) {
     const double tdiag = 0.5 * vn * mag + sgn * (0.5 * fabs(vn) * mag);
-    acc[5] += (tdiag + length * (mu + sk * mut)) * dq[5];
-    acc[6] += (tdiag + length * (mu + sw * mut)) * dq[6];
+    if constexpr (VISCOUS) {
+      const double length = ph.scaling * mag / dist / rho;
+      double sk, sw, mutx;
+      if constexpr (WILCOX) {
+        sk = ph.sigma_k1;
+        sw = ph.sigma_w1;
+        mutx = rho * fl.prim[5 * nc + nb] / fl.prim[6 * nc + nb];
+      } else {
+        const double f1 = fl.f1[nb];
+        sk = f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+        sw = f1 * ph.sigma_w1 + (1.0 - f1) * ph.sigma_w2;
+        mutx = mut;
+      }
+      acc[5] += (tdiag + length * (mu + sk * mutx)) * dq[5];
+      acc[6] += (tdiag + length * (mu + sw * mutx)) * dq[6];
+    } else {
+      acc[5] += tdiag * dq[5];
+      acc[6] += tdiag * dq[6];
+    }
   }
 }
 
-template <bool FORWARD>
+template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(THREADS)
     sweep_plane(Fields fl, Phys ph, int start, int count) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -218,7 +249,7 @@ __global__ void __launch_bounds__(THREADS)
     if (!fl.mask[3 * s + d]) continue;
     const int64_t nb = FORWARD ? c - fl.stride[d] : c + fl.stride[d];
     const double* st = fl.stat + (3 * static_cast<int64_t>(s) + d) * NSTAT;
-    add_block_offdiagonal<FORWARD>(ph, fl, nb, st, r);
+    add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, r);
   }
   // right-hand side the inverse applies to (r holds the neighbour sum)
   const bool plain_backward = !FORWARD && fl.extra == nullptr;
@@ -241,24 +272,51 @@ __global__ void __launch_bounds__(THREADS)
     double* x = fl.du + i * fl.nc + c;
     *x = plain_backward ? *x - y : y;
   }
-  const double* it = fl.inv_t + pc;
-  const double y5 = it[0] * r[5] + it[fl.ncp] * r[6];
-  const double y6 = it[2 * fl.ncp] * r[5] + it[3 * fl.ncp] * r[6];
-  double* x5 = fl.du + 5 * fl.nc + c;
-  double* x6 = fl.du + 6 * fl.nc + c;
-  *x5 = plain_backward ? *x5 - y5 : y5;
-  *x6 = plain_backward ? *x6 - y6 : y6;
+  if constexpr (NEQ == 7) {
+    const double* it = fl.inv_t + pc;
+    const double y5 = it[0] * r[5] + it[fl.ncp] * r[6];
+    const double y6 = it[2 * fl.ncp] * r[5] + it[3 * fl.ncp] * r[6];
+    double* x5 = fl.du + 5 * fl.nc + c;
+    double* x6 = fl.du + 6 * fl.nc + c;
+    *x5 = plain_backward ? *x5 - y5 : y5;
+    *x6 = plain_backward ? *x6 - y6 : y6;
+  }
+}
+
+// every plane of one sweep, in order, on `st`
+template <int NEQ, bool VISCOUS, bool WILCOX>
+int launch_planes(int forward, const Fields& fl, const Phys& ph, int nplanes,
+                  const int* plane_ptr, cudaStream_t st) {
+  for (int n = 0; n < nplanes; ++n) {
+    const int p = forward ? n : nplanes - 1 - n;
+    const int start = plane_ptr[p];
+    const int count = plane_ptr[p + 1] - start;
+    const int blocks = (count + THREADS - 1) / THREADS;
+    if (forward)
+      sweep_plane<NEQ, VISCOUS, WILCOX, true>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    else
+      sweep_plane<NEQ, VISCOUS, WILCOX, false>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // One whole block sweep of one block: one launch per hyperplane on
-// `stream`, in plane order.  plane_ptr is a HOST array of nplanes+1
-// offsets into the plane-ordered cell lists; extra may be null.  Returns
-// the first non-zero cudaGetLastError() after a launch (0 when every
-// launch was accepted).
+// `stream`, in plane order.  neq is 5 or 7; viscous and wilcox select the
+// form (see the head of this file).  plane_ptr is a HOST array of
+// nplanes+1 offsets into the plane-ordered cell lists; extra may be null;
+// mu, mut, f1, vgrad may be null when inviscid and inv_t when neq is 5.
+// Returns the first non-zero cudaGetLastError() after a launch (0 when
+// every launch was accepted), or cudaErrorInvalidValue for a form that
+// does not exist.
 extern "C" int blusgs_sweep_f64(
-    int forward, const double* prim, double* du, const double* mu,
+    int forward, int neq, int viscous, int wilcox, const double* prim,
+    double* du, const double* mu,
     const double* mut, const double* f1, const double* vgrad, const double* b,
     const double* extra, const double* inv_f, const double* inv_t,
     const int* cells, const int* phys_cells, const double* stat,
@@ -274,17 +332,17 @@ extern "C" int blusgs_sweep_f64(
   Phys ph{R,     cv,      cp,     hf,       gamma,    prt,      scaling, t_ref,
           cond_c1, cond_s, k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int n = 0; n < nplanes; ++n) {
-    const int p = forward ? n : nplanes - 1 - n;
-    const int start = plane_ptr[p];
-    const int count = plane_ptr[p + 1] - start;
-    const int blocks = (count + THREADS - 1) / THREADS;
-    if (forward)
-      sweep_plane<true><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
-    else
-      sweep_plane<false><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  if (neq == 5 && !viscous && !wilcox)
+    return launch_planes<5, false, false>(forward, fl, ph, nplanes,
+                                          plane_ptr, st);
+  if (neq == 5 && viscous && !wilcox)
+    return launch_planes<5, true, false>(forward, fl, ph, nplanes, plane_ptr,
+                                         st);
+  if (neq == 7 && viscous && !wilcox)
+    return launch_planes<7, true, false>(forward, fl, ph, nplanes, plane_ptr,
+                                         st);
+  if (neq == 7 && viscous && wilcox)
+    return launch_planes<7, true, true>(forward, fl, ph, nplanes, plane_ptr,
+                                        st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

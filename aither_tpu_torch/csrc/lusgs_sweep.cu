@@ -2,9 +2,19 @@
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
 // (pallas_call at pallas_sweep.py:342), variants (a) and (b): scalar
-// LU-SGS, one species, SST k-omega (7 equations), Rusanov off-diagonal,
-// without and with the lagged opposite-side term `extra` (matrixSweeps > 1,
-// pallas_sweep.py:315-324).
+// LU-SGS, one species, Rusanov off-diagonal, without and with the lagged
+// opposite-side term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324),
+// in the forms the single-species models need, each a compile-time
+// instantiation of one sweep_plane<NEQ, VISCOUS, WILCOX, FORWARD>:
+//   5 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a) only;
+//     mu, mut, f1 and the centre distance are not read;
+//   5 equations viscous (laminar with mut = 0; LES with the WALE mut in
+//     mu/Pr + mut/Prt); f1 is not read;
+//   7 equations SST 2003 / SST-DES: the turbulence viscous radius with the
+//     mut field and the blended sigma_k;
+//   7 equations Wilcox 2006: that radius with sigma* constant and the
+//     unlimited rho k / omega of the neighbour state, not the mut field.
+// Without turbulence equations inv_t is null.
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -24,8 +34,8 @@
 // PLACE: a plane reads only neighbour planes, so one launch per plane on
 // one stream is the whole dependency chain.
 //
-// Layout: prim, du (7, NI, NJ, NK) and mu, mut, f1 (NI, NJ, NK) padded
-// blocks; b, extra (7, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical.
+// Layout: prim, du (NEQ, NI, NJ, NK) and mu, mut, f1 (NI, NJ, NK) padded
+// blocks; b, extra (NEQ, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical.
 // The host
 // plan (SweepPlan) lists each plane's
 // cells (padded and physical flat indices) and per cell and direction the
@@ -48,14 +58,14 @@
 
 namespace {
 
-constexpr int NEQ = 7;
-constexpr int IT = 5;          // first turbulence equation
+constexpr int IT = 5;          // first turbulence equation (NEQ == 7)
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 constexpr int THREADS = 128;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prandtl, prt, scaling;
-  double tmin_k, tmin_w, sigma_k1, sigma_k2;
+  double tmin_k, tmin_w;
+  double sigma_k1, sigma_k2;  // SST blend; Wilcox: sigma* in sigma_k1
 };
 
 struct Fields {
@@ -78,6 +88,7 @@ struct Fields {
 };
 
 // F(q).n per unit area (aither_tpu flux.physical_flux)
+template <int NEQ>
 __device__ __forceinline__ void physical_flux(const Phys& ph,
                                               const double q[NEQ], double n0,
                                               double n1, double n2,
@@ -92,12 +103,15 @@ __device__ __forceinline__ void physical_flux(const Phys& ph,
   f[2] = rvn * v + p * n1;
   f[3] = rvn * w + p * n2;
   f[4] = rvn * h0;
-  f[5] = rvn * q[5];
-  f[6] = rvn * q[6];
+  if constexpr (NEQ == 7) {
+    f[5] = rvn * q[5];
+    f[6] = rvn * q[6];
+  }
 }
 
 // q + du in conserved variables, back to primitives
 // (aither_tpu state.update_prim_with_cons, one species)
+template <int NEQ>
 __device__ __forceinline__ void update_prim(const Phys& ph,
                                             const double q[NEQ],
                                             const double dq[NEQ],
@@ -114,48 +128,59 @@ __device__ __forceinline__ void update_prim(const Phys& ph,
   const double ww = (rho * w + dq[3]) / r;
   const double se = (rho * e + dq[4]) / r - 0.5 * (uu * uu + vv * vv + ww * ww);
   const double tu = (se - ph.hf) / ph.cv;
-  const double k = (rho * q[5] + dq[5]) / r;
-  const double om = (rho * q[6] + dq[6]) / r;
   out[0] = r;
   out[1] = uu;
   out[2] = vv;
   out[3] = ww;
   out[4] = ph.R * r * tu;
-  out[5] = k < ph.tmin_k ? ph.tmin_k : k;     // NaN propagates
-  out[6] = om < ph.tmin_w ? ph.tmin_w : om;
+  if constexpr (NEQ == 7) {
+    const double k = (rho * q[5] + dq[5]) / r;
+    const double om = (rho * q[6] + dq[6]) / r;
+    out[5] = k < ph.tmin_k ? ph.tmin_k : k;     // NaN propagates
+    out[6] = om < ph.tmin_w ? ph.tmin_w : om;
+  }
 }
 
 // scalar Rusanov off-diagonal product of one neighbour, added to acc
-// (aither_tpu implicit.offdiagonal_scalar, viscous, SST)
-template <bool FORWARD>
+// (aither_tpu implicit.offdiagonal_scalar).  mu, mut, f1 and dist are read
+// only by the forms that use them (the caller passes 0 otherwise).
+template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void add_offdiagonal(
     const Phys& ph, const double q[NEQ], const double dq[NEQ], double n0,
     double n1, double n2, double mag, double dist, double mu, double mut,
     double f1, double acc[NEQ]) {
   double qu[NEQ], fu[NEQ], fq[NEQ];
-  update_prim(ph, q, dq, qu);
-  physical_flux(ph, qu, n0, n1, n2, fu);
-  physical_flux(ph, q, n0, n1, n2, fq);
+  update_prim<NEQ>(ph, q, dq, qu);
+  physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
+  physical_flux<NEQ>(ph, q, n0, n1, n2, fq);
   const double rho = q[0];
   const double vn = q[1] * n0 + q[2] * n1 + q[3] * n2;
   const double a = sqrt(ph.gamma * q[4] / rho);
-  const double max_term = fmax(4.0 / (3.0 * rho), ph.gamma / rho);
-  const double sr = 0.5 * mag * (fabs(vn) + a) +
-                    mag / dist * max_term *
-                        (ph.scaling * (mu / ph.prandtl + mut / ph.prt));
-  const double sk = f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
-  const double sr_t =
-      0.5 * mag * fabs(FORWARD ? vn + fabs(vn) : vn - fabs(vn)) +
-      ph.scaling * (mag / dist) / rho * (mu + sk * mut);
+  double sr = 0.5 * mag * (fabs(vn) + a);
+  if constexpr (VISCOUS) {
+    const double max_term = fmax(4.0 / (3.0 * rho), ph.gamma / rho);
+    sr = sr + mag / dist * max_term *
+                  (ph.scaling * (mu / ph.prandtl + mut / ph.prt));
+  }
   const double sgn = FORWARD ? 1.0 : -1.0;
 #pragma unroll
   for (int e = 0; e < IT; ++e)
     acc[e] += 0.5 * mag * (fu[e] - fq[e]) + sgn * (sr * dq[e]);
+  if constexpr (NEQ == 7) {
+    double sr_t = 0.5 * mag * fabs(FORWARD ? vn + fabs(vn) : vn - fabs(vn));
+    if constexpr (VISCOUS) {
+      // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
+      const double sk = WILCOX ? ph.sigma_k1
+                               : f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+      const double mutx = WILCOX ? rho * q[5] / q[6] : mut;
+      sr_t = sr_t + ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
+    }
 #pragma unroll
-  for (int e = IT; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
+    for (int e = IT; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
+  }
 }
 
-template <bool FORWARD>
+template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(THREADS)
     sweep_plane(Fields fl, Phys ph, int start, int count) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -176,11 +201,19 @@ __global__ void __launch_bounds__(THREADS)
       q[e] = fl.prim[e * fl.nc + nb];
       dq[e] = fl.du[e * fl.nc + nb];
     }
-    add_offdiagonal<FORWARD>(ph, q, dq, st[0], st[1], st[2], st[3], st[4],
-                             fl.mu[nb], fl.mut[nb], fl.f1[nb], acc);
+    double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
+    if constexpr (VISCOUS) {
+      mu = fl.mu[nb];
+      mut = fl.mut[nb];
+      dist = st[4];
+      if constexpr (NEQ == 7 && !WILCOX) f1 = fl.f1[nb];
+    }
+    add_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, acc);
   }
   const double inv_f = fl.inv_f[pc];
-  const double inv_t = fl.inv_t[pc];
+  double inv_t = 0.0;
+  if constexpr (NEQ == 7) inv_t = fl.inv_t[pc];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
     const double inv = e < IT ? inv_f : inv_t;
@@ -196,15 +229,40 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// every plane of one sweep, in order, on `st`
+template <int NEQ, bool VISCOUS, bool WILCOX>
+int launch_planes(int forward, const Fields& fl, const Phys& ph, int nplanes,
+                  const int* plane_ptr, cudaStream_t st) {
+  for (int n = 0; n < nplanes; ++n) {
+    const int p = forward ? n : nplanes - 1 - n;
+    const int start = plane_ptr[p];
+    const int count = plane_ptr[p + 1] - start;
+    const int blocks = (count + THREADS - 1) / THREADS;
+    if (forward)
+      sweep_plane<NEQ, VISCOUS, WILCOX, true>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    else
+      sweep_plane<NEQ, VISCOUS, WILCOX, false>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // One whole sweep of one block: one launch per hyperplane on `stream`, in
-// plane order.  plane_ptr is a HOST array of nplanes+1 offsets into the
-// plane-ordered cell lists; extra may be null (variant (a)).  Returns the
-// first non-zero cudaGetLastError() after a launch (0 when every launch was
-// accepted).
+// plane order.  neq is 5 or 7; viscous and wilcox select the form (see the
+// head of this file; wilcox only with neq 7 and viscous, and neq 7 only
+// with viscous).  plane_ptr is a HOST array of nplanes+1 offsets into the
+// plane-ordered cell lists; extra may be null (variant (a)); mu, mut, f1
+// may be null when inviscid and inv_t when neq is 5.  Returns the first
+// non-zero cudaGetLastError() after a launch (0 when every launch was
+// accepted), or cudaErrorInvalidValue for a form that does not exist.
 extern "C" int lusgs_sweep_f64(
-    int forward, const double* prim, double* du, const double* mu,
+    int forward, int neq, int viscous, int wilcox, const double* prim,
+    double* du, const double* mu,
     const double* mut, const double* f1, const double* b,
     const double* extra, const double* inv_f, const double* inv_t,
     const int* cells,
@@ -220,19 +278,19 @@ extern "C" int lusgs_sweep_f64(
   Phys ph{R, cv, cp, hf, gamma, prandtl, prt, scaling,
           tmin_k, tmin_w, sigma_k1, sigma_k2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int n = 0; n < nplanes; ++n) {
-    const int p = forward ? n : nplanes - 1 - n;
-    const int start = plane_ptr[p];
-    const int count = plane_ptr[p + 1] - start;
-    const int blocks = (count + THREADS - 1) / THREADS;
-    if (forward)
-      sweep_plane<true><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
-    else
-      sweep_plane<false><<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  if (neq == 5 && !viscous && !wilcox)
+    return launch_planes<5, false, false>(forward, fl, ph, nplanes,
+                                          plane_ptr, st);
+  if (neq == 5 && viscous && !wilcox)
+    return launch_planes<5, true, false>(forward, fl, ph, nplanes, plane_ptr,
+                                         st);
+  if (neq == 7 && viscous && !wilcox)
+    return launch_planes<7, true, false>(forward, fl, ph, nplanes, plane_ptr,
+                                         st);
+  if (neq == 7 && viscous && wilcox)
+    return launch_planes<7, true, true>(forward, fl, ph, nplanes, plane_ptr,
+                                        st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The floor under one dependent plane launch: n launches of an empty plane
@@ -244,7 +302,7 @@ extern "C" int lusgs_sweep_empty_planes(int n, void* stream) {
   Fields fl{};
   Phys ph{};
   for (int p = 0; p < n; ++p) {
-    sweep_plane<true><<<1, THREADS, 0, st>>>(fl, ph, 0, 0);
+    sweep_plane<7, true, false, true><<<1, THREADS, 0, st>>>(fl, ph, 0, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -1,9 +1,28 @@
 // Fused viscous residual for NVIDIA Hopper (sm_90a), float64.
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_residual.py::
-// viscous_residual_march (pallas_call at pallas_residual.py:819), SST 2003
-// branch: one species, scalar solver, central viscous reconstruction, no
-// wall law, calorically perfect gas, no pressure-gradient output.
+// viscous_residual_march (pallas_call at pallas_residual.py:819), all four
+// eddy-viscosity branches (pallas_residual.py:490-501, :617-618): one
+// species, scalar solver, central viscous reconstruction, no wall law,
+// calorically perfect gas, no pressure-gradient output.  Each branch is a
+// compile-time instantiation viscous_cells<MODEL>, so that none pays for
+// another's live values:
+//   SST (sst2003, sstdes; 7 equations): described below;
+//   WILCOX (kOmegaWilcox2006; 7 equations): mut = rho k / max(omega,
+//     Clim sqrt(2 S^:S^ / beta*)) with the traceless strain S^, f1 = 1,
+//     f2 = 0; sigma* and sigma in the k and omega fluxes with the
+//     UNLIMITED rho k / omega of the face state, and the unlimited form of
+//     the cell state in the turbulence spectral radius;
+//   WALE (largeEddySimulation; 5 equations): mut = (Cw len)^2 (Sd:Sd)^1.5 /
+//     ((S:S)^2.5 + (Sd:Sd)^1.25 + EPS) from the face velocity gradient and
+//     the face length `len` (a 27th face channel), f1 = 1, f2 = 0, the
+//     turbulent conductivity mut cp / Prt in the energy flux.  The
+//     reference's form has no rho and no 1/scaling (turbulence.cpp:967-990)
+//     and is kept to the letter;
+//   LAMINAR (navierStokes; 5 equations): no eddy viscosity; mut = f1 = f2
+//     = 0.
+// With 5 equations there are no k / omega gradients, fluxes or outputs and
+// sr_turb = diag_turb = 0: 21 output channels instead of 29.
 //
 // What it computes (reference: procBlock.cpp:1233-1879 CalcViscFluxI/J/K
 // with the face-CV gradient stencil of :1190-1231; the plain PyTorch twin is
@@ -17,7 +36,8 @@
 // and of mut, f1, f2, and the viscous spectral radii and diagonal terms
 // (with the cell's lower-face mut and f1).  No face-sized field is written:
 // only the 29 cell channels (resid 7, sr_flow, sr_turb, diag_flow,
-// diag_turb, vel 9, tke 3, omega 3, mut, f1, f2).
+// diag_turb, vel 9, tke 3, omega 3, mut, f1, f2), or the 21 of a
+// 5-equation model (resid 5, no tke and omega).
 //
 // Design: one thread per physical cell, one launch per block.  A thread
 // evaluates its six faces with the one face routine `face_flux`, called with
@@ -49,34 +69,38 @@
 
 namespace {
 
-constexpr int NEQ = 7;
-constexpr int IT = 5;          // first turbulence equation
+constexpr int IT = 5;          // first turbulence equation (7 equations)
 constexpr int THREADS = 128;
+
+// the eddy-viscosity branch (kernels/viscous_march.py MODELS)
+enum Model { SST = 0, WILCOX = 1, WALE = 2, LAMINAR = 3 };
+__host__ __device__ constexpr int neq_of(int model) {
+  return model <= WILCOX ? 7 : 5;
+}
 constexpr double EPS = 1.0e-30;
 
 // face static channels (solver/viscous.py FACE_CHANNELS)
 constexpr int ADU = 0, ADL = 3, A1U = 6, A1L = 9, A2U = 12, A2L = 15,
-              VCV = 18, NRM = 19, MAG = 22, C0 = 23, C1 = 24, WDF = 25;
-// output channels
-constexpr int O_RESID = 0, O_SRF = 7, O_SRT = 8, O_DGF = 9, O_DGT = 10,
-              O_VEL = 11, O_TKE = 20, O_OMG = 23, O_MUT = 26, O_F1 = 27,
-              O_F2 = 28;
+              VCV = 18, NRM = 19, MAG = 22, C0 = 23, C1 = 24, WDF = 25,
+              LEN = 26;  // LEN only in the WALE statics
 
 // order of the host parameter array (kernels/viscous_march.py PARAMS)
 struct Params {
   double scaling, R, cp, gamma, cond_c1, cond_s, t_ref, k_nondim;
   double tmin_k, tmin_w, visc_coeff;
   double beta_star, sigma_k1, sigma_k2, sigma_w1, sigma_w2, a1, prt;
+  double sigma_star, sigma, clim;  // Wilcox 2006
+  double cw;                       // WALE
 };
-constexpr int NPARAMS = 18;
+constexpr int NPARAMS = 22;
 
 struct Fields {
-  const double* __restrict__ prim;   // (7, NI, NJ, NK)
+  const double* __restrict__ prim;   // (NEQ, NI, NJ, NK)
   const double* __restrict__ t;      // (NI, NJ, NK)
   const double* __restrict__ mu;     // (NI, NJ, NK)
-  const double* __restrict__ face[3];  // (26, F_d)
+  const double* __restrict__ face[3];  // (26, F_d); WALE (27, F_d)
   const double* __restrict__ cell;   // (4, ni, nj, nk)
-  double* __restrict__ out;          // (29, ni, nj, nk)
+  double* __restrict__ out;          // (29 or 21, ni, nj, nk)
   int64_t nc;         // NI*NJ*NK: equation stride of the padded fields
   int64_t ncell;      // ni*nj*nk: channel stride of cell and out
   int64_t stride[3];  // padded flat step of one cell in i, j, k
@@ -85,10 +109,11 @@ struct Fields {
   int ni, nj, nk, g;
 };
 
+template <int NEQ>
 struct Face {
   double fa[NEQ];    // flux times area (fa[0] is 0: no species diffusion)
   double vg[9];      // vg[3A+B] = d v_B / d x_A
-  double kg[3], wg[3];
+  double kg[NEQ == 7 ? 3 : 1], wg[NEQ == 7 ? 3 : 1];  // 7 equations only
   double mut, f1, f2;
 };
 
@@ -124,9 +149,11 @@ __device__ __forceinline__ T pick(int d, T a0, T a1, T a2) {
 
 // One face of direction d: lower cell `lo` (padded flat index), face index
 // `fidx` into face[d].  viscous.py viscous_residual's face section.
+template <int MODEL>
 __device__ __forceinline__ void face_flux(const Params& P, const Fields& F,
                                           int d, int64_t lo, int64_t fidx,
-                                          Face& o) {
+                                          Face<neq_of(MODEL)>& o) {
+  constexpr int NEQ = neq_of(MODEL);
   const int64_t sd = pick(d, F.stride[0], F.stride[1], F.stride[2]);
   // the two transverse directions, in ijk order
   const int64_t s1 = pick(d, F.stride[1], F.stride[0], F.stride[0]);
@@ -142,8 +169,10 @@ __device__ __forceinline__ void face_flux(const Params& P, const Fields& F,
 #pragma unroll
   for (int e = 0; e < NEQ; ++e)
     qf[e] = c0 * F.prim[e * nc + lo + sd] + c1 * F.prim[e * nc + lo];
-  qf[IT] = clamp_min(qf[IT], P.tmin_k);
-  qf[IT + 1] = clamp_min(qf[IT + 1], P.tmin_w);
+  if constexpr (NEQ == 7) {
+    qf[IT] = clamp_min(qf[IT], P.tmin_k);
+    qf[IT + 1] = clamp_min(qf[IT + 1], P.tmin_w);
+  }
   const double muf = c0 * F.mu[lo + sd] + c1 * F.mu[lo];
 
   // face-CV gradients
@@ -155,38 +184,95 @@ __device__ __forceinline__ void face_flux(const Params& P, const Fields& F,
     for (int a = 0; a < 3; ++a) o.vg[3 * a + b] = g[a];
   }
   cv_gradient(F.t, S, nf, lo, sd, s1, s2, tg);
-  cv_gradient(F.prim + IT * nc, S, nf, lo, sd, s1, s2, o.kg);
-  cv_gradient(F.prim + (IT + 1) * nc, S, nf, lo, sd, s1, s2, o.wg);
+  if constexpr (NEQ == 7) {
+    cv_gradient(F.prim + IT * nc, S, nf, lo, sd, s1, s2, o.kg);
+    cv_gradient(F.prim + (IT + 1) * nc, S, nf, lo, sd, s1, s2, o.wg);
+  }
 
-  // SST 2003 eddy viscosity and blending (viscous.eddy_visc_and_blending)
-  const double rho = qf[0], tke = qf[IT], omega = qf[IT + 1];
-  const double wdf = S[WDF * nf];
-  const double wde = wdf + EPS;
-  const double alpha1 =
-      P.scaling * sqrt(tke) / (P.beta_star * omega * wde);
-  const double alpha2 =
-      P.scaling * P.scaling * 500.0 * muf / (wde * wde * rho * omega);
-  const double kdotw =
-      o.kg[0] * o.wg[0] + o.kg[1] * o.wg[1] + o.kg[2] * o.wg[2];
-  const double cdkw =
-      clamp_min(2.0 * rho * P.sigma_w2 / omega * kdotw, 1.0e-10);
-  const double alpha3 =
-      4.0 * rho * P.sigma_w2 * tke / (cdkw * (wde * wde));
-  const double m1 = fmin(fmax(alpha1, alpha2), alpha3);
-  const double m12 = m1 * m1;
-  o.f1 = tanh(m12 * m12);
-  const double m2 = fmax(2.0 * alpha1, alpha2);
-  o.f2 = tanh(m2 * m2);
-  double dd = 0.0;
+  const double rho = qf[0];
+  const double trace = o.vg[0] + o.vg[4] + o.vg[8];
+  if constexpr (MODEL == SST) {
+    // SST 2003 eddy viscosity and blending (viscous.eddy_visc_and_blending)
+    const double tke = qf[IT], omega = qf[IT + 1];
+    const double wdf = S[WDF * nf];
+    const double wde = wdf + EPS;
+    const double alpha1 =
+        P.scaling * sqrt(tke) / (P.beta_star * omega * wde);
+    const double alpha2 =
+        P.scaling * P.scaling * 500.0 * muf / (wde * wde * rho * omega);
+    const double kdotw =
+        o.kg[0] * o.wg[0] + o.kg[1] * o.wg[1] + o.kg[2] * o.wg[2];
+    const double cdkw =
+        clamp_min(2.0 * rho * P.sigma_w2 / omega * kdotw, 1.0e-10);
+    const double alpha3 =
+        4.0 * rho * P.sigma_w2 * tke / (cdkw * (wde * wde));
+    const double m1 = fmin(fmax(alpha1, alpha2), alpha3);
+    const double m12 = m1 * m1;
+    o.f1 = tanh(m12 * m12);
+    const double m2 = fmax(2.0 * alpha1, alpha2);
+    o.f2 = tanh(m2 * m2);
+    double dd = 0.0;
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+    for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const double sr = 0.5 * (o.vg[3 * a + b] + o.vg[3 * b + a]);
-      dd += sr * sr;
-    }
-  const double mean_sr = sqrt(2.0 * dd);
-  o.mut = rho * P.a1 * tke / fmax(P.a1 * omega, P.scaling * mean_sr * o.f2);
+      for (int b = 0; b < 3; ++b) {
+        const double sr = 0.5 * (o.vg[3 * a + b] + o.vg[3 * b + a]);
+        dd += sr * sr;
+      }
+    const double mean_sr = sqrt(2.0 * dd);
+    o.mut =
+        rho * P.a1 * tke / fmax(P.a1 * omega, P.scaling * mean_sr * o.f2);
+  } else if constexpr (MODEL == WILCOX) {
+    // Wilcox 2006: the stress limiter on the traceless strain
+    double dd = 0.0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const double sh = 0.5 * (o.vg[3 * a + b] + o.vg[3 * b + a]) -
+                          (a == b ? trace / 3.0 : 0.0);
+        dd += sh * sh;
+      }
+    const double omega_tilda = fmax(
+        qf[IT + 1], P.scaling * P.clim * sqrt(2.0 * dd / P.beta_star));
+    o.mut = rho * qf[IT] / omega_tilda;
+    o.f1 = 1.0;
+    o.f2 = 0.0;
+  } else if constexpr (MODEL == WALE) {
+    // WALE: the traceless symmetric square of the velocity gradient.  The
+    // reference's form has no rho and no 1/scaling; kept to the letter.
+    double g2[9];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        g2[3 * a + b] = o.vg[3 * a] * o.vg[b] + o.vg[3 * a + 1] * o.vg[3 + b] +
+                        o.vg[3 * a + 2] * o.vg[6 + b];
+    const double tr2 = g2[0] + g2[4] + g2[8];
+    double sdd = 0.0, srr = 0.0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const double sdv = 0.5 * (g2[3 * a + b] + g2[3 * b + a]) -
+                           (a == b ? tr2 / 3.0 : 0.0);
+        sdd += sdv * sdv;
+        const double sr = 0.5 * (o.vg[3 * a + b] + o.vg[3 * b + a]);
+        srr += sr * sr;
+      }
+    // pow(0, 1.5) = pow(0, 2.5) = pow(0, 1.25) = 0: at a uniform state only
+    // EPS keeps the quotient finite (0 / EPS = 0)
+    const double num = pow(sdd, 1.5);
+    const double den = pow(srr, 2.5) + pow(sdd, 1.25) + EPS;
+    const double cl = P.cw * S[LEN * nf];
+    o.mut = cl * cl * num / den;
+    o.f1 = 1.0;
+    o.f2 = 0.0;
+  } else {
+    o.mut = 0.0;
+    o.f1 = 0.0;
+    o.f2 = 0.0;
+  }
 
   // tau.n (viscous.tau_normal), heat flux, k / omega diffusion
   const double n0 = S[NRM * nf], n1 = S[(NRM + 1) * nf],
@@ -195,7 +281,6 @@ __device__ __forceinline__ void face_flux(const Params& P, const Fields& F,
   const double mut_s = P.scaling * o.mut;
   const double mu_eff = mu_s + mut_s;
   const double lam = -2.0 / 3.0 * mu_eff;
-  const double trace = o.vg[0] + o.vg[4] + o.vg[8];
   double tau[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
@@ -207,26 +292,44 @@ __device__ __forceinline__ void face_flux(const Params& P, const Fields& F,
   const double td = tf * P.t_ref;
   const double k_eff =
       P.scaling * (P.cond_c1 * pow(td, 1.5) / (td + P.cond_s) / P.k_nondim);
-  const double kt = mut_s * P.cp / P.prt;
+  const double kt = MODEL == LAMINAR ? 0.0 : mut_s * P.cp / P.prt;
   const double tgn = tg[0] * n0 + tg[1] * n1 + tg[2] * n2;
   const double e_flux =
       tau[0] * qf[1] + tau[1] * qf[2] + tau[2] * qf[3] + (k_eff + kt) * tgn;
-  const double sk = o.f1 * P.sigma_k1 + (1.0 - o.f1) * P.sigma_k2;
-  const double sw = o.f1 * P.sigma_w1 + (1.0 - o.f1) * P.sigma_w2;
-  const double kgn = o.kg[0] * n0 + o.kg[1] * n1 + o.kg[2] * n2;
-  const double wgn = o.wg[0] * n0 + o.wg[1] * n1 + o.wg[2] * n2;
   const double mag = S[MAG * nf];
   o.fa[0] = 0.0;
   o.fa[1] = __dmul_rn(tau[0], mag);
   o.fa[2] = __dmul_rn(tau[1], mag);
   o.fa[3] = __dmul_rn(tau[2], mag);
   o.fa[4] = __dmul_rn(e_flux, mag);
-  o.fa[5] = __dmul_rn((mu_s + sk * mut_s) * kgn, mag);
-  o.fa[6] = __dmul_rn((mu_s + sw * mut_s) * wgn, mag);
+  if constexpr (NEQ == 7) {
+    double sk, sw, mutt;
+    if constexpr (MODEL == WILCOX) {
+      // unlimited eddy viscosity for the turbulence diffusion
+      sk = P.sigma_star;
+      sw = P.sigma;
+      mutt = P.scaling * rho * qf[IT] / qf[IT + 1];
+    } else {
+      sk = o.f1 * P.sigma_k1 + (1.0 - o.f1) * P.sigma_k2;
+      sw = o.f1 * P.sigma_w1 + (1.0 - o.f1) * P.sigma_w2;
+      mutt = mut_s;
+    }
+    const double kgn = o.kg[0] * n0 + o.kg[1] * n1 + o.kg[2] * n2;
+    const double wgn = o.wg[0] * n0 + o.wg[1] * n1 + o.wg[2] * n2;
+    o.fa[5] = __dmul_rn((mu_s + sk * mutt) * kgn, mag);
+    o.fa[6] = __dmul_rn((mu_s + sw * mutt) * wgn, mag);
+  }
 }
 
+template <int MODEL>
 __global__ void __launch_bounds__(THREADS)
     viscous_cells(Fields F, Params P) {
+  constexpr int NEQ = neq_of(MODEL);
+  // output channels
+  constexpr int O_RESID = 0, O_SRF = NEQ, O_SRT = NEQ + 1, O_DGF = NEQ + 2,
+                O_DGT = NEQ + 3, O_VEL = NEQ + 4, O_TKE = O_VEL + 9,
+                O_OMG = O_TKE + 3, O_MUT = O_VEL + 9 + (NEQ == 7 ? 6 : 0),
+                O_F1 = O_MUT + 1, O_F2 = O_MUT + 2;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (t >= F.ncell) return;
@@ -263,17 +366,19 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t sd = pick(d, F.stride[0], F.stride[1], F.stride[2]);
     const int64_t fl = pick(d, flo[0], flo[1], flo[2]);
     const int64_t fs = pick(d, F.fstride[0], F.fstride[1], F.fstride[2]);
-    Face lo, hi;
-    face_flux(P, F, d, c - sd, fl, lo);
-    face_flux(P, F, d, c, fl + fs, hi);
+    Face<NEQ> lo, hi;
+    face_flux<MODEL>(P, F, d, c - sd, fl, lo);
+    face_flux<MODEL>(P, F, d, c, fl + fs, hi);
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) resid[e] = resid[e] - (hi.fa[e] - lo.fa[e]);
 #pragma unroll
     for (int e = 0; e < 9; ++e) vel[e] = vel[e] + sixth * (lo.vg[e] + hi.vg[e]);
+    if constexpr (NEQ == 7) {
 #pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      tke[e] = tke[e] + sixth * (lo.kg[e] + hi.kg[e]);
-      omg[e] = omg[e] + sixth * (lo.wg[e] + hi.wg[e]);
+      for (int e = 0; e < 3; ++e) {
+        tke[e] = tke[e] + sixth * (lo.kg[e] + hi.kg[e]);
+        omg[e] = omg[e] + sixth * (lo.wg[e] + hi.wg[e]);
+      }
     }
     mut = mut + sixth * (lo.mut + hi.mut);
     f1 = f1 + sixth * (lo.f1 + hi.f1);
@@ -281,15 +386,27 @@ __global__ void __launch_bounds__(THREADS)
 
     // viscous spectral radius: mut and f1 at the cell's lower face
     const double fmag = F.cell[(1 + d) * F.ncell + t];
-    const double visc_term = P.scaling * (mu_c / prand + lo.mut / P.prt);
+    const double visc_term =
+        P.scaling *
+        (mu_c / prand + (MODEL == LAMINAR ? 0.0 : lo.mut / P.prt));
     const double vsr = max_term * visc_term * fmag * fmag / vol_c;
     sr_f = sr_f + P.visc_coeff * vsr;
     dg_f = dg_f + 2.0 * vsr;
-    const double sk = lo.f1 * P.sigma_k1 + (1.0 - lo.f1) * P.sigma_k2;
-    const double tvsr =
-        P.scaling * (fmag * fmag / vol_c) / r_c * (mu_c + sk * lo.mut);
-    sr_t = sr_t + P.visc_coeff * tvsr;
-    dg_t = dg_t + 2.0 * tvsr;
+    if constexpr (NEQ == 7) {
+      double tvsr;
+      if constexpr (MODEL == WILCOX) {
+        // the unlimited rho k / omega of the cell state
+        const double mut_nolim =
+            r_c * F.prim[IT * F.nc + c] / F.prim[(IT + 1) * F.nc + c];
+        tvsr = P.scaling * (fmag * fmag / vol_c) / r_c *
+               (mu_c + P.sigma_star * mut_nolim);
+      } else {
+        const double sk = lo.f1 * P.sigma_k1 + (1.0 - lo.f1) * P.sigma_k2;
+        tvsr = P.scaling * (fmag * fmag / vol_c) / r_c * (mu_c + sk * lo.mut);
+      }
+      sr_t = sr_t + P.visc_coeff * tvsr;
+      dg_t = dg_t + 2.0 * tvsr;
+    }
   }
 
   double* __restrict__ out = F.out + t;
@@ -302,10 +419,12 @@ __global__ void __launch_bounds__(THREADS)
   out[O_DGT * n] = dg_t;
 #pragma unroll
   for (int e = 0; e < 9; ++e) out[(O_VEL + e) * n] = vel[e];
+  if constexpr (NEQ == 7) {
 #pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    out[(O_TKE + e) * n] = tke[e];
-    out[(O_OMG + e) * n] = omg[e];
+    for (int e = 0; e < 3; ++e) {
+      out[(O_TKE + e) * n] = tke[e];
+      out[(O_OMG + e) * n] = omg[e];
+    }
   }
   out[O_MUT * n] = mut;
   out[O_F1 * n] = f1;
@@ -314,10 +433,15 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// The viscous residual of one block: one launch on `stream`.  params is a
+// The viscous residual of one block: one launch on `stream`.  model is the
+// eddy-viscosity branch (enum Model: 0 SST, 1 Wilcox, 2 WALE, 3 laminar);
+// prim has 7 equations for the first two and 5 for the others, out 29 or 21
+// channels, and the face statics 27 channels for WALE, else 26.  params is a
 // HOST array of NPARAMS doubles in the order of struct Params.  Returns
-// cudaGetLastError() after the launch (0 when it was accepted).
-extern "C" int viscous_march_f64(const double* prim, const double* t,
+// cudaGetLastError() after the launch (0 when it was accepted), or
+// cudaErrorInvalidValue for an unknown model.
+extern "C" int viscous_march_f64(int model, const double* prim,
+                                 const double* t,
                                  const double* mu, const double* face_i,
                                  const double* face_j, const double* face_k,
                                  const double* cell, double* out, int ni,
@@ -352,8 +476,24 @@ extern "C" int viscous_march_f64(const double* prim, const double* t,
   F.nj = nj;
   F.nk = nk;
   F.g = g;
-  const int64_t blocks = (F.ncell + THREADS - 1) / THREADS;
-  viscous_cells<<<static_cast<unsigned>(blocks), THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(F, P);
+  const unsigned blocks =
+      static_cast<unsigned>((F.ncell + THREADS - 1) / THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (model) {
+    case SST:
+      viscous_cells<SST><<<blocks, THREADS, 0, st>>>(F, P);
+      break;
+    case WILCOX:
+      viscous_cells<WILCOX><<<blocks, THREADS, 0, st>>>(F, P);
+      break;
+    case WALE:
+      viscous_cells<WALE><<<blocks, THREADS, 0, st>>>(F, P);
+      break;
+    case LAMINAR:
+      viscous_cells<LAMINAR><<<blocks, THREADS, 0, st>>>(F, P);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,14 @@ solver (lusgs), ``csrc/blusgs_sweep.cu`` for the block solver (blusgs,
 kernel's launches (one per hyperplane).
 
 Replaces the TPU kernel ``aither_tpu/solver/pallas_sweep.py::sweep``,
-variants (a) (scalar LU-SGS, one species, SST, no lagged term), (b)
+variants (a) (scalar LU-SGS, one species, no lagged term), (b)
 (``with_extra``: the lagged opposite-side term of ``matrixSweeps > 1``)
 and (c) (``block_matrix``: the block off-diagonal and the inverted 5x5
 flow and 2x2 turbulence diagonal blocks, with or without the lagged
-term).  The plain version has the semantics of the JAX package's
+term), each in the forms of the single-species models (``sweep_form``):
+5 equations inviscid (Euler) or viscous (laminar, LES), 7 equations with
+the SST (sst2003, sstdes) or the Wilcox 2006 turbulence radii.  The plain
+version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
 (``solver/implicit.py``).  With ``extra`` (neq, ni, nj, nk), the lagged
@@ -34,7 +37,7 @@ import torch
 
 from ..physics.models import Physics, prandtl
 from ..solver import implicit as imp
-from ..solver.viscous import SST
+from ..solver.viscous import SST, WILCOX
 
 
 class LaunchCounter:
@@ -67,16 +70,24 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     C = prim.shape[0]
     qf = prim.reshape(C, -1)
     duf = du.view(C, -1)
-    muf, mutf, f1f = (aux[k].reshape(-1) for k in ("mu", "mut", "f1"))
-    vgf = aux["vgrad"].reshape(9, -1) if blk else None
+    viscous = bool(cfg.get("viscous"))
+    if viscous:
+        muf, mutf, f1f = (aux[k].reshape(-1) for k in ("mu", "mut", "f1"))
+    vgf = aux["vgrad"].reshape(9, -1) if blk and viscous else None
     bf = b.reshape(C, -1)
     ef = extra.reshape(C, -1) if extra is not None else None
+    # without turbulence equations there is no turbulence inverse
     if blk:
-        invf, invt = inv_f.reshape(inv_f.shape[0], -1), inv_t.reshape(4, -1)
+        invf = inv_f.reshape(inv_f.shape[0], -1)
+        invt = None if inv_t is None else inv_t.reshape(4, -1)
         dmul = imp.diag_mult_channels
     else:
-        invf, invt = inv_f.reshape(-1), inv_t.reshape(-1)
+        invf = inv_f.reshape(-1)
+        invt = None if inv_t is None else inv_t.reshape(-1)
         dmul = imp.diag_mult
+
+    def at(inv, pcells):
+        return None if inv is None else inv[..., pcells]
     static, mask = plan.static[side], plan.mask[side]
     strides = plan.strides
     planes = range(plan.nplanes) if forward else range(plan.nplanes - 1,
@@ -89,15 +100,17 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         for d in range(3):
             nb = cells - strides[d] if forward else cells + strides[d]
             stat = static[s:e, d]
-            kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb], f1=f1f[nb])
-            if blk:
-                kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
+            kw = {}
+            if viscous:
+                kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb],
+                          f1=f1f[nb])
+                if blk:
+                    kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
             contrib = imp.offdiagonal(
                 phys, cfg, qf[:, nb], duf[:, nb], stat[:, 0:3].T,
                 stat[:, 3], forward, **kw)
             acc = acc + torch.where(mask[s:e, d][None], contrib, 0.0)
-        inv = ((invf[:, pcells], invt[:, pcells]) if blk
-               else (invf[pcells], invt[pcells]))
+        inv = (at(invf, pcells), at(invt, pcells))
         if forward:
             rhs = bf[:, pcells] + acc
             if ef is not None:
@@ -134,7 +147,7 @@ def _library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] + [p] * 13 + [ll] * 5 + [i, p] + [dbl] * 12
+        fn.argtypes = ([i] * 4 + [p] * 13 + [ll] * 5 + [i, p] + [dbl] * 12
                        + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -147,7 +160,7 @@ def _block_library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
+        fn.argtypes = ([i] * 4 + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
                        + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -179,36 +192,54 @@ def _check(t, name, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def sweep_form(phys: Physics, cfg):
+    """(neq, viscous, wilcox) of the kernel instantiation this physics
+    takes; raises ValueError for what the CUDA sweeps do not cover (more
+    than one species)."""
+    viscous = bool(cfg.get("viscous", False))
+    if phys.ns != 1 or phys.neq not in (5, 7) or (phys.neq == 7
+                                                  and not viscous):
+        raise ValueError("the CUDA sweeps cover one species with 5 "
+                         "equations (inviscid or viscous) or 7 (viscous "
+                         f"RANS) only, got ns={phys.ns} neq={phys.neq} "
+                         f"viscous={viscous}")
+    return phys.neq, viscous, phys.turb_model == "kOmegaWilcox2006"
+
+
 def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
                     aux, extra):
     """Raise ValueError unless the operands are what the kernel of this
-    solver (scalar or block) reads."""
-    if phys.neq != 7 or phys.ns != 1 or phys.turb_model != "sst2003" \
-            or not cfg.get("viscous", False):
-        raise ValueError("the CUDA sweeps cover one species SST 2003 "
-                         "(7 equations, viscous) only")
+    solver (scalar or block) and this physics reads."""
+    neq, viscous, _ = sweep_form(phys, cfg)
     dev = prim.device
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
-    _check(prim, "prim", (7, NI, NJ, NK), dev)
-    _check(du, "du", (7, NI, NJ, NK), dev)
-    for k in ("mu", "mut", "f1"):
-        _check(aux[k], k, (NI, NJ, NK), dev)
-    _check(b, "b", (7, ni, nj, nk), dev)
+    _check(prim, "prim", (neq, NI, NJ, NK), dev)
+    _check(du, "du", (neq, NI, NJ, NK), dev)
+    if viscous:
+        for k in ("mu", "mut", "f1"):
+            _check(aux[k], k, (NI, NJ, NK), dev)
+    _check(b, "b", (neq, ni, nj, nk), dev)
     if cfg.get("block_matrix"):
-        _check(aux["vgrad"], "vgrad", (3, 3, NI, NJ, NK), dev)
+        if viscous:
+            _check(aux["vgrad"], "vgrad", (3, 3, NI, NJ, NK), dev)
         _check(inv_f, "inv_f", (25, ni, nj, nk), dev)
-        _check(inv_t, "inv_t", (4, ni, nj, nk), dev)
+        inv_t_shape = (4, ni, nj, nk)
     else:
         _check(inv_f, "inv_f", (ni, nj, nk), dev)
-        _check(inv_t, "inv_t", (ni, nj, nk), dev)
+        inv_t_shape = (ni, nj, nk)
+    if neq == 7:
+        _check(inv_t, "inv_t", inv_t_shape, dev)
+    elif inv_t is not None:
+        raise ValueError("inv_t: no turbulence inverse with 5 equations")
     if extra is not None:
-        _check(extra, "extra", (7, ni, nj, nk), dev)
+        _check(extra, "extra", (neq, ni, nj, nk), dev)
 
 
 def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                   forward: bool, extra=None):
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
+    neq, viscous, wilcox = sweep_form(phys, cfg)
     dev = prim.device
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
@@ -220,29 +251,36 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                 ops["static"][side].data_ptr(), ops["mask"][side].data_ptr(),
                 NI * NJ * NK, ni * nj * nk, *plan.strides, plan.nplanes,
                 ops["plane_ptr"].ctypes.data)
-    extra_ptr = extra.data_ptr() if extra is not None else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    form = (int(forward), neq, int(viscous), int(wilcox))
+    fields = (prim.data_ptr(), du.data_ptr(),
+              *(ptr(aux[k]) if viscous else None
+                for k in ("mu", "mut", "f1")))
+    # the model's constants: Wilcox has sigma* and sigma where SST blends
+    sig = ((WILCOX["sigma_star"], WILCOX["sigma_star"], WILCOX["sigma"],
+            WILCOX["sigma"]) if wilcox else
+           (SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
+            SST["sigma_w2"]))
     if cfg.get("block_matrix"):
         name = "blusgs_sweep_f64"
         err = _block_library()(
-            int(forward), prim.data_ptr(), du.data_ptr(),
-            aux["mu"].data_ptr(), aux["mut"].data_ptr(),
-            aux["f1"].data_ptr(), aux["vgrad"].data_ptr(), b.data_ptr(),
-            extra_ptr, inv_f.data_ptr(), inv_t.data_ptr(), *geometry,
+            *form, *fields, ptr(aux["vgrad"]) if viscous else None,
+            b.data_ptr(), ptr(extra), inv_f.data_ptr(), ptr(inv_t),
+            *geometry,
             phys.R, phys.cv, phys.cp, phys.hf, g, phys.turb_prandtl(),
             phys.nondim_scaling, phys.t_ref, phys.cond_c1, phys.cond_s,
-            phys.k_nondim, SST["sigma_k1"], SST["sigma_k2"],
-            SST["sigma_w1"], SST["sigma_w2"], stream)
+            phys.k_nondim, *sig, stream)
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
         err = _library()(
-            int(forward), prim.data_ptr(), du.data_ptr(),
-            aux["mu"].data_ptr(), aux["mut"].data_ptr(),
-            aux["f1"].data_ptr(), b.data_ptr(), extra_ptr,
-            inv_f.data_ptr(), inv_t.data_ptr(), *geometry, phys.R, phys.cv,
+            *form, *fields, b.data_ptr(), ptr(extra),
+            inv_f.data_ptr(), ptr(inv_t), *geometry, phys.R, phys.cv,
             phys.cp, phys.hf, g, prandtl(phys), phys.turb_prandtl(),
-            phys.nondim_scaling, *phys.turb_min(), SST["sigma_k1"],
-            SST["sigma_k2"], stream)
+            phys.nondim_scaling, *phys.turb_min(), *sig[:2], stream)
         counter = LAUNCHES
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
@@ -251,16 +289,25 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
 
 
 # FP64 operations counted from the kernels (each add, subtract, multiply,
-# divide, sqrt, pow, abs, min or max as one): one contributing neighbour's
-# off-diagonal product, and a cell's final update (the lagged term adds one
-# operation per equation).  csrc/lusgs_sweep.cu:
-NEIGHBOUR_OPS = 188
-CELL_OPS = 14
-# csrc/blusgs_sweep.cu: the Rusanov block rows (~155), the TSL rows with
-# the stress vector and dPrim/dCons (~127), the turbulence diagonal (30);
-# a cell's right-hand side and its 5x5 + 2x2 inverse product
-BLOCK_NEIGHBOUR_OPS = 312
+# divide, sqrt, pow, abs, min or max as one) per contributing neighbour's
+# off-diagonal product, by form (neq, viscous, wilcox); a cell's final
+# update takes 2 per equation (the lagged term adds one per equation).
+# csrc/lusgs_sweep.cu: update_prim 47 (39 with 5 equations), two
+# physical_flux 60 (56), v.n and the speed of sound 8, the inviscid radius
+# 4, the flow rows 35; viscous adds max_term and the viscous radius 12; 7
+# equations add the turbulence radius and rows: 22 with the SST blend, 20
+# for Wilcox (no blend, the unlimited rho k / omega).
+NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 142, (5, True, False): 154,
+                         (7, True, False): 188, (7, True, True): 186}
+# csrc/blusgs_sweep.cu: the state and the Rusanov block rows (155), the TSL
+# rows with the stress vector and dPrim/dCons (127; 125 without the
+# turbulent conductivity of 5 equations), the turbulence diagonal (30 with
+# the SST blends, 24 for Wilcox); a cell's right-hand side and its 5x5
+# (+ 2x2) inverse product
+BLOCK_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 155, (5, True, False): 280,
+                               (7, True, False): 312, (7, True, True): 306}
 BLOCK_CELL_OPS = 63
+SST_FORM = (7, True, False)
 
 
 def neighbour_reads(plan, forward: bool):
@@ -275,35 +322,48 @@ def neighbour_reads(plan, forward: bool):
 
 
 def sweep_cost(plan, forward: bool, with_extra: bool = False,
-               block: bool = False):
+               block: bool = False, form=SST_FORM):
     """(bytes, FP64 operations) of one sweep of one block over ``plan``,
     each value the sweep needs read once and du's physical cells written
-    once.  Reads: prim, mu, mut, f1 (and for the block sweep vgrad) at the
-    distinct neighbours across this run's unmasked faces; du's input where
-    the sweep has not rewritten it first (the ghost neighbours, and every
-    cell of a backward sweep without extra: du - D^-1 U); per cell the
-    inverses, b (not in that backward form), extra, the cell lists and
-    masks; the face statics of the unmasked faces.  Operations: the
-    kernel's per contributing neighbour and per cell (+7 with extra)."""
+    once, for the kernel form ``form`` = (neq, viscous, wilcox) of
+    ``sweep_form``.  Reads: prim and, when viscous, mu, mut, f1 (not for 5
+    equations or Wilcox) and for the block sweep vgrad at the distinct
+    neighbours across this run's unmasked faces; du's input where the
+    sweep has not rewritten it first (the ghost neighbours, and every cell
+    of a backward sweep without extra: du - D^-1 U); per cell the inverses
+    (the turbulence one only with 7 equations), b (not in that backward
+    form), extra, the cell lists and masks; the face statics of the
+    unmasked faces (the centre distance only when viscous).  Operations:
+    the kernel's per contributing neighbour and per cell (+neq with
+    extra)."""
+    neq, viscous, wilcox = form
     side = "lower" if forward else "upper"
     mask = plan.mask[side]
     ncell = int(plan.cells.numel())
     nfaces = int(mask.sum())
     nread, nghost = neighbour_reads(plan, forward)
-    neq = 7
     plain_backward = not forward and not with_extra
-    padded = neq + 3 + (9 if block else 0)
-    per_cell_in = ((25 + 4 if block else 2)
-                   + (0 if plain_backward else neq)
+    padded = neq
+    if viscous:
+        padded += 2 + (1 if neq == 7 and not wilcox else 0) \
+            + (9 if block else 0)
+    inverses = ((25 if block else 1)
+                + ((4 if block else 1) if neq == 7 else 0))
+    per_cell_in = (inverses + (0 if plain_backward else neq)
                    + (neq if with_extra else 0))
+    nstat = plan.static[side].shape[-1] - (0 if viscous else 1)
     values = (padded * nread
               + neq * (nghost + (ncell if plain_backward else 0))
               + per_cell_in * ncell
-              + plan.static[side].shape[-1] * nfaces
+              + nstat * nfaces
               + neq * ncell)
     nbytes = 8 * values + 2 * 4 * ncell + mask.numel()
-    per_nb, per_cell = ((BLOCK_NEIGHBOUR_OPS, BLOCK_CELL_OPS) if block
-                        else (NEIGHBOUR_OPS, CELL_OPS))
+    if block:
+        per_nb = BLOCK_NEIGHBOUR_OPS_BY_FORM[form]
+        per_cell = BLOCK_CELL_OPS - (8 if neq == 5 else 0)
+    else:
+        per_nb = NEIGHBOUR_OPS_BY_FORM[form]
+        per_cell = 2 * neq
     ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
     return nbytes, ops
 

@@ -3,20 +3,22 @@ PyTorch version.
 
 ``viscous_residual(phys, cfg, block, prim, t_all, mu_all)`` returns what
 ``solver/viscous.viscous_residual`` returns: (resid, sr_flow, sr_turb,
-diag_flow, diag_turb, cellavg) with cellavg's 'vel', 'tke', 'omega', 'mut',
-'f1' and 'f2'.  On a CPU tensor it runs that plain version; on a CUDA
+diag_flow, diag_turb, cellavg) with cellavg's 'vel', 'mut', 'f1' and 'f2'
+and, with turbulence equations, 'tke' and 'omega'.  On a CPU tensor it runs that plain version; on a CUDA
 tensor it launches ``csrc/viscous_march.cu`` (built at first use), one
 launch per block, and raises if it cannot run — there is no fallback.
 ``LAUNCHES`` counts the kernel's launches.
 
 Replaces the TPU kernel
-``aither_tpu/solver/pallas_residual.py::viscous_residual_march`` (SST 2003
-branch).  Both versions read the block's static face geometry
-(``solver/viscous.viscous_statics``), built once per block.  Scope, as the
-JAX package's ``use_march``: one species, scalar solver, central viscous
-reconstruction, no wall law, calorically perfect gas (the port's Physics
-refuses the others), no pressure-gradient output; the wrapper raises
-outside it.
+``aither_tpu/solver/pallas_residual.py::viscous_residual_march`` with its
+four eddy-viscosity branches (``MODELS``): SST 2003 and SST-DES, k-omega
+Wilcox 2006, WALE and laminar, each an instantiation of the kernel.  Both
+versions read the block's static face geometry
+(``solver/viscous.viscous_statics``, with the face length for WALE), built
+once per block.  Scope, as the JAX package's ``use_march``: one species,
+scalar solver, central viscous reconstruction, no wall law, calorically
+perfect gas (the port's Physics refuses the others), no pressure-gradient
+output; the wrapper raises outside it.
 """
 
 from __future__ import annotations
@@ -28,46 +30,75 @@ import torch
 
 from ..physics.models import Physics
 from ..solver import viscous as vis
-from ..solver.viscous import SST
+from ..solver.viscous import SST, WALE, WILCOX
 from .lusgs_sweep import LaunchCounter
 
 LAUNCHES = LaunchCounter()
+# None, or a list that collects, for every launch, three CUDA events: before
+# the output's allocation, before the launch and after it (a measurement
+# hook: the solver's own launches timed where they run)
+TIMINGS = None
 
-# output channels of the kernel, in order (29 for SST)
-OUT_CHANNELS = (("resid", 7), ("sr_flow", 1), ("sr_turb", 1),
-                ("diag_flow", 1), ("diag_turb", 1), ("vel", 9), ("tke", 3),
-                ("omega", 3), ("mut", 1), ("f1", 1), ("f2", 1))
+# turbulence model -> the kernel's eddy-viscosity branch (enum Model of
+# csrc/viscous_march.cu); "none" is the laminar branch
+MODELS = {"sst2003": 0, "sstdes": 0, "kOmegaWilcox2006": 1, "wale": 2,
+          "none": 3}
 
-# FP64 operations per face and per cell, counted from csrc/viscous_march.cu
-# (each add, subtract, multiply, divide, sqrt, pow, tanh, min or max as
-# one): the least work of one residual, each face evaluated once
-FACE_OPS = 519
-CELL_OPS = 287
+
+def out_channels(nturb: int):
+    """output channels of the kernel, in order: 29 with turbulence
+    equations, 21 without (no 'tke' / 'omega' gradient averages)"""
+    turb = (("tke", 3), ("omega", 3)) if nturb else ()
+    return ((("resid", 5 + nturb), ("sr_flow", 1), ("sr_turb", 1),
+             ("diag_flow", 1), ("diag_turb", 1), ("vel", 9)) + turb
+            + (("mut", 1), ("f1", 1), ("f2", 1)))
+
+
+OUT_CHANNELS = out_channels(2)
+
+# FP64 operations per face and per cell by branch, counted from
+# csrc/viscous_march.cu (each add, subtract, multiply, divide, sqrt, pow,
+# tanh, min or max as one): the least work of one residual, each face
+# evaluated once.  SST: the face state 26, six CV gradients 312, the eddy
+# viscosity and blending 83, stresses and fluxes 98.  Wilcox: the limiter
+# 50 instead of 83, the unlimited mut 3 instead of the two sigma blends 8.
+# Laminar: 5 equations (state 18, four gradients 208), no eddy viscosity,
+# no k / omega fluxes (67).  WALE: laminar plus Sd:Sd, S:S and the three
+# pow 134, and the eddy viscosity's part in the stresses 5.
+FACE_OPS_BY_MODEL = {0: 519, 1: 481, 2: 432, 3: 293}
+CELL_OPS_BY_MODEL = {0: 287, 1: 281, 2: 176, 3: 170}
+FACE_OPS = FACE_OPS_BY_MODEL[0]
+CELL_OPS = CELL_OPS_BY_MODEL[0]
 
 
 def _check_scope(phys: Physics, cfg):
     """Raise ValueError outside the kernel's scope (pallas_residual
-    use_march's conditions for the SST branch)."""
-    if (phys.ns != 1 or phys.neq != 7 or phys.turb_model != "sst2003"
-            or not cfg.get("viscous") or not cfg.get("turbulent")
+    use_march's conditions) and return the kernel's branch."""
+    model = phys.turb_model
+    nturb = 0 if model in ("none", "wale") else 2
+    if (phys.ns != 1 or model not in MODELS or phys.neq != 5 + nturb
+            or cfg.get("turb_model", model) != model
+            or not cfg.get("viscous")
+            or bool(cfg.get("turbulent")) != (model != "none")
             or cfg.get("block_matrix")
             or cfg.get("viscous_recon", "central") != "central"):
         raise ValueError(
-            "the viscous residual kernel covers one species SST 2003 "
-            "(7 equations, viscous, central reconstruction, scalar solver) "
-            "only")
+            "the viscous residual kernel covers one species, laminar, WALE, "
+            "Wilcox 2006, SST 2003 and SST-DES (5 or 7 equations, viscous, "
+            "central reconstruction, scalar solver) only")
+    return MODELS[model]
 
 
 def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     """Viscous residual of one block (see the module docstring).
-    prim (7, NI, NJ, NK) after the viscous ghost fill, t_all and mu_all
+    prim (neq, NI, NJ, NK) after the viscous ghost fill, t_all and mu_all
     (NI, NJ, NK)."""
-    _check_scope(phys, cfg)
+    model = _check_scope(phys, cfg)
     if prim.device.type == "cpu":
         return vis.viscous_residual(phys, cfg, block, prim, t_all, mu_all)
     if prim.device.type != "cuda":
         raise ValueError(f"no viscous residual for device {prim.device}")
-    return _kernel(phys, cfg, block, prim, t_all, mu_all)
+    return _kernel(phys, cfg, block, prim, t_all, mu_all, model)
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +111,7 @@ def _library():
     fn = lib.viscous_march_f64
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 4 + [p, p]
+        fn.argtypes = [i] + [p] * 8 + [i] * 4 + [p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,7 +123,9 @@ def _params(phys: Physics, cfg) -> np.ndarray:
         phys.cond_c1, phys.cond_s, phys.t_ref, phys.k_nondim,
         *phys.turb_min(), cfg["viscous_cfl_coeff"],
         SST["beta_star"], SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
-        SST["sigma_w2"], SST["a1"], SST["prt"]], dtype=np.float64)
+        SST["sigma_w2"], SST["a1"], phys.turb_prandtl(),
+        WILCOX["sigma_star"], WILCOX["sigma"], WILCOX["clim"],
+        WALE["cw"]], dtype=np.float64)
 
 
 def _check(t, name, shape, device):
@@ -106,36 +139,47 @@ def _check(t, name, shape, device):
 
 
 def split_outputs(out):
-    """(29, ni, nj, nk) kernel output -> the viscous_residual tuple
+    """(29 or 21, ni, nj, nk) kernel output -> the viscous_residual tuple
     (views)."""
+    channels = out_channels(2 if out.shape[0] == 29 else 0)
+    assert out.shape[0] == sum(k for _, k in channels), out.shape
     parts, c = {}, 0
-    for name, k in OUT_CHANNELS:
+    for name, k in channels:
         parts[name] = out[c:c + k] if k > 1 else out[c]
         c += k
-    cellavg = {key: parts[key] for key in ("tke", "omega", "mut", "f1",
-                                           "f2")}
+    cellavg = {key: parts[key] for key in ("tke", "omega", "mut", "f1", "f2")
+               if key in parts}
     cellavg["vel"] = parts["vel"].reshape((3, 3) + out.shape[1:])
     return (parts["resid"], parts["sr_flow"], parts["sr_turb"],
             parts["diag_flow"], parts["diag_turb"], cellavg)
 
 
-def _kernel(phys: Physics, cfg, block, prim, t_all, mu_all):
+def _kernel(phys: Physics, cfg, block, prim, t_all, mu_all, model: int):
     dev = prim.device
     ni, nj, nk, g = block.ni, block.nj, block.nk, block.g
-    _check(prim, "prim", (7,) + block.shape, dev)
+    _check(prim, "prim", (phys.neq,) + block.shape, dev)
     _check(t_all, "t_all", block.shape, dev)
     _check(mu_all, "mu_all", block.shape, dev)
-    statics = vis.viscous_statics(block)
+    with_len = vis.needs_face_length(cfg)
+    statics = vis.viscous_statics(block, with_len)
     face = [statics["face"][d] for d in "ijk"]
     for a, arr in enumerate(face):
         fshape = [ni, nj, nk]
         fshape[a] += 1
-        _check(arr, f"face statics {'ijk'[a]}", [26] + fshape, dev)
+        _check(arr, f"face statics {'ijk'[a]}",
+               [vis.NFACE + int(with_len)] + fshape, dev)
     _check(statics["cell"], "cell statics", (4, ni, nj, nk), dev)
-    out = torch.empty((sum(k for _, k in OUT_CHANNELS), ni, nj, nk),
-                      dtype=torch.float64, device=dev)
+    events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              if TIMINGS is not None else None)
+    if events:
+        events[0].record()
+    out = torch.empty((sum(k for _, k in out_channels(phys.nturb)), ni, nj,
+                       nk), dtype=torch.float64, device=dev)
     params = _params(phys, cfg)
-    err = _library()(prim.data_ptr(), t_all.data_ptr(), mu_all.data_ptr(),
+    if events:
+        events[1].record()
+    err = _library()(model, prim.data_ptr(), t_all.data_ptr(),
+                     mu_all.data_ptr(),
                      *(f.data_ptr() for f in face),
                      statics["cell"].data_ptr(), out.data_ptr(), ni, nj, nk,
                      g, params.ctypes.data,
@@ -143,18 +187,27 @@ def _kernel(phys: Physics, cfg, block, prim, t_all, mu_all):
     if err != 0:
         raise RuntimeError(f"viscous_march_f64: CUDA error {err} at launch")
     LAUNCHES.count += 1
+    if events:
+        events[2].record()
+        TIMINGS.append(events)
     return split_outputs(out)
 
 
-def cost(block):
-    """(bytes, FP64 operations) of one residual of ``block``: each input
-    (prim, T, mu, face and cell statics) read once, each output written
-    once; FACE_OPS per face and CELL_OPS per cell."""
-    statics = vis.viscous_statics(block)
+def cost(block, model: str = "sst2003"):
+    """(bytes, FP64 operations) of one residual of ``block`` with the
+    turbulence model ``model``: each input (prim, T, mu, the face and cell
+    statics the branch reads) read once, each output written once; the
+    branch's operations per face and per cell.  Only the SST branch reads
+    the faces' wall distance ('wdf'); only WALE the face length."""
+    branch = MODELS[model]
+    nturb = 2 if branch < 2 else 0
     ncell = block.ni * block.nj * block.nk
     npad = int(np.prod(block.shape))
-    faces = sum(int(np.prod(statics["face"][d].shape[1:])) for d in "ijk")
-    values = (9 * npad + sum(statics["face"][d].numel() for d in "ijk")
-              + statics["cell"].numel()
-              + sum(k for _, k in OUT_CHANNELS) * ncell)
-    return 8 * values, FACE_OPS * faces + CELL_OPS * ncell
+    faces = sum(ncell + ncell // n for n in (block.ni, block.nj, block.nk))
+    face_channels = vis.NFACE - int(branch != 0) + int(model == "wale")
+    values = ((5 + nturb + 2) * npad
+              + face_channels * faces
+              + 4 * ncell
+              + sum(k for _, k in out_channels(nturb)) * ncell)
+    return 8 * values, (FACE_OPS_BY_MODEL[branch] * faces
+                        + CELL_OPS_BY_MODEL[branch] * ncell)

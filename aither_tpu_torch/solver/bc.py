@@ -16,7 +16,7 @@ import torch
 from ..physics.models import Physics
 from ..unsupported import refuse
 from . import state as st
-from .viscous import SST
+from .viscous import wall_beta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +193,7 @@ def viscous_wall(phys: Physics, interior, norm, data: BCData, layer,
                  wall_dist=None, nu_w=None):
     """Low-Re viscous wall (reference: ghostStates.cpp:130-285): no-slip
     velocity reflection, isothermal / constant-heat-flux / adiabatic
-    density ghosts, and the SST omega wall value."""
+    density ghosts, and the omega wall value with the model's beta."""
     kw = dict(dtype=interior.dtype, device=interior.device)
     vel_wall = torch.tensor(data.velocity, **kw).reshape(
         (3,) + (1,) * (interior.dim() - 1))
@@ -222,7 +222,7 @@ def viscous_wall(phys: Physics, interior, norm, data: BCData, layer,
         scaling = phys.nondim_scaling
         tke_g = -interior[phys.it]
         w_wall = scaling * scaling * 60.0 * nu_w / (
-            wall_dist * wall_dist * SST["beta1"])
+            wall_dist * wall_dist * wall_beta(phys.turb_model))
         omega_g = 2.0 * w_wall - interior[phys.it + 1]
         if layer > 1:
             omega_g = layer * omega_g - w_wall

@@ -20,19 +20,7 @@ import torch
 
 from ..physics.models import Physics
 from . import state as st
-from .viscous import SST, WILCOX, tau_normal
-
-
-def _sigma_k(model: str, f1):
-    if model == "kOmegaWilcox2006":
-        return WILCOX["sigma_star"]
-    return f1 * SST["sigma_k1"] + (1.0 - f1) * SST["sigma_k2"]
-
-
-def _sigma_w(model: str, f1):
-    if model == "kOmegaWilcox2006":
-        return WILCOX["sigma"]
-    return f1 * SST["sigma_w1"] + (1.0 - f1) * SST["sigma_w2"]
+from .viscous import SST, WILCOX, sigma_k, sigma_w, tau_normal
 
 
 def _assemble(rows):
@@ -243,11 +231,11 @@ def _tsl_rows(phys: Physics, cfg, q, mu, mut, f1, n, mag, dist, vgrad,
         length = scaling * mag / dist / rho
         if model == "kOmegaWilcox2006":
             mutx = rho * q[phys.it] / q[phys.it + 1]
-            d0 = length * (mu + _sigma_k(model, f1) * mutx)
-            d1 = length * (mu + _sigma_w(model, f1) * mutx)
+            d0 = length * (mu + sigma_k(model, f1) * mutx)
+            d1 = length * (mu + sigma_w(model, f1) * mutx)
         else:
-            d0 = length * (mu + _sigma_k(model, f1) * mut)
-            d1 = length * (mu + _sigma_w(model, f1) * mut)
+            d0 = length * (mu + sigma_k(model, f1) * mut)
+            d1 = length * (mu + sigma_w(model, f1) * mut)
     return rows, scale, (d0, d1, fac)
 
 

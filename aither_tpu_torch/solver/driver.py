@@ -1,4 +1,4 @@
-"""Time-marching driver: one implicit RANS iteration per step, residual
+"""Time-marching driver: one implicit iteration per step, residual
 logging in the reference format.
 
 Port of ``aither_tpu/solver/driver.py`` for the slice the port runs:
@@ -31,7 +31,7 @@ from . import state as st
 from . import step as step_mod
 from .case import build_case
 from .convert import state_from_numpy
-from .viscous import viscous_statics
+from .viscous import needs_face_length, viscous_statics
 
 EPS = 1.0e-30
 
@@ -41,10 +41,6 @@ SUPPORTED_BCS = ("slipWall", "viscousWall", "characteristic", "interblock")
 def check_supported(deck):
     """Refuse every deck setting the port does not cover yet."""
     v = deck.values
-    if v["equationSet"] != "rans":
-        refuse("equationSet", v["equationSet"])
-    if v["turbulenceModel"] != "sst2003":
-        refuse("turbulenceModel", v["turbulenceModel"])
     if v["timeIntegration"] != "implicitEuler":
         refuse("timeIntegration", v["timeIntegration"])
     if v["matrixSolver"] not in ("lusgs", "blusgs"):
@@ -66,7 +62,9 @@ def check_supported(deck):
 
 
 class Solver:
-    """Implicit SST RANS solver on one device.
+    """Implicit solver on one device: Euler, laminar Navier-Stokes, LES
+    (WALE) and RANS (k-omega Wilcox 2006, SST 2003, SST-DES), one species,
+    scalar or block LU-SGS.
 
     ``Solver(deck_path, device="cuda")`` builds the case on the device;
     ``run(iterations)`` marches and writes ``<deck>.resid`` / ``<deck>.tme``
@@ -114,7 +112,7 @@ class Solver:
         if deck.is_viscous:
             # static face geometry of the viscous residual, once per block
             for b in self.case.blocks:
-                viscous_statics(b)
+                viscous_statics(b, needs_face_length(self.cfg))
         self.prims = {b.index: b.prim0.clone() for b in self.case.blocks}
         self.plans = {b.index: imp.build_sweep_plan(b, dtype, self.device)
                       for b in self.case.blocks}
@@ -152,7 +150,7 @@ class Solver:
             prims[b.index] = prim_v  # includes viscous-wall ghosts
             auxs[b.index] = aux
             residuals[b.index] = resid
-            sr_max = torch.maximum(sr_f, sr_t)
+            sr_max = torch.maximum(sr_f, sr_t) if phys.nturb else sr_f
             specrads[b.index] = sr_max
             diags[b.index] = (dg_f, dg_t)
             dts[b.index] = step_mod.local_dt(cfg, b.geom, sr_max, b.g,
@@ -162,13 +160,14 @@ class Solver:
         # solver, the 9 velocity-gradient channels) so the implicit
         # off-diagonals see donor values at connection ghosts (reference:
         # gridLevel.cpp:343-395, procBlock.cpp:3057-3084)
-        for key in ("mut", "f1"):
-            step_mod.swap_connections(
-                {bi: auxs[bi][key][None] for bi in auxs}, case.swap_maps)
-        if cfg["block_matrix"]:
-            step_mod.swap_connections(
-                {bi: auxs[bi]["vgrad"].view((9,) + auxs[bi]["mu"].shape)
-                 for bi in auxs}, case.swap_maps)
+        if cfg["viscous"]:
+            for key in ["mut"] + (["f1"] if phys.nturb else []):
+                step_mod.swap_connections(
+                    {bi: auxs[bi][key][None] for bi in auxs}, case.swap_maps)
+            if cfg["block_matrix"]:
+                step_mod.swap_connections(
+                    {bi: auxs[bi]["vgrad"].view((9,) + auxs[bi]["mu"].shape)
+                     for bi in auxs}, case.swap_maps)
         return prims, residuals, specrads, diags, dts, auxs
 
     def _iteration(self, prims, cons_n, cfl):
@@ -198,7 +197,8 @@ class Solver:
         For blusgs the diagonal is the (ni, nj, nk, N, N) flow and (ni, nj,
         nk, 2, 2) turbulence blocks, and its inverse those blocks as the
         sweeps take them: channels (N*N, ni, nj, nk) and (4, ni, nj, nk),
-        permuted once here."""
+        permuted once here.  Without turbulence equations the turbulence
+        entry of both is None."""
         phys, cfg = self.phys, self.cfg
         inv_diag, a_diag, bs, dus = {}, {}, {}, {}
         for b in self.case.blocks:
@@ -207,13 +207,16 @@ class Solver:
                 a_diag[b.index], inv = imp.build_block_diagonal(
                     phys, b, cfg, aux["diag_flow_blk"], aux["diag_turb_blk"],
                     specrads[b.index], dts[b.index])
-                inv_flow, inv_turb = (imp.blk_to_channels(m) for m in inv)
+                inv_flow, inv_turb = (None if m is None
+                                      else imp.blk_to_channels(m)
+                                      for m in inv)
                 dmul = imp.diag_mult_channels
             else:
                 df, dtu = diags[b.index]
                 inv_flow, inv_turb = imp.build_diagonal(
                     phys, b, cfg, df, dtu, specrads[b.index], dts[b.index])
-                a_diag[b.index] = (1.0 / inv_flow, 1.0 / inv_turb)
+                a_diag[b.index] = (1.0 / inv_flow, None if inv_turb is None
+                                   else 1.0 / inv_turb)
                 dmul = imp.diag_mult
             inv_diag[b.index] = (inv_flow, inv_turb)
             bs[b.index] = imp.rhs_b(phys, b, cfg, prims[b.index],

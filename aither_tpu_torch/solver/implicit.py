@@ -61,12 +61,20 @@ def face_spectral_radius(phys: Physics, q, n, mag, dist=None, mu=None,
     return sr
 
 
-def _turb_viscous_face_sr(phys: Physics, q_nb, mag, dist, mu, mut, f1):
-    """SST turbulence-equation viscous face spectral radius
-    |A|/d.(mu + sigma_k.mut)/rho
-    (reference: turbulence.cpp ViscFaceSpecRad)."""
+def _turb_viscous_face_sr(phys: Physics, cfg, q_nb, mag, dist, mu, mut, f1):
+    """Turbulence-equation viscous face spectral radius
+    |A|/d.(mu + sigma_k.mut)/rho; Wilcox takes the unlimited rho k / omega
+    of the neighbour state, not the mut field
+    (reference: turbulence.cpp ViscFaceSpecRad per model)."""
     r = st.rho(phys, q_nb)
-    return phys.nondim_scaling * (mag / dist) / r * (mu + sigma_k(f1) * mut)
+    model = cfg["turb_model"]
+    if model == "kOmegaWilcox2006":
+        mutx = r * q_nb[phys.it] / q_nb[phys.it + 1]
+        sk = sigma_k(model, 1.0)
+    else:
+        mutx = mut
+        sk = sigma_k(model, f1)
+    return phys.nondim_scaling * (mag / dist) / r * (mu + sk * mutx)
 
 
 def offdiagonal_scalar(phys: Physics, cfg, q_nb, du_nb, n, mag, positive,
@@ -86,8 +94,8 @@ def offdiagonal_scalar(phys: Physics, cfg, q_nb, du_nb, n, mag, positive,
         sr_t = (0.5 * mag * torch.abs(vn + torch.abs(vn)) if positive
                 else 0.5 * mag * torch.abs(vn - torch.abs(vn)))
         if viscous and mut is not None:
-            sr_t = sr_t + _turb_viscous_face_sr(phys, q_nb, mag, dist, mu,
-                                                mut, f1)
+            sr_t = sr_t + _turb_viscous_face_sr(phys, cfg, q_nb, mag, dist,
+                                                mu, mut, f1)
         term = torch.cat([term[:phys.it], sr_t[None] * du_nb[phys.it:]])
     return dflux + term if positive else dflux - term
 

@@ -464,12 +464,14 @@ def full_residual(phys: Physics, cfg, block, prim):
     output-only gradient fields are not accumulated.  Returns
     (resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg, prim, aux)
     where prim carries the viscous-wall ghosts and aux the padded mu, mut
-    and f1 the implicit off-diagonals read.  With ``cfg['block_matrix']``
-    (blusgs) aux also holds the block diagonals 'diag_flow_blk' (ni, nj,
-    nk, N, N) and 'diag_turb_blk' (ni, nj, nk, 2, 2) — inviscid Rusanov,
-    viscous TSL and the SST source Jacobian — and the padded cell-average
-    velocity gradient 'vgrad' (3, 3, NI, NJ, NK) of the TSL
-    off-diagonals."""
+    and f1 the implicit off-diagonals read (mut and f1 are zeros for a
+    laminar deck; an inviscid deck has cellavg None and, for the scalar
+    solver, aux None).  With ``cfg['block_matrix']`` (blusgs) aux also
+    holds the block diagonals 'diag_flow_blk' (ni, nj, nk, N, N) and
+    'diag_turb_blk' (ni, nj, nk, 2, 2; None without turbulence equations)
+    — inviscid Rusanov, viscous TSL and the turbulence source Jacobian —
+    and, when viscous, the padded cell-average velocity gradient 'vgrad'
+    (3, 3, NI, NJ, NK) of the TSL off-diagonals."""
     from . import viscous as vis
 
     blk = bool(cfg.get("block_matrix"))
@@ -541,12 +543,25 @@ def full_residual(phys: Physics, cfg, block, prim):
         sr_turb = sr_turb - src_rad * vol
         diag_turb = diag_turb - src_rad * vol
         if blk:
-            # SST 2003 source Jacobian (the JAX package's Wilcox and DES
-            # arms are refused by the port's decks)
+            model = cfg["turb_model"]
             f1c = cellavg["f1"]
-            beta = f1c * vis.SST["beta1"] + (1.0 - f1c) * vis.SST["beta2"]
+            if model == "kOmegaWilcox2006":
+                # the TurbSrcJac form with the same beta as CalcTurbSrc
+                beta = vis.wilcox_beta(phys, cell_q, cellavg["vel"])
+            else:
+                beta = (f1c * vis.SST["beta1"]
+                        + (1.0 - f1c) * vis.SST["beta2"])
+            phi_des = 1.0
+            if model == "sstdes":
+                cdes = (f1c * vis.DES["cdes1"]
+                        + (1.0 - f1c) * vis.DES["cdes2"])
+                tls = torch.sqrt(cell_q[phys.it]) / (
+                    vis.SST["beta_star"] * cell_q[phys.it + 1]) \
+                    * phys.nondim_scaling
+                phi_des = torch.clamp(
+                    (1.0 - cellavg["f2"]) * tls / (cdes * width), min=1.0)
             diag_turb_blk = diag_turb_blk - bj.turb_src_jacobian(
-                phys, cfg, cell_q, vol, beta, 1.0)
+                phys, cfg, cell_q, vol, beta, phi_des)
 
     if blk:
         aux = aux or {}

@@ -6,25 +6,23 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "dplur": f"{_Q1} 3 (linear-solver variants)",
-    "bdplur": f"{_Q1} 3 (linear-solver variants)",
-    "approximateRoe": f"{_Q1} 3 (linear-solver variants)",
-    "timeIntegration": f"{_Q1} 4 (time integration)",
-    "multigrid": f"{_Q1} 5 (multigrid)",
-    "equationSet": f"{_Q1} 6 (remaining physics)",
-    "turbulenceModel": f"{_Q1} 6 (remaining physics)",
-    "wallLaw": f"{_Q1} 6 (remaining physics: wall law)",
-    "faceReconstruction": f"{_Q1} 6 (remaining physics: WENO)",
-    "viscousFaceReconstruction": f"{_Q1} 6 (remaining physics: centralFourth)",
-    "inviscidFlux": f"{_Q1} 6 (remaining physics: AUSM)",
-    "thermallyPerfect": f"{_Q1} 6 (remaining physics: thermallyPerfect)",
-    "multispecies": f"{_Q1} 6 (remaining physics: multispecies)",
-    "chemistry": f"{_Q1} 6 (remaining physics: chemistry)",
-    "nonreflecting": f"{_Q1} 6 (remaining physics: LODI)",
-    "boundaryCondition": f"{_Q1} 6 (remaining physics: boundary conditions)",
-    "output": f"{_Q1} 7 (output and restart)",
-    "restart": f"{_Q1} 7 (output and restart)",
-    "fileInitialCondition": f"{_Q1} 7 (output and restart: cloud ICs)",
+    "dplur": f"{_Q1} 2 (linear-solver variants)",
+    "bdplur": f"{_Q1} 2 (linear-solver variants)",
+    "approximateRoe": f"{_Q1} 2 (linear-solver variants)",
+    "timeIntegration": f"{_Q1} 3 (time integration)",
+    "multigrid": f"{_Q1} 4 (multigrid)",
+    "wallLaw": f"{_Q1} 5 (remaining physics: wall law)",
+    "faceReconstruction": f"{_Q1} 5 (remaining physics: WENO)",
+    "viscousFaceReconstruction": f"{_Q1} 5 (remaining physics: centralFourth)",
+    "inviscidFlux": f"{_Q1} 5 (remaining physics: AUSM)",
+    "thermallyPerfect": f"{_Q1} 5 (remaining physics: thermallyPerfect)",
+    "multispecies": f"{_Q1} 5 (remaining physics: multispecies)",
+    "chemistry": f"{_Q1} 5 (remaining physics: chemistry)",
+    "nonreflecting": f"{_Q1} 5 (remaining physics: LODI)",
+    "boundaryCondition": f"{_Q1} 5 (remaining physics: boundary conditions)",
+    "output": f"{_Q1} 6 (output and restart)",
+    "restart": f"{_Q1} 6 (output and restart)",
+    "fileInitialCondition": f"{_Q1} 6 (output and restart: cloud ICs)",
 }
 
 

@@ -3,11 +3,14 @@
     python -m aither_tpu_torch.utils.profile [--dims NI NJ NK]
                                              [--iterations N] [--warmup W]
                                              [--matrix-solver lusgs|blusgs]
+                                             [--equation-set SET]
+                                             [--turbulence-model MODEL]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
-default the 1.05M-cell case; the deck's matrixSolver as given, default
-lusgs) to ``smoke_run/profile_<solver>/``, runs W warm-up iterations, then
-N iterations three times:
+default the 1.05M-cell case; the deck's matrixSolver, equationSet and
+turbulenceModel as given, default lusgs, rans and sst2003) to
+``smoke_run/profile_<solver>_<set>_<model>/``, runs W warm-up iterations,
+then N iterations three times:
 
 1. plain, ending in one synchronise: the iteration time;
 2. with a device synchronise around each layer (ghosts, residual, linear
@@ -89,6 +92,12 @@ def main(argv=None):
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--matrix-solver", choices=("lusgs", "blusgs"),
                         default="lusgs")
+    parser.add_argument("--equation-set", default="rans",
+                        choices=("euler", "navierStokes",
+                                 "largeEddySimulation", "rans"))
+    parser.add_argument("--turbulence-model", default="sst2003",
+                        choices=("none", "wale", "kOmegaWilcox2006",
+                                 "sst2003", "sstdes"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -97,10 +106,13 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     wd = os.path.join(os.getcwd(), "smoke_run",
-                      f"profile_{args.matrix_solver}")
+                      f"profile_{args.matrix_solver}_{args.equation_set}_"
+                      f"{args.turbulence_model}")
     solver = driver.Solver(
         cases.write_plate_case(wd, *args.dims,
-                               matrix_solver=args.matrix_solver),
+                               matrix_solver=args.matrix_solver,
+                               equation_set=args.equation_set,
+                               turbulence_model=args.turbulence_model),
         device="cuda", workdir=wd)
     n = args.iterations
     iterate(solver, args.warmup)
@@ -132,6 +144,8 @@ def main(argv=None):
     print(json.dumps({
         "card": card, "dims": args.dims, "cells": solver.case.total_cells,
         "matrix_solver": args.matrix_solver,
+        "equation_set": args.equation_set,
+        "turbulence_model": args.turbulence_model,
         "iterations": n, "iteration_ms": iteration_ms,
         "iteration_ms_synced": synced_ms, "layers_ms": layers,
         "device_busy_ms": busy_ms,

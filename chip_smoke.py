@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths — implicit SST RANS with scalar LU-SGS (lusgs:
+Drives the port's paths — the implicit solver with scalar LU-SGS (lusgs:
 the viscous residual on the hand-written fused kernel csrc/viscous_march.cu,
 the sweeps on the hand-written csrc/lusgs_sweep.cu) and with block-matrix
-LU-SGS (blusgs: the sweeps on the hand-written csrc/blusgs_sweep.cu) — on
-the generated two-block flat plate (aither_tpu_torch/cases.py) and checks
-them.  Phases, each printing its own lines:
+LU-SGS (blusgs: the sweeps on the hand-written csrc/blusgs_sweep.cu), for
+every single-species physics: Euler, laminar Navier-Stokes, LES (WALE) and
+RANS (Wilcox 2006 k-omega, SST 2003, SST-DES) — on the generated two-block
+flat plate (aither_tpu_torch/cases.py) and checks them.  Phases, each
+printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
  2. build: the three kernels from csrc/, one nvcc each, started together
-    (time, ptxas report: registers and spills);
+    (time, ptxas report: registers and spills of every instantiation);
  3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
-    1.05M cells), identical inputs, times with CUDA events in the order
-    plain, kernel, kernel, plain (a sweep pair's checked plain run is its
-    first plain time):
+    1.05M cells), identical inputs, times with CUDA events (a sweep pair:
+    its checked plain run, then the kernel twice; the viscous residual:
+    plain, the kernel's first window with its cudaMalloc calls, kernel,
+    kernel, plain), SST 2003:
     - the scalar sweep pair without (variant a) and with (variant b) the
       lagged term, and the block sweep pair of the blusgs deck without
       (variant c) and with (variant c+b) it: max relative difference per
@@ -30,25 +33,45 @@ them.  Phases, each printing its own lines:
  4. main path, matrixSweeps 1: Solver(case B, device="cuda").run(
     MAIN_ITERATIONS) with the launch counters set to 0 before and read
     after: sweep launches = iterations x 2 x hyperplanes, viscous kernel
-    launches = iterations x blocks; every L2 finite; one .resid row per
+    launches = iterations x blocks, each timed where it runs by CUDA
+    events (kernels/viscous_march.TIMINGS); every L2 finite; one .resid row per
     iteration; iterations/s from iteration 3 on, Mcell-iterations/s and
     peak device memory;
  5. the lagged-term path, matrixSweeps 2: the same on case B for
     LAGGED_ITERATIONS, sweep launches = iterations x 2 x 2 x hyperplanes
     (every sweep takes the lagged term: the matrix is initialised);
- 6. reference: the small test case, lusgs and blusgs, with matrixSweeps 1
-    and 2 run on cuda and on cpu (plain versions) give the same raw
-    residual L2 history within REF_RTOL;
+ 6. reference: the small test case run on cuda and on cpu (plain versions)
+    gives the same raw residual L2 history within REF_RTOL: SST with lusgs
+    and blusgs at matrixSweeps 1 and 2; Euler, laminar, LES and Wilcox
+    with lusgs; laminar and Wilcox with blusgs;
  7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
     phases 4-5: block sweep launches = iterations x matrixSweeps x 2 x
     hyperplanes, no scalar sweep and no viscous kernel launch (the block
-    solvers take the plain viscous residual, as in the JAX package).
+    solvers take the plain viscous residual, as in the JAX package);
+ 8. the other physics (NEW_DECKS), every solver built once and used for
+    its kernels' comparison and then for its drive: each new form of the
+    sweeps (5 equations inviscid, 5 equations viscous, Wilcox; scalar and
+    block) and each new branch of the viscous residual (laminar, WALE,
+    Wilcox; WALE also on the unperturbed field) against its plain version
+    as in phase 3, then Solver.run(NEW_ITERATIONS) checked as in phase 4
+    (the viscous kernel launches iterations x blocks times on a viscous
+    lusgs deck, never on blusgs or Euler).  Case B: Wilcox and LES with
+    lusgs, laminar and Wilcox with blusgs.  Case A: those again at
+    matrixSweeps 2 (every new form with the lagged term), Euler with both
+    solvers at matrixSweeps 1 and 2, laminar and SST-DES with lusgs.  The
+    Euler decks start from a seeded 1%-perturbed state (the Euler plate
+    is a uniform flow with roundoff-level residuals).
 
 Then, on lines of their own: the card's name and power limit, the kernels
-JSON object, and last {"ok": true, "device": {...}}.  Any failure exits
-non-zero before the last line.  Case files go to ./smoke_run/ (git-ignored).
+JSON object (one row per kernel form; its times from case B where the form
+ran there, else case A, named in the row as 'case'; 'launches_case' is the
+case of the driven path that gave 'launches'; a viscous row also has
+'cold_ms', the first window after the plain run, and 'path_ms', the kernel
+inside Solver.run per iteration, with 'path_case'), and last {"ok": true, "device":
+{...}}.  Any failure exits non-zero before the last line.  Case files go to
+./smoke_run/ (git-ignored).
 """
 
 from __future__ import annotations
@@ -69,6 +92,7 @@ MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 8
 BLOCK_ITERATIONS = 8
 BLOCK_LAGGED_ITERATIONS = 7
+NEW_ITERATIONS = 8       # phase 8, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 FLOOR_PLANES = 2000      # empty plane launches timed for the floor
@@ -99,6 +123,34 @@ VISC_RTOL, VISC_ATOL = 1e-9, 1e-13
 # card, FMA in the kernels, amplified over REF_ITERATIONS implicit steps.
 REF_RTOL = 1e-8
 REF_ITERATIONS = 3
+
+PHYSICS = {"euler": ("euler", "none"),
+           "laminar": ("navierStokes", "none"),
+           "les": ("largeEddySimulation", "wale"),
+           "wilcox": ("rans", "kOmegaWilcox2006"),
+           "sst": ("rans", "sst2003"),
+           "sstdes": ("rans", "sstdes")}
+# phase 8: (case, physics, matrixSolver, matrixSweeps, sweep comparisons
+# (with the lagged term or not), viscous comparisons ("perturbed" /
+# "uniform" state)).  A solver's sweep comparisons do not depend on its
+# matrixSweeps; its drive does: with matrixSweeps 2 every launch of the
+# drive takes the lagged term.
+NEW_DECKS = (
+    ("case B", "wilcox", "lusgs", 1, (False,), ("perturbed",)),
+    ("case B", "les", "lusgs", 1, (False,), ("perturbed",)),
+    ("case B", "laminar", "blusgs", 1, (False,), ("perturbed",)),
+    ("case B", "wilcox", "blusgs", 1, (False,), ()),
+    ("case A", "euler", "lusgs", 1, (False,), ()),
+    ("case A", "euler", "lusgs", 2, (True,), ()),
+    ("case A", "euler", "blusgs", 1, (False,), ()),
+    ("case A", "euler", "blusgs", 2, (True,), ()),
+    ("case A", "laminar", "lusgs", 1, (False,), ("perturbed",)),
+    ("case A", "les", "lusgs", 2, (False, True), ("perturbed", "uniform")),
+    ("case A", "wilcox", "lusgs", 2, (False, True), ("perturbed",)),
+    ("case A", "laminar", "blusgs", 2, (False, True), ()),
+    ("case A", "wilcox", "blusgs", 2, (False, True), ()),
+    ("case A", "sstdes", "lusgs", 1, (), ()),
+)
 
 
 def fail(msg: str):
@@ -139,15 +191,44 @@ def timed_ms(torch, fn, reps: int) -> float:
     return ms / reps
 
 
-def in_turns(torch, plain, kernel, p1=None):
-    """(kernel ms, plain ms, [p1, k1, k2, p2]) timed plain, kernel, kernel,
-    plain; p1 is the first plain time when the caller has timed it."""
-    if p1 is None:
-        p1 = timed_ms(torch, plain, 1)
+def device_allocs(torch):
+    """cudaMalloc calls of the caching allocator so far (None where this
+    torch does not count them)"""
+    return torch.cuda.memory_stats().get("num_device_alloc")
+
+
+def in_turns(torch, plain, kernel):
+    """(kernel ms, plain ms, [p1, k1, k2, p2], cold ms, [cudaMalloc calls
+    in the cold window, in the two warm ones]) timed plain, cold kernel
+    window, kernel, kernel, plain.  A window holds the outputs of all its
+    KERNEL_REPS calls until it ends, so the first window after a plain run
+    must find room for all of them at once; the cold window is reported
+    beside the warm ones with the cudaMalloc calls each made, and the
+    kernel's time where the solver runs it is taken in the drive
+    (path_timings)."""
+    p1 = timed_ms(torch, plain, 1)
+    a0 = device_allocs(torch)
+    cold = timed_ms(torch, kernel, KERNEL_REPS)
+    a1 = device_allocs(torch)
     k1 = timed_ms(torch, kernel, KERNEL_REPS)
     k2 = timed_ms(torch, kernel, KERNEL_REPS)
+    a2 = device_allocs(torch)
     p2 = timed_ms(torch, plain, 1)
-    return 0.5 * (k1 + k2), 0.5 * (p1 + p2), [p1, k1, k2, p2]
+    allocs = [None, None] if a0 is None else [a1 - a0, a2 - a1]
+    return (0.5 * (k1 + k2), 0.5 * (p1 + p2), [p1, k1, k2, p2], cold,
+            allocs)
+
+
+def perturb(solver, seed=7):
+    """set the solver's state to its initial one times (1 + 0.01 U[0,1))
+    on the interior, seeded"""
+    rng = np.random.default_rng(seed)
+    prims = {}
+    for b in solver.case.blocks:
+        prim = b.prim0.cpu().numpy().copy()
+        prim[b.interior] *= 1.0 + 0.01 * rng.random(prim[b.interior].shape)
+        prims[b.index] = prim
+    solver.set_state(prims)
 
 
 def bound_ms(nbytes, ops):
@@ -192,22 +273,35 @@ def sweep_pair(solver, system, forward, backward, du0, extras):
     return out
 
 
+def form_name(form):
+    """the sweep kernels' form (neq, viscous, wilcox) in words"""
+    neq, viscous, wilcox = form
+    if neq == 5:
+        return "5 eq viscous" if viscous else "5 eq inviscid"
+    return "7 eq Wilcox" if wilcox else "7 eq SST"
+
+
 def compare_sweeps(torch, solver, system, label, card, with_extra):
-    """Phase 3, the sweep pair on one case: (max_abs_err, kernel ms, plain
-    ms, bound ms, bound_by)."""
+    """The sweep pair on one case against its plain version: (max_abs_err,
+    kernel ms, plain ms, bound ms, bound_by).  The plain pair takes
+    seconds, so its checked run is its timed one; the kernel pair is timed
+    twice after it."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as imp
     prims, auxs, _, _, du0 = system
     block = bool(solver.cfg["block_matrix"])
+    form = ls.sweep_form(solver.phys, solver.cfg)
     variant = {(False, False): "a", (False, True): "b (lagged term)",
                (True, False): "c (block)",
                (True, True): "c+b (block, lagged term)"}[(block, with_extra)]
+    variant = f"{variant}, {form_name(form)}"
     extras = None
     if with_extra:
         extras = {b.index: tuple(imp.offdiag_sum(
             solver.phys, solver.cfg, b, prims[b.index], du0[b.index], side,
             auxs[b.index]) for side in ("upper", "lower"))
             for b in solver.case.blocks}
+
     def run_plain():
         return sweep_pair(solver, system, ls.forward_plain,
                           ls.backward_plain, du0, extras)
@@ -217,9 +311,7 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
                           extras)
 
     kern = run_kernel()
-    # the plain pair takes seconds: its checked run is also its first
-    # timed one
-    plain, p1 = timed_once(torch, run_plain)
+    plain, plain_ms = timed_once(torch, run_plain)
     max_abs = 0.0
     rel = np.zeros(solver.phys.neq)     # per equation, worst block
     for bi, p in plain.items():
@@ -232,21 +324,21 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
             err = float((k[e] - p[e]).abs().max())
             max_abs = max(max_abs, err)
             rel[e] = max(rel[e], err / scale if scale > 0 else err)
-    print(f"phase 3 {label}: sweep variant {variant}, kernel vs plain max "
+    print(f"{label}: sweep variant {variant}, kernel vs plain max "
           f"rel diff per equation {[f'{r:.2e}' for r in rel]} (tol "
           f"{SWEEP_RTOL:.0e}), max abs diff {max_abs:.3e}", flush=True)
     if not rel.max() <= SWEEP_RTOL:
         fail(f"{label}: sweep kernel variant {variant} disagrees with the "
              f"plain sweep")
-    kernel_ms, plain_ms, t = in_turns(torch, run_plain, run_kernel, p1)
-    costs = [ls.sweep_cost(p, fwd, with_extra, block)
+    t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(2)]
+    kernel_ms = 0.5 * (t[0] + t[1])
+    costs = [ls.sweep_cost(p, fwd, with_extra, block, form)
              for p in solver.plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
-    print(f"phase 3 {label}: sweep variant {variant}, forward+backward "
+    print(f"{label}: sweep variant {variant}, forward+backward "
           f"pair over all blocks: kernel {kernel_ms:.4f} ms "
-          f"[{t[1]:.4f}, {t[2]:.4f}], plain {plain_ms:.2f} ms "
-          f"[{t[0]:.2f}, {t[3]:.2f}], bound {bound:.4f} ms ({by}) ({card})",
-          flush=True)
+          f"[{t[0]:.4f}, {t[1]:.4f}], plain {plain_ms:.2f} ms, bound "
+          f"{bound:.4f} ms ({by}) ({card})", flush=True)
     return max_abs, kernel_ms, plain_ms, bound, by
 
 
@@ -259,7 +351,7 @@ def launch_floor(torch, solver, label, card):
     per = timed_ms(torch, lambda: ls.empty_planes(FLOOR_PLANES, dev),
                    3) / FLOOR_PLANES
     planes = 2 * sum(p.nplanes for p in solver.plans.values())
-    print(f"phase 3 {label}: one empty dependent plane launch "
+    print(f"{label}: one empty dependent plane launch "
           f"{1e3 * per:.3f} us; sweep pair floor {planes} planes x that = "
           f"{planes * per:.4f} ms ({card})", flush=True)
     return per, planes * per
@@ -269,16 +361,19 @@ def launch_floor(torch, solver, label, card):
 # phase 3: the viscous residual kernel
 
 
-def viscous_inputs(torch, solver, seed=3):
-    """{block: (prim, T, mu)}: the initial state perturbed by up to 1% on
-    the interior (seeded), after the full and the viscous ghost fill."""
+def viscous_inputs(torch, solver, seed=3, perturbed=True):
+    """{block: (prim, T, mu)}: the initial state, perturbed by up to 1% on
+    the interior (seeded) unless ``perturbed`` is False, after the full and
+    the viscous ghost fill."""
     from aither_tpu_torch.solver import step
     phys = solver.phys
     rng = np.random.default_rng(seed)
     prims = {}
     for b in solver.case.blocks:
         prim = b.prim0.cpu().numpy().copy()
-        prim[b.interior] *= 1.0 + 0.01 * rng.random(prim[b.interior].shape)
+        if perturbed:
+            prim[b.interior] *= 1.0 + 0.01 * rng.random(
+                prim[b.interior].shape)
         prims[b.index] = torch.as_tensor(prim, device=solver.device)
     prims = step.apply_all_bcs(phys, solver.case, prims)
     out = {}
@@ -299,14 +394,18 @@ def flat_outputs(res):
     return out
 
 
-def compare_viscous(torch, solver, label, card):
-    """Phase 3, the viscous residual of every block on one case:
-    (max_abs_err, kernel ms, plain ms, bound ms, bound_by, statics
-    bytes)."""
+def compare_viscous(torch, solver, label, card, perturbed=True):
+    """The viscous residual of every block on one case against its plain
+    version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by, cold
+    window ms).  A blusgs solver's blocks are taken with the scalar
+    solver's cfg: the kernel has no block-matrix form."""
     from aither_tpu_torch.kernels import viscous_march as vm
     from aither_tpu_torch.solver import viscous as vis
-    phys, cfg = solver.phys, solver.cfg
-    inputs = viscous_inputs(torch, solver)
+    phys, cfg = solver.phys, dict(solver.cfg, block_matrix=False)
+    model = phys.turb_model
+    what = (f"viscous residual ({model}"
+            f"{'' if perturbed else ', unperturbed field'})")
+    inputs = viscous_inputs(torch, solver, perturbed=perturbed)
     blocks = solver.case.blocks
     max_abs, worst, worst_name = 0.0, 0.0, ""
     for b in blocks:
@@ -316,11 +415,11 @@ def compare_viscous(torch, solver, label, card):
                                                  *inputs[b.index]))
         torch.cuda.synchronize()
         if set(got) != set(want):
-            fail(f"{label}: viscous kernel outputs {sorted(got)}")
+            fail(f"{label}: {what} kernel outputs {sorted(got)}")
         for name, w in want.items():
             g = got[name]
             if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-                fail(f"{label}: viscous kernel {name} shape {g.shape} or "
+                fail(f"{label}: {what} kernel {name} shape {g.shape} or "
                      f"non-finite")
             err = (g - w).abs()
             scale = float(w.abs().max())
@@ -331,29 +430,37 @@ def compare_viscous(torch, solver, label, card):
                 worst, worst_name = ratio, (f"{name} of block {b.index} "
                                             f"(max |diff| {err.max():.3e}, "
                                             f"scale {scale:.3e})")
-    print(f"phase 3 {label}: viscous residual, kernel vs plain max abs diff "
+        if model == "wale" and perturbed and not float(
+                want["cellavg_mut"].max()) > 0.0:
+            fail(f"{label}: the WALE eddy viscosity is zero everywhere")
+    print(f"{label}: {what}, kernel vs plain max abs diff "
           f"{max_abs:.3e}, worst |diff| / (atol scale + rtol |plain|) "
           f"{worst:.3e} at {worst_name} (rtol {VISC_RTOL:.0e}, atol "
           f"{VISC_ATOL:.0e} x scale)", flush=True)
     if not worst <= 1.0:
-        fail(f"{label}: the viscous kernel disagrees with the plain version")
+        fail(f"{label}: the {what} kernel disagrees with the plain version")
 
     def run(fn):
         return lambda: [fn(phys, cfg, b, *inputs[b.index]) for b in blocks]
 
-    kernel_ms, plain_ms, t = in_turns(torch, run(vis.viscous_residual),
-                                      run(vm.viscous_residual))
-    costs = [vm.cost(b) for b in blocks]
+    kernel_ms, plain_ms, t, cold_ms, allocs = in_turns(
+        torch, run(vis.viscous_residual), run(vm.viscous_residual))
+    costs = [vm.cost(b, model) for b in blocks]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
-    statics = sum(sum(v.numel() for v in vis.viscous_statics(b)["face"]
-                      .values()) + vis.viscous_statics(b)["cell"].numel()
+    with_len = vis.needs_face_length(cfg)
+    statics = sum(sum(v.numel() for v in vis.viscous_statics(b, with_len)
+                      ["face"].values())
+                  + vis.viscous_statics(b, with_len)["cell"].numel()
                   for b in blocks) * 8
-    print(f"phase 3 {label}: viscous residual of all blocks: kernel "
-          f"{kernel_ms:.4f} ms [{t[1]:.4f}, {t[2]:.4f}], plain "
+    print(f"{label}: {what} of all blocks: kernel "
+          f"{kernel_ms:.4f} ms [{t[1]:.4f}, {t[2]:.4f}], first window "
+          f"after the plain run {cold_ms:.4f} ms with {allocs[0]} cudaMalloc "
+          f"calls ({allocs[1]} in the two warm windows; a window holds "
+          f"{KERNEL_REPS} x {len(blocks)} outputs), plain "
           f"{plain_ms:.2f} ms [{t[0]:.2f}, {t[3]:.2f}], bound {bound:.4f} "
           f"ms ({by}); static face geometry {statics / 2**30:.3f} GiB "
           f"({card})", flush=True)
-    return max_abs, kernel_ms, plain_ms, bound, by
+    return max_abs, kernel_ms, plain_ms, bound, by, cold_ms
 
 
 # ---------------------------------------------------------------------------
@@ -370,11 +477,13 @@ def read_tme(path):
     return rows
 
 
-def drive(torch, solver, iterations, sweep_pairs, label, card):
+def drive(torch, solver, iterations, sweep_pairs, label, card,
+          case="case B"):
     """Solver.run on the card with the launch counters set to 0 just
     before and read just after; checks and prints; returns the launch
-    counts {kernel: n}.  lusgs launches the scalar sweep and the viscous
-    kernel, blusgs the block sweep only."""
+    counts {kernel: n} and, as 'viscous_path_ms', the viscous kernel's time
+    per iteration inside the run (path_timings).  lusgs launches the scalar sweep and, on a viscous
+    deck, the viscous kernel; blusgs the block sweep only."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     cells = solver.case.total_cells
@@ -388,16 +497,24 @@ def drive(torch, solver, iterations, sweep_pairs, label, card):
                   "viscous_march": 0}
     else:
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
-                  "viscous_march": iterations * nblocks}
+                  "viscous_march": (iterations * nblocks
+                                    if solver.cfg["viscous"] else 0)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    allocs = device_allocs(torch)
+    vm.TIMINGS = []
     for c in counters.values():
         c.reset()
     solver.run(iterations=iterations)
     launches = {name: c.count for name, c in counters.items()}
     torch.cuda.synchronize()
+    timings, vm.TIMINGS = vm.TIMINGS, None
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: {iterations} iterations of case B ({cells} cells, "
+    if allocs is not None:
+        allocs = device_allocs(torch) - allocs
+    path_ms = path_timings(timings, nblocks, label, allocs, card)
+    print(f"{label}: {iterations} iterations of {case} ({cells} cells, "
+          f"{solver.deck['equationSet']} / {solver.deck['turbulenceModel']}, "
           f"{solver.deck['matrixSolver']}, matrixSweeps {sweep_pairs}), "
           f"kernel launches {launches} (expected {expect})", flush=True)
     if sweeps == 0:
@@ -422,27 +539,71 @@ def drive(torch, solver, iterations, sweep_pairs, label, card):
           f"Mcell-iterations/s, peak device memory {peak / 2**30:.3f} GiB "
           f"({card})", flush=True)
     print(f"{label}: last L2 {[f'{v:.4e}' for v in l2[-1]]}", flush=True)
-    return launches
+    return dict(launches, viscous_path_ms=path_ms)
+
+
+def path_timings(timings, nblocks, label, allocs, card):
+    """The viscous kernel where the solver runs it, from the three CUDA
+    events of each launch of a drive (before the output's allocation,
+    before the launch, after it): prints the first iteration's and the
+    later iterations' times and returns the later iterations' mean kernel
+    ms of one iteration (all blocks), or None without a launch."""
+    if not timings:
+        return None
+    alloc = np.array([e[0].elapsed_time(e[1]) for e in timings])
+    kern = np.array([e[1].elapsed_time(e[2]) for e in timings])
+    later = slice(nblocks, None)
+    per_iteration = nblocks * float(kern[later].mean())
+    print(f"{label}: viscous kernel inside Solver.run, {len(timings)} "
+          f"launches by CUDA events: first iteration "
+          f"{[f'{v:.4f}' for v in kern[:nblocks]]} ms (output allocation "
+          f"before it {[f'{v:.4f}' for v in alloc[:nblocks]]} ms); later "
+          f"launches mean {kern[later].mean():.4f}, min "
+          f"{kern[later].min():.4f}, max {kern[later].max():.4f} ms each "
+          f"(allocation mean {alloc[later].mean():.4f}, max "
+          f"{alloc[later].max():.4f} ms), {per_iteration:.4f} ms per "
+          f"iteration over {nblocks} blocks; {allocs} cudaMalloc calls in "
+          f"the whole drive ({card})", flush=True)
+    return per_iteration
 
 
 def reference_history(Solver, write_plate_case, dims, device, solver_name,
-                      sweeps):
+                      sweeps, physics):
     """raw L2 history (REF_ITERATIONS, neq) of the small case from a
     state perturbed by up to 1% on the interior (seeded; the unperturbed
     plate has roundoff-level residual components)."""
-    wd = os.path.join(RUN_DIR, f"reference_{device}_{solver_name}_{sweeps}")
+    wd = os.path.join(RUN_DIR, f"reference_{device}_{physics}_{solver_name}_"
+                               f"{sweeps}")
+    es, tm = PHYSICS[physics]
     s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
-                                matrix_solver=solver_name),
+                                matrix_solver=solver_name, equation_set=es,
+                                turbulence_model=tm),
                device=device, workdir=wd)
-    rng = np.random.default_rng(7)
-    prims = {}
-    for b in s.case.blocks:
-        prim = b.prim0.cpu().numpy().copy()
-        prim[b.interior] *= 1.0 + 0.01 * rng.random(prim[b.interior].shape)
-        prims[b.index] = prim
-    s.set_state(prims)
+    perturb(s)
     s.run(iterations=REF_ITERATIONS)
     return np.asarray(s.l2_history)
+
+
+def ptxas_report(text):
+    """one line per kernel instantiation from nvcc's -Xptxas -v output:
+    the kernel with its template arguments, its registers and its spills"""
+    import re
+    lines, entry, spills = [], "?", ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry, spills = m.group(1), ""
+            k = re.search(r"(sweep_plane|viscous_cells)I((?:L[ib]\d+E)+)E",
+                          entry)
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2))
+                entry = f"{k.group(1)}<{', '.join(args)}>"
+        elif "spill" in ln and not spills:
+            spills = ln.strip()
+        elif "registers" in ln:
+            used = ln.split(":", 1)[-1].strip()
+            lines.append(f"{entry}: {used}; {spills}")
+    return lines
 
 
 def main():
@@ -485,109 +646,169 @@ def main():
         print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
               f"built={info['built']} in {info['seconds']:.2f} s",
               flush=True)
-        for ln in info["ptxas"].splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"phase 2 ptxas {name}: {ln.strip()}", flush=True)
+        for ln in ptxas_report(info["ptxas"]):
+            print(f"phase 2 ptxas {name}: {ln}", flush=True)
 
-    def build(label, dims, solver_name, sweeps=1, tag=""):
-        wd = os.path.join(RUN_DIR, f"{label}_{solver_name}{tag}".replace(
-            " ", "_"))
+    def build(label, dims, solver_name, sweeps=1, physics="sst"):
+        wd = os.path.join(RUN_DIR, f"{label}_{physics}_{solver_name}_"
+                                   f"{sweeps}".replace(" ", "_"))
+        es, tm = PHYSICS[physics]
         t0 = time.perf_counter()
         s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
-                                    matrix_solver=solver_name),
+                                    matrix_solver=solver_name,
+                                    equation_set=es, turbulence_model=tm),
                    device="cuda", workdir=wd)
-        print(f"{label}: 2 blocks of {dims} ({solver_name}, matrixSweeps "
-              f"{sweeps}) built in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        if physics == "euler":      # a uniform flow otherwise
+            perturb(s)
+        print(f"{label}: 2 blocks of {dims} ({es} / {tm}, {solver_name}, "
+              f"matrixSweeps {sweeps}) built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return s
 
     # -- phase 3: kernels vs plain at main-path shapes ------------------------
     shutil.rmtree(RUN_DIR, ignore_errors=True)
+    all_dims = {"case A": SMOKE_2D_DIMS, "case B": SMOKE_3D_DIMS}
+    # (kernel, form, with the lagged term) -> {case: comparison result}
     results = {}
+
+    def record(key, case, result):
+        results.setdefault(key, {})[case] = result
+
+    def compare_all(solver, label, case, extras, fields):
+        """this solver's sweep kernel (scalar or block) with and without
+        the lagged term as ``extras`` says, and the viscous kernel on the
+        ``fields`` named"""
+        from aither_tpu_torch.kernels import lusgs_sweep as ls
+        kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
+                  else "lusgs_sweep")
+        form = ls.sweep_form(solver.phys, solver.cfg)
+        if extras:
+            system = linear_system(solver)
+            for with_extra in extras:
+                record((kernel, form, with_extra), case,
+                       compare_sweeps(torch, solver, system, label, card,
+                                      with_extra))
+        for field in fields:
+            res = compare_viscous(torch, solver, label, card,
+                                  perturbed=field == "perturbed")
+            if field == "perturbed":
+                record(("viscous_march", solver.phys.turb_model), case, res)
+
     solver = None
-    for label, dims in (("case A", SMOKE_2D_DIMS), ("case B", SMOKE_3D_DIMS)):
+    for case, dims in all_dims.items():
+        label = f"phase 3 {case}"
         del solver
-        solver = build(f"phase 3 {label}", dims, "blusgs")
-        system = linear_system(solver)
-        results[label] = dict(
-            sweep_c=compare_sweeps(torch, solver, system, label, card,
-                                   False),
-            sweep_cb=compare_sweeps(torch, solver, system, label, card,
-                                    True))
-        del system, solver
-        solver = build(f"phase 3 {label}", dims, "lusgs")
-        system = linear_system(solver)
-        results[label].update(
-            sweep_a=compare_sweeps(torch, solver, system, label, card,
-                                   False),
-            sweep_b=compare_sweeps(torch, solver, system, label, card, True),
-            viscous=compare_viscous(torch, solver, label, card),
-            floor=launch_floor(torch, solver, label, card))
-        del system
+        solver = build(label, dims, "blusgs")
+        compare_all(solver, label, case, (False, True), ())
+        del solver
+        solver = build(label, dims, "lusgs")
+        compare_all(solver, label, case, (False, True), ("perturbed",))
+        launch_floor(torch, solver, label, card)
+
+    # (kernel, form, with the lagged term) -> (launches of its drive, case)
+    launches = {}
+    # viscous kernel key -> (ms per iteration inside Solver.run, case)
+    path_ms = {}
+
+    def drive_and_count(solver, iterations, sweeps, label, case="case B"):
+        from aither_tpu_torch.kernels import lusgs_sweep as ls
+        n = drive(torch, solver, iterations, sweeps, label, card, case)
+        kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
+                  else "lusgs_sweep")
+        form = ls.sweep_form(solver.phys, solver.cfg)
+        # a form's first driven path gives its count
+        launches.setdefault((kernel, form, sweeps > 1), (n[kernel], case))
+        if n["viscous_march"]:
+            key = ("viscous_march", solver.phys.turb_model)
+            launches.setdefault(key, (n["viscous_march"], case))
+            # the kernel's time inside Solver.run, at the size of the
+            # row's other times where a path of that size was driven
+            if key not in path_ms or (case == "case B"
+                                      and path_ms[key][1] != case):
+                path_ms[key] = (n["viscous_path_ms"], case)
 
     # -- phase 4: main path, matrixSweeps 1 ----------------------------------
-    launches_a = drive(torch, solver, MAIN_ITERATIONS, 1, "phase 4 main path",
-                       card)
+    drive_and_count(solver, MAIN_ITERATIONS, 1, "phase 4 main path")
     del solver
 
     # -- phase 5: the lagged-term path, matrixSweeps 2 ------------------------
     solver = build("phase 5", SMOKE_3D_DIMS, "lusgs", 2)
-    launches_b = drive(torch, solver, LAGGED_ITERATIONS, 2,
-                       "phase 5 matrixSweeps 2", card)
+    drive_and_count(solver, LAGGED_ITERATIONS, 2, "phase 5 matrixSweeps 2")
     del solver
 
     # -- phase 6: small-case reference, cuda against cpu ----------------------
-    for solver_name in ("lusgs", "blusgs"):
-        for sweeps in (1, 2):
-            hist = {dev: reference_history(Solver, write_plate_case,
-                                           TEST_DIMS, dev, solver_name,
-                                           sweeps)
-                    for dev in ("cuda", "cpu")}
-            # per equation, relative to that equation's largest L2
-            worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
-                           / np.abs(hist["cpu"]).max(axis=0)).max())
-            print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, "
-                  f"{solver_name}, matrixSweeps {sweeps}, {REF_ITERATIONS} "
-                  f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
-                  f"(tol {REF_RTOL:.0e})", flush=True)
-            if not worst <= REF_RTOL:
-                fail(f"{solver_name}, matrixSweeps {sweeps}: the cuda run "
-                     f"disagrees with the cpu run")
+    references = [("sst", name, sweeps) for name in ("lusgs", "blusgs")
+                  for sweeps in (1, 2)]
+    references += [(physics, "lusgs", 1)
+                   for physics in ("euler", "laminar", "les", "wilcox")]
+    references += [(physics, "blusgs", 1) for physics in ("laminar", "wilcox")]
+    for physics, solver_name, sweeps in references:
+        hist = {dev: reference_history(Solver, write_plate_case, TEST_DIMS,
+                                       dev, solver_name, sweeps, physics)
+                for dev in ("cuda", "cpu")}
+        # per equation, relative to that equation's largest L2
+        worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
+                       / np.abs(hist["cpu"]).max(axis=0)).max())
+        print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, {physics}, "
+              f"{solver_name}, matrixSweeps {sweeps}, {REF_ITERATIONS} "
+              f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
+              f"(tol {REF_RTOL:.0e})", flush=True)
+        if not worst <= REF_RTOL:
+            fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}: the "
+                 f"cuda run disagrees with the cpu run")
 
     # -- phase 7: the blusgs path, matrixSweeps 1 and 2 -----------------------
     solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 1)
-    launches_c = drive(torch, solver, BLOCK_ITERATIONS, 1,
-                       "phase 7 blusgs", card)
+    drive_and_count(solver, BLOCK_ITERATIONS, 1, "phase 7 blusgs")
     del solver
-    solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 2, "_2")
-    launches_cb = drive(torch, solver, BLOCK_LAGGED_ITERATIONS, 2,
-                        "phase 7 blusgs matrixSweeps 2", card)
+    solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 2)
+    drive_and_count(solver, BLOCK_LAGGED_ITERATIONS, 2,
+                    "phase 7 blusgs matrixSweeps 2")
     del solver
+
+    # -- phase 8: the other physics, compared and driven ----------------------
+    for case, physics, solver_name, sweeps, extras, fields in NEW_DECKS:
+        label = f"phase 8 {case} {physics} {solver_name}"
+        solver = build(label, all_dims[case], solver_name, sweeps, physics)
+        compare_all(solver, label, case, extras, fields)
+        drive_and_count(solver, NEW_ITERATIONS, sweeps, label, case)
+        del solver
     check_no_jax_package()
 
-    def row(name, key, launches, replaces, source):
-        max_abs = max(r[key][0] for r in results.values())
-        _, ms, plain_ms, bound, by = results["case B"][key]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": None}
-
-    sweep_src = "aither_tpu_torch/csrc/lusgs_sweep.cu"
-    sweep_tpu = "aither_tpu/solver/pallas_sweep.py:239"
-    block_src = "aither_tpu_torch/csrc/blusgs_sweep.cu"
-    kernels = [
-        row("lusgs_sweep (variant a)", "sweep_a", launches_a["lusgs_sweep"],
-            sweep_tpu, sweep_src),
-        row("lusgs_sweep (variant b, lagged term)", "sweep_b",
-            launches_b["lusgs_sweep"], sweep_tpu, sweep_src),
-        row("blusgs_sweep (variant c, block)", "sweep_c",
-            launches_c["blusgs_sweep"], sweep_tpu, block_src),
-        row("blusgs_sweep (variant c+b, block, lagged term)", "sweep_cb",
-            launches_cb["blusgs_sweep"], sweep_tpu, block_src),
-        row("viscous_march", "viscous", launches_a["viscous_march"],
-            "aither_tpu/solver/pallas_residual.py:602",
-            "aither_tpu_torch/csrc/viscous_march.cu")]
+    sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
+               "blusgs_sweep": "aither_tpu_torch/csrc/blusgs_sweep.cu",
+               "viscous_march": "aither_tpu_torch/csrc/viscous_march.cu"}
+    kernels = []
+    for key, by_case in results.items():
+        if key not in launches:
+            fail(f"{key} was compared but no driven path launched it")
+        case = "case B" if "case B" in by_case else "case A"
+        _, ms, plain_ms, bound, by = by_case[case][:5]
+        if key[0] == "viscous_march":
+            name = f"viscous_march ({key[1]})"
+            replaces = "aither_tpu/solver/pallas_residual.py:602"
+        else:
+            variant = {"lusgs_sweep": ("a", "b, lagged term"),
+                       "blusgs_sweep": ("c, block", "c+b, block, lagged term")
+                       }[key[0]][int(key[2])]
+            name = f"{key[0]} (variant {variant}; {form_name(key[1])})"
+            replaces = "aither_tpu/solver/pallas_sweep.py:239"
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[key[0]],
+            "replaces": replaces, "launches": launches[key][0],
+            "max_abs_err": max(r[0] for r in by_case.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "case": case,
+            "launches_case": launches[key][1]})
+        if key[0] == "viscous_march":
+            # the first window after the plain run, and the kernel inside
+            # Solver.run (all blocks, per iteration) with its case
+            kernels[-1].update(cold_ms=by_case[case][5],
+                               path_ms=path_ms[key][0],
+                               path_case=path_ms[key][1])
+    for row in kernels:
+        if not row["launches"] > 0:
+            fail(f"{row['name']}: no launch on its driven path")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

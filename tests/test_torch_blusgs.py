@@ -496,7 +496,7 @@ def test_deck_check_admits_blusgs_and_refuses_bdplur(tmp_path):
     check_supported(parse_deck(path).finalize())
     path = write_plate_case(str(tmp_path), 4, 3, 2, matrix_solver="bdplur")
     with pytest.raises(NotImplementedError,
-                       match="bdplur .*ROADMAP.md queue 1 item 3"):
+                       match="bdplur .*ROADMAP.md queue 1 item 2"):
         check_supported(parse_deck(path).finalize())
 
 

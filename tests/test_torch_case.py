@@ -126,7 +126,8 @@ def test_port_never_imports_jax(tmp_path, blocked):
     ("matrixSolver", "bdplur"), ("matrixSolver", "dplur"),
     ("multigridLevels", "2"), ("inviscidFluxJacobian", "approximateRoe"),
     ("faceReconstruction", "weno"), ("inviscidFlux", "ausm"),
-    ("timeIntegration", "bdf2"), ("turbulenceModel", "kOmegaWilcox2006"),
+    ("timeIntegration", "bdf2"),
+    ("viscousFaceReconstruction", "centralFourth"),
     ("thermodynamicModel", "thermallyPerfect")])
 def test_refuses_settings_outside_the_slice(tmp_path, patch):
     import re

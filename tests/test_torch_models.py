@@ -1,0 +1,534 @@
+"""PyTorch port, the single-species physics family at function level: every
+model-dependent function against its aither_tpu counterpart on random
+points (no Solver compile), and the routing of the new decks.
+
+Functions, per model (rtol 1e-12, atol 1e-14: the same float64 expressions
+on both sides; libm and XLA's fusion round a few ulp apart):
+``eddy_visc_and_blending`` (Wilcox, WALE, WALE at a zero gradient),
+``wilcox_beta`` (3-D and an exactly 2-D gradient, where the guarded
+invariant is exactly 0), ``turb_source`` (Wilcox, sstdes), ``sigma_k`` /
+``sigma_w``, the viscous wall's omega ghost, ``offdiagonal_scalar`` and
+``offdiagonal_block_channels`` (5 equations inviscid, 5 equations viscous
+with mut > 0, Wilcox; both signs; each row against its own scale, as
+test_torch_physics), ``diag_mult`` / ``diag_mult_channels`` without a
+turbulence block, ``turb_src_jacobian`` (Wilcox, sstdes).
+
+Routing: ``check_supported`` admits each new deck and still refuses what
+is not ported, naming its ROADMAP item; the wrappers launch nothing on CPU
+tensors and reject a meta tensor in every form; the generated deck's
+default text is what it was before the physics became fields.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from aither_tpu_torch.cases import write_plate_case  # noqa: E402
+from tests.torch_parity import np_, rel_err  # noqa: E402
+
+RTOL, ATOL = 1e-12, 1e-14
+N = 48
+
+DECKS = {
+    "euler": ("euler", "none"),
+    "laminar": ("navierStokes", "none"),
+    "wale": ("largeEddySimulation", "wale"),
+    "wilcox": ("rans", "kOmegaWilcox2006"),
+    "sst": ("rans", "sst2003"),
+    "sstdes": ("rans", "sstdes"),
+}
+
+
+@pytest.fixture(scope="module")
+def physics(tmp_path_factory):
+    """{deck name: (JAX Physics, port Physics, JAX cfg, port cfg)}, from
+    the two Solvers of each deck on a 2 x 4x3x2 plate (nothing is run)"""
+    from tests.torch_parity import jax_solver, torch_solver
+    out = {}
+    for name, (es, tm) in DECKS.items():
+        wd = tmp_path_factory.mktemp(name)
+        path = write_plate_case(str(wd), 4, 3, 2, equation_set=es,
+                                turbulence_model=tm)
+        js, ts = jax_solver(path, wd), torch_solver(path, wd)
+        out[name] = (js.phys, ts.phys, js.cfg, ts.cfg)
+    return out
+
+
+def _close(got, want, what):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np_(g), np_(w), rtol=RTOL, atol=ATOL,
+                                   err_msg=what)
+
+
+def _points(neq, seed):
+    """numpy point inputs around the plate's freestream"""
+    rng = np.random.default_rng(seed)
+    q = np.empty((neq, N))
+    q[0] = 1.0 + 0.2 * rng.random(N)
+    q[1:4] = 0.2 * (rng.random((3, N)) - 0.3)
+    q[4] = 0.714 * (1.0 + 0.2 * rng.random(N))
+    if neq == 7:
+        q[5] = 1e-4 * (1.0 + rng.random(N))
+        q[6] = 10.0 * (1.0 + rng.random(N))
+    n = rng.standard_normal((3, N))
+    return dict(
+        q=q, du=1e-3 * rng.standard_normal((neq, N)),
+        n=n / np.linalg.norm(n, axis=0), mag=0.5 + rng.random(N),
+        dist=0.01 + rng.random(N), mu=1.0 + rng.random(N),
+        mut=10.0 * rng.random(N) + 0.1, f1=rng.random(N),
+        vgrad=rng.standard_normal((3, 3, N)),
+        kgrad=1e-3 * rng.standard_normal((3, N)),
+        wgrad=10.0 * rng.standard_normal((3, N)),
+        wd=1e-3 + rng.random(N), width=1e-2 + rng.random(N),
+        length=1e-2 + rng.random(N), vol=0.5 + rng.random(N),
+        beta=0.07 + 0.02 * rng.random(N))
+
+
+def _j(a, *keys):
+    return [jnp.asarray(a[k]) for k in keys]
+
+
+def _t(a, *keys):
+    return [torch.as_tensor(a[k]) for k in keys]
+
+
+# ---------------------------------------------------------------------------
+# the turbulence closures
+
+
+def test_physics_from_deck(physics):
+    want = {"euler": (5, "none"), "laminar": (5, "none"),
+            "wale": (5, "wale"), "wilcox": (7, "kOmegaWilcox2006"),
+            "sst": (7, "sst2003"), "sstdes": (7, "sstdes")}
+    for name, (jp, tp, jc, tc) in physics.items():
+        assert (tp.neq, tp.turb_model) == (jp.neq, jp.turb_model) \
+            == want[name]
+        assert tp.turb_prandtl() == jp.turb_prandtl()
+        for key in ("viscous", "turbulent", "turb_model"):
+            assert tc[key] == jc[key], (name, key)
+
+
+@pytest.mark.parametrize("case", ["wilcox", "wale", "wale_zero_gradient",
+                                  "sstdes"])
+def test_eddy_visc_and_blending(physics, case):
+    from aither_tpu.solver import viscous as jvi
+    from aither_tpu_torch.solver import viscous as tvi
+    jp, tp, _, _ = physics[case.split("_")[0]]
+    a = _points(tp.neq, 1)
+    if case == "wale_zero_gradient":
+        a["vgrad"] = np.zeros_like(a["vgrad"])
+    keys = ("q", "vgrad", "kgrad", "wgrad", "mu", "wd", "length")
+    want = jvi.eddy_visc_and_blending(jp, jp.turb_model, *_j(a, *keys))
+    got = tvi.eddy_visc_and_blending(tp, tp.turb_model, *_t(a, *keys))
+    _close(got, want, case)
+    if case == "wale_zero_gradient":
+        assert not np_(got[0]).any()          # 0 / EPS, not NaN
+    if case.startswith(("wale", "wilcox")):
+        assert np.all(np_(got[1]) == 1.0) and not np_(got[2]).any()
+
+
+@pytest.mark.parametrize("two_d", [False, True], ids=["3d", "2d"])
+def test_wilcox_beta(physics, two_d):
+    from aither_tpu.solver import viscous as jvi
+    from aither_tpu_torch.solver import viscous as tvi
+    jp, tp, _, _ = physics["wilcox"]
+    a = _points(7, 2)
+    if two_d:
+        a["vgrad"][2] = 0.0
+        a["vgrad"][:, 2] = 0.0
+    want = jvi.wilcox_beta(jp, *_j(a, "q", "vgrad"))
+    got = tvi.wilcox_beta(tp, *_t(a, "q", "vgrad"))
+    _close(got, want, "wilcox_beta")
+    if two_d:       # the invariant cancels exactly: FBeta = 1
+        assert np.all(np_(got) == tvi.WILCOX["beta0"])
+    else:
+        assert np.all(np_(got) < tvi.WILCOX["beta0"])
+
+
+@pytest.mark.parametrize("name", ["wilcox", "sstdes", "sst"])
+def test_turb_source(physics, name):
+    from aither_tpu.solver import viscous as jvi
+    from aither_tpu_torch.solver import viscous as tvi
+    jp, tp, _, _ = physics[name]
+    a = _points(7, 3)
+    a["f2"] = np.random.default_rng(4).random(N)
+    keys = ("q", "vgrad", "kgrad", "wgrad", "mut", "f1", "f2", "width")
+    want = jvi.turb_source(jp, jp.turb_model, *_j(a, *keys))
+    got = tvi.turb_source(tp, tp.turb_model, *_t(a, *keys))
+    for label, w, g in zip(("src_k", "src_w", "src_rad"), want, got):
+        assert rel_err(g, w) < 1e-13, (name, label)
+    with pytest.raises(ValueError, match="no source terms"):
+        tvi.turb_source(tp, "wale", *_t(a, *keys))
+
+
+@pytest.mark.parametrize("model", ["kOmegaWilcox2006", "sst2003", "sstdes"])
+def test_sigmas_and_wall_beta(model):
+    from aither_tpu.solver import viscous as jvi
+    from aither_tpu_torch.solver import viscous as tvi
+    f1 = np.random.default_rng(5).random(N)
+    for fn in ("sigma_k", "sigma_w"):
+        want = getattr(jvi, fn)(model, jnp.asarray(f1))
+        got = getattr(tvi, fn)(model, torch.as_tensor(f1))
+        _close(got if torch.is_tensor(got) else np.float64(got),
+               want, f"{fn} {model}")
+    assert tvi.wall_beta(model) == jvi.wall_beta(model)
+    assert tvi.turb_prandtl(model) == jvi.turb_prandtl(model)
+    for name in ("WILCOX", "SST", "DES", "WALE"):
+        assert getattr(tvi, name) == getattr(jvi, name)
+
+
+@pytest.mark.parametrize("name", ["wilcox", "sst", "laminar"])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_viscous_wall_ghost(physics, name, layer):
+    """the omega wall value takes the model's beta (beta0 for Wilcox)"""
+    from aither_tpu.solver import bc as jbc
+    from aither_tpu_torch.solver import bc as tbc
+    jp, tp, _, _ = physics[name]
+    a = _points(tp.neq, 6)
+    a["nu"] = a["mu"] / a["q"][0]
+    data = dict(velocity=(0.0, 0.0, 0.0), temperature=1.0,
+                is_isothermal=True)
+    want = jbc.viscous_wall(jp, *_j(a, "q", "n"), jbc.BCData(**data), layer,
+                            wall_dist=jnp.asarray(a["wd"]),
+                            nu_w=jnp.asarray(a["nu"]))
+    got = tbc.viscous_wall(tp, *_t(a, "q", "n"), tbc.BCData(**data), layer,
+                           wall_dist=torch.as_tensor(a["wd"]),
+                           nu_w=torch.as_tensor(a["nu"]))
+    assert got.shape[0] == tp.neq
+    _close(got, want, f"viscous_wall {name}")
+
+
+# ---------------------------------------------------------------------------
+# the implicit pieces
+
+
+FORMS = ["euler", "laminar", "wale", "wilcox", "sstdes"]
+
+
+def _offdiag_kw(name, a, conv, block):
+    if name == "euler":
+        return {}
+    kw = {k: conv(a[k]) for k in ("dist", "mu", "mut", "f1")}
+    if name == "laminar":
+        kw["mut"] = conv(np.zeros(N))
+        kw["f1"] = conv(np.zeros(N))
+    if block:
+        kw["vgrad"] = conv(a["vgrad"])
+    return kw
+
+
+@pytest.mark.parametrize("positive", [True, False])
+@pytest.mark.parametrize("name", FORMS)
+def test_offdiagonal_scalar(physics, name, positive):
+    from aither_tpu.solver import implicit as jim
+    from aither_tpu_torch.solver import implicit as tim
+    jp, tp, jc, tc = physics[name]
+    a = _points(tp.neq, 7)
+    want = jim.offdiagonal_scalar(jp, jc, *_j(a, "q", "du", "n", "mag"),
+                                  positive,
+                                  **_offdiag_kw(name, a, jnp.asarray, False))
+    got = tim.offdiagonal_scalar(tp, tc, *_t(a, "q", "du", "n", "mag"),
+                                 positive,
+                                 **_offdiag_kw(name, a, torch.as_tensor,
+                                               False))
+    assert got.shape == (tp.neq, N)
+    for e in range(tp.neq):
+        assert rel_err(got[e], want[e]) < 1e-12, (name, e)
+
+
+@pytest.mark.parametrize("positive", [True, False])
+@pytest.mark.parametrize("name", FORMS)
+def test_offdiagonal_block_channels(physics, name, positive):
+    from aither_tpu.solver import implicit as jim
+    from aither_tpu_torch.solver import implicit as tim
+    jp, tp, jc, tc = physics[name]
+    jc, tc = dict(jc, block_matrix=True), dict(tc, block_matrix=True)
+    a = _points(tp.neq, 8)
+    a["du"] = np.random.default_rng(9).standard_normal((tp.neq, N))
+    want = jim.offdiagonal_block_channels(
+        jp, jc, *_j(a, "q", "du", "n", "mag"), positive,
+        **_offdiag_kw(name, a, jnp.asarray, True))
+    got = tim.offdiagonal_block_channels(
+        tp, tc, *_t(a, "q", "du", "n", "mag"), positive,
+        **_offdiag_kw(name, a, torch.as_tensor, True))
+    assert got.shape == (tp.neq, N)
+    _close(got, want, f"offdiagonal_block_channels {name}")
+    # the dispatch the sweeps call takes the same form
+    _close(tim.offdiagonal(tp, tc, *_t(a, "q", "du", "n", "mag"), positive,
+                           **_offdiag_kw(name, a, torch.as_tensor, True)),
+           want, f"offdiagonal {name}")
+
+
+def test_diag_mult_without_a_turbulence_block(physics):
+    from aither_tpu.solver import implicit as jim
+    from aither_tpu_torch.solver import implicit as tim
+    jp, tp, _, _ = physics["laminar"]
+    rng = np.random.default_rng(10)
+    x, inv = rng.standard_normal((5, N)), 0.5 + rng.random(N)
+    ch = rng.standard_normal((25, N))
+    _close(tim.diag_mult(tp, torch.as_tensor(inv), None, torch.as_tensor(x)),
+           jim.diag_mult(jp, jnp.asarray(inv), None, jnp.asarray(x)),
+           "diag_mult")
+    _close(tim.diag_mult_channels(tp, torch.as_tensor(ch), None,
+                                  torch.as_tensor(x)),
+           jim.diag_mult_channels(jp, jnp.asarray(ch), None, jnp.asarray(x)),
+           "diag_mult_channels")
+
+
+@pytest.mark.parametrize("name,phi", [("wilcox", 1.0), ("sstdes", 1.7),
+                                      ("sst", 1.0)])
+def test_turb_src_jacobian(physics, name, phi):
+    from aither_tpu.solver import block_jac as jbj
+    from aither_tpu_torch.solver import block_jac as tbj
+    jp, tp, jc, tc = physics[name]
+    a = _points(7, 11)
+    want = jbj.turb_src_jacobian(jp, jc, *_j(a, "q", "vol", "beta"), phi)
+    got = tbj.turb_src_jacobian(tp, tc, *_t(a, "q", "vol", "beta"), phi)
+    _close(got, want, f"turb_src_jacobian {name}")
+
+
+# ---------------------------------------------------------------------------
+# routing
+
+
+@pytest.mark.parametrize("name", sorted(DECKS))
+@pytest.mark.parametrize("matrix_solver", ["lusgs", "blusgs"])
+def test_check_supported_admits_the_deck(tmp_path, name, matrix_solver):
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import check_supported
+    es, tm = DECKS[name]
+    path = write_plate_case(str(tmp_path), 4, 3, 2, equation_set=es,
+                            turbulence_model=tm, matrix_solver=matrix_solver)
+    check_supported(parse_deck(path).finalize())
+
+
+@pytest.mark.parametrize("name", ["euler", "laminar", "wale", "wilcox",
+                                  "sstdes"])
+@pytest.mark.parametrize("matrix_solver", ["lusgs", "blusgs"])
+def test_cli_runs_the_deck_on_the_cpu(tmp_path, monkeypatch, name,
+                                      matrix_solver):
+    from aither_tpu_torch.main import main
+    es, tm = DECKS[name]
+    path = write_plate_case(str(tmp_path), 4, 3, 2, equation_set=es,
+                            turbulence_model=tm, matrix_solver=matrix_solver)
+    monkeypatch.chdir(tmp_path)
+    assert main([path, "--device", "cpu", "--iterations", "2"]) == 0
+    with open(tmp_path / "plate.resid") as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    assert len(rows) == 3          # header + one row per iteration
+    nres = sum(c.startswith("Res-") for c in rows[0]) - 1   # less Res-Matrix
+    assert nres == (7 if es == "rans" else 5)
+
+
+@pytest.mark.parametrize("patch,item", [
+    (("matrixSolver", "dplur"), "item 2"),
+    (("inviscidFluxJacobian", "approximateRoe"), "item 2"),
+    (("faceReconstruction", "weno"), "item 5"),
+    (("inviscidFlux", "ausm"), "item 5")])
+@pytest.mark.parametrize("name", ["euler", "wilcox"])
+def test_check_supported_still_refuses(tmp_path, name, patch, item):
+    import re
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import check_supported
+    es, tm = DECKS[name]
+    path = write_plate_case(str(tmp_path), 4, 3, 2, equation_set=es,
+                            turbulence_model=tm)
+    with open(path) as f:
+        text = f.read()
+    key, val = patch
+    text, n = re.subn(rf"^{key}: .*$", f"{key}: {val}", text, flags=re.M)
+    assert n == 1
+    with open(path, "w") as f:
+        f.write(text)
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md queue 1 {item}"):
+        check_supported(parse_deck(path).finalize())
+
+
+@pytest.mark.parametrize("matrix_solver", ["lusgs", "blusgs"])
+@pytest.mark.parametrize("name", ["euler", "laminar", "wale", "wilcox"])
+def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
+                                                    matrix_solver):
+    """one iteration on the CPU leaves every launch counter alone, and the
+    sweep wrapper refuses the same operands as meta tensors"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    from aither_tpu_torch.solver.driver import Solver
+    es, tm = DECKS[name]
+    path = write_plate_case(str(tmp_path), 4, 3, 2, equation_set=es,
+                            turbulence_model=tm, matrix_solver=matrix_solver)
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    counters = (ls.LAUNCHES, ls.BLOCK_LAUNCHES, vm.LAUNCHES)
+    before = [c.count for c in counters]
+    ts.run(iterations=1)
+    assert [c.count for c in counters] == before
+    assert np.isfinite(ts.l2_history).all()
+    assert ls.sweep_form(ts.phys, ts.cfg) == (
+        ts.phys.neq, name != "euler", name == "wilcox")
+
+    prims, res, sr, dg, dts, auxs = ts._residuals(dict(ts.prims),
+                                                  ts.deck.cfl(0))
+    inv_diag, _, bs, dus = ts._setup_linear(prims, res, sr, dg, dts, auxs,
+                                            ts.cons_n)
+
+    def meta(t):
+        return None if t is None else t.to("meta")
+
+    aux = {k: meta(v) for k, v in (auxs[0] or {}).items()
+           if torch.is_tensor(v)}
+    for fn in (ls.forward, ls.backward):
+        with pytest.raises(ValueError, match="meta"):
+            fn(ts.phys, ts.cfg, ts.plans[0], meta(prims[0]), meta(dus[0]),
+               meta(bs[0]), *(meta(m) for m in inv_diag[0]), aux)
+    if name != "euler" and matrix_solver == "lusgs":
+        b = ts.case.blocks[0]
+        t_all = ts.phys.temperature(prims[0][ts.phys.ie],
+                                    prims[0][:ts.phys.ns])
+        with pytest.raises(ValueError, match="meta"):
+            vm.viscous_residual(ts.phys, ts.cfg, b, meta(prims[0]),
+                                meta(t_all), meta(t_all))
+    assert [c.count for c in counters] == before
+
+
+def test_wrappers_refuse_what_is_not_ported(physics):
+    """two species, a 7-equation inviscid form, centralFourth and the
+    block solver for the fused viscous residual"""
+    import dataclasses
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    _, tp, _, tc = physics["wilcox"]
+    assert ls.sweep_form(tp, tc) == (7, True, True)
+    with pytest.raises(ValueError, match="one species"):
+        ls.sweep_form(tp, dict(tc, viscous=False))
+    two = dataclasses.replace(tp, ns=2) if dataclasses.is_dataclass(tp) \
+        else None
+    if two is not None:
+        with pytest.raises(ValueError, match="one species"):
+            ls.sweep_form(two, tc)
+    for key, val in (("viscous_recon", "centralFourth"),
+                     ("block_matrix", True), ("viscous", False)):
+        with pytest.raises(ValueError, match="viscous residual kernel"):
+            vm._check_scope(tp, dict(tc, **{key: val}))
+    assert vm._check_scope(tp, tc) == vm.MODELS["kOmegaWilcox2006"] == 1
+    for name, branch in (("laminar", 3), ("wale", 2), ("sstdes", 0)):
+        _, p, _, c = physics[name]
+        assert vm._check_scope(p, c) == branch
+
+
+@pytest.mark.parametrize("form", [(5, False, False), (5, True, False),
+                                  (7, True, False), (7, True, True)])
+@pytest.mark.parametrize("block", [False, True])
+def test_sweep_cost_by_form(tmp_path, form, block):
+    """the bound counts each form's own bytes and operations: fewer
+    equations, no viscous fields or no f1 read less, and every form's
+    operations per neighbour are its own"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 4, 3, 2)
+    plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
+    sst = ls.sweep_cost(plan, True, False, block)
+    nbytes, ops = ls.sweep_cost(plan, True, False, block, form)
+    if form == ls.SST_FORM:
+        assert (nbytes, ops) == sst
+    else:
+        assert 0 < nbytes < sst[0] and 0 < ops < sst[1]
+    extra = ls.sweep_cost(plan, True, True, block, form)
+    ncell = int(plan.cells.numel())
+    assert extra[0] - nbytes == 8 * form[0] * ncell
+    assert extra[1] - ops == form[0] * ncell
+
+
+def test_viscous_cost_by_model(tmp_path):
+    from aither_tpu_torch.kernels import viscous_march as vm
+    from aither_tpu_torch.solver.driver import Solver
+    costs = {}
+    for name in ("laminar", "wale", "wilcox", "sst"):
+        es, tm = DECKS[name]
+        wd = str(tmp_path / name)
+        path = write_plate_case(wd, 4, 3, 2, equation_set=es,
+                                turbulence_model=tm)
+        b = Solver(path, device="cpu", workdir=wd).case.blocks[0]
+        costs[name] = vm.cost(b, tm)
+    faces = 5 * 3 * 2 + 4 * 4 * 2 + 4 * 3 * 3
+    ncell, npad = 4 * 3 * 2, int(np.prod(b.shape))
+    # each branch's own bytes: the padded prim, T and mu; the face channels
+    # it reads (the wall distance only in SST, the face length only in
+    # WALE); 4 cell statics; its outputs
+    for name, fields, channels, outputs in (("sst", 9, 26, 29),
+                                            ("wilcox", 9, 25, 29),
+                                            ("wale", 7, 26, 21),
+                                            ("laminar", 7, 25, 21)):
+        assert costs[name][0] == 8 * (fields * npad + channels * faces
+                                      + (4 + outputs) * ncell), name
+    assert costs["sst"][0] - costs["wilcox"][0] == 8 * faces
+    assert costs["wale"][0] - costs["laminar"][0] == 8 * faces
+    assert costs["sst"][0] > costs["wilcox"][0] > costs["wale"][0]
+    assert costs["laminar"][1] < costs["wale"][1] < costs["wilcox"][1] \
+        < costs["sst"][1]
+
+
+TEMPLATE_BEFORE = """\
+gridName: plate
+iterations: 10
+outputFrequency: 1000
+referenceDensity: 1.2256
+referenceTemperature: 288.0
+referenceLength: 1.0
+equationSet: rans
+turbulenceModel: sst2003
+timeIntegration: implicitEuler
+matrixSolver: lusgs
+matrixSweeps: 1
+matrixRelaxation: 1.0
+inviscidFlux: roe
+inviscidFluxJacobian: rusanov
+faceReconstruction: thirdOrder
+limiter: vanAlbada
+viscousFaceReconstruction: central
+cflStart: 10.0
+cflStep: 10.0
+cflMax: 1000.0
+fluids: <fluid(name=air; referenceMassFraction=1.0)>
+initialConditions: <icState(tag=-1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]; turbulenceIntensity=0.01; eddyViscosityRatio=10.0)>
+boundaryStates: <characteristic(tag=1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]; turbulenceIntensity=0.01; eddyViscosityRatio=10.0), viscousWall(tag=2; temperature=288.0)>
+boundaryConditions: 2
+2 2 2
+  characteristic  0 0 0 3 0 2 1
+  interblock  4 4 0 3 0 2 1001
+  viscousWall  0 4 0 0 0 2 2
+  characteristic  0 4 3 3 0 2 1
+  slipWall  0 4 0 3 0 0 0
+  slipWall  0 4 0 3 2 2 0
+2 2 2
+  interblock  0 0 0 3 0 2 2000
+  characteristic  4 4 0 3 0 2 1
+  viscousWall  0 4 0 0 0 2 2
+  characteristic  0 4 3 3 0 2 1
+  slipWall  0 4 0 3 0 0 0
+  slipWall  0 4 0 3 2 2 0
+"""
+
+
+def test_default_deck_text_is_unchanged(tmp_path):
+    with open(write_plate_case(str(tmp_path), 4, 3, 2)) as f:
+        assert f.read() == TEMPLATE_BEFORE
+
+
+def test_euler_deck_has_slip_walls_and_no_wall_state(tmp_path):
+    with open(write_plate_case(str(tmp_path), 4, 3, 2, equation_set="euler",
+                               turbulence_model="none")) as f:
+        text = f.read()
+    assert "viscousWall" not in text and "turbulenceIntensity" not in text
+    assert text.count("slipWall  0 4 0 0 0 2 0") == 2
+    with open(write_plate_case(str(tmp_path), 4, 3, 2,
+                               equation_set="navierStokes",
+                               turbulence_model="none")) as f:
+        text = f.read()
+    assert text.count("viscousWall  0 4 0 0 0 2 2") == 2
+    assert "turbulenceIntensity" not in text

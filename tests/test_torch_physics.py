@@ -170,7 +170,7 @@ def test_sst_closures(phys_pair):
     J = [jnp.asarray(a) for a in (q, vgrad, kgrad, wgrad, mu, wd)]
     T = [torch.as_tensor(a) for a in (q, vgrad, kgrad, wgrad, mu, wd)]
     want = jvi.eddy_visc_and_blending(jp, "sst2003", *J, None)
-    got = tvi.eddy_visc_and_blending(tp, *T)
+    got = tvi.eddy_visc_and_blending(tp, "sst2003", *T, None)
     for name, w, t in zip(("mut", "f1", "f2"), want, got):
         assert_close(t, w, RTOL, 0.0, name)
     mut, f1, f2 = want
