@@ -22,6 +22,19 @@ kOmegaWilcox2006 / sst2003 / sstdes).  Without turbulence equations the
 states carry no turbulence entries; for ``euler`` the j-min patches are
 ``slipWall`` and the ``viscousWall`` boundary state goes.
 
+``species`` and ``mass_fractions`` make the gas a calorically perfect
+mixture (the ``fluids`` list, ``massFractions`` on every state),
+``diffusion`` sets ``diffusionModel`` and ``chemistry`` names a mechanism
+of ``MECHANISMS``: the deck reacts (``chemistryModel: reacting``) and the
+mechanism's text is written beside it as ``<out_dir>/<chemistry>.mch``.
+``N2O2`` and ``AIR5`` are the two mixtures the tests and the smoke run
+use: nitrogen/oxygen air at the plate's 288 K, and five-species air
+(N2, O2, NO, N, O) at about 3,900 K with a wall at 3,500 K, hot enough
+for the mechanism's dissociation to move the residual.  ``MIXTURES``
+names them with the frozen (non-reacting) forms of hot air in five, four
+and three species, which give the sweep kernels every species count they
+are built for.
+
 Usage::
 
     from aither_tpu_torch.cases import write_plate_case
@@ -53,7 +66,7 @@ outputFrequency: 1000
 referenceDensity: 1.2256
 referenceTemperature: 288.0
 referenceLength: 1.0
-equationSet: {equation_set}
+{mixture}equationSet: {equation_set}
 turbulenceModel: {turbulence_model}
 timeIntegration: implicitEuler
 matrixSolver: {matrix_solver}
@@ -67,9 +80,9 @@ viscousFaceReconstruction: central
 cflStart: 10.0
 cflStep: 10.0
 cflMax: 1000.0
-fluids: <fluid(name=air; referenceMassFraction=1.0)>
-initialConditions: <icState(tag=-1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]{turb})>
-boundaryStates: <characteristic(tag=1; pressure=101300.0; density=1.2256; velocity=[68.0, 0.0, 0.0]{turb}){wall_state}>
+fluids: <{fluids}>
+initialConditions: <icState(tag=-1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf})>
+boundaryStates: <characteristic(tag=1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf}){wall_state}>
 boundaryConditions: 2
 2 2 2
   characteristic  0 0 0 {nj} 0 {nk} 1
@@ -86,6 +99,36 @@ boundaryConditions: 2
   slipWall  0 {ni} 0 {nj} 0 0 0
   slipWall  0 {ni} 0 {nj} {nk} {nk} 0
 """
+
+
+# Arrhenius forward rates (SI: m^3/mol/s, K) of three dissociation and
+# exchange reactions of five-species air after Park; N2 is the collision
+# partner.  Backward rates follow from the Gibbs equilibrium constant.
+MECHANISMS = {
+    "air5": """\
+# five-species air, three reactions
+O2 + N2 <=> 2 O + N2 : forwardRate=arrhenius(C=2.0e15, eta=-1.5, theta=59500.0)
+NO + N2 <=> N + O + N2 : forwardRate=arrhenius(C=5.0e9, eta=0.0, theta=75500.0)
+N2 + O <=> NO + N : forwardRate=arrhenius(C=6.4e11, eta=-1.0, theta=38400.0)
+""",
+}
+
+N2O2 = dict(species=("N2", "O2"), mass_fractions=(0.767, 0.233),
+            diffusion="schmidt")
+AIR5 = dict(species=("N2", "O2", "NO", "N", "O"),
+            mass_fractions=(0.74, 0.2, 0.03, 0.01, 0.02),
+            diffusion="schmidt", chemistry="air5", density=0.0882,
+            wall_temperature=3500.0)
+# by name, with the frozen twin of hot air (no chemistry) and its frozen
+# three- and four-species subsets
+MIXTURES = {"n2o2": N2O2, "air5": AIR5,
+            "air5_frozen": dict(AIR5, chemistry=None),
+            "air3_frozen": dict(AIR5, chemistry=None,
+                                species=("N2", "O2", "NO"),
+                                mass_fractions=(0.75, 0.2, 0.05)),
+            "air4_frozen": dict(AIR5, chemistry=None,
+                                species=("N2", "O2", "NO", "O"),
+                                mass_fractions=(0.74, 0.2, 0.04, 0.02))}
 
 
 def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
@@ -108,18 +151,41 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      matrix_sweeps: int = 1,
                      matrix_solver: str = "lusgs",
                      equation_set: str = "rans",
-                     turbulence_model: str = "sst2003") -> str:
+                     turbulence_model: str = "sst2003",
+                     species=None, mass_fractions=None,
+                     diffusion: str = "none", chemistry=None,
+                     density: float = 1.2256,
+                     wall_temperature: float = 288.0) -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
     ``matrix_solver`` "blusgs" the block-matrix LU-SGS; ``equation_set``
-    and ``turbulence_model`` the physics (module docstring)."""
+    and ``turbulence_model`` the physics; ``species``, ``mass_fractions``,
+    ``diffusion`` and ``chemistry`` the mixture (module docstring);
+    ``density`` (kg/m^3, at 101300 Pa) the state and ``wall_temperature``
+    (K) the isothermal wall."""
     turb = ("; turbulenceIntensity=0.01; eddyViscosityRatio=10.0"
             if equation_set == "rans" else "")
     inviscid = equation_set == "euler"
     wall = (f"slipWall  0 {ni} 0 0 0 {nk} 0" if inviscid
             else f"viscousWall  0 {ni} 0 0 0 {nk} 2")
-    wall_state = "" if inviscid else ", viscousWall(tag=2; temperature=288.0)"
+    wall_state = ("" if inviscid else
+                  f", viscousWall(tag=2; temperature={wall_temperature})")
+    fluids, mf, mixture = "fluid(name=air; referenceMassFraction=1.0)", "", ""
+    if species is not None:
+        fluids = ", ".join(f"fluid(name={s}; referenceMassFraction={m})"
+                           for s, m in zip(species, mass_fractions))
+        mf = "; massFractions=[" + ", ".join(
+            f"{s}={m}" for s, m in zip(species, mass_fractions)) + "]"
+        mixture = f"diffusionModel: {diffusion}\n"
+        if chemistry is not None:
+            mixture += ("chemistryModel: reacting\n"
+                        f"chemistryMechanism: {chemistry}\n")
+    if not inviscid:
+        wall_state = wall_state[:-1] + mf + ")"
     os.makedirs(out_dir, exist_ok=True)
+    if chemistry is not None:
+        with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
+            f.write(MECHANISMS[chemistry])
     write_p3d(os.path.join(out_dir, f"{name}.xyz"), plate_nodes(ni, nj, nk))
     deck_path = os.path.join(out_dir, f"{name}.inp")
     with open(deck_path, "w") as f:
@@ -128,5 +194,7 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              matrix_solver=matrix_solver,
                              equation_set=equation_set,
                              turbulence_model=turbulence_model, turb=turb,
-                             wall=wall, wall_state=wall_state))
+                             wall=wall, wall_state=wall_state, mf=mf,
+                             fluids=fluids, mixture=mixture,
+                             density=density))
     return deck_path

@@ -3,20 +3,30 @@
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
 // (pallas_call at pallas_sweep.py:342) with block_matrix set, variant (c):
-// one species, Rusanov off-diagonal, without and with the lagged
-// opposite-side term `extra` (matrixSweeps > 1, variant (c)+(b)), in the
-// forms the single-species models need, each a compile-time instantiation
-// of one sweep_plane<NEQ, VISCOUS, WILCOX, FORWARD>:
-//   5 equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
+// Rusanov off-diagonal, without and with the lagged opposite-side term
+// `extra` (matrixSweeps > 1, variant (c)+(b)), for one species or a
+// calorically perfect mixture of NS = 2..5 species (flow blocks of
+// N = NS + 4), in the forms the models need, each a compile-time
+// instantiation of one sweep_plane<NS, NEQ, VISCOUS, WILCOX, FORWARD>:
+//   N equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
 //     vgrad and the centre distance are not read;
-//   5 equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
+//   N equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
 //     rows with mu + mut and no turbulent conductivity (as
-//     block_jac._tsl_rows without turbulence equations); 25 inverse
+//     block_jac._tsl_rows without turbulence equations); N*N inverse
 //     channels, inv_t null;
-//   7 equations SST 2003 / SST-DES: plus the 2x2 turbulence block with the
-//     blended sigma_k, sigma_w and the mut field;
-//   7 equations Wilcox 2006: that block with sigma*, sigma constant and
-//     the unlimited rho k / omega of the neighbour state.
+//   N + 2 equations SST 2003 / SST-DES: plus the 2x2 turbulence block with
+//     the blended sigma_k, sigma_w and the mut field;
+//   N + 2 equations Wilcox 2006: that block with sigma*, sigma constant
+//     and the unlimited rho k / omega of the neighbour state.
+// A mixture (add_block_offdiagonal_mix) takes its per-species constants
+// (struct Mixture) and evaluates per neighbour state its gamma, energy, cp
+// and conductivity (Sutherland per species, mixed as 0.5 (sum x_s k_s +
+// 1 / sum x_s / k_s) over the mole fractions x_s); its Rusanov rows carry
+// the species block vn (delta_ij - mf_i) and mf_i n, and with Schmidt
+// diffusion (diffusion != 0) its TSL rows the species-diffusion block
+// dcoeff (delta_ij - mf_i) / (mu_tot rho), dcoeff = mu/Sc + mut/Sct, and
+// in the energy row the diffusion's enthalpy flux h_s + V^2/2
+// (block_jac.py:204-227 of the JAX package).
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -33,7 +43,7 @@
 // minus / plus the thin-shear-layer viscous Jacobian times du
 // (block_jac.tsl_offdiag_matvec: rows . (dPrim/dCons . du)), with the
 // 2x2 turbulence block 0.5|A|(vn +- |vn|) + the TSL turbulence diagonal.
-// D_c^-1 is the cell's inverted 5x5 flow and 2x2 turbulence block.
+// D_c^-1 is the cell's inverted N x N flow and 2x2 turbulence block.
 // extra is computed before the sweep by implicit.offdiag_sum.  du is
 // updated IN PLACE, one launch per plane: a plane reads only neighbour
 // planes.
@@ -42,14 +52,15 @@
 // neighbours' cell-average velocity gradient vgrad (3, 3, NI, NJ, NK),
 // vgrad[a][b] = d v_b / d x_a, padded; b, extra (NEQ, ni, nj, nk) and the
 // inverse blocks inv_f (25, ni, nj, nk) row-major, inv_t (4, ni, nj, nk)
-// physical, channel first so that a warp reads each channel in one pass.
+// physical, channel first so that a warp reads each channel in one pass
+// (inv_f holds N*N channels).
 // The host plan (SweepPlan) lists each plane's cells and per cell and
 // direction the face normal, area and centre distance (stat) and whether
 // the neighbour contributes (mask).  A masked face is skipped by a
 // branch, never multiplied by zero: a ghost state there may be garbage.
 //
 // Each Jacobian is built row by row into the running sum (as
-// block_jac.rows_matvec): no 5x5 matrix is held in registers.
+// block_jac.rows_matvec): no N x N matrix is held in registers.
 //
 // What bounds it on the card: the bytes a forward+backward pair at 1M cells
 // must move take under 0.5 ms at 3.35 TB/s, its ~2 GFLOP of FP64 ~0.06 ms
@@ -69,12 +80,23 @@ namespace {
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 constexpr int THREADS = 128;
+constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
 
 struct Phys {
   double R, cv, cp, hf, gamma, prt, scaling;
   double t_ref, cond_c1, cond_s, k_nondim;
   // SST blends; Wilcox: sigma* in sigma_k1 and sigma in sigma_w1
   double sigma_k1, sigma_k2, sigma_w1, sigma_w2;
+};
+
+// per-species constants of a mixture (read when NS > 1): gas constant,
+// cv, cp, heat of formation, Sutherland conductivity coefficients and the
+// dimensional molar mass; the Schmidt numbers and whether species diffuse
+template <int NS>
+struct Mixture {
+  double R[NS], cv[NS], cp[NS], hf[NS], cond_c1[NS], cond_s[NS], mm[NS];
+  double schmidt, turb_schmidt;
+  int diffusion;
 };
 
 struct Fields {
@@ -234,9 +256,191 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   }
 }
 
-template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+// block off-diagonal product of the neighbour nb across one face, added to
+// acc, for a mixture of NS species (aither_tpu
+// implicit.offdiagonal_block_channels).  The rows of the one-species form
+// with the mixture's gamma and energy, the species column sums S = sum_j
+// du_j in place of du_0, and the species rows.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__device__ __forceinline__ void add_block_offdiagonal_mix(
+    const Phys& ph, const Mixture<NS>& sp, const Fields& fl, int64_t nb,
+    const double* st, double acc[NEQ]) {
+  constexpr int N = NS + 4;
+  const int64_t nc = fl.nc;
+  double mf[NS];
+  double rho = 0.0, rr = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    mf[s] = fl.prim[s * nc + nb];
+    rho += mf[s];
+    rr += sp.R[s] * mf[s];
+  }
+  const double u = fl.prim[NS * nc + nb];
+  const double v = fl.prim[(NS + 1) * nc + nb];
+  const double w = fl.prim[(NS + 2) * nc + nb];
+  const double p = fl.prim[(NS + 3) * nc + nb];
+  const double t = p / rr;
+  double cpm = 0.0, cvm = 0.0, em = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    mf[s] = mf[s] / rho;
+    cpm += sp.cp[s] * mf[s];
+    cvm += sp.cv[s] * mf[s];
+    em += (sp.hf[s] + sp.cv[s] * t) * mf[s];
+  }
+  double dq[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * nc + nb];
+  double S = 0.0;  // the species columns' common factor
+#pragma unroll
+  for (int s = 0; s < NS; ++s) S += dq[s];
+  const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3];
+
+  const double gamma = cpm / cvm;
+  const double vn = u * n0 + v * n1 + w * n2;
+  const double vmag2 = u * u + v * v + w * w;
+  const double gm1 = gamma - 1.0;
+  const double sgn = FORWARD ? 1.0 : -1.0;
+  const double dm0 = dq[NS], dm1 = dq[NS + 1], dm2 = dq[NS + 2];
+  const double de = dq[NS + 3];
+
+  // Rusanov block: 0.5|A| dF/dU rows +- spectral radius
+  {
+    const double phi = 0.5 * gm1 * vmag2;
+    const double a1 = gamma * (em + 0.5 * vmag2) - phi;
+    const double a3 = gamma - 2.0;
+    const double hm = 0.5 * mag;
+    const double spec = hm * (fabs(vn) + sqrt(gamma * p / rho));
+    const double ndm = n0 * dm0 + n1 * dm1 + n2 * dm2;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      acc[s] += hm * (vn * dq[s] - mf[s] * vn * S + mf[s] * ndm) +
+                sgn * spec * dq[s];
+    acc[NS] += hm * ((phi * n0 - u * vn) * S + (vn - a3 * n0 * u) * dm0 +
+                     (u * n1 - gm1 * v * n0) * dm1 +
+                     (u * n2 - gm1 * w * n0) * dm2 + gm1 * n0 * de) +
+               sgn * spec * dm0;
+    acc[NS + 1] += hm * ((phi * n1 - v * vn) * S +
+                         (v * n0 - gm1 * u * n1) * dm0 +
+                         (vn - a3 * n1 * v) * dm1 +
+                         (v * n2 - gm1 * w * n1) * dm2 + gm1 * n1 * de) +
+                   sgn * spec * dm1;
+    acc[NS + 2] += hm * ((phi * n2 - w * vn) * S +
+                         (w * n0 - gm1 * u * n2) * dm0 +
+                         (w * n1 - gm1 * v * n2) * dm1 +
+                         (vn - a3 * n2 * w) * dm2 + gm1 * n2 * de) +
+                   sgn * spec * dm2;
+    acc[NS + 3] += hm * (vn * (phi - a1) * S + (a1 * n0 - gm1 * u * vn) * dm0 +
+                         (a1 * n1 - gm1 * v * vn) * dm1 +
+                         (a1 * n2 - gm1 * w * vn) * dm2 + gamma * vn * de) +
+                   sgn * spec * de;
+  }
+
+  // thin-shear-layer block, subtracted forward and added backward
+  double mu = 0.0, mut = 0.0, dist = 0.0;
+  if constexpr (VISCOUS) {
+    mu = fl.mu[nb];
+    mut = fl.mut[nb];
+    dist = st[4];
+    const double mu_s = ph.scaling * mu;
+    const double mut_s = ph.scaling * mut;
+    const double mu_tot = mu_s + mut_s;
+    const double s = FORWARD ? -1.0 : 1.0;
+    const double fac = FORWARD ? -1.0 : 1.0;
+    // the mixture's conductivity over the mole fractions
+    const double td = t * ph.t_ref;
+    const double td15 = pow(td, 1.5);
+    double xs = 0.0;
+#pragma unroll
+    for (int q = 0; q < NS; ++q) xs += mf[q] / sp.mm[q];
+    double weighted = 0.0, harmonic = 0.0;
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      const double kq = sp.cond_c1[q] * td15 / (td + sp.cond_s[q]) /
+                        ph.k_nondim;
+      const double x = (mf[q] / sp.mm[q]) / xs;
+      weighted += x * kq;
+      harmonic += x / kq;
+    }
+    const double k = ph.scaling * (0.5 * (weighted + 1.0 / harmonic));
+    // the turbulent conductivity only with turbulence equations
+    const double kt = NEQ == N + 2 ? mut_s * cpm / ph.prt : 0.0;
+    const double* g = fl.vgrad + nb;
+    const double g00 = g[0], g01 = g[nc], g02 = g[2 * nc];
+    const double g10 = g[3 * nc], g11 = g[4 * nc], g12 = g[5 * nc];
+    const double g20 = g[6 * nc], g21 = g[7 * nc], g22 = g[8 * nc];
+    const double lt = -2.0 / 3.0 * mu_tot * (g00 + g11 + g22);
+    const double tau0 = lt * n0 + mu_tot * ((g00 + g00) * n0 +
+                                            (g01 + g10) * n1 +
+                                            (g02 + g20) * n2);
+    const double tau1 = lt * n1 + mu_tot * ((g10 + g01) * n0 +
+                                            (g11 + g11) * n1 +
+                                            (g12 + g21) * n2);
+    const double tau2 = lt * n2 + mu_tot * ((g20 + g02) * n0 +
+                                            (g21 + g12) * n1 +
+                                            (g22 + g22) * n2);
+    // dPrim/dCons . du (the species rows are the identity)
+    const double ir = 1.0 / rho;
+    const double dp1 = -ir * u * S + ir * dm0;
+    const double dp2 = -ir * v * S + ir * dm1;
+    const double dp3 = -ir * w * S + ir * dm2;
+    const double dp4 = 0.5 * gm1 * vmag2 * S - gm1 * u * dm0 -
+                       gm1 * v * dm1 - gm1 * w * dm2 + gm1 * de;
+    const double scale = s * (mag * mu_tot / dist);
+    const double third = 1.0 / 3.0;
+    const double ndp = third * (n0 * dp1 + n1 * dp2 + n2 * dp3);
+    acc[NS] += scale * (dp1 + n0 * ndp);
+    acc[NS + 1] += scale * (dp2 + n1 * ndp);
+    acc[NS + 2] += scale * (dp3 + n2 * ndp);
+    const double kk = (k + kt) / (mu_tot * rho);
+    const double hd = fac * 0.5 * dist / mu_tot;
+    double e_species = -kk * t * S;
+    if (sp.diffusion) {
+      const double dc =
+          (mu_s / sp.schmidt + mut_s / sp.turb_schmidt) / (mu_tot * rho);
+#pragma unroll
+      for (int q = 0; q < NS; ++q) {
+        acc[q] += scale * (dc * (dq[q] - mf[q] * S));
+        e_species += dc * (1.0 - mf[q]) *
+                     (sp.hf[q] + sp.cp[q] * t + 0.5 * vmag2) * dq[q];
+      }
+    }
+    acc[NS + 3] += scale * (e_species +
+                            (hd * tau0 + third * n0 * vn + u) * dp1 +
+                            (hd * tau1 + third * n1 * vn + v) * dp2 +
+                            (hd * tau2 + third * n2 * vn + w) * dp3 +
+                            kk * dp4);
+  }
+
+  // turbulence: Rusanov 0.5|A|(vn +- |vn|) plus the TSL diagonal
+  if constexpr (NEQ == N + 2) {
+    const double tdiag = 0.5 * vn * mag + sgn * (0.5 * fabs(vn) * mag);
+    if constexpr (VISCOUS) {
+      const double length = ph.scaling * mag / dist / rho;
+      double sk, sw, mutx;
+      if constexpr (WILCOX) {
+        sk = ph.sigma_k1;
+        sw = ph.sigma_w1;
+        mutx = rho * fl.prim[N * nc + nb] / fl.prim[(N + 1) * nc + nb];
+      } else {
+        const double f1 = fl.f1[nb];
+        sk = f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+        sw = f1 * ph.sigma_w1 + (1.0 - f1) * ph.sigma_w2;
+        mutx = mut;
+      }
+      acc[N] += (tdiag + length * (mu + sk * mutx)) * dq[N];
+      acc[N + 1] += (tdiag + length * (mu + sw * mutx)) * dq[N + 1];
+    } else {
+      acc[N] += tdiag * dq[N];
+      acc[N + 1] += tdiag * dq[N + 1];
+    }
+  }
+}
+
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(THREADS)
-    sweep_plane(Fields fl, Phys ph, int start, int count) {
+    sweep_plane(Fields fl, Phys ph, Mixture<NS> sp, int start, int count) {
+  constexpr int N = NS + 4;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= count) return;
   const int s = start + t;
@@ -249,7 +453,11 @@ __global__ void __launch_bounds__(THREADS)
     if (!fl.mask[3 * s + d]) continue;
     const int64_t nb = FORWARD ? c - fl.stride[d] : c + fl.stride[d];
     const double* st = fl.stat + (3 * static_cast<int64_t>(s) + d) * NSTAT;
-    add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, r);
+    if constexpr (NS == 1)
+      add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, r);
+    else
+      add_block_offdiagonal_mix<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+          ph, sp, fl, nb, st, r);
   }
   // right-hand side the inverse applies to (r holds the neighbour sum)
   const bool plain_backward = !FORWARD && fl.extra == nullptr;
@@ -263,59 +471,99 @@ __global__ void __launch_bounds__(THREADS)
         r[e] = (b + fl.extra[e * fl.ncp + pc]) - r[e];
     }
   }
-  // D^-1 r: the 5x5 flow block row by row, then the 2x2 turbulence block
+  // D^-1 r: the N x N flow block row by row, then the 2x2 turbulence block
 #pragma unroll
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < N; ++i) {
     double y = 0.0;
 #pragma unroll
-    for (int j = 0; j < 5; ++j) y += fl.inv_f[(5 * i + j) * fl.ncp + pc] * r[j];
+    for (int j = 0; j < N; ++j) y += fl.inv_f[(N * i + j) * fl.ncp + pc] * r[j];
     double* x = fl.du + i * fl.nc + c;
     *x = plain_backward ? *x - y : y;
   }
-  if constexpr (NEQ == 7) {
+  if constexpr (NEQ == N + 2) {
     const double* it = fl.inv_t + pc;
-    const double y5 = it[0] * r[5] + it[fl.ncp] * r[6];
-    const double y6 = it[2 * fl.ncp] * r[5] + it[3 * fl.ncp] * r[6];
-    double* x5 = fl.du + 5 * fl.nc + c;
-    double* x6 = fl.du + 6 * fl.nc + c;
+    const double y5 = it[0] * r[N] + it[fl.ncp] * r[N + 1];
+    const double y6 = it[2 * fl.ncp] * r[N] + it[3 * fl.ncp] * r[N + 1];
+    double* x5 = fl.du + N * fl.nc + c;
+    double* x6 = fl.du + (N + 1) * fl.nc + c;
     *x5 = plain_backward ? *x5 - y5 : y5;
     *x6 = plain_backward ? *x6 - y6 : y6;
   }
 }
 
 // every plane of one sweep, in order, on `st`
-template <int NEQ, bool VISCOUS, bool WILCOX>
-int launch_planes(int forward, const Fields& fl, const Phys& ph, int nplanes,
-                  const int* plane_ptr, cudaStream_t st) {
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
+int launch_planes(int forward, const Fields& fl, const Phys& ph,
+                  const Mixture<NS>& sp, int nplanes, const int* plane_ptr,
+                  cudaStream_t st) {
   for (int n = 0; n < nplanes; ++n) {
     const int p = forward ? n : nplanes - 1 - n;
     const int start = plane_ptr[p];
     const int count = plane_ptr[p + 1] - start;
     const int blocks = (count + THREADS - 1) / THREADS;
     if (forward)
-      sweep_plane<NEQ, VISCOUS, WILCOX, true>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+      sweep_plane<NS, NEQ, VISCOUS, WILCOX, true>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
     else
-      sweep_plane<NEQ, VISCOUS, WILCOX, false>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+      sweep_plane<NS, NEQ, VISCOUS, WILCOX, false>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
+// the four forms of one species count; species holds R_s, cv_s, cp_s,
+// hf_s, cond_c1_s, cond_s_s and the molar masses (NS each), then the
+// Schmidt number, the turbulent Schmidt number and the diffusion flag
+template <int NS>
+int launch_form(int forward, int neq, int viscous, int wilcox,
+                const Fields& fl, const Phys& ph, const double* species,
+                int nplanes, const int* plane_ptr, cudaStream_t st) {
+  constexpr int N = NS + 4;
+  Mixture<NS> sp;
+  for (int s = 0; s < NS; ++s) {
+    sp.R[s] = species[s];
+    sp.cv[s] = species[NS + s];
+    sp.cp[s] = species[2 * NS + s];
+    sp.hf[s] = species[3 * NS + s];
+    sp.cond_c1[s] = species[4 * NS + s];
+    sp.cond_s[s] = species[5 * NS + s];
+    sp.mm[s] = species[6 * NS + s];
+  }
+  sp.schmidt = species[7 * NS];
+  sp.turb_schmidt = species[7 * NS + 1];
+  sp.diffusion = species[7 * NS + 2] != 0.0;
+  if (neq == N && !viscous && !wilcox)
+    return launch_planes<NS, N, false, false>(forward, fl, ph, sp, nplanes,
+                                              plane_ptr, st);
+  if (neq == N && viscous && !wilcox)
+    return launch_planes<NS, N, true, false>(forward, fl, ph, sp, nplanes,
+                                             plane_ptr, st);
+  if (neq == N + 2 && viscous && !wilcox)
+    return launch_planes<NS, N + 2, true, false>(forward, fl, ph, sp,
+                                                 nplanes, plane_ptr, st);
+  if (neq == N + 2 && viscous && wilcox)
+    return launch_planes<NS, N + 2, true, true>(forward, fl, ph, sp, nplanes,
+                                                plane_ptr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // One whole block sweep of one block: one launch per hyperplane on
-// `stream`, in plane order.  neq is 5 or 7; viscous and wilcox select the
-// form (see the head of this file).  plane_ptr is a HOST array of
-// nplanes+1 offsets into the plane-ordered cell lists; extra may be null;
-// mu, mut, f1, vgrad may be null when inviscid and inv_t when neq is 5.
-// Returns the first non-zero cudaGetLastError() after a launch (0 when
-// every launch was accepted), or cudaErrorInvalidValue for a form that
-// does not exist.
+// `stream`, in plane order.  ns is 1..MAX_NS and neq is ns + 4 or ns + 6;
+// viscous and wilcox select the form (see the head of this file).  R, cv,
+// cp, hf, gamma, cond_c1 and cond_s are the one species' (read when ns is
+// 1); species is a HOST array of the mixture's constants (launch_form;
+// read when ns > 1).  plane_ptr is a HOST array of nplanes+1 offsets into
+// the plane-ordered cell lists; extra may be null; mu, mut, f1, vgrad may
+// be null when inviscid and inv_t without turbulence equations.  Returns
+// the first non-zero cudaGetLastError() after a launch (0 when every
+// launch was accepted), or cudaErrorInvalidValue for a form that does not
+// exist.
 extern "C" int blusgs_sweep_f64(
-    int forward, int neq, int viscous, int wilcox, const double* prim,
+    int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
     double* du, const double* mu,
     const double* mut, const double* f1, const double* vgrad, const double* b,
     const double* extra, const double* inv_f, const double* inv_t,
@@ -325,24 +573,29 @@ extern "C" int blusgs_sweep_f64(
     double R, double cv, double cp, double hf, double gamma, double prt,
     double scaling, double t_ref, double cond_c1, double cond_s,
     double k_nondim, double sigma_k1, double sigma_k2, double sigma_w1,
-    double sigma_w2, void* stream) {
+    double sigma_w2, const double* species, void* stream) {
   Fields fl{prim,  du,    mu,    mut,        f1,   vgrad, b,
             extra, inv_f, inv_t, cells,      phys_cells, stat, mask,
             nc,    ncp,   {stride_i, stride_j, stride_k}};
   Phys ph{R,     cv,      cp,     hf,       gamma,    prt,      scaling, t_ref,
           cond_c1, cond_s, k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (neq == 5 && !viscous && !wilcox)
-    return launch_planes<5, false, false>(forward, fl, ph, nplanes,
-                                          plane_ptr, st);
-  if (neq == 5 && viscous && !wilcox)
-    return launch_planes<5, true, false>(forward, fl, ph, nplanes, plane_ptr,
-                                         st);
-  if (neq == 7 && viscous && !wilcox)
-    return launch_planes<7, true, false>(forward, fl, ph, nplanes, plane_ptr,
-                                         st);
-  if (neq == 7 && viscous && wilcox)
-    return launch_planes<7, true, true>(forward, fl, ph, nplanes, plane_ptr,
-                                        st);
+  switch (ns) {
+    case 1:
+      return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 2:
+      return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 3:
+      return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 4:
+      return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case MAX_NS:
+      return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                 species, nplanes, plane_ptr, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,19 +2,28 @@
 //
 // Replaces the TPU kernel aither_tpu/solver/pallas_sweep.py::sweep
 // (pallas_call at pallas_sweep.py:342), variants (a) and (b): scalar
-// LU-SGS, one species, Rusanov off-diagonal, without and with the lagged
-// opposite-side term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324),
-// in the forms the single-species models need, each a compile-time
-// instantiation of one sweep_plane<NEQ, VISCOUS, WILCOX, FORWARD>:
-//   5 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a) only;
-//     mu, mut, f1 and the centre distance are not read;
-//   5 equations viscous (laminar with mut = 0; LES with the WALE mut in
-//     mu/Pr + mut/Prt); f1 is not read;
-//   7 equations SST 2003 / SST-DES: the turbulence viscous radius with the
-//     mut field and the blended sigma_k;
-//   7 equations Wilcox 2006: that radius with sigma* constant and the
+// LU-SGS, Rusanov off-diagonal, without and with the lagged opposite-side
+// term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324), for one
+// species or a calorically perfect mixture of NS = 2..5 species, in the
+// forms the models need, each a compile-time instantiation of one
+// sweep_plane<NS, NEQ, VISCOUS, WILCOX, FORWARD> with NEQ = NS + 4
+// (+ 2 turbulence equations, the first at NS + 4):
+//   NS + 4 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a)
+//     only; mu, mut, f1 and the centre distance are not read;
+//   NS + 4 equations viscous (laminar with mut = 0; LES with the WALE mut
+//     in mu/Pr + mut/Prt); f1 is not read;
+//   NS + 6 equations SST 2003 / SST-DES: the turbulence viscous radius
+//     with the mut field and the blended sigma_k;
+//   NS + 6 equations Wilcox 2006: that radius with sigma* constant and the
 //     unlimited rho k / omega of the neighbour state, not the mut field.
-// Without turbulence equations inv_t is null.
+// Without turbulence equations inv_t is null.  One species (NS = 1) keeps
+// the constant gamma and Prandtl number of its gas; a mixture takes its
+// per-species constants (R_s, cv_s, cp_s, hf_s: struct Species) and
+// evaluates the mixture per state, as the JAX package's Physics does:
+// T = p / sum R_s rho_s, gamma = sum mf_s cp_s / sum mf_s cv_s, the
+// laminar Prandtl number 4 gamma / (9 gamma - 5) of the neighbour state,
+// and in q + du the species renormalisation mf_s = max(c_s / r, 0) / sum
+// (aither_tpu state.py:40-90).
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -58,14 +67,20 @@
 
 namespace {
 
-constexpr int IT = 5;          // first turbulence equation (NEQ == 7)
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 constexpr int THREADS = 128;
+constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
 
 struct Phys {
   double R, cv, cp, hf, gamma, prandtl, prt, scaling;
   double tmin_k, tmin_w;
   double sigma_k1, sigma_k2;  // SST blend; Wilcox: sigma* in sigma_k1
+};
+
+// per-species constants of a mixture (read when NS > 1)
+template <int NS>
+struct Species {
+  double R[NS], cv[NS], cp[NS], hf[NS];
 };
 
 struct Fields {
@@ -141,48 +156,170 @@ __device__ __forceinline__ void update_prim(const Phys& ph,
   }
 }
 
+// the mixture's sum_s c_s x_s over species, from 0 in species order (the
+// JAX package's Physics._sum_species)
+template <int NS>
+__device__ __forceinline__ double species_sum(const double c[NS],
+                                              const double x[NS]) {
+  double out = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) out += c[s] * x[s];
+  return out;
+}
+
+// F(q).n per unit area of a mixture (aither_tpu flux.physical_flux)
+template <int NS, int NEQ>
+__device__ __forceinline__ void physical_flux_mix(const Species<NS>& sp,
+                                                  const double q[NEQ],
+                                                  double n0, double n1,
+                                                  double n2, double f[NEQ]) {
+  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
+  double rho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) rho += q[s];
+  const double vn = u * n0 + v * n1 + w * n2;
+  const double t = p / species_sum<NS>(sp.R, q);
+  double h = 0.0;  // sum_s mf_s (hf_s + cp_s t)
+#pragma unroll
+  for (int s = 0; s < NS; ++s) h += (sp.hf[s] + sp.cp[s] * t) * (q[s] / rho);
+  const double h0 = h + 0.5 * (u * u + v * v + w * w);
+  const double rvn = rho * vn;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] = q[s] * vn;
+  f[NS] = rvn * u + p * n0;
+  f[NS + 1] = rvn * v + p * n1;
+  f[NS + 2] = rvn * w + p * n2;
+  f[NS + 3] = rvn * h0;
+#pragma unroll
+  for (int e = NS + 4; e < NEQ; ++e) f[e] = rvn * q[e];
+}
+
+// q + du of a mixture in conserved variables, the species renormalised,
+// back to primitives (aither_tpu state.update_prim_with_cons)
+template <int NS, int NEQ>
+__device__ __forceinline__ void update_prim_mix(const Phys& ph,
+                                                const Species<NS>& sp,
+                                                const double q[NEQ],
+                                                const double dq[NEQ],
+                                                double out[NEQ]) {
+  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
+  double rho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) rho += q[s];
+  const double t = p / species_sum<NS>(sp.R, q);
+  double e = 0.0;  // sum_s mf_s (hf_s + cv_s t)
+#pragma unroll
+  for (int s = 0; s < NS; ++s) e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
+  e += 0.5 * (u * u + v * v + w * w);
+  double c[NS];
+  double r = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    c[s] = q[s] + dq[s];
+    r += c[s];
+  }
+  double msum = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const double m = c[s] / r;
+    c[s] = m < 0.0 ? 0.0 : m;  // NaN propagates
+    msum += c[s];
+  }
+  double r2 = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    out[s] = r * (c[s] / msum);
+    r2 += out[s];
+  }
+  const double uu = (rho * u + dq[NS]) / r2;
+  const double vv = (rho * v + dq[NS + 1]) / r2;
+  const double ww = (rho * w + dq[NS + 2]) / r2;
+  const double se =
+      (rho * e + dq[NS + 3]) / r2 - 0.5 * (uu * uu + vv * vv + ww * ww);
+  double hf_mix = 0.0, cv_mix = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    hf_mix += sp.hf[s] * (out[s] / r2);
+    cv_mix += sp.cv[s] * (out[s] / r2);
+  }
+  const double tu = (se - hf_mix) / cv_mix;
+  out[NS] = uu;
+  out[NS + 1] = vv;
+  out[NS + 2] = ww;
+  out[NS + 3] = species_sum<NS>(sp.R, out) * tu;
+  if constexpr (NEQ == NS + 6) {
+    const double k = (rho * q[NS + 4] + dq[NS + 4]) / r2;
+    const double om = (rho * q[NS + 5] + dq[NS + 5]) / r2;
+    out[NS + 4] = k < ph.tmin_k ? ph.tmin_k : k;
+    out[NS + 5] = om < ph.tmin_w ? ph.tmin_w : om;
+  }
+}
+
 // scalar Rusanov off-diagonal product of one neighbour, added to acc
 // (aither_tpu implicit.offdiagonal_scalar).  mu, mut, f1 and dist are read
 // only by the forms that use them (the caller passes 0 otherwise).
-template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void add_offdiagonal(
-    const Phys& ph, const double q[NEQ], const double dq[NEQ], double n0,
-    double n1, double n2, double mag, double dist, double mu, double mut,
-    double f1, double acc[NEQ]) {
+    const Phys& ph, const Species<NS>& sp, const double q[NEQ],
+    const double dq[NEQ], double n0, double n1, double n2, double mag,
+    double dist, double mu, double mut, double f1, double acc[NEQ]) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
   double qu[NEQ], fu[NEQ], fq[NEQ];
-  update_prim<NEQ>(ph, q, dq, qu);
-  physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
-  physical_flux<NEQ>(ph, q, n0, n1, n2, fq);
-  const double rho = q[0];
-  const double vn = q[1] * n0 + q[2] * n1 + q[3] * n2;
-  const double a = sqrt(ph.gamma * q[4] / rho);
+  double rho, vn, gamma, prandtl;
+  if constexpr (NS == 1) {
+    update_prim<NEQ>(ph, q, dq, qu);
+    physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
+    physical_flux<NEQ>(ph, q, n0, n1, n2, fq);
+    rho = q[0];
+    vn = q[1] * n0 + q[2] * n1 + q[3] * n2;
+    gamma = ph.gamma;
+    prandtl = ph.prandtl;
+  } else {
+    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qu);
+    physical_flux_mix<NS, NEQ>(sp, qu, n0, n1, n2, fu);
+    physical_flux_mix<NS, NEQ>(sp, q, n0, n1, n2, fq);
+    rho = 0.0;
+    double cpm = 0.0, cvm = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) rho += q[s];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      cpm += sp.cp[s] * (q[s] / rho);
+      cvm += sp.cv[s] * (q[s] / rho);
+    }
+    vn = q[NS] * n0 + q[NS + 1] * n1 + q[NS + 2] * n2;
+    gamma = cpm / cvm;
+    prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
+  }
+  const double a = sqrt(gamma * q[NS + 3] / rho);
   double sr = 0.5 * mag * (fabs(vn) + a);
   if constexpr (VISCOUS) {
-    const double max_term = fmax(4.0 / (3.0 * rho), ph.gamma / rho);
+    const double max_term = fmax(4.0 / (3.0 * rho), gamma / rho);
     sr = sr + mag / dist * max_term *
-                  (ph.scaling * (mu / ph.prandtl + mut / ph.prt));
+                  (ph.scaling * (mu / prandtl + mut / ph.prt));
   }
   const double sgn = FORWARD ? 1.0 : -1.0;
 #pragma unroll
-  for (int e = 0; e < IT; ++e)
+  for (int e = 0; e < T0; ++e)
     acc[e] += 0.5 * mag * (fu[e] - fq[e]) + sgn * (sr * dq[e]);
-  if constexpr (NEQ == 7) {
+  if constexpr (NEQ == T0 + 2) {
     double sr_t = 0.5 * mag * fabs(FORWARD ? vn + fabs(vn) : vn - fabs(vn));
     if constexpr (VISCOUS) {
       // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
       const double sk = WILCOX ? ph.sigma_k1
                                : f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
-      const double mutx = WILCOX ? rho * q[5] / q[6] : mut;
+      const double mutx = WILCOX ? rho * q[T0] / q[T0 + 1] : mut;
       sr_t = sr_t + ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
     }
 #pragma unroll
-    for (int e = IT; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
+    for (int e = T0; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
   }
 }
 
-template <int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(THREADS)
-    sweep_plane(Fields fl, Phys ph, int start, int count) {
+    sweep_plane(Fields fl, Phys ph, Species<NS> sp, int start, int count) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= count) return;
   const int s = start + t;
@@ -206,17 +343,17 @@ __global__ void __launch_bounds__(THREADS)
       mu = fl.mu[nb];
       mut = fl.mut[nb];
       dist = st[4];
-      if constexpr (NEQ == 7 && !WILCOX) f1 = fl.f1[nb];
+      if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
     }
-    add_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, acc);
+    add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, acc);
   }
   const double inv_f = fl.inv_f[pc];
   double inv_t = 0.0;
-  if constexpr (NEQ == 7) inv_t = fl.inv_t[pc];
+  if constexpr (NEQ == T0 + 2) inv_t = fl.inv_t[pc];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
-    const double inv = e < IT ? inv_f : inv_t;
+    const double inv = e < T0 ? inv_f : inv_t;
     double* x = fl.du + e * fl.nc + c;
     const double b = fl.b[e * fl.ncp + pc];
     if (FORWARD)
@@ -230,38 +367,72 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // every plane of one sweep, in order, on `st`
-template <int NEQ, bool VISCOUS, bool WILCOX>
-int launch_planes(int forward, const Fields& fl, const Phys& ph, int nplanes,
-                  const int* plane_ptr, cudaStream_t st) {
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
+int launch_planes(int forward, const Fields& fl, const Phys& ph,
+                  const Species<NS>& sp, int nplanes, const int* plane_ptr,
+                  cudaStream_t st) {
   for (int n = 0; n < nplanes; ++n) {
     const int p = forward ? n : nplanes - 1 - n;
     const int start = plane_ptr[p];
     const int count = plane_ptr[p + 1] - start;
     const int blocks = (count + THREADS - 1) / THREADS;
     if (forward)
-      sweep_plane<NEQ, VISCOUS, WILCOX, true>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+      sweep_plane<NS, NEQ, VISCOUS, WILCOX, true>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
     else
-      sweep_plane<NEQ, VISCOUS, WILCOX, false>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, start, count);
+      sweep_plane<NS, NEQ, VISCOUS, WILCOX, false>
+          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
+// the four forms of one species count; species holds R_s, cv_s, cp_s,
+// hf_s (NS each)
+template <int NS>
+int launch_form(int forward, int neq, int viscous, int wilcox,
+                const Fields& fl, const Phys& ph, const double* species,
+                int nplanes, const int* plane_ptr, cudaStream_t st) {
+  constexpr int N = NS + 4;
+  Species<NS> sp;
+  for (int s = 0; s < NS; ++s) {
+    sp.R[s] = species[s];
+    sp.cv[s] = species[NS + s];
+    sp.cp[s] = species[2 * NS + s];
+    sp.hf[s] = species[3 * NS + s];
+  }
+  if (neq == N && !viscous && !wilcox)
+    return launch_planes<NS, N, false, false>(forward, fl, ph, sp, nplanes,
+                                              plane_ptr, st);
+  if (neq == N && viscous && !wilcox)
+    return launch_planes<NS, N, true, false>(forward, fl, ph, sp, nplanes,
+                                             plane_ptr, st);
+  if (neq == N + 2 && viscous && !wilcox)
+    return launch_planes<NS, N + 2, true, false>(forward, fl, ph, sp,
+                                                 nplanes, plane_ptr, st);
+  if (neq == N + 2 && viscous && wilcox)
+    return launch_planes<NS, N + 2, true, true>(forward, fl, ph, sp, nplanes,
+                                                plane_ptr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // One whole sweep of one block: one launch per hyperplane on `stream`, in
-// plane order.  neq is 5 or 7; viscous and wilcox select the form (see the
-// head of this file; wilcox only with neq 7 and viscous, and neq 7 only
-// with viscous).  plane_ptr is a HOST array of nplanes+1 offsets into the
-// plane-ordered cell lists; extra may be null (variant (a)); mu, mut, f1
-// may be null when inviscid and inv_t when neq is 5.  Returns the first
-// non-zero cudaGetLastError() after a launch (0 when every launch was
-// accepted), or cudaErrorInvalidValue for a form that does not exist.
+// plane order.  ns is 1..MAX_NS and neq is ns + 4 or ns + 6; viscous and
+// wilcox select the form (see the head of this file; wilcox only with
+// turbulence equations and viscous, and turbulence equations only with
+// viscous).  R, cv, cp, hf, gamma and prandtl are the one species' (read
+// when ns is 1); species is a HOST array of the mixture's R_s, cv_s, cp_s
+// and hf_s, ns each (read when ns > 1).  plane_ptr is a HOST array of
+// nplanes+1 offsets into the plane-ordered cell lists; extra may be null
+// (variant (a)); mu, mut, f1 may be null when inviscid and inv_t without
+// turbulence equations.  Returns the first non-zero cudaGetLastError()
+// after a launch (0 when every launch was accepted), or
+// cudaErrorInvalidValue for a form that does not exist.
 extern "C" int lusgs_sweep_f64(
-    int forward, int neq, int viscous, int wilcox, const double* prim,
+    int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
     double* du, const double* mu,
     const double* mut, const double* f1, const double* b,
     const double* extra, const double* inv_f, const double* inv_t,
@@ -271,25 +442,30 @@ extern "C" int lusgs_sweep_f64(
     long long stride_k, int nplanes, const int* plane_ptr, double R,
     double cv, double cp, double hf, double gamma, double prandtl, double prt,
     double scaling, double tmin_k, double tmin_w, double sigma_k1,
-    double sigma_k2, void* stream) {
+    double sigma_k2, const double* species, void* stream) {
   Fields fl{prim,  du,         mu,   mut,  f1,  b,   extra,
             inv_f, inv_t,      cells, phys_cells, stat, mask, nc,
             ncp,   {stride_i, stride_j, stride_k}};
   Phys ph{R, cv, cp, hf, gamma, prandtl, prt, scaling,
           tmin_k, tmin_w, sigma_k1, sigma_k2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (neq == 5 && !viscous && !wilcox)
-    return launch_planes<5, false, false>(forward, fl, ph, nplanes,
-                                          plane_ptr, st);
-  if (neq == 5 && viscous && !wilcox)
-    return launch_planes<5, true, false>(forward, fl, ph, nplanes, plane_ptr,
-                                         st);
-  if (neq == 7 && viscous && !wilcox)
-    return launch_planes<7, true, false>(forward, fl, ph, nplanes, plane_ptr,
-                                         st);
-  if (neq == 7 && viscous && wilcox)
-    return launch_planes<7, true, true>(forward, fl, ph, nplanes, plane_ptr,
-                                        st);
+  switch (ns) {
+    case 1:
+      return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 2:
+      return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 3:
+      return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case 4:
+      return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
+                            nplanes, plane_ptr, st);
+    case MAX_NS:
+      return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                 species, nplanes, plane_ptr, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -301,8 +477,10 @@ extern "C" int lusgs_sweep_empty_planes(int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Fields fl{};
   Phys ph{};
+  Species<1> sp{};
   for (int p = 0; p < n; ++p) {
-    sweep_plane<7, true, false, true><<<1, THREADS, 0, st>>>(fl, ph, 0, 0);
+    sweep_plane<1, 7, true, false, true>
+        <<<1, THREADS, 0, st>>>(fl, ph, sp, 0, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -10,13 +10,14 @@ solver (lusgs), ``csrc/blusgs_sweep.cu`` for the block solver (blusgs,
 kernel's launches (one per hyperplane).
 
 Replaces the TPU kernel ``aither_tpu/solver/pallas_sweep.py::sweep``,
-variants (a) (scalar LU-SGS, one species, no lagged term), (b)
-(``with_extra``: the lagged opposite-side term of ``matrixSweeps > 1``)
-and (c) (``block_matrix``: the block off-diagonal and the inverted 5x5
-flow and 2x2 turbulence diagonal blocks, with or without the lagged
-term), each in the forms of the single-species models (``sweep_form``):
-5 equations inviscid (Euler) or viscous (laminar, LES), 7 equations with
-the SST (sst2003, sstdes) or the Wilcox 2006 turbulence radii.  The plain
+variants (a) (scalar LU-SGS, no lagged term), (b) (``with_extra``: the
+lagged opposite-side term of ``matrixSweeps > 1``) and (c)
+(``block_matrix``: the block off-diagonal and the inverted N x N flow and
+2x2 turbulence diagonal blocks, N = ns + 4, with or without the lagged
+term), each in the forms of the models (``sweep_form``), for one species
+or a mixture of up to ``MAX_SPECIES``: ns + 4 equations inviscid (Euler)
+or viscous (laminar, LES), ns + 6 equations with the SST (sst2003,
+sstdes) or the Wilcox 2006 turbulence radii.  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -35,9 +36,13 @@ import ctypes
 import numpy as np
 import torch
 
-from ..physics.models import Physics, prandtl
+from ..physics.models import Physics
 from ..solver import implicit as imp
 from ..solver.viscous import SST, WILCOX
+from ..unsupported import refuse
+
+# species counts the kernels are instantiated for (MAX_NS of both sources)
+MAX_SPECIES = 5
 
 
 class LaunchCounter:
@@ -92,24 +97,26 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     strides = plan.strides
     planes = range(plan.nplanes) if forward else range(plan.nplanes - 1,
                                                         -1, -1)
+    sign = -1 if forward else 1
     for p in planes:
         s, e = int(plan.plane_ptr[p]), int(plan.plane_ptr[p + 1])
+        n = e - s
         cells = plan.cells[s:e]
         pcells = plan.phys_cells[s:e]
+        # the three directions' neighbours in one batch, direction-major
+        nb = torch.cat([cells + sign * strides[d] for d in range(3)])
+        stat = static[s:e].transpose(0, 1).reshape(3 * n, -1)
+        kw = {}
+        if viscous:
+            kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb], f1=f1f[nb])
+            if blk:
+                kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
+        contrib = imp.offdiagonal(phys, cfg, qf[:, nb], duf[:, nb],
+                                  stat[:, 0:3].T, stat[:, 3], forward, **kw)
         acc = 0.0
         for d in range(3):
-            nb = cells - strides[d] if forward else cells + strides[d]
-            stat = static[s:e, d]
-            kw = {}
-            if viscous:
-                kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb],
-                          f1=f1f[nb])
-                if blk:
-                    kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
-            contrib = imp.offdiagonal(
-                phys, cfg, qf[:, nb], duf[:, nb], stat[:, 0:3].T,
-                stat[:, 3], forward, **kw)
-            acc = acc + torch.where(mask[s:e, d][None], contrib, 0.0)
+            acc = acc + torch.where(mask[s:e, d][None],
+                                    contrib[:, d * n:(d + 1) * n], 0.0)
         inv = (at(invf, pcells), at(invt, pcells))
         if forward:
             rhs = bf[:, pcells] + acc
@@ -147,8 +154,8 @@ def _library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 4 + [p] * 13 + [ll] * 5 + [i, p] + [dbl] * 12
-                       + [p])
+        fn.argtypes = ([i] * 5 + [p] * 13 + [ll] * 5 + [i, p] + [dbl] * 12
+                       + [p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -160,8 +167,8 @@ def _block_library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 4 + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
-                       + [p])
+        fn.argtypes = ([i] * 5 + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
+                       + [p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -193,24 +200,41 @@ def _check(t, name, shape, device):
 
 
 def sweep_form(phys: Physics, cfg):
-    """(neq, viscous, wilcox) of the kernel instantiation this physics
-    takes; raises ValueError for what the CUDA sweeps do not cover (more
-    than one species)."""
+    """(ns, neq, viscous, wilcox) of the kernel instantiation this physics
+    takes.  A species count above ``MAX_SPECIES`` is refused with
+    NotImplementedError naming its ROADMAP.md item; a form no model has
+    (turbulence equations without viscosity) raises ValueError."""
     viscous = bool(cfg.get("viscous", False))
-    if phys.ns != 1 or phys.neq not in (5, 7) or (phys.neq == 7
-                                                  and not viscous):
-        raise ValueError("the CUDA sweeps cover one species with 5 "
-                         "equations (inviscid or viscous) or 7 (viscous "
-                         f"RANS) only, got ns={phys.ns} neq={phys.neq} "
-                         f"viscous={viscous}")
-    return phys.neq, viscous, phys.turb_model == "kOmegaWilcox2006"
+    ns, neq = phys.ns, phys.neq
+    if ns > MAX_SPECIES:
+        refuse("species", f"{ns} species")
+    if ns < 1 or neq not in (ns + 4, ns + 6) or (neq == ns + 6
+                                                 and not viscous):
+        raise ValueError("the CUDA sweeps cover ns + 4 equations (inviscid "
+                         "or viscous) or ns + 6 (viscous RANS) only, got "
+                         f"ns={ns} neq={neq} viscous={viscous}")
+    return ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006"
+
+
+def species_constants(phys: Physics, cfg, block: bool) -> np.ndarray:
+    """the kernels' host array of the species constants: R_s, cv_s, cp_s,
+    hf_s and, for the block sweep, the Sutherland conductivity
+    coefficients, the molar masses, the Schmidt numbers and whether the
+    species diffuse (the ``launch_form`` of each source)"""
+    vals = [*phys.R, *phys.cv_s, *phys.cp_s, *phys.hf]
+    if block:
+        vals += [*phys.cond_c1, *phys.cond_s, *phys.molar_mass,
+                 cfg.get("schmidt", 0.9), cfg.get("turb_schmidt", 0.7),
+                 float(cfg.get("diffusion", "none") != "none")]
+    return np.asarray(vals, dtype=np.float64)
 
 
 def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
                     aux, extra):
     """Raise ValueError unless the operands are what the kernel of this
     solver (scalar or block) and this physics reads."""
-    neq, viscous, _ = sweep_form(phys, cfg)
+    ns, neq, viscous, _ = sweep_form(phys, cfg)
+    nturb = neq - ns - 4
     dev = prim.device
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
@@ -223,15 +247,16 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
     if cfg.get("block_matrix"):
         if viscous:
             _check(aux["vgrad"], "vgrad", (3, 3, NI, NJ, NK), dev)
-        _check(inv_f, "inv_f", (25, ni, nj, nk), dev)
+        _check(inv_f, "inv_f", ((ns + 4) ** 2, ni, nj, nk), dev)
         inv_t_shape = (4, ni, nj, nk)
     else:
         _check(inv_f, "inv_f", (ni, nj, nk), dev)
         inv_t_shape = (ni, nj, nk)
-    if neq == 7:
+    if nturb:
         _check(inv_t, "inv_t", inv_t_shape, dev)
     elif inv_t is not None:
-        raise ValueError("inv_t: no turbulence inverse with 5 equations")
+        raise ValueError("inv_t: no turbulence inverse without turbulence "
+                         "equations")
     if extra is not None:
         _check(extra, "extra", (neq, ni, nj, nk), dev)
 
@@ -239,13 +264,19 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
 def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                   forward: bool, extra=None):
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
-    neq, viscous, wilcox = sweep_form(phys, cfg)
+    ns, neq, viscous, wilcox = sweep_form(phys, cfg)
+    blk = bool(cfg.get("block_matrix"))
     dev = prim.device
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
     ops = _kernel_operands(plan)
     side = "lower" if forward else "upper"
-    g = phys.gamma_const
+    # the first species' scalars: the one-species forms read these, a
+    # mixture its species array
+    R, cv, cp, hf = phys.R[0], phys.cv_s[0], phys.cp_s[0], phys.hf[0]
+    g = cp / cv
+    pr = 4.0 * g / (9.0 * g - 5.0)
+    species = species_constants(phys, cfg, blk)
     stream = torch.cuda.current_stream(dev).cuda_stream
     geometry = (ops["cells"].data_ptr(), ops["phys_cells"].data_ptr(),
                 ops["static"][side].data_ptr(), ops["mask"][side].data_ptr(),
@@ -255,7 +286,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    form = (int(forward), neq, int(viscous), int(wilcox))
+    form = (int(forward), ns, neq, int(viscous), int(wilcox))
     fields = (prim.data_ptr(), du.data_ptr(),
               *(ptr(aux[k]) if viscous else None
                 for k in ("mu", "mut", "f1")))
@@ -264,23 +295,23 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             WILCOX["sigma"]) if wilcox else
            (SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
             SST["sigma_w2"]))
-    if cfg.get("block_matrix"):
+    if blk:
         name = "blusgs_sweep_f64"
         err = _block_library()(
             *form, *fields, ptr(aux["vgrad"]) if viscous else None,
             b.data_ptr(), ptr(extra), inv_f.data_ptr(), ptr(inv_t),
-            *geometry,
-            phys.R, phys.cv, phys.cp, phys.hf, g, phys.turb_prandtl(),
-            phys.nondim_scaling, phys.t_ref, phys.cond_c1, phys.cond_s,
-            phys.k_nondim, *sig, stream)
+            *geometry, R, cv, cp, hf, g, phys.turb_prandtl(),
+            phys.nondim_scaling, phys.t_ref, phys.cond_c1[0],
+            phys.cond_s[0], phys.k_nondim, *sig, species.ctypes.data,
+            stream)
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
         err = _library()(
             *form, *fields, b.data_ptr(), ptr(extra),
-            inv_f.data_ptr(), ptr(inv_t), *geometry, phys.R, phys.cv,
-            phys.cp, phys.hf, g, prandtl(phys), phys.turb_prandtl(),
-            phys.nondim_scaling, *phys.turb_min(), *sig[:2], stream)
+            inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
+            phys.turb_prandtl(), phys.nondim_scaling, *phys.turb_min(),
+            *sig[:2], species.ctypes.data, stream)
         counter = LAUNCHES
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
@@ -290,24 +321,52 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
 
 # FP64 operations counted from the kernels (each add, subtract, multiply,
 # divide, sqrt, pow, abs, min or max as one) per contributing neighbour's
-# off-diagonal product, by form (neq, viscous, wilcox); a cell's final
-# update takes 2 per equation (the lagged term adds one per equation).
-# csrc/lusgs_sweep.cu: update_prim 47 (39 with 5 equations), two
-# physical_flux 60 (56), v.n and the speed of sound 8, the inviscid radius
-# 4, the flow rows 35; viscous adds max_term and the viscous radius 12; 7
-# equations add the turbulence radius and rows: 22 with the SST blend, 20
-# for Wilcox (no blend, the unlimited rho k / omega).
+# off-diagonal product, by one-species form (neq, viscous, wilcox); a
+# cell's final update takes 2 per equation (the lagged term adds one per
+# equation).  csrc/lusgs_sweep.cu: update_prim 47 (39 with 5 equations),
+# two physical_flux 60 (56), v.n and the speed of sound 8, the inviscid
+# radius 4, the flow rows 35; viscous adds max_term and the viscous radius
+# 12; 7 equations add the turbulence radius and rows: 22 with the SST
+# blend, 20 for Wilcox (no blend, the unlimited rho k / omega).
 NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 142, (5, True, False): 154,
                          (7, True, False): 188, (7, True, True): 186}
 # csrc/blusgs_sweep.cu: the state and the Rusanov block rows (155), the TSL
 # rows with the stress vector and dPrim/dCons (127; 125 without the
 # turbulent conductivity of 5 equations), the turbulence diagonal (30 with
-# the SST blends, 24 for Wilcox); a cell's right-hand side and its 5x5
-# (+ 2x2) inverse product
+# the SST blends, 24 for Wilcox).  A block cell's right-hand side and its
+# N x N (+ 2x2) inverse product take 2 N^2 + N (+ 8).
 BLOCK_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 155, (5, True, False): 280,
                                (7, True, False): 312, (7, True, True): 306}
-BLOCK_CELL_OPS = 63
-SST_FORM = (7, True, False)
+SST_FORM = (1, 7, True, False)
+# the turbulence rows of a neighbour (SST blend, Wilcox), both kernels
+TURB_OPS = {False: 22, True: 20}
+BLOCK_TURB_OPS = {False: 30, True: 24}
+
+
+def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
+    """FP64 operations per contributing neighbour of a mixture's form
+    (ns, neq, viscous, wilcox), counted from the kernels' mixture paths.
+    Scalar (update_prim_mix, physical_flux_mix, add_offdiagonal): q + du
+    with the species renormalisation and the mixture energy 23 ns + 30
+    (+8 for the turbulence rows), two fluxes 18 ns + 48 (+4), gamma from
+    the mixture's cp and cv 6 ns + 1 and, when viscous, the state's
+    Prandtl number 4, v.n, the speed of sound and the inviscid radius 12,
+    the ns + 4 flow rows 7 each, the viscous radius 12, the turbulence
+    radius and rows.  Block (add_block_offdiagonal_mix): the state with
+    its mixture sums 13 ns + 13, the Rusanov rows 11 ns + 135, the TSL
+    rows with the mixture's conductivity 12 ns + 127 (+3 for the
+    turbulent conductivity), Schmidt diffusion's species rows and
+    enthalpy flux 14 ns + 4, the turbulence diagonal."""
+    ns, neq, viscous, wilcox = form
+    turb = neq == ns + 6
+    if block:
+        ops = 24 * ns + 148
+        if viscous:
+            ops += 12 * ns + 127 + (3 if turb else 0)
+            ops += (14 * ns + 4) if diffusion else 0
+        return ops + (BLOCK_TURB_OPS[wilcox] if turb else 0)
+    ops = 54 * ns + 119 + (16 if viscous else 0)
+    return ops + ((12 + TURB_OPS[wilcox]) if turb else 0)
 
 
 def neighbour_reads(plan, forward: bool):
@@ -322,21 +381,25 @@ def neighbour_reads(plan, forward: bool):
 
 
 def sweep_cost(plan, forward: bool, with_extra: bool = False,
-               block: bool = False, form=SST_FORM):
+               block: bool = False, form=SST_FORM, diffusion: bool = False):
     """(bytes, FP64 operations) of one sweep of one block over ``plan``,
     each value the sweep needs read once and du's physical cells written
-    once, for the kernel form ``form`` = (neq, viscous, wilcox) of
-    ``sweep_form``.  Reads: prim and, when viscous, mu, mut, f1 (not for 5
-    equations or Wilcox) and for the block sweep vgrad at the distinct
-    neighbours across this run's unmasked faces; du's input where the
-    sweep has not rewritten it first (the ghost neighbours, and every cell
-    of a backward sweep without extra: du - D^-1 U); per cell the inverses
-    (the turbulence one only with 7 equations), b (not in that backward
-    form), extra, the cell lists and masks; the face statics of the
-    unmasked faces (the centre distance only when viscous).  Operations:
-    the kernel's per contributing neighbour and per cell (+neq with
-    extra)."""
-    neq, viscous, wilcox = form
+    once, for the kernel form ``form`` = (ns, neq, viscous, wilcox) of
+    ``sweep_form`` (``diffusion``: a block mixture's Schmidt diffusion
+    rows).  Reads: prim and, when viscous, mu, mut, f1 (not without
+    turbulence equations or for Wilcox) and for the block sweep vgrad at
+    the distinct neighbours across this run's unmasked faces; du's input
+    where the sweep has not rewritten it first (the ghost neighbours, and
+    every cell of a backward sweep without extra: du - D^-1 U); per cell
+    the inverses (the scalar one or the (ns + 4)^2 block channels, the
+    turbulence one only with turbulence equations), b (not in that
+    backward form), extra, the cell lists and masks; the face statics of
+    the unmasked faces (the centre distance only when viscous).
+    Operations: the kernel's per contributing neighbour and per cell
+    (+neq with extra)."""
+    ns, neq, viscous, wilcox = form
+    N = ns + 4
+    turb = neq == N + 2
     side = "lower" if forward else "upper"
     mask = plan.mask[side]
     ncell = int(plan.cells.numel())
@@ -345,10 +408,10 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     plain_backward = not forward and not with_extra
     padded = neq
     if viscous:
-        padded += 2 + (1 if neq == 7 and not wilcox else 0) \
+        padded += 2 + (1 if turb and not wilcox else 0) \
             + (9 if block else 0)
-    inverses = ((25 if block else 1)
-                + ((4 if block else 1) if neq == 7 else 0))
+    inverses = ((N * N if block else 1)
+                + ((4 if block else 1) if turb else 0))
     per_cell_in = (inverses + (0 if plain_backward else neq)
                    + (neq if with_extra else 0))
     nstat = plan.static[side].shape[-1] - (0 if viscous else 1)
@@ -358,12 +421,13 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
               + nstat * nfaces
               + neq * ncell)
     nbytes = 8 * values + 2 * 4 * ncell + mask.numel()
-    if block:
-        per_nb = BLOCK_NEIGHBOUR_OPS_BY_FORM[form]
-        per_cell = BLOCK_CELL_OPS - (8 if neq == 5 else 0)
+    if ns == 1:
+        key = (neq, viscous, wilcox)
+        per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block
+                  else NEIGHBOUR_OPS_BY_FORM)[key]
     else:
-        per_nb = NEIGHBOUR_OPS_BY_FORM[form]
-        per_cell = 2 * neq
+        per_nb = mixture_neighbour_ops(form, block, diffusion)
+    per_cell = 2 * N * N + N + (8 if turb else 0) if block else 2 * neq
     ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
     return nbytes, ops
 
@@ -402,9 +466,9 @@ def forward(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra=None):
     place).  prim/du (neq, NI, NJ, NK), b and the optional lagged term
     extra (neq, ni, nj, nk), aux['mu'|'mut'|'f1'] (NI, NJ, NK); scalar
     inverses inv_f/inv_t (ni, nj, nk), or for the block solver the
-    channel-first inverse blocks inv_f (25, ni, nj, nk) and inv_t (4, ni,
-    nj, nk) (``implicit.blk_to_channels``) and aux['vgrad'] (3, 3, NI, NJ,
-    NK)."""
+    channel-first inverse blocks inv_f ((ns + 4)^2, ni, nj, nk) and inv_t
+    (4, ni, nj, nk) (``implicit.blk_to_channels``) and aux['vgrad'] (3, 3,
+    NI, NJ, NK)."""
     return _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, True,
                   extra)
 

@@ -18,7 +18,9 @@ versions read the block's static face geometry
 once per block.  Scope, as the JAX package's ``use_march``: one species,
 scalar solver, central viscous reconstruction, no wall law, calorically
 perfect gas (the port's Physics refuses the others), no pressure-gradient
-output; the wrapper raises outside it.
+output; the wrapper raises outside it, on every device: a mixture's
+residual takes ``solver/viscous.viscous_residual`` by the solver's own
+choice (``solver/step.full_residual``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ def out_channels(nturb: int):
             + (("mut", 1), ("f1", 1), ("f2", 1)))
 
 
-OUT_CHANNELS = out_channels(2)
-
 # FP64 operations per face and per cell by branch, counted from
 # csrc/viscous_march.cu (each add, subtract, multiply, divide, sqrt, pow,
 # tanh, min or max as one): the least work of one residual, each face
@@ -67,8 +67,6 @@ OUT_CHANNELS = out_channels(2)
 # pow 134, and the eddy viscosity's part in the stresses 5.
 FACE_OPS_BY_MODEL = {0: 519, 1: 481, 2: 432, 3: 293}
 CELL_OPS_BY_MODEL = {0: 287, 1: 281, 2: 176, 3: 170}
-FACE_OPS = FACE_OPS_BY_MODEL[0]
-CELL_OPS = CELL_OPS_BY_MODEL[0]
 
 
 def _check_scope(phys: Physics, cfg):
@@ -119,8 +117,9 @@ def _library():
 def _params(phys: Physics, cfg) -> np.ndarray:
     """the kernel's parameters, in the order of its struct Params"""
     return np.array([
-        phys.nondim_scaling, phys.R, phys.cp, phys.gamma_const,
-        phys.cond_c1, phys.cond_s, phys.t_ref, phys.k_nondim,
+        phys.nondim_scaling, phys.R[0], phys.cp_s[0],
+        phys.cp_s[0] / phys.cv_s[0], phys.cond_c1[0], phys.cond_s[0],
+        phys.t_ref, phys.k_nondim,
         *phys.turb_min(), cfg["viscous_cfl_coeff"],
         SST["beta_star"], SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
         SST["sigma_w2"], SST["a1"], phys.turb_prandtl(),

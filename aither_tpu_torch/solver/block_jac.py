@@ -2,9 +2,10 @@
 
 Port of ``aither_tpu/solver/block_jac.py``: per-cell flow (N x N,
 N = ns + 4) and turbulence (2 x 2) blocks, batched over cells with the
-matrix axes last, as plain PyTorch.  The port's Physics is one species, so
-the species-diffusion rows of the thin-shear-layer Jacobian
-(``_tsl_rows``, multispecies with Schmidt diffusion) are not carried.
+matrix axes last, as plain PyTorch, for any species count: the mixture's
+gamma, energy, conductivity and cp, and with more than one species and
+``cfg['diffusion']`` schmidt the species-diffusion rows of the
+thin-shear-layer Jacobian (``_tsl_rows``).
 
 Math follows the reference (reference: include/fluxJacobian.hpp:440-760:
 RusanovFluxJacobian / InvFluxJacobian / ApproxTSLJacobian /
@@ -48,13 +49,13 @@ def _inv_flux_rows(phys: Physics, q, n, mag):
     N = ns + 4
     t = st.temperature(phys, q)
     mf = q[:ns] / st.rho(phys, q)[None]
-    gamma = phys.gamma(t)
+    gamma = phys.gamma(t, mf)
     vel = st.velocity(phys, q)
     vn = (vel * n).sum(dim=0)
     gm1 = gamma - 1.0
     vmag2 = (vel * vel).sum(dim=0)
     phi = 0.5 * gm1 * vmag2
-    energy = phys.species_energy(t) + 0.5 * vmag2   # one species: the mix
+    energy = phys.mix(phys.species_energy(t), mf) + 0.5 * vmag2
     a1 = gamma * energy - phi
     a3 = gamma - 2.0
     u, v, w = vel
@@ -147,7 +148,8 @@ def _del_prim_del_cons_rows(phys: Physics, q):
     N = ns + 4
     t = st.temperature(phys, q)
     rho = st.rho(phys, q)
-    gm1 = phys.gamma(t) - 1.0
+    mf = st.mixture_fractions(phys, q)
+    gm1 = phys.gamma(t, mf) - 1.0
     inv_rho = 1.0 / rho
     vel = st.velocity(phys, q)
     u, v, w = vel
@@ -181,20 +183,23 @@ def _tsl_rows(phys: Physics, cfg, q, mu, mut, f1, n, mag, dist, vgrad,
               left: bool):
     """Rows of the TSL viscous Jacobian in PRIMITIVE variables, its
     mag*mu_tot/dist scale factor, and the (d0, d1, fac) turbulence
-    diagonal (one species: no diffusion rows)."""
+    diagonal; the species rows are the diffusion rows with more than one
+    species and ``cfg['diffusion']`` schmidt, else zero."""
     ns = phys.ns
     N = ns + 4
     scaling = phys.nondim_scaling
     t = st.temperature(phys, q)
     rho = st.rho(phys, q)
+    mf = st.mixture_fractions(phys, q)
     mu_s = scaling * mu
     mut_s = scaling * mut
     vel = st.velocity(phys, q)
     vn = (vel * n).sum(dim=0)
     u, v, w = vel
     nx, ny, nz = n
-    k = scaling * phys.conductivity(t)
-    kt = mut_s * phys.cp / phys.turb_prandtl() if phys.nturb else 0.0
+    k = scaling * phys.conductivity(t, mf)
+    cp = phys.cp(t, mf)
+    kt = mut_s * cp / phys.turb_prandtl() if phys.nturb else 0.0
     mu_tot = mu_s + mut_s
 
     tau = tau_normal(vgrad, n, mu_tot)
@@ -203,8 +208,19 @@ def _tsl_rows(phys: Physics, cfg, q, mu, mut, f1, n, mag, dist, vgrad,
     zero = torch.zeros_like(rho)
 
     rows = [[zero] * N for _ in range(N)]
-    for i in range(ns):
-        rows[ns + 3][i] = -(k + kt) * t / (mu_tot * rho)
+    if ns > 1 and cfg.get("diffusion", "none") != "none":
+        dcoeff = mu_s / cfg["schmidt"] + mut_s / cfg["turb_schmidt"]
+        hs = phys.species_enthalpy(t)
+        for i in range(ns):
+            for j in range(ns):
+                kron = 1.0 if i == j else 0.0
+                rows[i][j] = dcoeff * (kron - mf[i]) / (mu_tot * rho)
+            rows[ns + 3][i] = (-(k + kt) * t / (mu_tot * rho)
+                               + rows[i][i] * (hs[i] + 0.5 *
+                                               (vel * vel).sum(dim=0)))
+    else:
+        for i in range(ns):
+            rows[ns + 3][i] = -(k + kt) * t / (mu_tot * rho)
 
     one = torch.ones_like(rho)
     rows[ns + 0][ns + 0] = third * nx * nx + 1.0 * one

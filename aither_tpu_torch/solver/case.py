@@ -128,8 +128,17 @@ def initial_prim(deck: Deck, phys: Physics, block_idx: int,
     vel = [v / a for v in ic["velocity"]]
     p = ic["pressure"] / (r * a * a)
 
+    mf = [0.0] * phys.ns
+    mfm = ic.get("massFractions")
+    if mfm:
+        for name, frac in mfm.items():
+            mf[deck.species_index(name)] = frac
+    else:
+        mf[0] = 1.0
+
     prim = np.zeros((phys.neq,) + tuple(shape))
-    prim[0] = rho
+    for s in range(phys.ns):
+        prim[s] = rho * mf[s]
     prim[phys.mx] = vel[0]
     prim[phys.my] = vel[1]
     prim[phys.mz] = vel[2]
@@ -139,9 +148,9 @@ def initial_prim(deck: Deck, phys: Physics, block_idx: int,
         evr = ic.get("eddyViscosityRatio", 0.01)
         vmag2 = sum(v * v for v in vel)
         tke = 1.5 * (ti * ti) * vmag2
-        t = phys.temperature(torch.tensor([p], dtype=torch.float64),
-                             torch.tensor([[rho]], dtype=torch.float64))
-        mu = float(phys.viscosity(t)[0])
+        rho_s = torch.tensor([[rho * m] for m in mf], dtype=torch.float64)
+        t = phys.temperature(torch.tensor([p], dtype=torch.float64), rho_s)
+        mu = float(phys.viscosity(t, rho_s / rho)[0])
         omega = rho * tke / (evr * mu)
         tmin = phys.turb_min()
         prim[phys.it] = max(tke, tmin[0])

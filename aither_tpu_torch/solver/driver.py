@@ -63,8 +63,9 @@ def check_supported(deck):
 
 class Solver:
     """Implicit solver on one device: Euler, laminar Navier-Stokes, LES
-    (WALE) and RANS (k-omega Wilcox 2006, SST 2003, SST-DES), one species,
-    scalar or block LU-SGS.
+    (WALE) and RANS (k-omega Wilcox 2006, SST 2003, SST-DES), one species
+    or a calorically perfect mixture (Schmidt diffusion, frozen or
+    reacting chemistry), scalar or block LU-SGS.
 
     ``Solver(deck_path, device="cuda")`` builds the case on the device;
     ``run(iterations)`` marches and writes ``<deck>.resid`` / ``<deck>.tme``
@@ -108,7 +109,14 @@ class Solver:
             block_matrix=deck["matrixSolver"] in ("blusgs", "bdplur"),
             matrix_sweeps=deck["matrixSweeps"],
             matrix_init=deck.matrix_requires_initialization(),
+            diffusion=deck["diffusionModel"],
+            schmidt=deck["schmidtNumber"],
+            turb_schmidt=0.7,
         )
+        if self.device.type == "cuda":
+            # refuse a form the sweep kernels are not built for (a species
+            # count above lusgs_sweep.MAX_SPECIES) before any work
+            lusgs_sweep.sweep_form(self.phys, self.cfg)
         if deck.is_viscous:
             # static face geometry of the viscous residual, once per block
             for b in self.case.blocks:

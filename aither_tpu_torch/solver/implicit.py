@@ -43,9 +43,10 @@ def viscous_face_spectral_radius(phys: Physics, q, mag, dist, mu, mut=None):
     (reference: spectralRadius.hpp:126-151 ViscFaceSpectralRadius)."""
     t = st.temperature(phys, q)
     r = st.rho(phys, q)
-    max_term = torch.maximum(4.0 / (3.0 * r), phys.gamma(t) / r)
+    mf = st.mixture_fractions(phys, q)
+    max_term = torch.maximum(4.0 / (3.0 * r), phys.gamma(t, mf) / r)
     visc_term = phys.nondim_scaling * (
-        mu / prandtl(phys)
+        mu / prandtl(phys, t, mf)
         + (mut / phys.turb_prandtl() if mut is not None else 0.0))
     return mag / dist * max_term * visc_term
 

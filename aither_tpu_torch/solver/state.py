@@ -30,6 +30,13 @@ def mass_fractions(phys: Physics, prim):
     return prim[:phys.ns] / rho(phys, prim)
 
 
+def mixture_fractions(phys: Physics, prim):
+    """the mass fractions the Physics mixture functions read (none for one
+    species, whose mixture is the species); ``prim`` may also be a
+    conserved state: both start with the species densities"""
+    return mass_fractions(phys, prim) if phys.ns > 1 else None
+
+
 def temperature(phys: Physics, prim):
     return phys.temperature(prim[phys.ie], prim[:phys.ns])
 
@@ -41,8 +48,10 @@ def sos(phys: Physics, prim):
 def enthalpy(phys: Physics, prim):
     """total specific enthalpy h0 = h(T) + V^2/2 (reference: eos.cpp:74-80)."""
     t = temperature(phys, prim)
+    mf = mixture_fractions(phys, prim)
     vel = velocity(phys, prim)
-    return phys.species_enthalpy(t) + 0.5 * (vel * vel).sum(dim=0)
+    return (phys.mix(phys.species_enthalpy(t), mf)
+            + 0.5 * (vel * vel).sum(dim=0))
 
 
 def cons_from_prim(phys: Physics, prim):
@@ -50,7 +59,9 @@ def cons_from_prim(phys: Physics, prim):
     r = rho(phys, prim)
     vel = velocity(phys, prim)
     t = temperature(phys, prim)
-    e_total = phys.species_energy(t) + 0.5 * (vel * vel).sum(dim=0)
+    mf = mixture_fractions(phys, prim)
+    spec_e = phys.mix(phys.species_energy(t), mf)
+    e_total = spec_e + 0.5 * (vel * vel).sum(dim=0)
     parts = [prim[:phys.ns], r[None] * vel, (r * e_total)[None]]
     if phys.nturb:
         parts.append(r[None] * prim[phys.it:])
@@ -63,7 +74,8 @@ def prim_from_cons(phys: Physics, cons):
     r = rho_s.sum(dim=0)
     vel = cons[phys.mx:phys.mx + 3] / r[None]
     spec_e = cons[phys.ie] / r - 0.5 * (vel * vel).sum(dim=0)
-    t = phys.temperature_from_energy(spec_e)
+    mf = mixture_fractions(phys, cons)
+    t = phys.temperature_from_energy(spec_e, mf)
     p = phys.pressure_rt(rho_s, t)
     parts = [rho_s, vel, p[None]]
     if phys.nturb:

@@ -20,6 +20,7 @@ import torch
 from ..grid.connections import orient_to_first, orient_to_second
 from ..grid.geometry import AX
 from ..kernels import viscous_march
+from ..physics import chemistry as chem_mod
 from ..physics.models import Physics
 from . import bc as bc_mod
 from . import block_jac as bj
@@ -107,7 +108,9 @@ def apply_boundary_ghosts(phys: Physics, block, prim, viscous_pass=False):
                 kw["wall_dist"] = wd[_plane(wd, ax - 1, acell, spec.patch)]
                 rho_adj = st.rho(phys, adj)
                 t_adj = phys.temperature(adj[phys.ie], adj[:phys.ns])
-                kw["nu_w"] = phys.viscosity(t_adj) / rho_adj
+                kw["nu_w"] = (phys.viscosity(t_adj,
+                                             st.mixture_fractions(phys, adj))
+                              / rho_adj)
             else:
                 src = icell if bct == "slipWall" else acell
             interior = prim[_plane(prim, ax, src, spec.patch)]
@@ -491,7 +494,7 @@ def full_residual(phys: Physics, cfg, block, prim):
         prim = apply_boundary_ghosts(phys, block, prim, viscous_pass=True)
         prim = apply_edge_ghosts(phys, block, prim, viscous_pass=True)
         t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
-        mu_all = phys.viscosity(t_all)
+        mu_all = phys.viscosity(t_all, st.mixture_fractions(phys, prim))
         if blk:
             # blusgs takes the plain viscous residual, which also returns
             # the TSL block diagonal: the JAX package routes block-matrix
@@ -504,6 +507,14 @@ def full_residual(phys: Physics, cfg, block, prim):
             diag_flow_blk = diag_flow_blk + vblk_f
             if phys.nturb:
                 diag_turb_blk = diag_turb_blk + vblk_t
+        elif phys.ns > 1:
+            # a mixture takes the plain viscous residual: the JAX package's
+            # fused march covers one species only (pallas_residual.py:112,
+            # use_march), so K2 is not on this path there either — the
+            # JAX package's route, not a fallback
+            (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
+             cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
+                                             mu_all)
         else:
             # the fused viscous residual: the CUDA kernel on the card, its
             # plain version on the CPU
@@ -523,6 +534,25 @@ def full_residual(phys: Physics, cfg, block, prim):
         f1_pad[P] = cellavg["f1"]
         aux = {"mu": mu_all, "mut": mut_pad, "f1": f1_pad,
                "vel_grad": cellavg["vel"], "cellavg": cellavg}
+
+    if phys.chemistry is not None:
+        # reacting chemistry source terms (reference: procBlock.cpp:
+        # 5956-6000, source.cpp:44-57, chemistry.cpp:81-176)
+        cell_q = prim[(slice(None),) + P]
+        vol = block.geom["vol"][P]
+        t_cell = st.temperature(phys, cell_q)
+        src, srad = chem_mod.source_terms(phys, phys.chemistry,
+                                          cell_q[:phys.ns], t_cell)
+        # residual -= src * vol (source on the RHS)
+        resid = torch.cat([resid[:phys.ns] + (-src * vol[None]),
+                           resid[phys.ns:]])
+        # spectral radius / diagonal: subtract the (negative) destruction
+        sr_flow = sr_flow - srad * vol
+        diag_flow = diag_flow - srad * vol
+        if blk:
+            cjac = chem_mod.source_jacobian(phys, phys.chemistry,
+                                            cell_q[:phys.ns], t_cell, src)
+            diag_flow_blk = diag_flow_blk - cjac * vol[..., None, None]
 
     if phys.nturb and cfg.get("viscous"):
         cell_q = prim[(slice(None),) + P]

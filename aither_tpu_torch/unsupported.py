@@ -16,8 +16,7 @@ ITEMS = {
     "viscousFaceReconstruction": f"{_Q1} 5 (remaining physics: centralFourth)",
     "inviscidFlux": f"{_Q1} 5 (remaining physics: AUSM)",
     "thermallyPerfect": f"{_Q1} 5 (remaining physics: thermallyPerfect)",
-    "multispecies": f"{_Q1} 5 (remaining physics: multispecies)",
-    "chemistry": f"{_Q1} 5 (remaining physics: chemistry)",
+    "species": f"{_Q1} 9 (species counts above 5 in the CUDA sweeps)",
     "nonreflecting": f"{_Q1} 5 (remaining physics: LODI)",
     "boundaryCondition": f"{_Q1} 5 (remaining physics: boundary conditions)",
     "output": f"{_Q1} 6 (output and restart)",

@@ -5,11 +5,14 @@
                                              [--matrix-solver lusgs|blusgs]
                                              [--equation-set SET]
                                              [--turbulence-model MODEL]
+                                             [--mixture NAME]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
 default the 1.05M-cell case; the deck's matrixSolver, equationSet and
-turbulenceModel as given, default lusgs, rans and sst2003) to
-``smoke_run/profile_<solver>_<set>_<model>/``, runs W warm-up iterations,
+turbulenceModel as given, default lusgs, rans and sst2003; with
+``--mixture`` the gas of ``cases.MIXTURES``, e.g. n2o2 or air5_frozen) to
+``smoke_run/profile_<solver>_<set>_<model>[_<mixture>]/``, runs W warm-up
+iterations,
 then N iterations three times:
 
 1. plain, ending in one synchronise: the iteration time;
@@ -98,6 +101,8 @@ def main(argv=None):
     parser.add_argument("--turbulence-model", default="sst2003",
                         choices=("none", "wale", "kOmegaWilcox2006",
                                  "sst2003", "sstdes"))
+    parser.add_argument("--mixture", choices=tuple(cases.MIXTURES),
+                        default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -107,13 +112,19 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()[0]
     wd = os.path.join(os.getcwd(), "smoke_run",
                       f"profile_{args.matrix_solver}_{args.equation_set}_"
-                      f"{args.turbulence_model}")
-    solver = driver.Solver(
-        cases.write_plate_case(wd, *args.dims,
-                               matrix_solver=args.matrix_solver,
-                               equation_set=args.equation_set,
-                               turbulence_model=args.turbulence_model),
-        device="cuda", workdir=wd)
+                      f"{args.turbulence_model}"
+                      + (f"_{args.mixture}" if args.mixture else ""))
+    path = cases.write_plate_case(
+        wd, *args.dims, matrix_solver=args.matrix_solver,
+        equation_set=args.equation_set,
+        turbulence_model=args.turbulence_model,
+        **cases.MIXTURES.get(args.mixture, {}))
+    here = os.getcwd()
+    os.chdir(wd)            # a reacting deck's mechanism is read from here
+    try:
+        solver = driver.Solver(path, device="cuda", workdir=wd)
+    finally:
+        os.chdir(here)
     n = args.iterations
     iterate(solver, args.warmup)
 
@@ -146,7 +157,7 @@ def main(argv=None):
         "matrix_solver": args.matrix_solver,
         "equation_set": args.equation_set,
         "turbulence_model": args.turbulence_model,
-        "iterations": n, "iteration_ms": iteration_ms,
+        "mixture": args.mixture, "iterations": n, "iteration_ms": iteration_ms,
         "iteration_ms_synced": synced_ms, "layers_ms": layers,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / iteration_ms,

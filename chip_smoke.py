@@ -8,8 +8,10 @@ the viscous residual on the hand-written fused kernel csrc/viscous_march.cu,
 the sweeps on the hand-written csrc/lusgs_sweep.cu) and with block-matrix
 LU-SGS (blusgs: the sweeps on the hand-written csrc/blusgs_sweep.cu), for
 every single-species physics: Euler, laminar Navier-Stokes, LES (WALE) and
-RANS (Wilcox 2006 k-omega, SST 2003, SST-DES) — on the generated two-block
-flat plate (aither_tpu_torch/cases.py) and checks them.  Phases, each
+RANS (Wilcox 2006 k-omega, SST 2003, SST-DES), and for calorically perfect
+mixtures (N2/O2 with Schmidt diffusion, hot five-species air frozen and
+reacting; the mixture forms of both sweep kernels) — on the generated
+two-block flat plate (aither_tpu_torch/cases.py) and checks them.  Phases, each
 printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
@@ -43,7 +45,8 @@ printing its own lines:
  6. reference: the small test case run on cuda and on cpu (plain versions)
     gives the same raw residual L2 history within REF_RTOL: SST with lusgs
     and blusgs at matrixSweeps 1 and 2; Euler, laminar, LES and Wilcox
-    with lusgs; laminar and Wilcox with blusgs;
+    with lusgs; laminar and Wilcox with blusgs; N2/O2 SST with lusgs and
+    the reacting five-species air with blusgs (REACTING_BLOCK_RTOL);
  7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
@@ -62,7 +65,21 @@ printing its own lines:
     matrixSweeps 2 (every new form with the lagged term), Euler with both
     solvers at matrixSweeps 1 and 2, laminar and SST-DES with lusgs.  The
     Euler decks start from a seeded 1%-perturbed state (the Euler plate
-    is a uniform flow with roundoff-level residuals).
+    is a uniform flow with roundoff-level residuals);
+ 9. multispecies (MIXTURE_DECKS), every solver built once, compared and
+    driven as in phase 8: on case A the scalar and block sweeps of N2/O2
+    SST with Schmidt diffusion (2 species) and of reacting five-species
+    air (laminar, Schmidt; 5 species), each without and with the lagged
+    term, of the inviscid N2/O2 deck, and of frozen three- and
+    four-species air (one form with and one without the lagged term on
+    each solver), against their plain versions; drives of every compared
+    form, the reacting deck's with lusgs and blusgs among them; on case B
+    N2/O2 SST lusgs at matrixSweeps 1 and frozen five-species air laminar
+    blusgs at matrixSweeps 2, each sweep form compared there (variant a;
+    variant c+b) and driven by Solver.run(MIXTURE_ITERATIONS).  A
+    mixture's viscous residual is the plain version (the fused kernel
+    covers one species, as in the JAX package): no viscous kernel
+    launch.
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object (one row per kernel form; its times from case B where the form
@@ -93,6 +110,7 @@ LAGGED_ITERATIONS = 8
 BLOCK_ITERATIONS = 8
 BLOCK_LAGGED_ITERATIONS = 7
 NEW_ITERATIONS = 8       # phase 8, every deck
+MIXTURE_ITERATIONS = 8   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 FLOOR_PLANES = 2000      # empty plane launches timed for the floor
@@ -123,13 +141,27 @@ VISC_RTOL, VISC_ATOL = 1e-9, 1e-13
 # card, FMA in the kernels, amplified over REF_ITERATIONS implicit steps.
 REF_RTOL = 1e-8
 REF_ITERATIONS = 3
+# the reacting blusgs deck's block diagonal holds the reference's
+# forward-difference chemistry Jacobian (step 1e-10 rho): the card's and the
+# CPU's exp differ by an ulp, which the quotient turns into ~1e-7 relative
+# differences of the Jacobian (tests/test_torch_mixture.py), carried into
+# the update (tests/test_torch_reacting_blusgs.py holds the port to the JAX
+# package at 2e-6 on the same grounds)
+REACTING_BLOCK_RTOL = 2e-6
 
-PHYSICS = {"euler": ("euler", "none"),
-           "laminar": ("navierStokes", "none"),
-           "les": ("largeEddySimulation", "wale"),
-           "wilcox": ("rans", "kOmegaWilcox2006"),
-           "sst": ("rans", "sst2003"),
-           "sstdes": ("rans", "sstdes")}
+# name -> (equationSet, turbulenceModel, mixture of cases.MIXTURES or None)
+PHYSICS = {"euler": ("euler", "none", None),
+           "laminar": ("navierStokes", "none", None),
+           "les": ("largeEddySimulation", "wale", None),
+           "wilcox": ("rans", "kOmegaWilcox2006", None),
+           "sst": ("rans", "sst2003", None),
+           "sstdes": ("rans", "sstdes", None),
+           "n2o2": ("rans", "sst2003", "n2o2"),
+           "n2o2_euler": ("euler", "none", "n2o2"),
+           "air5": ("navierStokes", "none", "air5"),
+           "air5_frozen": ("navierStokes", "none", "air5_frozen"),
+           "air3_frozen": ("navierStokes", "none", "air3_frozen"),
+           "air4_frozen": ("navierStokes", "none", "air4_frozen")}
 # phase 8: (case, physics, matrixSolver, matrixSweeps, sweep comparisons
 # (with the lagged term or not), viscous comparisons ("perturbed" /
 # "uniform" state)).  A solver's sweep comparisons do not depend on its
@@ -150,6 +182,27 @@ NEW_DECKS = (
     ("case A", "laminar", "blusgs", 2, (False, True), ()),
     ("case A", "wilcox", "blusgs", 2, (False, True), ()),
     ("case A", "sstdes", "lusgs", 1, (), ()),
+)
+# phase 9: (case, physics, matrixSolver, matrixSweeps, sweep comparisons).
+# Every compared form is driven: the lagged forms by a matrixSweeps 2
+# deck, the others by a matrixSweeps 1 deck.  The three- and four-species
+# decks check the kernels' NS = 3 and 4 instantiations, each solver one
+# form with and one without the lagged term.
+MIXTURE_DECKS = (
+    ("case A", "n2o2", "lusgs", 2, (False, True)),
+    ("case A", "n2o2", "blusgs", 1, (False, True)),
+    ("case A", "n2o2", "blusgs", 2, ()),
+    ("case A", "air5", "lusgs", 1, (False, True)),
+    ("case A", "air5", "lusgs", 2, ()),
+    ("case A", "air5", "blusgs", 1, (False, True)),
+    ("case A", "n2o2_euler", "lusgs", 1, (False,)),
+    ("case A", "n2o2_euler", "blusgs", 1, (False,)),
+    ("case A", "air3_frozen", "lusgs", 1, (False,)),
+    ("case A", "air3_frozen", "blusgs", 2, (True,)),
+    ("case A", "air4_frozen", "lusgs", 2, (True,)),
+    ("case A", "air4_frozen", "blusgs", 1, (False,)),
+    ("case B", "n2o2", "lusgs", 1, (False,)),
+    ("case B", "air5_frozen", "blusgs", 2, (True,)),
 )
 
 
@@ -274,11 +327,13 @@ def sweep_pair(solver, system, forward, backward, du0, extras):
 
 
 def form_name(form):
-    """the sweep kernels' form (neq, viscous, wilcox) in words"""
-    neq, viscous, wilcox = form
-    if neq == 5:
-        return "5 eq viscous" if viscous else "5 eq inviscid"
-    return "7 eq Wilcox" if wilcox else "7 eq SST"
+    """the sweep kernels' form (ns, neq, viscous, wilcox) in words"""
+    ns, neq, viscous, wilcox = form
+    if neq == ns + 4:
+        name = f"{neq} eq {'viscous' if viscous else 'inviscid'}"
+    else:
+        name = f"{neq} eq {'Wilcox' if wilcox else 'SST'}"
+    return name if ns == 1 else f"{name}, {ns} species"
 
 
 def compare_sweeps(torch, solver, system, label, card, with_extra):
@@ -332,7 +387,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
              f"plain sweep")
     t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(2)]
     kernel_ms = 0.5 * (t[0] + t[1])
-    costs = [ls.sweep_cost(p, fwd, with_extra, block, form)
+    diffusion = solver.phys.ns > 1 and solver.cfg["diffusion"] != "none"
+    costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion)
              for p in solver.plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
     print(f"{label}: sweep variant {variant}, forward+backward "
@@ -496,9 +552,12 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
         expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
                   "viscous_march": 0}
     else:
+        # a mixture's viscous residual is the plain version (one species
+        # only in the fused kernel, as in the JAX package's use_march)
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
                   "viscous_march": (iterations * nblocks
-                                    if solver.cfg["viscous"] else 0)}
+                                    if solver.cfg["viscous"]
+                                    and solver.phys.ns == 1 else 0)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocs = device_allocs(torch)
@@ -515,6 +574,7 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     path_ms = path_timings(timings, nblocks, label, allocs, card)
     print(f"{label}: {iterations} iterations of {case} ({cells} cells, "
           f"{solver.deck['equationSet']} / {solver.deck['turbulenceModel']}, "
+          f"{solver.phys.ns} species, "
           f"{solver.deck['matrixSolver']}, matrixSweeps {sweep_pairs}), "
           f"kernel launches {launches} (expected {expect})", flush=True)
     if sweeps == 0:
@@ -567,18 +627,32 @@ def path_timings(timings, nblocks, label, allocs, card):
     return per_iteration
 
 
-def reference_history(Solver, write_plate_case, dims, device, solver_name,
-                      sweeps, physics):
+def make_solver(wd, dims, device, solver_name, sweeps, physics):
+    """Solver of the generated plate in ``wd`` with the named physics
+    (PHYSICS), built in ``wd``: a reacting deck reads its mechanism from
+    the working directory"""
+    from aither_tpu_torch.cases import MIXTURES, write_plate_case
+    from aither_tpu_torch.solver.driver import Solver
+    es, tm, mixture = PHYSICS[physics]
+    path = write_plate_case(wd, *dims, matrix_sweeps=sweeps,
+                            matrix_solver=solver_name, equation_set=es,
+                            turbulence_model=tm,
+                            **MIXTURES.get(mixture, {}))
+    here = os.getcwd()
+    os.chdir(wd)
+    try:
+        return Solver(path, device=device, workdir=wd)
+    finally:
+        os.chdir(here)
+
+
+def reference_history(dims, device, solver_name, sweeps, physics):
     """raw L2 history (REF_ITERATIONS, neq) of the small case from a
     state perturbed by up to 1% on the interior (seeded; the unperturbed
     plate has roundoff-level residual components)."""
     wd = os.path.join(RUN_DIR, f"reference_{device}_{physics}_{solver_name}_"
                                f"{sweeps}")
-    es, tm = PHYSICS[physics]
-    s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
-                                matrix_solver=solver_name, equation_set=es,
-                                turbulence_model=tm),
-               device=device, workdir=wd)
+    s = make_solver(wd, dims, device, solver_name, sweeps, physics)
     perturb(s)
     s.run(iterations=REF_ITERATIONS)
     return np.asarray(s.l2_history)
@@ -617,8 +691,7 @@ def main():
     sys.path.insert(0, REPO)
     try:
         from aither_tpu_torch.cases import (SMOKE_2D_DIMS, SMOKE_3D_DIMS,
-                                            TEST_DIMS, write_plate_case)
-        from aither_tpu_torch.solver.driver import Solver
+                                            TEST_DIMS)
         from aither_tpu_torch.utils.build import (load_cuda_libraries,
                                                   nvcc_path)
     except ImportError as exc:
@@ -652,16 +725,14 @@ def main():
     def build(label, dims, solver_name, sweeps=1, physics="sst"):
         wd = os.path.join(RUN_DIR, f"{label}_{physics}_{solver_name}_"
                                    f"{sweeps}".replace(" ", "_"))
-        es, tm = PHYSICS[physics]
+        es, tm, mixture = PHYSICS[physics]
         t0 = time.perf_counter()
-        s = Solver(write_plate_case(wd, *dims, matrix_sweeps=sweeps,
-                                    matrix_solver=solver_name,
-                                    equation_set=es, turbulence_model=tm),
-                   device="cuda", workdir=wd)
-        if physics == "euler":      # a uniform flow otherwise
+        s = make_solver(wd, dims, "cuda", solver_name, sweeps, physics)
+        if es == "euler":           # a uniform flow otherwise
             perturb(s)
-        print(f"{label}: 2 blocks of {dims} ({es} / {tm}, {solver_name}, "
-              f"matrixSweeps {sweeps}) built in "
+        gas = f", {mixture} ({s.phys.ns} species)" if mixture else ""
+        print(f"{label}: 2 blocks of {dims} ({es} / {tm}{gas}, "
+              f"{solver_name}, matrixSweeps {sweeps}) built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return s
 
@@ -742,18 +813,21 @@ def main():
     references += [(physics, "lusgs", 1)
                    for physics in ("euler", "laminar", "les", "wilcox")]
     references += [(physics, "blusgs", 1) for physics in ("laminar", "wilcox")]
+    references += [("n2o2", "lusgs", 1), ("air5", "blusgs", 1)]
     for physics, solver_name, sweeps in references:
-        hist = {dev: reference_history(Solver, write_plate_case, TEST_DIMS,
-                                       dev, solver_name, sweeps, physics)
+        hist = {dev: reference_history(TEST_DIMS, dev, solver_name, sweeps,
+                                       physics)
                 for dev in ("cuda", "cpu")}
         # per equation, relative to that equation's largest L2
         worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
                        / np.abs(hist["cpu"]).max(axis=0)).max())
+        tol = (REACTING_BLOCK_RTOL if (physics, solver_name) == (
+            "air5", "blusgs") else REF_RTOL)
         print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, {physics}, "
               f"{solver_name}, matrixSweeps {sweeps}, {REF_ITERATIONS} "
               f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
-              f"(tol {REF_RTOL:.0e})", flush=True)
-        if not worst <= REF_RTOL:
+              f"(tol {tol:.0e})", flush=True)
+        if not worst <= tol:
             fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}: the "
                  f"cuda run disagrees with the cpu run")
 
@@ -772,6 +846,14 @@ def main():
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
         compare_all(solver, label, case, extras, fields)
         drive_and_count(solver, NEW_ITERATIONS, sweeps, label, case)
+        del solver
+
+    # -- phase 9: multispecies, compared and driven ---------------------------
+    for case, physics, solver_name, sweeps, extras in MIXTURE_DECKS:
+        label = f"phase 9 {case} {physics} {solver_name}"
+        solver = build(label, all_dims[case], solver_name, sweeps, physics)
+        compare_all(solver, label, case, extras, ())
+        drive_and_count(solver, MIXTURE_ITERATIONS, sweeps, label, case)
         del solver
     check_no_jax_package()
 

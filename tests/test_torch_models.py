@@ -370,7 +370,7 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
     assert [c.count for c in counters] == before
     assert np.isfinite(ts.l2_history).all()
     assert ls.sweep_form(ts.phys, ts.cfg) == (
-        ts.phys.neq, name != "euler", name == "wilcox")
+        1, ts.phys.neq, name != "euler", name == "wilcox")
 
     prims, res, sr, dg, dts, auxs = ts._residuals(dict(ts.prims),
                                                   ts.deck.cfl(0))
@@ -397,20 +397,25 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
 
 
 def test_wrappers_refuse_what_is_not_ported(physics):
-    """two species, a 7-equation inviscid form, centralFourth and the
-    block solver for the fused viscous residual"""
+    """a 7-equation inviscid form, equation counts no species count has,
+    more species than the kernels are built for, and for the fused
+    viscous residual two species, centralFourth and the block solver"""
     import dataclasses
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     _, tp, _, tc = physics["wilcox"]
-    assert ls.sweep_form(tp, tc) == (7, True, True)
-    with pytest.raises(ValueError, match="one species"):
+    assert ls.sweep_form(tp, tc) == (1, 7, True, True)
+    with pytest.raises(ValueError, match="ns \\+ 4 equations"):
         ls.sweep_form(tp, dict(tc, viscous=False))
-    two = dataclasses.replace(tp, ns=2) if dataclasses.is_dataclass(tp) \
-        else None
-    if two is not None:
-        with pytest.raises(ValueError, match="one species"):
-            ls.sweep_form(two, tc)
+    two = dataclasses.replace(tp, ns=2)
+    with pytest.raises(ValueError, match="ns \\+ 4 equations"):
+        ls.sweep_form(two, tc)
+    assert ls.sweep_form(dataclasses.replace(two, neq=8), tc) == (
+        2, 8, True, True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
+    with pytest.raises(ValueError, match="viscous residual kernel"):
+        vm._check_scope(dataclasses.replace(two, neq=8), tc)
     for key, val in (("viscous_recon", "centralFourth"),
                      ("block_matrix", True), ("viscous", False)):
         with pytest.raises(ValueError, match="viscous residual kernel"):
@@ -421,8 +426,8 @@ def test_wrappers_refuse_what_is_not_ported(physics):
         assert vm._check_scope(p, c) == branch
 
 
-@pytest.mark.parametrize("form", [(5, False, False), (5, True, False),
-                                  (7, True, False), (7, True, True)])
+@pytest.mark.parametrize("form", [(1, 5, False, False), (1, 5, True, False),
+                                  (1, 7, True, False), (1, 7, True, True)])
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_by_form(tmp_path, form, block):
     """the bound counts each form's own bytes and operations: fewer
@@ -440,8 +445,55 @@ def test_sweep_cost_by_form(tmp_path, form, block):
         assert 0 < nbytes < sst[0] and 0 < ops < sst[1]
     extra = ls.sweep_cost(plan, True, True, block, form)
     ncell = int(plan.cells.numel())
-    assert extra[0] - nbytes == 8 * form[0] * ncell
-    assert extra[1] - ops == form[0] * ncell
+    assert extra[0] - nbytes == 8 * form[1] * ncell
+    assert extra[1] - ops == form[1] * ncell
+
+
+@pytest.mark.parametrize("form", [(2, 8, True, False), (5, 9, True, False),
+                                  (2, 6, False, False), (5, 11, True, True)])
+@pytest.mark.parametrize("block", [False, True])
+def test_sweep_cost_of_mixture_forms(tmp_path, form, block):
+    """a mixture's bound, counted here value by value and operation by
+    operation: the padded fields at the distinct neighbours (neq, mu and
+    mut when viscous, f1 with SST, vgrad for the block sweep), the ghost
+    du, the inverses ((ns + 4)^2 block channels), b, du written, the cell
+    lists, masks and face statics; per neighbour the mixture path's
+    operations (with the block sweep's Schmidt diffusion rows) and per
+    cell the right-hand side and the inverse product"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 4, 3, 2)
+    plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
+    ns, neq, viscous, wilcox = form
+    N, turb = ns + 4, neq == ns + 6
+    ncell = int(plan.cells.numel())
+    nfaces = int(plan.mask["lower"].sum())
+    nread, nghost = ls.neighbour_reads(plan, True)
+    padded = neq + (2 + (turb and not wilcox) + 9 * block if viscous else 0)
+    inverses = (N * N if block else 1) + ((4 if block else 1) if turb else 0)
+    values = (padded * nread + neq * nghost + (inverses + 2 * neq) * ncell
+              + (5 if viscous else 4) * nfaces)
+    want_bytes = 8 * values + 8 * ncell + 3 * ncell
+    if block:
+        per_nb = 24 * ns + 148
+        if viscous:
+            per_nb += 12 * ns + 127 + 3 * turb + 14 * ns + 4
+        per_nb += ({False: 30, True: 24}[wilcox] if turb else 0)
+        per_cell = 2 * N * N + N + 8 * turb
+    else:
+        per_nb = (54 * ns + 119 + 16 * viscous
+                  + ((12 + {False: 22, True: 20}[wilcox]) if turb else 0))
+        per_cell = 2 * neq
+    got = ls.sweep_cost(plan, True, False, block, form, diffusion=True)
+    assert got == (want_bytes, per_nb * nfaces + per_cell * ncell)
+    # the lagged term reads extra and adds one operation per equation
+    extra = ls.sweep_cost(plan, True, True, block, form, diffusion=True)
+    assert extra == (got[0] + 8 * neq * ncell, got[1] + neq * ncell)
+    # without diffusion the block rows lose the species-diffusion work
+    plain = ls.sweep_cost(plan, True, False, block, form)
+    assert plain[0] == got[0]
+    assert got[1] - plain[1] == ((14 * ns + 4) * nfaces
+                                 if block and viscous else 0)
 
 
 def test_viscous_cost_by_model(tmp_path):

@@ -57,8 +57,8 @@ def test_physics_constants(phys_pair):
     for name in ("t_ref", "mu_mix_ref", "k_nondim", "nondim_scaling"):
         assert getattr(tp, name) == pytest.approx(getattr(jp, name),
                                                   rel=1e-15), name
-    assert tp.R == pytest.approx(jp.R[0], rel=1e-15)
-    assert tp.n == jp.n[0] and tp.hf == jp.hf[0]
+    assert tp.R == pytest.approx(jp.R, rel=1e-15)
+    assert tp.n == jp.n and tp.hf == jp.hf
     assert tp.turb_prandtl() == jp.turb_prandtl()
     assert tp.turb_min() == jp.turb_min()
 

@@ -93,7 +93,7 @@ def test_kernel_output_layout(pair):
                         ca["vel"].reshape((9,) + want[1].shape),
                         ca["tke"], ca["omega"], ca["mut"][None],
                         ca["f1"][None], ca["f2"][None]])
-    assert packed.shape[0] == sum(k for _, k in vm.OUT_CHANNELS)
+    assert packed.shape[0] == sum(k for _, k in vm.out_channels(2))
     got = vm.split_outputs(packed)
     for i in range(5):
         assert torch.equal(got[i], want[i])
@@ -122,6 +122,7 @@ def test_cost_counts_every_face_once(pair):
     ni, nj, nk = b.ni, b.nj, b.nk
     faces = (ni + 1) * nj * nk + ni * (nj + 1) * nk + ni * nj * (nk + 1)
     nbytes, ops = vm.cost(b)
-    assert ops == vm.FACE_OPS * faces + vm.CELL_OPS * ni * nj * nk
+    assert ops == (vm.FACE_OPS_BY_MODEL[0] * faces
+                   + vm.CELL_OPS_BY_MODEL[0] * ni * nj * nk)
     npad = int(np.prod(b.shape))
     assert nbytes == 8 * (9 * npad + 26 * faces + (4 + 29) * ni * nj * nk)

@@ -23,12 +23,14 @@ SEED = 7
 
 def write_case(tmp_dir, dims=TEST_DIMS, matrix_sweeps=1,
                matrix_solver="lusgs", equation_set="rans",
-               turbulence_model="sst2003"):
+               turbulence_model="sst2003", **mixture):
+    """the generated deck; ``mixture`` takes write_plate_case's species
+    keywords (cases.N2O2, cases.AIR5)"""
     return write_plate_case(str(tmp_dir), *dims,
                             matrix_sweeps=matrix_sweeps,
                             matrix_solver=matrix_solver,
                             equation_set=equation_set,
-                            turbulence_model=turbulence_model)
+                            turbulence_model=turbulence_model, **mixture)
 
 
 def jax_solver(deck_path, workdir, scan=False):
@@ -269,6 +271,7 @@ def viscous_inputs(ts, prims):
     """{block: (prim, T, mu)}: the port's viscous residual inputs, prim
     after the full and the viscous ghost fill"""
     import torch
+    from aither_tpu_torch.solver import state as tstate
     from aither_tpu_torch.solver import step as tstep
     phys = ts.phys
     filled = tstep.apply_all_bcs(phys, ts.case,
@@ -280,7 +283,8 @@ def viscous_inputs(ts, prims):
                                            viscous_pass=True)
         prim = tstep.apply_edge_ghosts(phys, b, prim, viscous_pass=True)
         t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
-        out[b.index] = (prim, t_all, phys.viscosity(t_all))
+        out[b.index] = (prim, t_all, phys.viscosity(
+            t_all, tstate.mixture_fractions(phys, prim)))
     return out
 
 
