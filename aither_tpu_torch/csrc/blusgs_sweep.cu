@@ -7,7 +7,7 @@
 // `extra` (matrixSweeps > 1, variant (c)+(b)), for one species or a
 // calorically perfect mixture of NS = 2..5 species (flow blocks of
 // N = NS + 4), in the forms the models need, each a compile-time
-// instantiation of one sweep_plane<NS, NEQ, VISCOUS, WILCOX, FORWARD>:
+// instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD>:
 //   N equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
 //     vgrad and the centre distance are not read;
 //   N equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
@@ -45,19 +45,26 @@
 // 2x2 turbulence block 0.5|A|(vn +- |vn|) + the TSL turbulence diagonal.
 // D_c^-1 is the cell's inverted N x N flow and 2x2 turbulence block.
 // extra is computed before the sweep by implicit.offdiag_sum.  du is
-// updated IN PLACE, one launch per plane: a plane reads only neighbour
-// planes.
+// updated IN PLACE: a plane reads only the plane before it.
+//
+// Schedule: one launch per block and sweep, the tile wavefront of
+// sweep_wavefront.cuh, as in the scalar sweep.  Each cell's arithmetic is
+// the plane kernel's: each direction's product (direction_product) gives
+// two addends per row, the Rusanov or turbulence one and the
+// thin-shear-layer one, summed for the three directions in the order i, j,
+// k from 0.0 as the plane kernel's running sum took them; then the
+// right-hand side and D^-1 (finish_rows, a third of the rows per lane).
 //
 // Layout: prim, du (NEQ, NI, NJ, NK), mu, mut, f1 (NI, NJ, NK) and the
 // neighbours' cell-average velocity gradient vgrad (3, 3, NI, NJ, NK),
 // vgrad[a][b] = d v_b / d x_a, padded; b, extra (NEQ, ni, nj, nk) and the
 // inverse blocks inv_f (25, ni, nj, nk) row-major, inv_t (4, ni, nj, nk)
 // physical, channel first so that a warp reads each channel in one pass
-// (inv_f holds N*N channels).
-// The host plan (SweepPlan) lists each plane's cells and per cell and
-// direction the face normal, area and centre distance (stat) and whether
-// the neighbour contributes (mask).  A masked face is skipped by a
-// branch, never multiplied by zero: a ghost state there may be garbage.
+// (inv_f holds N*N channels).  Per physical cell and direction the face
+// normal, area and centre distance (stat) and whether the neighbour
+// contributes (mask), in physical cell order.  A masked face is skipped
+// by a branch, never multiplied by zero: a ghost state there may be
+// garbage.
 //
 // Each Jacobian is built row by row into the running sum (as
 // block_jac.rows_matvec): no N x N matrix is held in registers.
@@ -65,21 +72,20 @@
 // What bounds it on the card: the bytes a forward+backward pair at 1M cells
 // must move take under 0.5 ms at 3.35 TB/s, its ~2 GFLOP of FP64 ~0.06 ms
 // at 34 TFLOP/s (kernels/lusgs_sweep.py sweep_cost; PERF.md).  Like the
-// scalar sweep
-// it is held instead by the chain of 2 x (ni+nj+nk-2) dependent plane
-// launches per block, each one wave of serial per-thread work: the pair
-// takes 23.4 ms on the H100 (1,400 planes, ~16.7 us each against a
-// ~3.7 us empty-launch floor; chip_smoke.py).  115-122 registers, no
-// spill.  A persistent kernel is the next step, not taken here.
+// scalar sweep it is held instead by the chain of ni+nj+nk-2 dependent
+// planes per block and sweep: the time of one step is a barrier, the
+// flags between tiles and one cell's serial FP64 work, split over three
+// lanes.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "sweep_wavefront.cuh"
+
 namespace {
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
-constexpr int THREADS = 128;
 constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
 
 struct Phys {
@@ -101,7 +107,7 @@ struct Mixture {
 
 struct Fields {
   const double* __restrict__ prim;
-  double* du;
+  double* du;        // written by other SMs during the launch: __ldcg only
   const double* __restrict__ mu;
   const double* __restrict__ mut;
   const double* __restrict__ f1;
@@ -110,12 +116,11 @@ struct Fields {
   const double* __restrict__ extra;  // nullptr: no lagged term
   const double* __restrict__ inv_f;
   const double* __restrict__ inv_t;
-  const int* __restrict__ cells;
-  const int* __restrict__ phys_cells;
-  const double* __restrict__ stat;
+  const double* __restrict__ stat;   // physical cell order
   const unsigned char* __restrict__ mask;
   int64_t nc;        // NI*NJ*NK: channel stride of the padded fields
   int64_t ncp;       // ni*nj*nk: channel stride of b, extra, inv_f, inv_t
+  int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
 };
 
@@ -127,16 +132,15 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
                                                       const Fields& fl,
                                                       int64_t nb,
                                                       const double* st,
-                                                      double acc[NEQ]) {
+                                                      const double dq[NEQ],
+                                                      double acc[NEQ],
+                                                      double acc_t[NEQ]) {
   const int64_t nc = fl.nc;
   const double rho = fl.prim[nb];
   const double u = fl.prim[nc + nb];
   const double v = fl.prim[2 * nc + nb];
   const double w = fl.prim[3 * nc + nb];
   const double p = fl.prim[4 * nc + nb];
-  double dq[NEQ];
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * nc + nb];
   const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3];
 
   const double t = p / (ph.R * rho);
@@ -220,12 +224,12 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
     const double scale = s * (mag * mu_tot / dist);
     const double third = 1.0 / 3.0;
     const double ndp = third * (n0 * dp1 + n1 * dp2 + n2 * dp3);
-    acc[1] += scale * (dp1 + n0 * ndp);
-    acc[2] += scale * (dp2 + n1 * ndp);
-    acc[3] += scale * (dp3 + n2 * ndp);
+    acc_t[1] += scale * (dp1 + n0 * ndp);
+    acc_t[2] += scale * (dp2 + n1 * ndp);
+    acc_t[3] += scale * (dp3 + n2 * ndp);
     const double kk = (k + kt) / (mu_tot * rho);
     const double hd = fac * 0.5 * dist / mu_tot;
-    acc[4] += scale * (-kk * t * dq[0] +
+    acc_t[4] += scale * (-kk * t * dq[0] +
                        (hd * tau0 + third * n0 * vn + u) * dp1 +
                        (hd * tau1 + third * n1 * vn + v) * dp2 +
                        (hd * tau2 + third * n2 * vn + w) * dp3 + kk * dp4);
@@ -264,7 +268,8 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void add_block_offdiagonal_mix(
     const Phys& ph, const Mixture<NS>& sp, const Fields& fl, int64_t nb,
-    const double* st, double acc[NEQ]) {
+    const double* st, const double dq[NEQ], double acc[NEQ],
+    double acc_t[NEQ]) {
   constexpr int N = NS + 4;
   const int64_t nc = fl.nc;
   double mf[NS];
@@ -288,9 +293,6 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
     cvm += sp.cv[s] * mf[s];
     em += (sp.hf[s] + sp.cv[s] * t) * mf[s];
   }
-  double dq[NEQ];
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * nc + nb];
   double S = 0.0;  // the species columns' common factor
 #pragma unroll
   for (int s = 0; s < NS; ++s) S += dq[s];
@@ -389,9 +391,9 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
     const double scale = s * (mag * mu_tot / dist);
     const double third = 1.0 / 3.0;
     const double ndp = third * (n0 * dp1 + n1 * dp2 + n2 * dp3);
-    acc[NS] += scale * (dp1 + n0 * ndp);
-    acc[NS + 1] += scale * (dp2 + n1 * ndp);
-    acc[NS + 2] += scale * (dp3 + n2 * ndp);
+    acc_t[NS] += scale * (dp1 + n0 * ndp);
+    acc_t[NS + 1] += scale * (dp2 + n1 * ndp);
+    acc_t[NS + 2] += scale * (dp3 + n2 * ndp);
     const double kk = (k + kt) / (mu_tot * rho);
     const double hd = fac * 0.5 * dist / mu_tot;
     double e_species = -kk * t * S;
@@ -400,12 +402,12 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
           (mu_s / sp.schmidt + mut_s / sp.turb_schmidt) / (mu_tot * rho);
 #pragma unroll
       for (int q = 0; q < NS; ++q) {
-        acc[q] += scale * (dc * (dq[q] - mf[q] * S));
+        acc_t[q] += scale * (dc * (dq[q] - mf[q] * S));
         e_species += dc * (1.0 - mf[q]) *
                      (sp.hf[q] + sp.cp[q] * t + 0.5 * vmag2) * dq[q];
       }
     }
-    acc[NS + 3] += scale * (e_species +
+    acc_t[NS + 3] += scale * (e_species +
                             (hd * tau0 + third * n0 * vn + u) * dp1 +
                             (hd * tau1 + third * n1 * vn + v) * dp2 +
                             (hd * tau2 + third * n2 * vn + w) * dp3 +
@@ -437,80 +439,156 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
   }
 }
 
+// stride[d] of a direction known only at run time (no local-memory index)
+__device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
+  return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
+}
+
+// Direction d's block off-diagonal product of one cell: its Rusanov and
+// turbulence rows added to x, its thin-shear-layer (and species diffusion)
+// rows to x_t, the two addends of each row in the plane kernel's running
+// sum.  c and pc are the cell's padded and physical flat indices.  du is
+// read through L2 (__ldcg): other SMs write it during the launch.  A
+// masked face adds nothing.
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__global__ void __launch_bounds__(THREADS)
-    sweep_plane(Fields fl, Phys ph, Mixture<NS> sp, int start, int count) {
+__device__ __forceinline__ void direction_product(
+    const Fields& fl, const Phys& ph, const Mixture<NS>& sp, int64_t c,
+    int64_t pc, int d, double x[NEQ], double x_t[NEQ]) {
+  if (!fl.mask[3 * pc + d]) return;
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + (3 * pc + d) * NSTAT;
+  double dq[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) dq[e] = __ldcg(fl.du + e * fl.nc + nb);
+  if constexpr (NS == 1)
+    add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, dq,
+                                                         x, x_t);
+  else
+    add_block_offdiagonal_mix<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, fl, nb, st, dq, x, x_t);
+}
+
+// Lane d's rows (i % 3 == d) of one cell's update from the sum acc of its
+// three off-diagonal products: the right-hand side, then the rows of the
+// inverse product (the plane kernel's update of du).
+template <int NS, int NEQ, bool FORWARD>
+__device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
+                                            int64_t pc, int d,
+                                            const double acc[NEQ]) {
   constexpr int N = NS + 4;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= count) return;
-  const int s = start + t;
-  const int64_t c = fl.cells[s];
-  const int64_t pc = fl.phys_cells[s];
+  constexpr int L = wavefront::LANES;
+  // right-hand side the inverse applies to (acc holds the neighbour sum)
   double r[NEQ];
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) r[e] = 0.0;
-  for (int d = 0; d < 3; ++d) {
-    if (!fl.mask[3 * s + d]) continue;
-    const int64_t nb = FORWARD ? c - fl.stride[d] : c + fl.stride[d];
-    const double* st = fl.stat + (3 * static_cast<int64_t>(s) + d) * NSTAT;
-    if constexpr (NS == 1)
-      add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, r);
-    else
-      add_block_offdiagonal_mix<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-          ph, sp, fl, nb, st, r);
-  }
-  // right-hand side the inverse applies to (r holds the neighbour sum)
   const bool plain_backward = !FORWARD && fl.extra == nullptr;
-  if (!plain_backward) {
 #pragma unroll
-    for (int e = 0; e < NEQ; ++e) {
-      const double b = fl.b[e * fl.ncp + pc];
-      if (FORWARD)
-        r[e] = fl.extra ? (b + r[e]) - fl.extra[e * fl.ncp + pc] : b + r[e];
-      else
-        r[e] = (b + fl.extra[e * fl.ncp + pc]) - r[e];
-    }
+  for (int e = 0; e < NEQ; ++e) {
+    r[e] = acc[e];
+    if (plain_backward) continue;
+    const double b = fl.b[e * fl.ncp + pc];
+    if (FORWARD)
+      r[e] = fl.extra ? (b + r[e]) - fl.extra[e * fl.ncp + pc] : b + r[e];
+    else
+      r[e] = (b + fl.extra[e * fl.ncp + pc]) - r[e];
   }
   // D^-1 r: the N x N flow block row by row, then the 2x2 turbulence block
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    if (i % L != d) continue;
     double y = 0.0;
 #pragma unroll
     for (int j = 0; j < N; ++j) y += fl.inv_f[(N * i + j) * fl.ncp + pc] * r[j];
     double* x = fl.du + i * fl.nc + c;
-    *x = plain_backward ? *x - y : y;
+    *x = plain_backward ? __ldcg(x) - y : y;
   }
   if constexpr (NEQ == N + 2) {
     const double* it = fl.inv_t + pc;
-    const double y5 = it[0] * r[N] + it[fl.ncp] * r[N + 1];
-    const double y6 = it[2 * fl.ncp] * r[N] + it[3 * fl.ncp] * r[N + 1];
-    double* x5 = fl.du + N * fl.nc + c;
-    double* x6 = fl.du + (N + 1) * fl.nc + c;
-    *x5 = plain_backward ? *x5 - y5 : y5;
-    *x6 = plain_backward ? *x6 - y6 : y6;
+    if (N % L == d) {
+      const double y5 = it[0] * r[N] + it[fl.ncp] * r[N + 1];
+      double* x5 = fl.du + N * fl.nc + c;
+      *x5 = plain_backward ? __ldcg(x5) - y5 : y5;
+    }
+    if ((N + 1) % L == d) {
+      const double y6 = it[2 * fl.ncp] * r[N] + it[3 * fl.ncp] * r[N + 1];
+      double* x6 = fl.du + (N + 1) * fl.nc + c;
+      *x6 = plain_backward ? __ldcg(x6) - y6 : y6;
+    }
   }
 }
 
-// every plane of one sweep, in order, on `st`
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-int launch_planes(int forward, const Fields& fl, const Phys& ph,
-                  const Mixture<NS>& sp, int nplanes, const int* plane_ptr,
-                  cudaStream_t st) {
-  for (int n = 0; n < nplanes; ++n) {
-    const int p = forward ? n : nplanes - 1 - n;
-    const int start = plane_ptr[p];
-    const int count = plane_ptr[p + 1] - start;
-    const int blocks = (count + THREADS - 1) / THREADS;
-    if (forward)
-      sweep_plane<NS, NEQ, VISCOUS, WILCOX, true>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
-    else
-      sweep_plane<NS, NEQ, VISCOUS, WILCOX, false>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Prefetch into L2 what lane d reads for one cell but du.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
+                                              int64_t pc, int d) {
+  constexpr int N = NS + 4;
+  using wavefront::prefetch_l2;
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + (3 * pc + d) * NSTAT;
+  prefetch_l2(fl.mask + 3 * pc + d);
+  prefetch_l2(st);
+  prefetch_l2(st + NSTAT - 1);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+  if constexpr (VISCOUS) {
+    prefetch_l2(fl.mu + nb);
+    prefetch_l2(fl.mut + nb);
+    if constexpr (NEQ == N + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
+#pragma unroll
+    for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
   }
-  return 0;
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
+    prefetch_l2(fl.b + e * fl.ncp + pc);
+    if (fl.extra) prefetch_l2(fl.extra + e * fl.ncp + pc);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i % wavefront::LANES != d) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j) prefetch_l2(fl.inv_f + (N * i + j) * fl.ncp + pc);
+  }
+  if constexpr (NEQ == N + 2) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) prefetch_l2(fl.inv_t + x * fl.ncp + pc);
+  }
+}
+
+// one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__global__ void __launch_bounds__(wavefront::THREADS, 1)
+    sweep_tiles(Fields fl, Phys ph, Mixture<NS> sp, wavefront::Schedule sc) {
+  const int nj = sc.n[1], nk = sc.n[2];
+  auto padded = [&](int i, int j, int k) {
+    return fl.base + i * fl.stride[0] + j * fl.stride[1] + k * fl.stride[2];
+  };
+  auto physical = [&](int i, int j, int k) {
+    return (static_cast<int64_t>(i) * nj + j) * nk + k;
+  };
+  wavefront::walk<FORWARD, NEQ, 2>(
+      sc,
+      [&](int i, int j, int k, int d) {
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+            fl, padded(i, j, k), physical(i, j, k), d);
+      },
+      [&](int i, int j, int k, int d, double (&x)[2][NEQ]) {
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0], x[1]);
+      },
+      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
+        finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
+                                      physical(i, j, k), d, acc);
+      });
+}
+
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
+int launch_tiles(int forward, const Fields& fl, const Phys& ph,
+                 const Mixture<NS>& sp, const wavefront::Schedule& sc,
+                 cudaStream_t st) {
+  if (forward)
+    return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>,
+                             sc, st, fl, ph, sp);
+  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
+                           st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -519,7 +597,7 @@ int launch_planes(int forward, const Fields& fl, const Phys& ph,
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const Phys& ph, const double* species,
-                int nplanes, const int* plane_ptr, cudaStream_t st) {
+                const wavefront::Schedule& sc, cudaStream_t st) {
   constexpr int N = NS + 4;
   Mixture<NS> sp;
   for (int s = 0; s < NS; ++s) {
@@ -535,67 +613,66 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
   sp.turb_schmidt = species[7 * NS + 1];
   sp.diffusion = species[7 * NS + 2] != 0.0;
   if (neq == N && !viscous && !wilcox)
-    return launch_planes<NS, N, false, false>(forward, fl, ph, sp, nplanes,
-                                              plane_ptr, st);
+    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
   if (neq == N && viscous && !wilcox)
-    return launch_planes<NS, N, true, false>(forward, fl, ph, sp, nplanes,
-                                             plane_ptr, st);
+    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st);
   if (neq == N + 2 && viscous && !wilcox)
-    return launch_planes<NS, N + 2, true, false>(forward, fl, ph, sp,
-                                                 nplanes, plane_ptr, st);
+    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st);
   if (neq == N + 2 && viscous && wilcox)
-    return launch_planes<NS, N + 2, true, true>(forward, fl, ph, sp, nplanes,
-                                                plane_ptr, st);
+    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// One whole block sweep of one block: one launch per hyperplane on
-// `stream`, in plane order.  ns is 1..MAX_NS and neq is ns + 4 or ns + 6;
-// viscous and wilcox select the form (see the head of this file).  R, cv,
-// cp, hf, gamma, cond_c1 and cond_s are the one species' (read when ns is
-// 1); species is a HOST array of the mixture's constants (launch_form;
-// read when ns > 1).  plane_ptr is a HOST array of nplanes+1 offsets into
-// the plane-ordered cell lists; extra may be null; mu, mut, f1, vgrad may
-// be null when inviscid and inv_t without turbulence equations.  Returns
-// the first non-zero cudaGetLastError() after a launch (0 when every
-// launch was accepted), or cudaErrorInvalidValue for a form that does not
+// One whole block sweep of one block: a cudaMemsetAsync of the schedule's
+// state and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and
+// neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
+// head of this file).  R, cv, cp, hf, gamma, cond_c1 and cond_s are the
+// one species' (read when ns is 1); species is a HOST array of the
+// mixture's constants (launch_form; read when ns > 1).  stat and mask are
+// in physical cell order; sched is a HOST array {ntiles, ni, nj, nk, ti,
+// tj, tk, g}, tiles the device tile table and state
+// device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
+// null; mu, mut, f1, vgrad may be null when inviscid and inv_t without
+// turbulence equations.  Returns cudaGetLastError() after the launch (0
+// when it was accepted), or cudaErrorInvalidValue for a form that does not
 // exist.
 extern "C" int blusgs_sweep_f64(
     int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
-    double* du, const double* mu,
-    const double* mut, const double* f1, const double* vgrad, const double* b,
-    const double* extra, const double* inv_f, const double* inv_t,
-    const int* cells, const int* phys_cells, const double* stat,
+    double* du, const double* mu, const double* mut, const double* f1,
+    const double* vgrad, const double* b, const double* extra,
+    const double* inv_f, const double* inv_t, const double* stat,
     const unsigned char* mask, long long nc, long long ncp, long long stride_i,
-    long long stride_j, long long stride_k, int nplanes, const int* plane_ptr,
-    double R, double cv, double cp, double hf, double gamma, double prt,
-    double scaling, double t_ref, double cond_c1, double cond_s,
+    long long stride_j, long long stride_k, const int* sched, const int* tiles,
+    int* state, double R, double cv, double cp, double hf, double gamma,
+    double prt, double scaling, double t_ref, double cond_c1, double cond_s,
     double k_nondim, double sigma_k1, double sigma_k2, double sigma_w1,
     double sigma_w2, const double* species, void* stream) {
-  Fields fl{prim,  du,    mu,    mut,        f1,   vgrad, b,
-            extra, inv_f, inv_t, cells,      phys_cells, stat, mask,
-            nc,    ncp,   {stride_i, stride_j, stride_k}};
+  const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
+  Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,
+            inv_f, inv_t, stat,  mask, nc,   ncp,   base,
+            {stride_i, stride_j, stride_k}};
   Phys ph{R,     cv,      cp,     hf,       gamma,    prt,      scaling, t_ref,
           cond_c1, cond_s, k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2};
+  const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 2:
       return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 3:
       return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case MAX_NS:
       return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, nplanes, plane_ptr, st);
+                                 species, sc, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

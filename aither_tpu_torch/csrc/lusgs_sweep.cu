@@ -6,7 +6,7 @@
 // term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324), for one
 // species or a calorically perfect mixture of NS = 2..5 species, in the
 // forms the models need, each a compile-time instantiation of one
-// sweep_plane<NS, NEQ, VISCOUS, WILCOX, FORWARD> with NEQ = NS + 4
+// sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD> with NEQ = NS + 4
 // (+ 2 turbulence equations, the first at NS + 4):
 //   NS + 4 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a)
 //     only; mu, mut, f1 and the centre distance are not read;
@@ -38,37 +38,45 @@
 // upper neighbour across direction d (aither_tpu implicit.offdiagonal_scalar:
 // the flux change 0.5|A|(F(q+du)-F(q)).n with turbulence rows zeroed, plus
 // the inviscid, viscous and turbulence face spectral radii times du).  The
-// neighbour in the block interior was updated on the previous plane; a
+// neighbour in the block interior is final once its plane is done; a
 // neighbour in a connection ghost holds the swapped du.  du is updated IN
-// PLACE: a plane reads only neighbour planes, so one launch per plane on
-// one stream is the whole dependency chain.
+// PLACE: a plane reads only the plane before it.
+//
+// Schedule: one launch per block and sweep, the tile wavefront of
+// sweep_wavefront.cuh (tiles in a topological order taken from an atomic
+// ticket, a tile's local planes separated by __syncthreads(), progress
+// flags between tiles, three lanes per cell, one per direction).  Each
+// cell's arithmetic is the plane kernel's: the three directions' products
+// (direction_product) summed from 0.0 in the order i, j, k, the diagonal
+// last (finish_rows).
 //
 // Layout: prim, du (NEQ, NI, NJ, NK) and mu, mut, f1 (NI, NJ, NK) padded
-// blocks; b, extra (NEQ, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical.
-// The host
-// plan (SweepPlan) lists each plane's
-// cells (padded and physical flat indices) and per cell and direction the
-// face normal, area and centre distance (stat, 15 doubles) and whether the
-// neighbour contributes (mask).  A masked face is skipped by a branch, never
-// multiplied by zero: a ghost state there may be garbage and 0*NaN is NaN.
+// blocks; b, extra (NEQ, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical;
+// per physical cell and direction the face normal, area and centre
+// distance (stat, 15 doubles) and whether the neighbour contributes
+// (mask), in physical cell order (solver/implicit.py SweepPlan).  A
+// masked face is skipped by a branch, never multiplied by zero: a ghost
+// state there may be garbage and 0*NaN is NaN.
 //
 // What bounds it on the card: at 1M cells the bytes a forward+backward pair
 // must move take well under 1 ms at 3.35 TB/s (kernels/lusgs_sweep.py
-// sweep_cost; PERF.md), while
-// the pair is 2 x (ni+nj+nk-2) dependent plane launches per block of a few
-// hundred to a few thousand cells each.  Neither bandwidth nor the launch
-// floor (an empty dependent launch takes ~2.3 us on the H100, 3.2 ms for
-// 1,400 planes) holds it at its ~27 ms: each plane's one wave of serial
-// per-thread work does; a persistent kernel is the next step.
+// sweep_cost; PERF.md).  The sweep is a chain of ni+nj+nk-2 dependent
+// planes of a few hundred to a few thousand cells each, so what holds it
+// is the time of one step of the chain: a barrier, the flags between
+// tiles and one cell's serial FP64 work (q + du, the two fluxes, the
+// radii: several dependent divisions).  The plane-per-launch kernel took
+// ~20 us a step; the wavefront takes the launch out of it and splits the
+// cell's work over three lanes (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "sweep_wavefront.cuh"
+
 namespace {
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
-constexpr int THREADS = 128;
 constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
 
 struct Phys {
@@ -85,7 +93,7 @@ struct Species {
 
 struct Fields {
   const double* __restrict__ prim;
-  double* du;
+  double* du;        // written by other SMs during the launch: __ldcg only
   const double* __restrict__ mu;
   const double* __restrict__ mut;
   const double* __restrict__ f1;
@@ -93,12 +101,11 @@ struct Fields {
   const double* __restrict__ extra;  // nullptr: no lagged term
   const double* __restrict__ inv_f;
   const double* __restrict__ inv_t;
-  const int* __restrict__ cells;
-  const int* __restrict__ phys_cells;
-  const double* __restrict__ stat;
+  const double* __restrict__ stat;   // physical cell order
   const unsigned char* __restrict__ mask;
   int64_t nc;        // NI*NJ*NK: equation stride of the padded fields
   int64_t ncp;       // ni*nj*nk: equation stride of b
+  int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
 };
 
@@ -316,43 +323,55 @@ __device__ __forceinline__ void add_offdiagonal(
   }
 }
 
+// stride[d] of a direction known only at run time (no local-memory index)
+__device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
+  return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
+}
+
+// Direction d's off-diagonal product of one cell, added to x: one step of
+// the plane kernel's direction loop.  c and pc are the cell's padded and
+// physical flat indices.  du is read through L2 (__ldcg): other SMs write
+// it during the launch.  A masked face adds nothing.
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__global__ void __launch_bounds__(THREADS)
-    sweep_plane(Fields fl, Phys ph, Species<NS> sp, int start, int count) {
+__device__ __forceinline__ void direction_product(const Fields& fl,
+                                                  const Phys& ph,
+                                                  const Species<NS>& sp,
+                                                  int64_t c, int64_t pc,
+                                                  int d, double x[NEQ]) {
   constexpr int T0 = NS + 4;   // first turbulence equation
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= count) return;
-  const int s = start + t;
-  const int64_t c = fl.cells[s];
-  const int64_t pc = fl.phys_cells[s];
-  double acc[NEQ];
+  if (!fl.mask[3 * pc + d]) return;
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + (3 * pc + d) * NSTAT;
+  double q[NEQ], dq[NEQ];
 #pragma unroll
-  for (int e = 0; e < NEQ; ++e) acc[e] = 0.0;
-  for (int d = 0; d < 3; ++d) {
-    if (!fl.mask[3 * s + d]) continue;
-    const int64_t nb = FORWARD ? c - fl.stride[d] : c + fl.stride[d];
-    const double* st = fl.stat + (3 * static_cast<int64_t>(s) + d) * NSTAT;
-    double q[NEQ], dq[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) {
-      q[e] = fl.prim[e * fl.nc + nb];
-      dq[e] = fl.du[e * fl.nc + nb];
-    }
-    double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
-    if constexpr (VISCOUS) {
-      mu = fl.mu[nb];
-      mut = fl.mut[nb];
-      dist = st[4];
-      if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
-    }
-    add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, acc);
+  for (int e = 0; e < NEQ; ++e) {
+    q[e] = fl.prim[e * fl.nc + nb];
+    dq[e] = __ldcg(fl.du + e * fl.nc + nb);
   }
+  double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
+  if constexpr (VISCOUS) {
+    mu = fl.mu[nb];
+    mut = fl.mut[nb];
+    dist = st[4];
+    if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
+  }
+  add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+      ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
+}
+
+// Lane d's rows (e % 3 == d) of one cell's update from the sum acc of its
+// three off-diagonal products (the plane kernel's update of du).
+template <int NS, int NEQ, bool FORWARD>
+__device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
+                                            int64_t pc, int d,
+                                            const double acc[NEQ]) {
+  constexpr int T0 = NS + 4;
   const double inv_f = fl.inv_f[pc];
   double inv_t = 0.0;
   if constexpr (NEQ == T0 + 2) inv_t = fl.inv_t[pc];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
     const double inv = e < T0 ? inv_f : inv_t;
     double* x = fl.du + e * fl.nc + c;
     const double b = fl.b[e * fl.ncp + pc];
@@ -362,30 +381,74 @@ __global__ void __launch_bounds__(THREADS)
     else if (fl.extra)
       *x = (b + fl.extra[e * fl.ncp + pc] - acc[e]) * inv;
     else
-      *x = *x - acc[e] * inv;
+      *x = __ldcg(x) - acc[e] * inv;
   }
 }
 
-// every plane of one sweep, in order, on `st`
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-int launch_planes(int forward, const Fields& fl, const Phys& ph,
-                  const Species<NS>& sp, int nplanes, const int* plane_ptr,
-                  cudaStream_t st) {
-  for (int n = 0; n < nplanes; ++n) {
-    const int p = forward ? n : nplanes - 1 - n;
-    const int start = plane_ptr[p];
-    const int count = plane_ptr[p + 1] - start;
-    const int blocks = (count + THREADS - 1) / THREADS;
-    if (forward)
-      sweep_plane<NS, NEQ, VISCOUS, WILCOX, true>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
-    else
-      sweep_plane<NS, NEQ, VISCOUS, WILCOX, false>
-          <<<blocks, THREADS, 0, st>>>(fl, ph, sp, start, count);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Prefetch into L2 what lane d reads for one cell but du.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
+                                              int64_t pc, int d) {
+  constexpr int T0 = NS + 4;
+  using wavefront::prefetch_l2;
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + (3 * pc + d) * NSTAT;
+  prefetch_l2(fl.mask + 3 * pc + d);
+  prefetch_l2(st);
+  prefetch_l2(st + NSTAT - 1);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+  if constexpr (VISCOUS) {
+    prefetch_l2(fl.mu + nb);
+    prefetch_l2(fl.mut + nb);
+    if constexpr (NEQ == T0 + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
   }
-  return 0;
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
+    prefetch_l2(fl.b + e * fl.ncp + pc);
+    if (fl.extra) prefetch_l2(fl.extra + e * fl.ncp + pc);
+  }
+  prefetch_l2(fl.inv_f + pc);
+  if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
+}
+
+// one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__global__ void __launch_bounds__(wavefront::THREADS, 1)
+    sweep_tiles(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
+  const int nj = sc.n[1], nk = sc.n[2];
+  auto padded = [&](int i, int j, int k) {
+    return fl.base + i * fl.stride[0] + j * fl.stride[1] + k * fl.stride[2];
+  };
+  auto physical = [&](int i, int j, int k) {
+    return (static_cast<int64_t>(i) * nj + j) * nk + k;
+  };
+  wavefront::walk<FORWARD, NEQ, 1>(
+      sc,
+      [&](int i, int j, int k, int d) {
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+            fl, padded(i, j, k), physical(i, j, k), d);
+      },
+      [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
+      },
+      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
+        finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
+                                      physical(i, j, k), d, acc);
+      });
+}
+
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
+int launch_tiles(int forward, const Fields& fl, const Phys& ph,
+                 const Species<NS>& sp, const wavefront::Schedule& sc,
+                 cudaStream_t st) {
+  if (forward)
+    return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>,
+                             sc, st, fl, ph, sp);
+  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
+                           st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -393,7 +456,7 @@ int launch_planes(int forward, const Fields& fl, const Phys& ph,
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const Phys& ph, const double* species,
-                int nplanes, const int* plane_ptr, cudaStream_t st) {
+                const wavefront::Schedule& sc, cudaStream_t st) {
   constexpr int N = NS + 4;
   Species<NS> sp;
   for (int s = 0; s < NS; ++s) {
@@ -403,86 +466,67 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
     sp.hf[s] = species[3 * NS + s];
   }
   if (neq == N && !viscous && !wilcox)
-    return launch_planes<NS, N, false, false>(forward, fl, ph, sp, nplanes,
-                                              plane_ptr, st);
+    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
   if (neq == N && viscous && !wilcox)
-    return launch_planes<NS, N, true, false>(forward, fl, ph, sp, nplanes,
-                                             plane_ptr, st);
+    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st);
   if (neq == N + 2 && viscous && !wilcox)
-    return launch_planes<NS, N + 2, true, false>(forward, fl, ph, sp,
-                                                 nplanes, plane_ptr, st);
+    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st);
   if (neq == N + 2 && viscous && wilcox)
-    return launch_planes<NS, N + 2, true, true>(forward, fl, ph, sp, nplanes,
-                                                plane_ptr, st);
+    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// One whole sweep of one block: one launch per hyperplane on `stream`, in
-// plane order.  ns is 1..MAX_NS and neq is ns + 4 or ns + 6; viscous and
-// wilcox select the form (see the head of this file; wilcox only with
-// turbulence equations and viscous, and turbulence equations only with
-// viscous).  R, cv, cp, hf, gamma and prandtl are the one species' (read
-// when ns is 1); species is a HOST array of the mixture's R_s, cv_s, cp_s
-// and hf_s, ns each (read when ns > 1).  plane_ptr is a HOST array of
-// nplanes+1 offsets into the plane-ordered cell lists; extra may be null
-// (variant (a)); mu, mut, f1 may be null when inviscid and inv_t without
-// turbulence equations.  Returns the first non-zero cudaGetLastError()
-// after a launch (0 when every launch was accepted), or
-// cudaErrorInvalidValue for a form that does not exist.
+// One whole sweep of one block: a cudaMemsetAsync of the schedule's state
+// and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and neq is
+// ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
+// this file; wilcox only with turbulence equations and viscous, and
+// turbulence equations only with viscous).  R, cv, cp, hf, gamma and
+// prandtl are the one species' (read when ns is 1); species is a HOST
+// array of the mixture's R_s, cv_s, cp_s and hf_s, ns each (read when ns
+// > 1).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
+// cell order.  sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk,
+// g}; tiles the device tile table (ntiles, 6) and state
+// device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
+// null (variant (a)); mu, mut, f1 may be null when inviscid and inv_t
+// without turbulence equations.  Returns cudaGetLastError() after the
+// launch (0 when it was accepted), or cudaErrorInvalidValue for a form
+// that does not exist.
 extern "C" int lusgs_sweep_f64(
     int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
-    double* du, const double* mu,
-    const double* mut, const double* f1, const double* b,
-    const double* extra, const double* inv_f, const double* inv_t,
-    const int* cells,
-    const int* phys_cells, const double* stat, const unsigned char* mask,
+    double* du, const double* mu, const double* mut, const double* f1,
+    const double* b, const double* extra, const double* inv_f,
+    const double* inv_t, const double* stat, const unsigned char* mask,
     long long nc, long long ncp, long long stride_i, long long stride_j,
-    long long stride_k, int nplanes, const int* plane_ptr, double R,
-    double cv, double cp, double hf, double gamma, double prandtl, double prt,
-    double scaling, double tmin_k, double tmin_w, double sigma_k1,
-    double sigma_k2, const double* species, void* stream) {
-  Fields fl{prim,  du,         mu,   mut,  f1,  b,   extra,
-            inv_f, inv_t,      cells, phys_cells, stat, mask, nc,
-            ncp,   {stride_i, stride_j, stride_k}};
+    long long stride_k, const int* sched, const int* tiles, int* state,
+    double R, double cv, double cp, double hf, double gamma, double prandtl,
+    double prt, double scaling, double tmin_k, double tmin_w,
+    double sigma_k1, double sigma_k2, const double* species, void* stream) {
+  const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
+  Fields fl{prim, du,   mu,   mut, f1, b,   extra,
+            inv_f, inv_t, stat, mask, nc, ncp, base,
+            {stride_i, stride_j, stride_k}};
   Phys ph{R, cv, cp, hf, gamma, prandtl, prt, scaling,
           tmin_k, tmin_w, sigma_k1, sigma_k2};
+  const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 2:
       return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 3:
       return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
-                            nplanes, plane_ptr, st);
+                            sc, st);
     case MAX_NS:
       return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, nplanes, plane_ptr, st);
+                                 species, sc, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The floor under one dependent plane launch: n launches of an empty plane
-// (one block of THREADS threads, none with a cell) on `stream`, issued by
-// the same host loop as a sweep.  Timed by chip_smoke.py; the sweep pair's
-// dependent-launch floor is its plane count times this time.
-extern "C" int lusgs_sweep_empty_planes(int n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Fields fl{};
-  Phys ph{};
-  Species<1> sp{};
-  for (int p = 0; p < n; ++p) {
-    sweep_plane<1, 7, true, false, true>
-        <<<1, THREADS, 0, st>>>(fl, ph, sp, 0, 0);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
 }

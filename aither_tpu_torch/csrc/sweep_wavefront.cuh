@@ -1,0 +1,248 @@
+// Tile-wavefront schedule of one LU-SGS sweep of one block, shared by the
+// scalar (lusgs_sweep.cu) and block (blusgs_sweep.cu) sweep kernels: one
+// launch walks every hyperplane i+j+k = p of the block in order, where the
+// plane kernel of earlier versions took one launch per plane.
+//
+// The block is cut into tiles, boxes of ti x tj x tk cells (ragged at the
+// upper ends).  Each CTA takes one tile from an atomic ticket, in the
+// order of a host-built table of tiles sorted by the hyperplane of their
+// origin (a topological order: a tile's lower neighbour tiles come before
+// it), never by blockIdx.  Every tile a CTA waits for then belongs to a
+// CTA that took an earlier ticket and is already running, so the schedule
+// cannot deadlock however many CTAs are resident.  The tile's local
+// hyperplanes run in order with __syncthreads() between them.  The
+// backward sweep walks the table from its end and each tile from its upper
+// corner, so both sweeps are the same code in "sweep-local" coordinates.
+//
+// Threads: three lanes for each (j, k) column of the tile, one per
+// direction, ten columns to a warp; a column walks its cells in i, one a
+// plane.  The time of a plane is the serial FP64 chain of one cell (q +
+// du, the fluxes, the radii), so a cell's three off-diagonal products run
+// on three lanes at once; each lane returns its product as addends, the
+// lanes exchange them by shuffles and sum them in the order i, j, k from
+// 0.0, and each lane finishes a third of the cell's rows.  The sum is the
+// one-lane kernel's bit for bit: its running sum starts at +0.0 and never
+// becomes -0.0, so a masked direction's +0.0 addend changes nothing.  A
+// column keeps its lanes busy for ti of the tile's planes, so a CTA is
+// small (tj x tk / 10 warps) and several share an SM.
+//
+// Dependencies between tiles: a cell at the lower face of its tile along
+// direction d reads a cell of the lower neighbour tile P_d (upper for the
+// backward sweep).  Every tile publishes its progress, the number of its
+// local planes done, in state[1 + id].  Sweep-local plane q of a tile
+// reads P_d's plane q + e_Pd - 1 (e_Pd: P_d's extent along d), so it may
+// start once P_d has done min(q + e_Pd, planes of P_d) planes.  A tile
+// publishes after every plane and a successor follows one tile length
+// behind it: the critical path is the block's ni+nj+nk-2 planes, as with
+// one launch per plane.  (Waiting for whole predecessor tiles instead
+// makes it (tile planes) x (planes per tile) and was slower on the H100:
+// PERF.md, section 6.)
+//
+// Coherence: du is written by other SMs during the launch, so the cell
+// code reads it through L2 (__ldcg), never through L1, __ldg or a
+// const __restrict__ pointer.  A tile's progress is published by the
+// control thread (lane 31 of warp 0, which has no column) after the
+// barrier that ends the plane: __threadfence(), then st.release.gpu (the
+// pattern of cooperative groups' grid barrier); a waiting tile's control
+// thread polls with ld.acquire.gpu and fences before the barrier that
+// starts the plane.  Ghost du was swapped before the launch and needs no
+// flag.  The ticket and the flags are zeroed by a cudaMemsetAsync on the
+// launch's stream before each launch.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace wavefront {
+
+constexpr int LANES = 3;              // one per direction i, j, k
+constexpr int COLUMNS_PER_WARP = 10;  // 30 lanes; lanes 30 and 31 idle
+// __launch_bounds__(THREADS, 1) of both sweep kernels.  The tiles of
+// implicit.sweep_tile launch 2 warps (32 x 4 x 5) or 4 (32 x 40 x 1, a
+// one-cell-thick block), but the bound stays at 8 warps: with 4, ptxas
+// gave the two-species scalar form more registers and its case-B pair ran
+// slower on the H100, while the SST form ran the same (PERF.md, section 6)
+constexpr int MAX_WARPS = 8;
+constexpr int THREADS = 32 * MAX_WARPS;
+constexpr int MAX_TILE_COLUMNS = COLUMNS_PER_WARP * MAX_WARPS;
+constexpr int TILE_COLUMNS = 6;  // table: origin i, j, k; extent i, j, k
+constexpr unsigned FULL = 0xffffffffu;
+// polls of one flag before the launch is abandoned with __trap(): a
+// scheduling fault then fails the launch (seconds) instead of hanging the
+// card; a sound schedule waits microseconds
+constexpr int MAX_POLLS = 1 << 24;
+
+struct Schedule {
+  const int* __restrict__ tiles;  // (ntiles, TILE_COLUMNS), topological
+  int* state;                     // [0] ticket, [1 + id] planes done
+  int ntiles;
+  int n[3];      // block extents ni, nj, nk
+  int t[3];      // tile extents (the last tile of an axis may be shorter)
+  int tg[3];     // tiles per axis
+};
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// bring the line holding p into L2 (no register, no wait); L2 is coherent
+// across SMs, so the flags' acquire operations do not drop it as they may
+// drop this SM's L1
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// One sweep-ordered tile per CTA.  A plane before lane d of a column
+// reaches a cell, it calls prefetch(i, j, k, d) for it (for the first cell:
+// before the tile's first wait).  On each plane, for the cell of every
+// column on it, lane d of the column calls addends(i, j, k, d, x), which
+// adds direction d's off-diagonal product to x[0..NADD-1][0..NEQ-1] (all
+// +0.0 before); then acc[e] is the sum over d = 0, 1, 2 and a = 0 ..
+// NADD-1 of x[a][e] in that order from 0.0, and lane d calls
+// finish(i, j, k, d, acc).  (i, j, k) are physical cell indices.  Every
+// lane of a warp with a cell on the plane takes part in the exchange.
+template <bool FORWARD, int NEQ, int NADD, class Prefetch, class Addends,
+          class Finish>
+__device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
+                                     Addends addends, Finish finish) {
+  __shared__ int ticket;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool ctrl = tid == 31;
+  if (ctrl) ticket = atomicAdd(sc.state, 1);
+  __syncthreads();
+  const int row = FORWARD ? ticket : sc.ntiles - 1 - ticket;
+  const int* tl = sc.tiles + TILE_COLUMNS * row;
+  const int o[3] = {tl[0], tl[1], tl[2]};
+  const int e[3] = {tl[3], tl[4], tl[5]};
+  const int nq = e[0] + e[1] + e[2] - 2;
+
+  // this lane's column (b, c) and direction d
+  const int col = (tid >> 5) * COLUMNS_PER_WARP + lane / LANES;
+  const int d = lane % LANES;
+  const bool valid = lane < LANES * COLUMNS_PER_WARP && col < e[1] * e[2];
+  const int b = valid ? col / e[2] : 0;
+  const int c = valid ? col - b * e[2] : 0;
+  // sweep-local plane of the column's first cell
+  const int bc = FORWARD ? b + c : (e[1] - 1 - b) + (e[2] - 1 - c);
+  const int base = lane / LANES * LANES;  // lane of direction 0
+
+  // the control thread's view of the up-to-three predecessor tiles
+  int id = 0, pred[3] = {-1, -1, -1}, ext[3] = {0, 0, 0},
+      pnq[3] = {0, 0, 0}, seen[3] = {0, 0, 0};
+  if (ctrl) {
+    int tc[3];
+    for (int a = 0; a < 3; ++a) tc[a] = o[a] / sc.t[a];
+    id = (tc[0] * sc.tg[1] + tc[1]) * sc.tg[2] + tc[2];
+    for (int a = 0; a < 3; ++a) {
+      const int pc = tc[a] + (FORWARD ? -1 : 1);
+      if (pc < 0 || pc >= sc.tg[a]) continue;
+      int p[3] = {tc[0], tc[1], tc[2]};
+      p[a] = pc;
+      pred[a] = (p[0] * sc.tg[1] + p[1]) * sc.tg[2] + p[2];
+      ext[a] = min(sc.t[a], sc.n[a] - pc * sc.t[a]);
+      pnq[a] = nq - e[a] + ext[a];
+    }
+  }
+  // control thread: wait until plane q of this tile may run
+  auto wait_for = [&](int q) {
+    bool waited = false;
+    for (int a = 0; a < 3; ++a) {
+      if (pred[a] < 0) continue;
+      const int need = min(q + ext[a], pnq[a]);
+      for (int polls = 0; seen[a] < need; ++polls) {
+        if (polls == MAX_POLLS) __trap();
+        seen[a] = load_acquire(sc.state + 1 + pred[a]);
+        waited = true;
+      }
+    }
+    if (waited) __threadfence();
+  };
+  auto publish = [&](int planes) {
+    __threadfence();
+    store_release(sc.state + 1 + id, planes);
+  };
+
+  // physical i of the column's cell at sweep-local i `as`
+  auto cell_i = [&](int as) { return o[0] + (FORWARD ? as : e[0] - 1 - as); };
+  if (valid && bc == 0) prefetch(cell_i(0), o[1] + b, o[2] + c, d);
+  if (ctrl) wait_for(0);
+  __syncthreads();
+  for (int q = 0; q < nq; ++q) {
+    if (ctrl && q > 0) publish(q);
+    const int as = q - bc;  // sweep-local i of the column's cell
+    if (valid && as + 1 >= 0 && as + 1 < e[0])
+      prefetch(cell_i(as + 1), o[1] + b, o[2] + c, d);
+    const bool on = valid && as >= 0 && as < e[0];
+    if (__any_sync(FULL, on)) {
+      const int i = on ? cell_i(as) : o[0];
+      double x[NADD][NEQ];
+#pragma unroll
+      for (int a = 0; a < NADD; ++a)
+#pragma unroll
+        for (int k = 0; k < NEQ; ++k) x[a][k] = 0.0;
+      if (on) addends(i, o[1] + b, o[2] + c, d, x);
+      double acc[NEQ];
+#pragma unroll
+      for (int k = 0; k < NEQ; ++k) {
+        double sum = 0.0;
+#pragma unroll
+        for (int l = 0; l < LANES; ++l)
+#pragma unroll
+          for (int a = 0; a < NADD; ++a)
+            sum += __shfl_sync(FULL, x[a][k], base + l);
+        acc[k] = sum;
+      }
+      if (on) finish(i, o[1] + b, o[2] + c, d, acc);
+    }
+    if (ctrl && q + 1 < nq) wait_for(q + 1);
+    __syncthreads();
+  }
+  if (ctrl) publish(nq);
+}
+
+// the launch of one sweep of one block: zero the ticket and the flags on
+// `st`, then one CTA per tile, three lanes for each of a whole tile's
+// columns, ten columns to a warp.  Returns cudaGetLastError() after the
+// launch (0 when it was accepted).
+template <class Kernel, class... Args>
+int launch(Kernel kernel, const Schedule& sc, cudaStream_t st,
+           Args... args) {
+  cudaError_t err = cudaMemsetAsync(sc.state, 0,
+                                    sizeof(int) * (1 + sc.ntiles), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int columns = sc.t[1] * sc.t[2];
+  if (columns > MAX_TILE_COLUMNS) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads =
+      32 * ((columns + COLUMNS_PER_WARP - 1) / COLUMNS_PER_WARP);
+  kernel<<<sc.ntiles, threads, 0, st>>>(args..., sc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the schedule from the wrapper's HOST array sched = {ntiles, ni, nj, nk,
+// ti, tj, tk, g} and the device tile table and state (1 + ntiles ints)
+inline Schedule make_schedule(const int* sched, const int* tiles,
+                              int* state) {
+  Schedule sc;
+  sc.tiles = tiles;
+  sc.state = state;
+  sc.ntiles = sched[0];
+  for (int a = 0; a < 3; ++a) {
+    sc.n[a] = sched[1 + a];
+    sc.t[a] = sched[4 + a];
+    sc.tg[a] = (sc.n[a] + sc.t[a] - 1) / sc.t[a];
+  }
+  return sc;
+}
+
+}  // namespace wavefront

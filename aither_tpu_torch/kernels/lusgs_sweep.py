@@ -6,8 +6,12 @@ run the plain PyTorch version (``forward_plain`` / ``backward_plain``); on
 a CUDA tensor they launch a kernel (built at first use) and raise if it
 cannot run — there is no fallback: ``csrc/lusgs_sweep.cu`` for the scalar
 solver (lusgs), ``csrc/blusgs_sweep.cu`` for the block solver (blusgs,
-``cfg['block_matrix']``).  ``LAUNCHES`` / ``BLOCK_LAUNCHES`` count each
-kernel's launches (one per hyperplane).
+``cfg['block_matrix']``).  Both walk the block's hyperplanes in one launch
+as a wavefront of tiles (``csrc/sweep_wavefront.cuh``;
+``implicit.sweep_tile``).
+``LAUNCHES`` / ``BLOCK_LAUNCHES`` count each kernel's launches (one per
+block and sweep), ``STATE_RESETS`` the cudaMemsetAsync of the schedule's
+ticket and flags before each of them.
 
 Replaces the TPU kernel ``aither_tpu/solver/pallas_sweep.py::sweep``,
 variants (a) (scalar LU-SGS, no lagged term), (b) (``with_extra``: the
@@ -46,7 +50,8 @@ MAX_SPECIES = 5
 
 
 class LaunchCounter:
-    """Number of kernel launches (hyperplanes swept) since the last reset."""
+    """Number of kernel launches (one per block and sweep) since the last
+    reset."""
 
     def __init__(self):
         self.count = 0
@@ -57,6 +62,7 @@ class LaunchCounter:
 
 LAUNCHES = LaunchCounter()          # csrc/lusgs_sweep.cu (scalar)
 BLOCK_LAUNCHES = LaunchCounter()    # csrc/blusgs_sweep.cu (block)
+STATE_RESETS = LaunchCounter()      # cudaMemsetAsync before either
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +111,7 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         pcells = plan.phys_cells[s:e]
         # the three directions' neighbours in one batch, direction-major
         nb = torch.cat([cells + sign * strides[d] for d in range(3)])
-        stat = static[s:e].transpose(0, 1).reshape(3 * n, -1)
+        stat = static[pcells].transpose(0, 1).reshape(3 * n, -1)
         kw = {}
         if viscous:
             kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb], f1=f1f[nb])
@@ -113,9 +119,10 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                 kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
         contrib = imp.offdiagonal(phys, cfg, qf[:, nb], duf[:, nb],
                                   stat[:, 0:3].T, stat[:, 3], forward, **kw)
+        msk = mask[pcells]
         acc = 0.0
         for d in range(3):
-            acc = acc + torch.where(mask[s:e, d][None],
+            acc = acc + torch.where(msk[:, d][None],
                                     contrib[:, d * n:(d + 1) * n], 0.0)
         inv = (at(invf, pcells), at(invt, pcells))
         if forward:
@@ -154,7 +161,7 @@ def _library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 5 + [p] * 13 + [ll] * 5 + [i, p] + [dbl] * 12
+        fn.argtypes = ([i] * 5 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
@@ -167,26 +174,10 @@ def _block_library():
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 5 + [p] * 14 + [ll] * 5 + [i, p] + [dbl] * 15
+        fn.argtypes = ([i] * 5 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 15
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def _kernel_operands(plan):
-    """int32 / uint8 device copies of the plan's lists the kernel reads,
-    built once per plan."""
-    ops = plan.kernel_ops
-    if ops is None:
-        ops = dict(
-            cells=plan.cells.to(torch.int32).contiguous(),
-            phys_cells=plan.phys_cells.to(torch.int32).contiguous(),
-            plane_ptr=np.ascontiguousarray(plan.plane_ptr, dtype=np.int32),
-            mask={s: m.to(torch.uint8).contiguous()
-                  for s, m in plan.mask.items()},
-            static={s: t.contiguous() for s, t in plan.static.items()})
-        plan.kernel_ops = ops
-    return ops
 
 
 def _check(t, name, shape, device):
@@ -266,10 +257,8 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
     ns, neq, viscous, wilcox = sweep_form(phys, cfg)
     blk = bool(cfg.get("block_matrix"))
-    dev = prim.device
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
-    ops = _kernel_operands(plan)
     side = "lower" if forward else "upper"
     # the first species' scalars: the one-species forms read these, a
     # mixture its species array
@@ -277,11 +266,14 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     g = cp / cv
     pr = 4.0 * g / (9.0 * g - 5.0)
     species = species_constants(phys, cfg, blk)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    geometry = (ops["cells"].data_ptr(), ops["phys_cells"].data_ptr(),
-                ops["static"][side].data_ptr(), ops["mask"][side].data_ptr(),
-                NI * NJ * NK, ni * nj * nk, *plan.strides, plan.nplanes,
-                ops["plane_ptr"].ctypes.data)
+    stream = torch.cuda.current_stream(prim.device).cuda_stream
+    sched = np.asarray([len(plan.tiles), ni, nj, nk, *plan.tile, plan.g],
+                       dtype=np.int32)
+    # the mask is bool: one byte, 0 or 1, as the kernels' uint8
+    geometry = (plan.static[side].data_ptr(), plan.mask[side].data_ptr(),
+                NI * NJ * NK, ni * nj * nk, *plan.strides,
+                sched.ctypes.data, plan.tiles.data_ptr(),
+                plan.tile_state.data_ptr())
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -315,7 +307,8 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         counter = LAUNCHES
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    counter.count += plan.nplanes
+    STATE_RESETS.count += 1
+    counter.count += 1
     return du
 
 
@@ -372,7 +365,7 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
 def neighbour_reads(plan, forward: bool):
     """(distinct padded cells read as neighbours across the unmasked faces
     of the sweep side, how many of them are ghosts)."""
-    mask = plan.mask["lower" if forward else "upper"]
+    mask = plan.mask["lower" if forward else "upper"][plan.phys_cells]
     sign = -1 if forward else 1
     nbs = torch.unique(torch.cat([plan.cells[mask[:, d]]
                                   + sign * plan.strides[d]
@@ -393,7 +386,7 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     every cell of a backward sweep without extra: du - D^-1 U); per cell
     the inverses (the scalar one or the (ns + 4)^2 block channels, the
     turbulence one only with turbulence equations), b (not in that
-    backward form), extra, the cell lists and masks; the face statics of
+    backward form), extra and the masks; the face statics of
     the unmasked faces (the centre distance only when viscous).
     Operations: the kernel's per contributing neighbour and per cell
     (+neq with extra)."""
@@ -420,7 +413,7 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
               + per_cell_in * ncell
               + nstat * nfaces
               + neq * ncell)
-    nbytes = 8 * values + 2 * 4 * ncell + mask.numel()
+    nbytes = 8 * values + mask.numel()
     if ns == 1:
         key = (neq, viscous, wilcox)
         per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block
@@ -432,23 +425,11 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     return nbytes, ops
 
 
-def empty_planes(n: int, device) -> None:
-    """n launches of an empty sweep plane on ``device``'s current stream,
-    from the same host loop as a sweep: the floor under one dependent plane
-    launch (timed by chip_smoke.py; not counted in LAUNCHES)."""
-    from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("lusgs_sweep")
-    fn = lib.lusgs_sweep_empty_planes
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    err = fn(n, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lusgs_sweep_empty_planes: CUDA error {err}")
-
-
 # ---------------------------------------------------------------------------
 # entry points
+
+# side streams by device, one per block of a sweep (sweep_blocks)
+_STREAMS: dict = {}
 
 
 def _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward, extra):
@@ -478,3 +459,30 @@ def backward(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra=None):
     place)."""
     return _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, False,
                   extra)
+
+
+def sweep_blocks(phys, cfg, blocks, forward: bool):
+    """One sweep, forward or backward, of every block: ``blocks`` holds per
+    block (plan, prim, du, b, inv_f, inv_t, aux, extra).  The blocks of one
+    sweep are independent (their connection ghosts were swapped before it),
+    so on the card each block's launch goes on a stream of its own, after
+    the work queued on the current stream and joined back to it before
+    this returns; on the CPU they run one after another.  A temporary the
+    caller frees after the return (the lagged term) is reused only by work
+    queued after that join, so the side streams need no record_stream."""
+    if not blocks or blocks[0][2].device.type != "cuda":
+        for plan, prim, du, b, inv_f, inv_t, aux, extra in blocks:
+            _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward,
+                   extra)
+        return
+    dev = blocks[0][2].device
+    main = torch.cuda.current_stream(dev)
+    streams = _STREAMS.setdefault(dev, [])
+    while len(streams) < len(blocks):
+        streams.append(torch.cuda.Stream(dev))
+    for stream, args in zip(streams, blocks):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            _sweep(phys, cfg, *args[:-1], forward, args[-1])
+    for stream in streams[:len(blocks)]:
+        main.wait_stream(stream)

@@ -1,12 +1,18 @@
 """Command-line entry point of the PyTorch/CUDA port:
 
-    python -m aither_tpu_torch case.inp [--device cuda|cpu] [--iterations N]
-                               [--nproc N]
+    python -m aither_tpu_torch case.inp [restart.rst] [--device cuda|cpu]
+                               [--iterations N] [--nproc N] [--no-files]
+                               [--debug]
 
 Runs the implicit time-marching loop with residual logging to
 ``<case>.resid`` / ``<case>.tme`` in the working directory.  ``--device``
 defaults to ``cuda`` and raises when no card is present; the CPU runs only
-when asked for.  Function and restart files are not written yet.
+when asked for.  Function and restart files are not written yet: without
+``--no-files`` the run, and a restart argument, raise NotImplementedError
+naming ROADMAP.md queue 1 item 6, so no run silently skips its output.
+``--debug`` checks physicality after every iteration (non-finite residual,
+non-positive density or pressure, non-finite tke) and aborts with the
+block and cell; unset, it defers to ``AITHER_DEBUG=1``.
 """
 
 from __future__ import annotations
@@ -20,21 +26,31 @@ def main(argv=None):
         prog="aither_tpu_torch",
         description="PyTorch/CUDA port of the aither structured RANS solver")
     parser.add_argument("input", help="input deck (.inp)")
+    parser.add_argument("restart", nargs="?", default=None,
+                        help="restart file (.rst) to resume from (not "
+                             "ported yet: refused)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--iterations", type=int, default=None,
                         help="override deck iteration count")
     parser.add_argument("--nproc", type=int, default=1,
                         help="decompose the grid into this many blocks "
                              "(reference: mpirun -np N)")
+    parser.add_argument("--no-files", action="store_true",
+                        help="skip .fun/.rst output (required until output "
+                             "is ported)")
+    parser.add_argument("--debug", action="store_true", default=None,
+                        help="per-iteration physicality checks; unset "
+                             "defers to AITHER_DEBUG=1")
     args = parser.parse_args(argv)
 
     import torch
     from .solver.driver import Solver
-    solver = Solver(args.input, device=args.device, nproc=args.nproc)
+    solver = Solver(args.input, device=args.device, nproc=args.nproc,
+                    restart_path=args.restart, debug=args.debug)
     where = (torch.cuda.get_device_name(solver.device)
              if solver.device.type == "cuda" else "cpu")
     print(f"aither_tpu_torch running on {where} (dtype: float64)")
-    solver.run(iterations=args.iterations)
+    solver.run(iterations=args.iterations, write_files=not args.no_files)
     print("Program Complete")
     return 0
 

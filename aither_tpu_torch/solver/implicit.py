@@ -13,9 +13,10 @@ The JAX package walks the LU-SGS hyperplanes i+j+k=p in a skewed layout
 built for the TPU.  Here the sweep works in the physical padded layout:
 ``SweepPlan`` lists each hyperplane's physical cells once on the host
 (plane-ordered flat indices, ``plane_ptr`` offsets) together with the
-per-cell face geometry and masks of both sweep sides.  The sweeps
-themselves (plain PyTorch and the CUDA kernel) live in
-``aither_tpu_torch/kernels/lusgs_sweep.py``.
+per-cell face geometry and masks of both sweep sides.  The CUDA kernels
+walk the same planes as a wavefront of tiles (``sweep_tile``,
+``tile_table``).  The sweeps themselves (plain PyTorch and the CUDA
+kernels) live in ``aither_tpu_torch/kernels/lusgs_sweep.py``.
 """
 
 from __future__ import annotations
@@ -352,11 +353,16 @@ class SweepPlan:
     (NI, NJ, NK) block, ordered by hyperplane (then i, then j);
     plane p owns ``cells[plane_ptr[p]:plane_ptr[p+1]]``.  ``phys_cells``
     are the same cells' flat indices into the unpadded (ni, nj, nk) block.
-    ``static[side]`` is (ncell, 3, 5) float: per direction the unit normal
-    and area of the face shared with the lower (upper) neighbour and the
-    face-projected cell-centre distance to it; ``mask[side]`` is
-    (ncell, 3) bool: the neighbour contributes (an interior cell or a
-    connection ghost)."""
+    ``static[side]`` is (ncell, 3, 5) float in physical cell order (index
+    it by ``phys_cells``): per direction the unit normal and area of the
+    face shared with the lower (upper) neighbour and the face-projected
+    cell-centre distance to it; ``mask[side]`` is (ncell, 3) bool, also in
+    physical order: the neighbour contributes (an interior cell or a
+    connection ghost).  The CUDA kernels read both as they are (a bool is
+    one byte, 0 or 1), with the block's ``tile`` (``sweep_tile``), its
+    ``tiles`` table (``tile_table``) and ``tile_state``, the schedule's
+    ticket and progress flags (1 + ntiles int32, zeroed before each
+    launch)."""
 
     dims: tuple               # (ni, nj, nk)
     g: int
@@ -364,10 +370,11 @@ class SweepPlan:
     plane_ptr: np.ndarray     # (nplanes + 1,) int32, host
     cells: torch.Tensor       # (ncell,) int64
     phys_cells: torch.Tensor  # (ncell,) int64
-    static: dict              # side -> (ncell, 3, 5)
-    mask: dict                # side -> (ncell, 3) bool
-    # int32 / uint8 copies the CUDA kernel reads (kernels/lusgs_sweep.py)
-    kernel_ops: dict = dataclasses.field(default=None, repr=False)
+    static: dict              # side -> (ncell, 3, 5), physical order
+    mask: dict                # side -> (ncell, 3) bool, physical order
+    tile: tuple               # (ti, tj, tk)
+    tiles: torch.Tensor       # (ntiles, 6) int32
+    tile_state: torch.Tensor  # (1 + ntiles,) int32
 
     @property
     def nplanes(self) -> int:
@@ -400,6 +407,10 @@ def build_sweep_plan(block, dtype, device) -> SweepPlan:
     phys_cells = (ii * nj + jj) * nk + kk
 
     center = block.geom_host["center"]
+    # the statics and masks are built cell by cell in plane order and
+    # stored in physical order
+    at = np.empty_like(phys_cells)
+    at[phys_cells] = np.arange(len(phys_cells))
     static, mask = {}, {}
     for side in ("lower", "upper"):
         off = -1 if side == "lower" else 1
@@ -420,11 +431,53 @@ def build_sweep_plan(block, dtype, device) -> SweepPlan:
                                                         face[2]]
             stat[:, a, 4] = np.abs((c2c * nvec).sum(axis=0))
             msk[:, a] = masks[d][ii, jj, kk]
-        static[side] = torch.as_tensor(stat, dtype=dtype, device=device)
-        mask[side] = torch.as_tensor(msk, device=device)
+        static[side] = torch.as_tensor(stat[at], dtype=dtype,
+                                       device=device)
+        mask[side] = torch.as_tensor(msk[at], device=device)
+    tile = sweep_tile((ni, nj, nk))
+    tiles = tile_table((ni, nj, nk), tile)
     return SweepPlan(
         dims=(ni, nj, nk), g=g, padded=(NI, NJ, NK), plane_ptr=plane_ptr,
         cells=torch.as_tensor(cells, dtype=torch.int64, device=device),
         phys_cells=torch.as_tensor(phys_cells, dtype=torch.int64,
                                    device=device),
-        static=static, mask=mask)
+        static=static, mask=mask, tile=tile,
+        tiles=torch.as_tensor(tiles, device=device),
+        tile_state=torch.zeros(1 + len(tiles), dtype=torch.int32,
+                               device=device))
+
+
+# ---------------------------------------------------------------------------
+# tiles of the CUDA sweeps' wavefront (csrc/sweep_wavefront.cuh)
+
+# (j, k) columns of one tile: three CUDA lanes each, one per direction
+# (wavefront::MAX_TILE_COLUMNS)
+MAX_TILE_COLUMNS = 80
+
+
+def sweep_tile(dims) -> tuple:
+    """the tile (ti, tj, tk) of the CUDA sweeps for a block of ``dims``:
+    columns of 32 cells in i, 4 x 5 of them in (j, k), or 40 x 1 where
+    the block is one cell thick in k (among the fastest of the shapes
+    tried on an H100: PERF.md, section 6)"""
+    return (32, 40, 1) if dims[2] == 1 else (32, 4, 5)
+
+
+def tile_table(dims, tile) -> np.ndarray:
+    """(ntiles, 6) int32: origin (i, j, k) and extent of every tile of a
+    block of ``dims`` cut into boxes of ``tile`` cells (ragged at the upper
+    ends), in a topological order of the forward sweep: by the hyperplane
+    i + j + k of the origin, then i, then j.  A tile's lower neighbour
+    tiles have smaller origin sums, so they come first; the backward sweep
+    walks the table from its end."""
+    tile = tuple(int(t) for t in tile)
+    if any(t < 1 for t in tile) or tile[1] * tile[2] > MAX_TILE_COLUMNS:
+        raise ValueError(f"tile {tile}: each extent >= 1 and at most "
+                         f"{MAX_TILE_COLUMNS} (j, k) columns")
+    axes = [np.arange(0, n, t) for n, t in zip(dims, tile)]
+    oi, oj, ok = (a.ravel() for a in np.meshgrid(*axes, indexing="ij"))
+    order = np.lexsort((ok, oj, oi, oi + oj + ok))
+    origin = np.stack([oi, oj, ok], axis=1)[order]
+    extent = np.minimum(np.asarray(tile), np.asarray(dims) - origin)
+    return np.ascontiguousarray(np.concatenate([origin, extent], axis=1),
+                                dtype=np.int32)

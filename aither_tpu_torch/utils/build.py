@@ -2,8 +2,9 @@
 first use, and load it with ctypes.
 
 The library goes to ``aither_tpu_torch/build/`` (git-ignored), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused within a checkout.  Usage::
+hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
+so an edited source or shared header is rebuilt and an unchanged one is
+reused within a checkout.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,11 +43,30 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
+def local_headers(path: str) -> list:
+    """the ``csrc`` headers ``path`` includes with ``#include "..."``,
+    directly or through another of them, sorted"""
+    found, todo = set(), [path]
+    while todo:
+        with open(todo.pop()) as f:
+            names = re.findall(r'(?m)^\s*#\s*include\s+"([^"]+)"', f.read())
+        for name in names:
+            header = os.path.join(CSRC_DIR, name)
+            if header not in found and os.path.isfile(header):
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def _paths(name: str):
-    """(source, library) paths of ``csrc/<name>.cu``"""
+    """(source, library) paths of ``csrc/<name>.cu``; the library's name
+    hashes the source, its local headers and the flags"""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [src] + local_headers(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}_{digest.hexdigest()[:16]}.so")
 

@@ -21,7 +21,8 @@ printing its own lines:
  3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
     1.05M cells), identical inputs, times with CUDA events (a sweep pair:
-    its checked plain run, then the kernel twice; the viscous residual:
+    its checked plain run, one untimed kernel pair, then the kernel twice;
+    the viscous residual:
     plain, the kernel's first window with its cudaMalloc calls, kernel,
     kernel, plain), SST 2003:
     - the scalar sweep pair without (variant a) and with (variant b) the
@@ -31,16 +32,21 @@ printing its own lines:
     - the viscous residual of every block on a seeded 1%-perturbed state:
       every output within |kernel - plain| <= VISC_ATOL max|plain| +
       VISC_RTOL |plain|;
-    - the floor under one dependent sweep-plane launch (empty planes);
+    - per sweep form: the pair's time beside the plane-per-launch
+      kernel's (BEFORE_MS, from PERF.md), the critical path (2 x the
+      largest block's ni+nj+nk-2 planes: the blocks of a sweep run
+      concurrently, as Solver.run launches them) and the time of one step
+      of it;
  4. main path, matrixSweeps 1: Solver(case B, device="cuda").run(
     MAIN_ITERATIONS) with the launch counters set to 0 before and read
-    after: sweep launches = iterations x 2 x hyperplanes, viscous kernel
+    after: sweep launches = iterations x 2 x blocks (one per block and
+    sweep, each after one reset of its schedule), viscous kernel
     launches = iterations x blocks, each timed where it runs by CUDA
     events (kernels/viscous_march.TIMINGS); every L2 finite; one .resid row per
     iteration; iterations/s from iteration 3 on, Mcell-iterations/s and
     peak device memory;
  5. the lagged-term path, matrixSweeps 2: the same on case B for
-    LAGGED_ITERATIONS, sweep launches = iterations x 2 x 2 x hyperplanes
+    LAGGED_ITERATIONS, sweep launches = iterations x 2 x 2 x blocks
     (every sweep takes the lagged term: the matrix is initialised);
  6. reference: the small test case run on cuda and on cpu (plain versions)
     gives the same raw residual L2 history within REF_RTOL: SST with lusgs
@@ -51,7 +57,7 @@ printing its own lines:
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
     phases 4-5: block sweep launches = iterations x matrixSweeps x 2 x
-    hyperplanes, no scalar sweep and no viscous kernel launch (the block
+    blocks, no scalar sweep and no viscous kernel launch (the block
     solvers take the plain viscous residual, as in the JAX package);
  8. the other physics (NEW_DECKS), every solver built once and used for
     its kernels' comparison and then for its drive: each new form of the
@@ -86,9 +92,9 @@ JSON object (one row per kernel form; its times from case B where the form
 ran there, else case A, named in the row as 'case'; 'launches_case' is the
 case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
-inside Solver.run per iteration, with 'path_case'), and last {"ok": true, "device":
-{...}}.  Any failure exits non-zero before the last line.  Case files go to
-./smoke_run/ (git-ignored).
+inside Solver.run per iteration, with 'path_case'), and last
+{"ok": true, "device": {...}}.  Any failure exits non-zero before the last
+line.  Case files go to ./smoke_run/ (git-ignored).
 """
 
 from __future__ import annotations
@@ -113,7 +119,16 @@ NEW_ITERATIONS = 8       # phase 8, every deck
 MIXTURE_ITERATIONS = 8   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
-FLOOR_PLANES = 2000      # empty plane launches timed for the floor
+# the plane-per-launch sweep pairs (one launch per hyperplane) these
+# kernels replace, ms: PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W
+BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
+             ("case B", "lusgs_sweep", True): "29.82",
+             ("case B", "blusgs_sweep", False): "24.43",
+             ("case B", "blusgs_sweep", True): "25.01",
+             ("case A", "lusgs_sweep", False): "9.93",
+             ("case A", "lusgs_sweep", True): "10.79",
+             ("case A", "blusgs_sweep", False): "9.62",
+             ("case A", "blusgs_sweep", True): "10.06"}
 # one NVIDIA H100 SXM (data sheet): HBM rate; FP64 peak outside the tensor
 # cores (the kernels are elementwise FP64)
 HBM_BYTES_PER_S = 3.35e12
@@ -308,21 +323,29 @@ def linear_system(solver):
     return prims, auxs, inv_diag, bs, dus
 
 
-def sweep_pair(solver, system, forward, backward, du0, extras):
+def sweep_pair(solver, system, du0, extras, kernel=True):
     """forward then backward sweep of every block from copies of du0, with
     the given lagged terms ({block: (forward extra, backward extra)}) or
-    none."""
+    none: the kernels through lusgs_sweep.sweep_blocks as Solver.run
+    launches them (the blocks of a sweep concurrently), or the plain
+    versions block by block."""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
     prims, auxs, inv_diag, bs, _ = system
-    out = {}
-    for b in solver.case.blocks:
-        bi = b.index
+    phys, cfg = solver.phys, solver.cfg
+    out = {bi: du.clone() for bi, du in du0.items()}
+    if kernel:
+        for n, forward in enumerate((True, False)):
+            ls.sweep_blocks(phys, cfg, [
+                (solver.plans[bi], prims[bi], out[bi], bs[bi], *inv_diag[bi],
+                 auxs[bi], extras[bi][n] if extras else None)
+                for bi in out], forward)
+        return out
+    for bi, du in out.items():
         ef, eb = extras[bi] if extras else (None, None)
-        du = du0[bi].clone()
-        forward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
-                bs[bi], *inv_diag[bi], auxs[bi], extra=ef)
-        backward(solver.phys, solver.cfg, solver.plans[bi], prims[bi], du,
-                 bs[bi], *inv_diag[bi], auxs[bi], extra=eb)
-        out[bi] = du
+        args = (phys, cfg, solver.plans[bi], prims[bi], du, bs[bi],
+                *inv_diag[bi], auxs[bi])
+        ls.forward_plain(*args, extra=ef)
+        ls.backward_plain(*args, extra=eb)
     return out
 
 
@@ -336,15 +359,39 @@ def form_name(form):
     return name if ns == 1 else f"{name}, {ns} species"
 
 
-def compare_sweeps(torch, solver, system, label, card, with_extra):
+def sweep_errors(kern, plain):
+    """(max |kernel - plain|, max relative difference per equation over the
+    blocks) of two sweep results {block: du}, or None if the kernel's is
+    not finite"""
+    import torch
+    max_abs, rel = 0.0, None
+    for bi, p in plain.items():
+        k = kern[bi]
+        if not bool(torch.isfinite(k).all()):
+            return None
+        if rel is None:
+            rel = np.zeros(p.shape[0])
+        for e in range(p.shape[0]):
+            scale = float(p[e].abs().max())
+            err = float((k[e] - p[e]).abs().max())
+            max_abs = max(max_abs, err)
+            rel[e] = max(rel[e], err / scale if scale > 0 else err)
+    return max_abs, rel
+
+
+def compare_sweeps(torch, solver, system, label, card, with_extra,
+                   case="case B"):
     """The sweep pair on one case against its plain version: (max_abs_err,
     kernel ms, plain ms, bound ms, bound_by).  The plain pair takes
     seconds, so its checked run is its timed one; the kernel pair is timed
-    twice after it."""
+    twice after it.  Printed beside it: the plane-per-launch pair's time
+    (BEFORE_MS, text from PERF.md), the critical path and the time of a
+    step of it."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as imp
     prims, auxs, _, _, du0 = system
     block = bool(solver.cfg["block_matrix"])
+    kernel = "blusgs_sweep" if block else "lusgs_sweep"
     form = ls.sweep_form(solver.phys, solver.cfg)
     variant = {(False, False): "a", (False, True): "b (lagged term)",
                (True, False): "c (block)",
@@ -358,59 +405,44 @@ def compare_sweeps(torch, solver, system, label, card, with_extra):
             for b in solver.case.blocks}
 
     def run_plain():
-        return sweep_pair(solver, system, ls.forward_plain,
-                          ls.backward_plain, du0, extras)
+        return sweep_pair(solver, system, du0, extras, kernel=False)
 
     def run_kernel():
-        return sweep_pair(solver, system, ls.forward, ls.backward, du0,
-                          extras)
+        return sweep_pair(solver, system, du0, extras)
 
     kern = run_kernel()
     plain, plain_ms = timed_once(torch, run_plain)
-    max_abs = 0.0
-    rel = np.zeros(solver.phys.neq)     # per equation, worst block
-    for bi, p in plain.items():
-        k = kern[bi]
-        if not bool(torch.isfinite(k).all()):
-            fail(f"{label}: sweep kernel variant {variant} gave non-finite "
-                 f"values")
-        for e in range(p.shape[0]):
-            scale = float(p[e].abs().max())
-            err = float((k[e] - p[e]).abs().max())
-            max_abs = max(max_abs, err)
-            rel[e] = max(rel[e], err / scale if scale > 0 else err)
+    errors = sweep_errors(kern, plain)
+    if errors is None:
+        fail(f"{label}: sweep kernel variant {variant} gave non-finite "
+             f"values")
+    max_abs, rel = errors
     print(f"{label}: sweep variant {variant}, kernel vs plain max "
           f"rel diff per equation {[f'{r:.2e}' for r in rel]} (tol "
           f"{SWEEP_RTOL:.0e}), max abs diff {max_abs:.3e}", flush=True)
     if not rel.max() <= SWEEP_RTOL:
         fail(f"{label}: sweep kernel variant {variant} disagrees with the "
              f"plain sweep")
+    run_kernel()    # the card idled through the plain pair: wake it
     t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(2)]
     kernel_ms = 0.5 * (t[0] + t[1])
     diffusion = solver.phys.ns > 1 and solver.cfg["diffusion"] != "none"
     costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion)
              for p in solver.plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+    # the critical path of the pair: the blocks of a sweep run concurrently
+    steps = 2 * max(p.nplanes for p in solver.plans.values())
+    before = (BEFORE_MS.get((case, kernel, with_extra))
+              if form == ls.SST_FORM else None)
     print(f"{label}: sweep variant {variant}, forward+backward "
           f"pair over all blocks: kernel {kernel_ms:.4f} ms "
-          f"[{t[0]:.4f}, {t[1]:.4f}], plain {plain_ms:.2f} ms, bound "
-          f"{bound:.4f} ms ({by}) ({card})", flush=True)
+          f"[{t[0]:.4f}, {t[1]:.4f}] (one launch per plane, PERF.md: "
+          f"{before + ' ms' if before else 'not measured'}), critical path "
+          f"{steps} planes, "
+          f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
+          f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}) ({card})",
+          flush=True)
     return max_abs, kernel_ms, plain_ms, bound, by
-
-
-def launch_floor(torch, solver, label, card):
-    """Phase 3: ms of one empty dependent plane launch, and the sweep
-    pair's dependent-launch floor (2 x hyperplanes x that)."""
-    from aither_tpu_torch.kernels import lusgs_sweep as ls
-    dev = solver.device
-    ls.empty_planes(100, dev)                   # warm up
-    per = timed_ms(torch, lambda: ls.empty_planes(FLOOR_PLANES, dev),
-                   3) / FLOOR_PLANES
-    planes = 2 * sum(p.nplanes for p in solver.plans.values())
-    print(f"{label}: one empty dependent plane launch "
-          f"{1e3 * per:.3f} us; sweep pair floor {planes} planes x that = "
-          f"{planes * per:.4f} ms ({card})", flush=True)
-    return per, planes * per
 
 
 # ---------------------------------------------------------------------------
@@ -538,26 +570,30 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     """Solver.run on the card with the launch counters set to 0 just
     before and read just after; checks and prints; returns the launch
     counts {kernel: n} and, as 'viscous_path_ms', the viscous kernel's time
-    per iteration inside the run (path_timings).  lusgs launches the scalar sweep and, on a viscous
-    deck, the viscous kernel; blusgs the block sweep only."""
+    per iteration inside the run (path_timings).  lusgs launches the
+    scalar sweep and, on a viscous deck, the viscous kernel; blusgs the
+    block sweep only; each sweep launch follows one reset of its
+    schedule's state."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     cells = solver.case.total_cells
     nblocks = len(solver.case.blocks)
-    planes = sum(p.nplanes for p in solver.plans.values())
     counters = {"lusgs_sweep": ls.LAUNCHES, "blusgs_sweep": ls.BLOCK_LAUNCHES,
-                "viscous_march": vm.LAUNCHES}
-    sweeps = iterations * sweep_pairs * 2 * planes
+                "viscous_march": vm.LAUNCHES,
+                "sweep_state_resets": ls.STATE_RESETS}
+    # one launch per block and sweep
+    sweeps = iterations * sweep_pairs * 2 * nblocks
     if solver.cfg["block_matrix"]:
         expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
-                  "viscous_march": 0}
+                  "viscous_march": 0, "sweep_state_resets": sweeps}
     else:
         # a mixture's viscous residual is the plain version (one species
         # only in the fused kernel, as in the JAX package's use_march)
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
                   "viscous_march": (iterations * nblocks
                                     if solver.cfg["viscous"]
-                                    and solver.phys.ns == 1 else 0)}
+                                    and solver.phys.ns == 1 else 0),
+                  "sweep_state_resets": sweeps}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocs = device_allocs(torch)
@@ -667,7 +703,7 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             entry, spills = m.group(1), ""
-            k = re.search(r"(sweep_plane|viscous_cells)I((?:L[ib]\d+E)+)E",
+            k = re.search(r"(sweep_tiles|viscous_cells)I((?:L[ib]\d+E)+)E",
                           entry)
             if k:
                 args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -758,7 +794,7 @@ def main():
             for with_extra in extras:
                 record((kernel, form, with_extra), case,
                        compare_sweeps(torch, solver, system, label, card,
-                                      with_extra))
+                                      with_extra, case))
         for field in fields:
             res = compare_viscous(torch, solver, label, card,
                                   perturbed=field == "perturbed")
@@ -774,7 +810,6 @@ def main():
         del solver
         solver = build(label, dims, "lusgs")
         compare_all(solver, label, case, (False, True), ("perturbed",))
-        launch_floor(torch, solver, label, card)
 
     # (kernel, form, with the lagged term) -> (launches of its drive, case)
     launches = {}

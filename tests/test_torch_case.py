@@ -154,7 +154,8 @@ def test_cli_requires_cuda_or_explicit_cpu(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             main([path, "--iterations", "1"])
-    assert main([path, "--device", "cpu", "--iterations", "2"]) == 0
+    assert main([path, "--device", "cpu", "--iterations", "2",
+                 "--no-files"]) == 0
     with open(tmp_path / "plate.resid") as f:
         rows = [ln for ln in f if ln.strip()]
     assert len(rows) == 3          # header + one row per iteration
