@@ -6,7 +6,8 @@ PyTorch version.
 diag_flow, diag_turb, cellavg) with cellavg's 'vel', 'mut', 'f1' and 'f2'
 and, with turbulence equations, 'tke' and 'omega'.  On a CPU tensor it runs that plain version; on a CUDA
 tensor it launches ``csrc/viscous_march.cu`` (built at first use), one
-launch per block, and raises if it cannot run — there is no fallback.
+launch per block in tiles of ``viscous_tile``, and raises if it cannot run
+— there is no fallback.
 ``LAUNCHES`` counts the kernel's launches.
 
 Replaces the TPU kernel
@@ -103,15 +104,84 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
 # CUDA kernel
 
 
-def _library():
+def _load():
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("viscous_march")
+    return load_cuda_library("viscous_march")
+
+
+def _library():
+    lib, _ = _load()
     fn = lib.viscous_march_f64
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 8 + [i] * 4 + [p, p]
+        fn.argtypes = [i] + [p] * 8 + [i] * 7 + [p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# the CUDA kernel's tiles: at most MAX_COLUMNS (j, k) columns (its
+# THREADS take one face each of a 3 x 32 tile's step); segments of at
+# most MAX_SEG planes; one CTA on each of an H100's SMS SMs at a time (its
+# shared memory)
+THREADS = 384
+MAX_COLUMNS = 96
+MAX_SEG = 32
+SMS = 132
+# a CTA's shared memory (csrc/viscous_march.cu smem_doubles): a ring of 3
+# window planes of the equations, T and mu, the face records (REC_DOUBLES
+# each by branch) and 21 staged statics of each face of a step, at most an
+# H100 CTA's 232,448 bytes
+REC_DOUBLES = {0: 24, 1: 22, 2: 14, 3: 13}
+MAX_SMEM = 232448
+
+
+def smem_bytes(model: int, tj: int, tk: int) -> int:
+    """dynamic shared memory of one CTA of branch ``model`` with tj x tk
+    columns"""
+    neq = 7 if model < 2 else 5
+    faces = 3 * tj * tk + tj + tk
+    return 8 * (3 * (neq + 2) * (tj + 2) * (tk + 2)
+                + REC_DOUBLES[model] * (faces + tj * tk) + 21 * faces)
+
+
+def viscous_tile(dims):
+    """(tj, tk, seg) of the CUDA kernel for a block of ``dims`` (ni, nj,
+    nk) physical cells: a CTA owns tj x tk (j, k) columns (up to 32 along
+    k, the contiguous axis of the face statics and the outputs, then up to
+    MAX_COLUMNS in all, or 64 where tk <= 2) and marches over seg
+    i-planes.  A CTA's time is about (seg + 1) steps, its first lower
+    i-faces counting as one, and the CTAs run in waves of SMS: seg is the
+    one of 1 .. MAX_SEG with the fewest waves x (seg + 1), the longest
+    among equals.  3 x 32 x 22 at 256x64x32 (22 x 12 CTAs: 2 full waves),
+    64 x 1 x 2 at 96x120x1."""
+    ni, nj, nk = (int(n) for n in dims)
+    tk = min(nk, 32)
+    tj = min(nj, (MAX_COLUMNS if tk > 2 else 64) // tk)
+    tiles = -(-nj // tj) * -(-nk // tk)
+    seg = min(range(1, MAX_SEG + 1),
+              key=lambda n: (-(-tiles * -(-ni // n) // SMS) * (n + 1), -n))
+    return tj, tk, seg
+
+
+def launch_info(block, model: str = "sst2003"):
+    """What the kernel's launch for ``block`` takes on the current card:
+    tile (tj, tk), seg, the CTAs of the launch, the dynamic shared memory
+    of a CTA in bytes, the CTAs one SM holds, threads, registers and local
+    (spill) bytes of a thread (csrc/viscous_march.cu viscous_march_info)."""
+    tj, tk, seg = viscous_tile((block.ni, block.nj, block.nk))
+    lib, _ = _load()
+    fn = lib.viscous_march_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    got = (ctypes.c_int * 5)()
+    err = fn(MODELS[model], tj, tk, ctypes.cast(got, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"viscous_march_info: CUDA error {err}")
+    ctas = (-(-block.nj // tj) * -(-block.nk // tk)
+            * -(-block.ni // seg))
+    return dict(tile=(tj, tk), seg=seg, ctas=ctas, smem_bytes=got[0],
+                ctas_per_sm=got[1], threads=got[2], registers=got[3],
+                local_bytes=got[4])
 
 
 def _params(phys: Physics, cfg) -> np.ndarray:
@@ -181,7 +251,7 @@ def _kernel(phys: Physics, cfg, block, prim, t_all, mu_all, model: int):
                      mu_all.data_ptr(),
                      *(f.data_ptr() for f in face),
                      statics["cell"].data_ptr(), out.data_ptr(), ni, nj, nk,
-                     g, params.ctypes.data,
+                     g, *viscous_tile((ni, nj, nk)), params.ctypes.data,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"viscous_march_f64: CUDA error {err} at launch")

@@ -502,6 +502,117 @@ def _wall_face_mask(block, d: str, nf: int):
     return block.cache[key]
 
 
+def _cellslab(block, d: str, arr, off_d: int, eqdim: bool = True):
+    """the n_d + 1 cells at (face - 1 + off_d) along d, physical across
+    (with a leading equation axis unless ``eqdim`` is False)"""
+    g = block.g
+    dims = dict(i=block.ni, j=block.nj, k=block.nk)
+    d1, d2 = [x for x in "ijk" if x != d]
+    sl = [slice(None)] * (4 if eqdim else 3)
+    o = 1 if eqdim else 0
+    sl[o + AX[d]] = slice(g - 1 + off_d, g + off_d + dims[d])
+    sl[o + AX[d1]] = slice(g, g + dims[d1])
+    sl[o + AX[d2]] = slice(g, g + dims[d2])
+    return arr[tuple(sl)]
+
+
+def face_terms(phys: Physics, cfg, block, prim, t_all, mu_all, d: str):
+    """The faces of direction d (n_d + 1 along d by the physical cells
+    across) of ``viscous_residual``: a dict of 'fa' (neq, *F), the flux
+    times the face area, the face-CV gradients 'grads'
+    (``face_cv_gradients``), the face state 'qf' and 'muf', 'mut', 'f1'
+    and 'f2' (zeros without turbulence), and the unit normal 'n' and area
+    'mag'.  Elementwise over the faces: the CUDA kernel
+    (``kernels/viscous_march.py``) evaluates each face with the same
+    expressions."""
+    model = cfg["turb_model"]
+    is_rans = phys.nturb > 0
+    is_turb = cfg.get("turbulent", is_rans)
+    diffusion = phys.ns > 1 and cfg.get("diffusion", "none") != "none"
+    scaling = phys.nondim_scaling
+    prt = turb_prandtl(model)
+    nf = dict(i=block.ni, j=block.nj, k=block.nk)[d] + 1
+    grads = face_cv_gradients(phys, block, prim, t_all, d,
+                              need_mix=diffusion)
+    sf = face_fields(viscous_statics(block, needs_face_length(cfg)), d)
+
+    c0, c1 = sf["c0"], sf["c1"]
+    qf = (c0[None] * _cellslab(block, d, prim, 1)
+          + c1[None] * _cellslab(block, d, prim, 0))
+    muf = (c0 * _cellslab(block, d, mu_all, 1, False)
+           + c1 * _cellslab(block, d, mu_all, 0, False))
+    wdf = sf["wdf"]
+    if is_rans:
+        tmin = phys.turb_min()
+        qf = torch.cat([qf[:phys.it],
+                        torch.clamp(qf[phys.it], min=tmin[0])[None],
+                        torch.clamp(qf[phys.it + 1], min=tmin[1])[None],
+                        qf[phys.it + 2:]])
+
+    vgrad = grads["vel"]
+    tgrad = grads["temp"]
+    mutf = torch.zeros_like(muf)
+    f1f = torch.zeros_like(muf)
+    f2f = torch.zeros_like(muf)
+    if is_turb:
+        mutf, f1f, f2f = eddy_visc_and_blending(
+            phys, model, qf, vgrad, grads.get("tke"), grads.get("omega"),
+            muf, wdf, sf.get("len"))
+
+    # face unit normals and areas at physical faces
+    nvec, mag = sf["n"], sf["mag"]
+
+    mu_s = scaling * muf
+    mut_s = scaling * mutf
+    tf = st.temperature(phys, qf)
+
+    # species diffusion (zeroed at viscousWall faces)
+    species = torch.zeros_like(muf)[None].expand(phys.ns, *muf.shape)
+    if diffusion:
+        dcoeff = mu_s / cfg["schmidt"] + mut_s / cfg["turb_schmidt"]
+        raw = [dcoeff * (grads["mix"][ss] * nvec).sum(dim=0)
+               for ss in range(phys.ns)]
+        pos = sum(torch.clamp(r_, min=0.0) for r_ in raw)
+        neg = sum(-torch.clamp(r_, max=0.0) for r_ in raw)
+        pos_fac = torch.where(pos > neg, neg / (pos + EPS), 1.0)
+        neg_fac = torch.where(neg > pos, pos / (neg + EPS), 1.0)
+        hs = phys.species_enthalpy(tf)
+        wall = _wall_face_mask(block, d, nf)
+        h_term = torch.zeros_like(muf)
+        fs = []
+        for ss in range(phys.ns):
+            f_ss = raw[ss] * torch.where(raw[ss] > 0.0, pos_fac, neg_fac)
+            f_ss = f_ss * (1.0 - wall)
+            fs.append(f_ss)
+            h_term = h_term + f_ss * hs[ss]
+        species = torch.stack(fs)
+
+    tau = tau_normal(vgrad, nvec, mu_s + mut_s)
+    mff = st.mixture_fractions(phys, qf)
+    k_eff = scaling * phys.conductivity(tf, mff)
+    cp = phys.cp(tf, mff)
+    kt = mut_s * cp / prt if is_turb else 0.0
+    velf = st.velocity(phys, qf)
+    e_flux = ((tau * velf).sum(dim=0)
+              + (k_eff + kt) * (tgrad * nvec).sum(dim=0))
+    if diffusion:
+        e_flux = e_flux + h_term
+    rows = [species, tau, e_flux[None]]
+    if is_rans:
+        mutt = mut_s
+        if model == "kOmegaWilcox2006":
+            # unlimited eddy viscosity for turb diffusion
+            mutt = scaling * st.rho(phys, qf) * qf[phys.it] \
+                / qf[phys.it + 1]
+        rows += [((mu_s + sigma_k(model, f1f) * mutt)
+                  * (grads["tke"] * nvec).sum(dim=0))[None],
+                 ((mu_s + sigma_w(model, f1f) * mutt)
+                  * (grads["omega"] * nvec).sum(dim=0))[None]]
+    fa = torch.cat(rows) * mag[None]
+    return dict(fa=fa, grads=grads, qf=qf, muf=muf, mut=mutf, f1=f1f,
+                f2=f2f, n=nvec, mag=mag)
+
+
 def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     """Viscous flux residual contribution + gradients + eddy viscosity +
     viscous spectral radii (reference: procBlock.cpp:1233-1879).
@@ -521,7 +632,6 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     model = cfg["turb_model"]
     is_rans = phys.nturb > 0
     is_turb = cfg.get("turbulent", is_rans)
-    diffusion = phys.ns > 1 and cfg.get("diffusion", "none") != "none"
     blk = bool(cfg.get("block_matrix"))
     visc_coeff = cfg["viscous_cfl_coeff"]
     scaling = phys.nondim_scaling
@@ -561,92 +671,9 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     for a, d in enumerate("ijk"):
         ax = 1 + AX[d]
         n = dims[d]
-        nf = n + 1
-        d1, d2 = [x for x in "ijk" if x != d]
-        grads = face_cv_gradients(phys, block, prim, t_all, d,
-                                  need_mix=diffusion)
-        sf = face_fields(statics, d)
-
-        def cellslab(arr, off_d, eqdim=True):
-            sl = [slice(None)] * (4 if eqdim else 3)
-            o = 1 if eqdim else 0
-            sl[o + AX[d]] = slice(g - 1 + off_d, g - 1 + off_d + nf)
-            sl[o + AX[d1]] = slice(g, g + dims[d1])
-            sl[o + AX[d2]] = slice(g, g + dims[d2])
-            return arr[tuple(sl)]
-
-        c0, c1 = sf["c0"], sf["c1"]
-        qf = c0[None] * cellslab(prim, 1) + c1[None] * cellslab(prim, 0)
-        muf = c0 * cellslab(mu_all, 1, False) + c1 * cellslab(mu_all, 0,
-                                                              False)
-        wdf = sf["wdf"]
-        if is_rans:
-            tmin = phys.turb_min()
-            qf = torch.cat([qf[:phys.it],
-                            torch.clamp(qf[phys.it], min=tmin[0])[None],
-                            torch.clamp(qf[phys.it + 1], min=tmin[1])[None],
-                            qf[phys.it + 2:]])
-
-        vgrad = grads["vel"]
-        tgrad = grads["temp"]
-        mutf = torch.zeros_like(muf)
-        f1f = torch.zeros_like(muf)
-        f2f = torch.zeros_like(muf)
-        if is_turb:
-            mutf, f1f, f2f = eddy_visc_and_blending(
-                phys, model, qf, vgrad, grads.get("tke"), grads.get("omega"),
-                muf, wdf, sf.get("len"))
-
-        # face unit normals and areas at physical faces
-        nvec, mag = sf["n"], sf["mag"]
-
-        mu_s = scaling * muf
-        mut_s = scaling * mutf
-        tf = st.temperature(phys, qf)
-
-        # species diffusion (zeroed at viscousWall faces)
-        species = torch.zeros_like(muf)[None].expand(phys.ns, *muf.shape)
-        if diffusion:
-            dcoeff = mu_s / cfg["schmidt"] + mut_s / cfg["turb_schmidt"]
-            raw = [dcoeff * (grads["mix"][ss] * nvec).sum(dim=0)
-                   for ss in range(phys.ns)]
-            pos = sum(torch.clamp(r_, min=0.0) for r_ in raw)
-            neg = sum(-torch.clamp(r_, max=0.0) for r_ in raw)
-            pos_fac = torch.where(pos > neg, neg / (pos + EPS), 1.0)
-            neg_fac = torch.where(neg > pos, pos / (neg + EPS), 1.0)
-            hs = phys.species_enthalpy(tf)
-            wall = _wall_face_mask(block, d, nf)
-            h_term = torch.zeros_like(muf)
-            fs = []
-            for ss in range(phys.ns):
-                f_ss = raw[ss] * torch.where(raw[ss] > 0.0, pos_fac, neg_fac)
-                f_ss = f_ss * (1.0 - wall)
-                fs.append(f_ss)
-                h_term = h_term + f_ss * hs[ss]
-            species = torch.stack(fs)
-
-        tau = tau_normal(vgrad, nvec, mu_s + mut_s)
-        mff = st.mixture_fractions(phys, qf)
-        k_eff = scaling * phys.conductivity(tf, mff)
-        cp = phys.cp(tf, mff)
-        kt = mut_s * cp / prt if is_turb else 0.0
-        velf = st.velocity(phys, qf)
-        e_flux = ((tau * velf).sum(dim=0)
-                  + (k_eff + kt) * (tgrad * nvec).sum(dim=0))
-        if diffusion:
-            e_flux = e_flux + h_term
-        rows = [species, tau, e_flux[None]]
-        if is_rans:
-            mutt = mut_s
-            if model == "kOmegaWilcox2006":
-                # unlimited eddy viscosity for turb diffusion
-                mutt = scaling * st.rho(phys, qf) * qf[phys.it] \
-                    / qf[phys.it + 1]
-            rows += [((mu_s + sigma_k(model, f1f) * mutt)
-                      * (grads["tke"] * nvec).sum(dim=0))[None],
-                     ((mu_s + sigma_w(model, f1f) * mutt)
-                      * (grads["omega"] * nvec).sum(dim=0))[None]]
-        fa = torch.cat(rows) * mag[None]
+        faces = face_terms(phys, cfg, block, prim, t_all, mu_all, d)
+        grads, fa = faces["grads"], faces["fa"]
+        mutf, f1f, f2f = faces["mut"], faces["f1"], faces["f2"]
         lo = [slice(None)] * 4
         hi = [slice(None)] * 4
         lo[ax] = slice(0, n)
@@ -661,14 +688,14 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
             # face; the face distance is the centre-to-centre distance
             # projected on the face normal
             center = block.geom["center"]
-            c2c = cellslab(center, 1) - cellslab(center, 0)
+            c2c = (_cellslab(block, d, center, 1)
+                   - _cellslab(block, d, center, 0))
+            nvec = faces["n"]
             dist_f = torch.abs((c2c * nvec).sum(dim=0))
-            jl_f, jl_t = bj.approx_tsl_jacobian(
-                phys, cfg, qf, muf, mutf, f1f, nvec, mag, dist_f, vgrad,
-                left=True)
-            jr_f, jr_t = bj.approx_tsl_jacobian(
-                phys, cfg, qf, muf, mutf, f1f, nvec, mag, dist_f, vgrad,
-                left=False)
+            tsl = (phys, cfg, faces["qf"], faces["muf"], mutf, f1f, nvec,
+                   faces["mag"], dist_f, grads["vel"])
+            jl_f, jl_t = bj.approx_tsl_jacobian(*tsl, left=True)
+            jr_f, jr_t = bj.approx_tsl_jacobian(*tsl, left=False)
             diag_flow_blk = diag_flow_blk + jr_f[flo3] - jl_f[fhi3]
             if is_rans:
                 diag_turb_blk = diag_turb_blk + jr_t[flo3] - jl_t[fhi3]

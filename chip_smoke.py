@@ -85,7 +85,15 @@ printing its own lines:
     variant c+b) and driven by Solver.run(MIXTURE_ITERATIONS).  A
     mixture's viscous residual is the plain version (the fused kernel
     covers one species, as in the JAX package): no viscous kernel
-    launch.
+    launch;
+10. the viscous kernel on a ragged plate (RAGGED_DIMS, 2 x 51x44x37, whose
+    dims the kernel's default tiles and segments do not divide), SST,
+    Wilcox, LES and laminar, each against its plain version as in phase 3.
+
+The viscous kernel's lines (phases 3, 8, 10) print its time beside the
+first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
+tile, segment, CTAs, dynamic shared memory, CTAs per SM and registers;
+phase 2 fails if an instantiation of it spills.
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object (one row per kernel form; its times from case B where the form
@@ -101,6 +109,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -129,6 +138,20 @@ BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
              ("case A", "lusgs_sweep", True): "10.79",
              ("case A", "blusgs_sweep", False): "9.62",
              ("case A", "blusgs_sweep", True): "10.06"}
+# the fused viscous residual's first design (one thread per cell, each face
+# evaluated by both its cells), ms for both blocks: PERF.md section 6, NVIDIA
+# H100 80GB HBM3, 700 W (PRs 2 and 4)
+VISC_BEFORE_MS = {("case B", "sst2003"): "1.642",
+                  ("case B", "kOmegaWilcox2006"): "1.523",
+                  ("case B", "wale"): "1.395", ("case B", "none"): "1.053",
+                  ("case A", "sst2003"): "0.261",
+                  ("case A", "kOmegaWilcox2006"): "0.152",
+                  ("case A", "wale"): "0.150", ("case A", "none"): "0.181"}
+# phase 10's ragged plate for the viscous kernel: its default plan divides
+# none of its dims (viscous_march.viscous_tile: 3 x 32 columns over 44 x 37,
+# segments of 13 over 51 planes), and the four branches
+RAGGED_DIMS = (51, 44, 37)
+RAGGED_PHYSICS = ("sst", "wilcox", "les", "laminar")
 # one NVIDIA H100 SXM (data sheet): HBM rate; FP64 peak outside the tensor
 # cores (the kernels are elementwise FP64)
 HBM_BYTES_PER_S = 3.35e12
@@ -482,11 +505,14 @@ def flat_outputs(res):
     return out
 
 
-def compare_viscous(torch, solver, label, card, perturbed=True):
+def compare_viscous(torch, solver, label, card, perturbed=True,
+                    case="case B"):
     """The viscous residual of every block on one case against its plain
     version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by, cold
     window ms).  A blusgs solver's blocks are taken with the scalar
-    solver's cfg: the kernel has no block-matrix form."""
+    solver's cfg: the kernel has no block-matrix form.  Printed beside the
+    time: the first design's (VISC_BEFORE_MS, text from PERF.md) and each
+    block's launch (tile, segment, CTAs, shared memory, CTAs per SM)."""
     from aither_tpu_torch.kernels import viscous_march as vm
     from aither_tpu_torch.solver import viscous as vis
     phys, cfg = solver.phys, dict(solver.cfg, block_matrix=False)
@@ -535,19 +561,33 @@ def compare_viscous(torch, solver, label, card, perturbed=True):
         torch, run(vis.viscous_residual), run(vm.viscous_residual))
     costs = [vm.cost(b, model) for b in blocks]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+    before = VISC_BEFORE_MS.get((case, model))
+    infos = [vm.launch_info(b, model) for b in blocks]
+    for i in infos:
+        if i["smem_bytes"] != vm.smem_bytes(vm.MODELS[model], *i["tile"]):
+            fail(f"{label}: the kernel's shared memory {i['smem_bytes']} B "
+                 f"is not viscous_march.smem_bytes'")
+    launches = "; ".join(
+        f"block {b.index}: tile {i['tile'][0]} x {i['tile'][1]} columns, "
+        f"segments of {i['seg']} planes, {i['ctas']} CTAs of "
+        f"{i['threads']} threads, {i['smem_bytes']} B dynamic shared "
+        f"memory each, {i['ctas_per_sm']} per SM, {i['registers']} "
+        f"registers" for b, i in zip(blocks, infos))
     with_len = vis.needs_face_length(cfg)
     statics = sum(sum(v.numel() for v in vis.viscous_statics(b, with_len)
                       ["face"].values())
                   + vis.viscous_statics(b, with_len)["cell"].numel()
                   for b in blocks) * 8
     print(f"{label}: {what} of all blocks: kernel "
-          f"{kernel_ms:.4f} ms [{t[1]:.4f}, {t[2]:.4f}], first window "
+          f"{kernel_ms:.4f} ms [{t[1]:.4f}, {t[2]:.4f}] (one thread per "
+          f"cell, PRs 2/4, PERF.md: "
+          f"{before + ' ms' if before else 'not measured'}), first window "
           f"after the plain run {cold_ms:.4f} ms with {allocs[0]} cudaMalloc "
           f"calls ({allocs[1]} in the two warm windows; a window holds "
           f"{KERNEL_REPS} x {len(blocks)} outputs), plain "
           f"{plain_ms:.2f} ms [{t[0]:.2f}, {t[3]:.2f}], bound {bound:.4f} "
-          f"ms ({by}); static face geometry {statics / 2**30:.3f} GiB "
-          f"({card})", flush=True)
+          f"ms ({by}); static face geometry {statics / 2**30:.3f} GiB; "
+          f"{launches} ({card})", flush=True)
     return max_abs, kernel_ms, plain_ms, bound, by, cold_ms
 
 
@@ -697,13 +737,12 @@ def reference_history(dims, device, solver_name, sweeps, physics):
 def ptxas_report(text):
     """one line per kernel instantiation from nvcc's -Xptxas -v output:
     the kernel with its template arguments, its registers and its spills"""
-    import re
     lines, entry, spills = [], "?", ""
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             entry, spills = m.group(1), ""
-            k = re.search(r"(sweep_tiles|viscous_cells)I((?:L[ib]\d+E)+)E",
+            k = re.search(r"(sweep_tiles|viscous_tiles)I((?:L[ib]\d+E)+)E",
                           entry)
             if k:
                 args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -757,6 +796,10 @@ def main():
               flush=True)
         for ln in ptxas_report(info["ptxas"]):
             print(f"phase 2 ptxas {name}: {ln}", flush=True)
+            spill = re.search(r"(\d+) bytes spill stores", ln)
+            if name == "viscous_march" and (not spill
+                                            or int(spill.group(1))):
+                fail(f"the viscous kernel spills: {ln}")
 
     def build(label, dims, solver_name, sweeps=1, physics="sst"):
         wd = os.path.join(RUN_DIR, f"{label}_{physics}_{solver_name}_"
@@ -797,7 +840,7 @@ def main():
                                       with_extra, case))
         for field in fields:
             res = compare_viscous(torch, solver, label, card,
-                                  perturbed=field == "perturbed")
+                                  perturbed=field == "perturbed", case=case)
             if field == "perturbed":
                 record(("viscous_march", solver.phys.turb_model), case, res)
 
@@ -889,6 +932,13 @@ def main():
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
         compare_all(solver, label, case, extras, ())
         drive_and_count(solver, MIXTURE_ITERATIONS, sweeps, label, case)
+        del solver
+
+    # -- phase 10: the viscous kernel's tile and segment edges ----------------
+    for physics in RAGGED_PHYSICS:
+        solver = build("phase 10 ragged", RAGGED_DIMS, "lusgs", 1, physics)
+        compare_viscous(torch, solver, "phase 10 ragged", card,
+                        case="ragged")
         del solver
     check_no_jax_package()
 
