@@ -16,6 +16,12 @@ partnerBlock`` with surfaces numbered 1-6 = i-lo, i-hi, j-lo, j-hi, k-lo,
 k-hi, so block 0's i-hi patch names surface 1 of block 1 (``1001``) and
 block 1's i-lo patch names surface 2 of block 0 (``2000``).
 
+``time_integration``, ``time_step`` (s), ``nonlinear_iterations`` and
+``dual_time_cfl`` set the time integrator (implicitEuler by default;
+crankNicholson, bdf2, explicitEuler, rk4), ``matrix_solver`` and
+``inviscid_flux_jacobian`` the linear solver (lusgs, blusgs, dplur,
+bdplur; rusanov or approximateRoe) and ``cfl`` the ramp (start, step,
+max); the defaults write the implicit Euler deck of the main path.
 ``equation_set`` and ``turbulence_model`` select the other physics the
 port runs (euler, navierStokes, largeEddySimulation + wale, rans +
 kOmegaWilcox2006 / sst2003 / sstdes).  Without turbulence equations the
@@ -68,18 +74,18 @@ referenceTemperature: 288.0
 referenceLength: 1.0
 {mixture}equationSet: {equation_set}
 turbulenceModel: {turbulence_model}
-timeIntegration: implicitEuler
-matrixSolver: {matrix_solver}
+timeIntegration: {time_integration}
+{time_lines}matrixSolver: {matrix_solver}
 matrixSweeps: {matrix_sweeps}
 matrixRelaxation: 1.0
 inviscidFlux: roe
-inviscidFluxJacobian: rusanov
+inviscidFluxJacobian: {inviscid_flux_jacobian}
 faceReconstruction: thirdOrder
 limiter: vanAlbada
 viscousFaceReconstruction: central
-cflStart: 10.0
-cflStep: 10.0
-cflMax: 1000.0
+cflStart: {cfl[0]}
+cflStep: {cfl[1]}
+cflMax: {cfl[2]}
 fluids: <{fluids}>
 initialConditions: <icState(tag=-1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf})>
 boundaryStates: <characteristic(tag=1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf}){wall_state}>
@@ -111,6 +117,23 @@ O2 + N2 <=> 2 O + N2 : forwardRate=arrhenius(C=2.0e15, eta=-1.5, theta=59500.0)
 NO + N2 <=> N + O + N2 : forwardRate=arrhenius(C=5.0e9, eta=0.0, theta=75500.0)
 N2 + O <=> NO + N : forwardRate=arrhenius(C=6.4e11, eta=-1.0, theta=38400.0)
 """,
+}
+
+# the time integrators' decks on the plate (write_plate_case keywords): the
+# explicit ones are stable there at a CFL of about 0.5 (the implicit ramp
+# 10-1000 diverges); bdf2 takes a global step of 1e-5 s (0.0034 at the
+# reference speed of sound and length) and three dual-time iterations a
+# step at dual-time CFL 100
+EXPLICIT_CFL = (0.5, 0.0, 0.5)
+TIME_INTEGRATORS = {
+    "implicitEuler": {},
+    "crankNicholson": dict(time_integration="crankNicholson"),
+    "bdf2": dict(time_integration="bdf2", time_step=1e-5,
+                 nonlinear_iterations=3, dual_time_cfl=100.0),
+    "explicitEuler": dict(time_integration="explicitEuler",
+                          cfl=EXPLICIT_CFL),
+    "rk4": dict(time_integration="rk4", nonlinear_iterations=4,
+                cfl=EXPLICIT_CFL),
 }
 
 N2O2 = dict(species=("N2", "O2"), mass_fractions=(0.767, 0.233),
@@ -155,10 +178,23 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      species=None, mass_fractions=None,
                      diffusion: str = "none", chemistry=None,
                      density: float = 1.2256,
-                     wall_temperature: float = 288.0) -> str:
+                     wall_temperature: float = 288.0,
+                     time_integration: str = "implicitEuler",
+                     inviscid_flux_jacobian: str = "rusanov",
+                     time_step: float = 0.0,
+                     nonlinear_iterations: int = 1,
+                     dual_time_cfl: float = -1.0,
+                     cfl=(10.0, 10.0, 1000.0)) -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
-    ``matrix_solver`` "blusgs" the block-matrix LU-SGS; ``equation_set``
+    ``matrix_solver`` "blusgs" the block-matrix LU-SGS, "dplur" / "bdplur"
+    the scalar / block DPLUR; ``inviscid_flux_jacobian`` the off-diagonal
+    (rusanov, approximateRoe); ``time_integration`` the integrator,
+    ``time_step`` its global step in seconds (0: local time stepping),
+    ``nonlinear_iterations`` the (dual-time) iterations of a step,
+    ``dual_time_cfl`` the dual-time CFL (off when not positive; the three
+    lines are written only when they differ from the deck's defaults);
+    ``cfl`` the ramp (cflStart, cflStep, cflMax); ``equation_set``
     and ``turbulence_model`` the physics; ``species``, ``mass_fractions``,
     ``diffusion`` and ``chemistry`` the mixture (module docstring);
     ``density`` (kg/m^3, at 101300 Pa) the state and ``wall_temperature``
@@ -182,6 +218,13 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                         f"chemistryMechanism: {chemistry}\n")
     if not inviscid:
         wall_state = wall_state[:-1] + mf + ")"
+    time_lines = ""
+    if time_step != 0.0:
+        time_lines += f"timeStep: {time_step}\n"
+    if nonlinear_iterations != 1:
+        time_lines += f"nonlinearIterations: {nonlinear_iterations}\n"
+    if dual_time_cfl > 0.0:
+        time_lines += f"dualTimeCFL: {dual_time_cfl}\n"
     os.makedirs(out_dir, exist_ok=True)
     if chemistry is not None:
         with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
@@ -196,5 +239,9 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              turbulence_model=turbulence_model, turb=turb,
                              wall=wall, wall_state=wall_state, mf=mf,
                              fluids=fluids, mixture=mixture,
-                             density=density))
+                             density=density,
+                             time_integration=time_integration,
+                             time_lines=time_lines,
+                             inviscid_flux_jacobian=inviscid_flux_jacobian,
+                             cfl=tuple(float(c) for c in cfl)))
     return deck_path

@@ -7,7 +7,7 @@
 // `extra` (matrixSweeps > 1, variant (c)+(b)), for one species or a
 // calorically perfect mixture of NS = 2..5 species (flow blocks of
 // N = NS + 4), in the forms the models need, each a compile-time
-// instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD>:
+// instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>:
 //   N equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
 //     vgrad and the centre distance are not read;
 //   N equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
@@ -27,6 +27,14 @@
 // dcoeff (delta_ij - mf_i) / (mu_tot rho), dcoeff = mu/Sc + mut/Sct, and
 // in the energy row the diffusion's enthalpy flux h_s + V^2/2
 // (block_jac.py:204-227 of the JAX package).
+// ROE selects the off-diagonal of `inviscidFluxJacobian: approximateRoe`:
+// the Roe flux change of roe_offdiag.cuh, the same vector the scalar sweep
+// takes (no Jacobian rows and no vgrad), in place of the Rusanov and TSL
+// block rows; the block inverse of finish_rows is unchanged.  It replaces
+// the JAX package's scan path of aither_tpu/solver/implicit.py:113
+// roe_offdiagonal with block_matrix set (no Pallas form there).  A build
+// holds the Rusanov forms (library blusgs_sweep) or, with -DSWEEP_ROE=1,
+// the Roe forms (library blusgs_sweep_roe).
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -75,13 +83,22 @@
 // scalar sweep it is held instead by the chain of ni+nj+nk-2 dependent
 // planes per block and sweep: the time of one step is a barrier, the
 // flags between tiles and one cell's serial FP64 work, split over three
-// lanes.
+// lanes.  A Roe step does two Roe fluxes per direction in place of the
+// block rows.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "roe_offdiag.cuh"
 #include "sweep_wavefront.cuh"
+
+// 1: this translation unit holds the approximateRoe forms (the library
+// blusgs_sweep_roe, utils/build.py VARIANTS), 0: the Rusanov forms
+#ifndef SWEEP_ROE
+#define SWEEP_ROE 0
+#endif
 
 namespace {
 
@@ -94,6 +111,16 @@ struct Phys {
   // SST blends; Wilcox: sigma* in sigma_k1 and sigma in sigma_w1
   double sigma_k1, sigma_k2, sigma_w1, sigma_w2;
 };
+
+// the Roe forms' constants: those of Phys, the laminar Prandtl number
+// and the turbulence floors of q + du (the Rusanov forms take Phys as
+// it is, so that their code is unchanged)
+struct PhysRoe : Phys {
+  double prandtl, tmin_k, tmin_w;
+};
+
+template <bool ROE>
+using KernelPhys = std::conditional_t<ROE, PhysRoe, Phys>;
 
 // per-species constants of a mixture (read when NS > 1): gas constant,
 // cv, cp, heat of formation, Sutherland conductivity coefficients and the
@@ -447,12 +474,15 @@ __device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
 // Direction d's block off-diagonal product of one cell: its Rusanov and
 // turbulence rows added to x, its thin-shear-layer (and species diffusion)
 // rows to x_t, the two addends of each row in the plane kernel's running
-// sum.  c and pc are the cell's padded and physical flat indices.  du is
-// read through L2 (__ldcg): other SMs write it during the launch.  A
-// masked face adds nothing.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+// sum; or (ROE) the Roe flux change (roe_offdiag.cuh) added to x, which
+// also reads the cell's own state (x_t keeps its +0.0).  c and pc are the
+// cell's padded and physical flat indices.  du is read through L2
+// (__ldcg): other SMs write it during the launch.  A masked face adds
+// nothing.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __device__ __forceinline__ void direction_product(
-    const Fields& fl, const Phys& ph, const Mixture<NS>& sp, int64_t c,
+    const Fields& fl, const KernelPhys<ROE>& ph, const Mixture<NS>& sp,
+    int64_t c,
     int64_t pc, int d, double x[NEQ], double x_t[NEQ]) {
   if (!fl.mask[3 * pc + d]) return;
   const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
@@ -460,7 +490,24 @@ __device__ __forceinline__ void direction_product(
   double dq[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) dq[e] = __ldcg(fl.du + e * fl.nc + nb);
-  if constexpr (NS == 1)
+  if constexpr (ROE) {
+    constexpr int T0 = NS + 4;   // first turbulence equation
+    double q[NEQ], qd[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) {
+      q[e] = fl.prim[e * fl.nc + nb];
+      qd[e] = fl.prim[e * fl.nc + c];
+    }
+    double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
+    if constexpr (VISCOUS) {
+      mu = fl.mu[nb];
+      mut = fl.mut[nb];
+      dist = st[4];
+      if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
+    }
+    flux::add_roe_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, q, dq, qd, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
+  } else if constexpr (NS == 1)
     add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, dq,
                                                          x, x_t);
   else
@@ -516,7 +563,7 @@ __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
 }
 
 // Prefetch into L2 what lane d reads for one cell but du.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
                                               int64_t pc, int d) {
   constexpr int N = NS + 4;
@@ -528,12 +575,18 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   prefetch_l2(st + NSTAT - 1);
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+  if constexpr (ROE) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
+  }
   if constexpr (VISCOUS) {
     prefetch_l2(fl.mu + nb);
     prefetch_l2(fl.mut + nb);
     if constexpr (NEQ == N + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
+    if constexpr (!ROE) {
 #pragma unroll
-    for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
+      for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
+    }
   }
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
@@ -554,9 +607,10 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 }
 
 // one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
-    sweep_tiles(Fields fl, Phys ph, Mixture<NS> sp, wavefront::Schedule sc) {
+    sweep_tiles(Fields fl, KernelPhys<ROE> ph, Mixture<NS> sp,
+                wavefront::Schedule sc) {
   const int nj = sc.n[1], nk = sc.n[2];
   auto padded = [&](int i, int j, int k) {
     return fl.base + i * fl.stride[0] + j * fl.stride[1] + k * fl.stride[2];
@@ -567,11 +621,11 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   wavefront::walk<FORWARD, NEQ, 2>(
       sc,
       [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
             fl, padded(i, j, k), physical(i, j, k), d);
       },
       [&](int i, int j, int k, int d, double (&x)[2][NEQ]) {
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0], x[1]);
       },
       [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
@@ -580,15 +634,19 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
       });
 }
 
+// the off-diagonal of this translation unit's forms
+constexpr bool ROE = SWEEP_ROE != 0;
+
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-int launch_tiles(int forward, const Fields& fl, const Phys& ph,
+int launch_tiles(int forward, const Fields& fl, const PhysRoe& ph_all,
                  const Mixture<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st) {
+  const KernelPhys<ROE>& ph = ph_all;
   if (forward)
-    return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>,
-                             sc, st, fl, ph, sp);
-  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
-                           st, fl, ph, sp);
+    return wavefront::launch(
+        sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true, ROE>, sc, st, fl, ph, sp);
+  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false, ROE>,
+                           sc, st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -596,7 +654,7 @@ int launch_tiles(int forward, const Fields& fl, const Phys& ph,
 // Schmidt number, the turbulent Schmidt number and the diffusion flag
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
-                const Fields& fl, const Phys& ph, const double* species,
+                const Fields& fl, const PhysRoe& ph, const double* species,
                 const wavefront::Schedule& sc, cudaStream_t st) {
   constexpr int N = NS + 4;
   Mixture<NS> sp;
@@ -628,8 +686,11 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // One whole block sweep of one block: a cudaMemsetAsync of the schedule's
 // state and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and
 // neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
-// head of this file).  R, cv, cp, hf, gamma, cond_c1 and cond_s are the
-// one species' (read when ns is 1); species is a HOST array of the
+// head of this file); roe is 1 for the approximateRoe forms, which only
+// the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
+// tmin_w, and no vgrad).  R, cv, cp, hf, gamma, prandtl, cond_c1 and
+// cond_s are the one species' (read when ns is 1); species is a HOST
+// array of the
 // mixture's constants (launch_form; read when ns > 1).  stat and mask are
 // in physical cell order; sched is a HOST array {ntiles, ni, nj, nk, ti,
 // tj, tk, g}, tiles the device tile table and state
@@ -637,24 +698,28 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // null; mu, mut, f1, vgrad may be null when inviscid and inv_t without
 // turbulence equations.  Returns cudaGetLastError() after the launch (0
 // when it was accepted), or cudaErrorInvalidValue for a form that does not
-// exist.
+// exist or that another library holds.
 extern "C" int blusgs_sweep_f64(
-    int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
+    int forward, int ns, int neq, int viscous, int wilcox, int roe,
+    const double* prim,
     double* du, const double* mu, const double* mut, const double* f1,
     const double* vgrad, const double* b, const double* extra,
     const double* inv_f, const double* inv_t, const double* stat,
     const unsigned char* mask, long long nc, long long ncp, long long stride_i,
     long long stride_j, long long stride_k, const int* sched, const int* tiles,
     int* state, double R, double cv, double cp, double hf, double gamma,
-    double prt, double scaling, double t_ref, double cond_c1, double cond_s,
-    double k_nondim, double sigma_k1, double sigma_k2, double sigma_w1,
-    double sigma_w2, const double* species, void* stream) {
+    double prandtl, double prt, double scaling, double tmin_k, double tmin_w,
+    double t_ref, double cond_c1, double cond_s, double k_nondim,
+    double sigma_k1, double sigma_k2, double sigma_w1, double sigma_w2,
+    const double* species, void* stream) {
+  if ((roe != 0) != ROE) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,
             inv_f, inv_t, stat,  mask, nc,   ncp,   base,
             {stride_i, stride_j, stride_k}};
-  Phys ph{R,     cv,      cp,     hf,       gamma,    prt,      scaling, t_ref,
-          cond_c1, cond_s, k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2};
+  PhysRoe ph{{R, cv, cp, hf, gamma, prt, scaling, t_ref, cond_c1, cond_s,
+              k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2},
+             prandtl, tmin_k, tmin_w};
   const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {

@@ -6,7 +6,7 @@
 // term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324), for one
 // species or a calorically perfect mixture of NS = 2..5 species, in the
 // forms the models need, each a compile-time instantiation of one
-// sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD> with NEQ = NS + 4
+// sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE> with NEQ = NS + 4
 // (+ 2 turbulence equations, the first at NS + 4):
 //   NS + 4 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a)
 //     only; mu, mut, f1 and the centre distance are not read;
@@ -25,6 +25,14 @@
 // and in q + du the species renormalisation mf_s = max(c_s / r, 0) / sum
 // (aither_tpu state.py:40-90).
 //
+// ROE selects the off-diagonal of `inviscidFluxJacobian: approximateRoe`
+// (roe_offdiag.cuh: the Roe flux change with the cell's own state held
+// fixed, plus the viscous-only radii), which replaces the JAX package's
+// scan path of aither_tpu/solver/implicit.py:113 roe_offdiagonal (no
+// Pallas form there).  A build holds the Rusanov forms (this file as it
+// is, library lusgs_sweep) or, with -DSWEEP_ROE=1, the Roe forms (library
+// lusgs_sweep_roe): two translation units, built in parallel.
+//
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
 // decreasing), every physical cell c of the plane becomes
@@ -37,7 +45,8 @@
 // where L_d / U_d is the scalar Rusanov off-diagonal product of the lower /
 // upper neighbour across direction d (aither_tpu implicit.offdiagonal_scalar:
 // the flux change 0.5|A|(F(q+du)-F(q)).n with turbulence rows zeroed, plus
-// the inviscid, viscous and turbulence face spectral radii times du).  The
+// the inviscid, viscous and turbulence face spectral radii times du), or
+// the Roe product (ROE).  The
 // neighbour in the block interior is final once its plane is done; a
 // neighbour in a connection ghost holds the swapped du.  du is updated IN
 // PLACE: a plane reads only the plane before it.
@@ -66,15 +75,29 @@
 // tiles and one cell's serial FP64 work (q + du, the two fluxes, the
 // radii: several dependent divisions).  The plane-per-launch kernel took
 // ~20 us a step; the wavefront takes the launch out of it and splits the
-// cell's work over three lanes (PERF.md, section 6).
+// cell's work over three lanes (PERF.md, section 6).  A Roe step does two
+// Roe fluxes per direction, about three times the Rusanov product's FP64
+// chain.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "roe_offdiag.cuh"
 #include "sweep_wavefront.cuh"
 
+// 1: this translation unit holds the approximateRoe forms (the library
+// lusgs_sweep_roe, utils/build.py VARIANTS), 0: the Rusanov forms
+#ifndef SWEEP_ROE
+#define SWEEP_ROE 0
+#endif
+
 namespace {
+
+using flux::physical_flux;
+using flux::physical_flux_mix;
+using flux::update_prim;
+using flux::update_prim_mix;
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
@@ -108,159 +131,6 @@ struct Fields {
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
 };
-
-// F(q).n per unit area (aither_tpu flux.physical_flux)
-template <int NEQ>
-__device__ __forceinline__ void physical_flux(const Phys& ph,
-                                              const double q[NEQ], double n0,
-                                              double n1, double n2,
-                                              double f[NEQ]) {
-  const double rho = q[0], u = q[1], v = q[2], w = q[3], p = q[4];
-  const double vn = u * n0 + v * n1 + w * n2;
-  const double t = p / (ph.R * rho);
-  const double h0 = ph.hf + ph.cp * t + 0.5 * (u * u + v * v + w * w);
-  const double rvn = rho * vn;
-  f[0] = rho * vn;
-  f[1] = rvn * u + p * n0;
-  f[2] = rvn * v + p * n1;
-  f[3] = rvn * w + p * n2;
-  f[4] = rvn * h0;
-  if constexpr (NEQ == 7) {
-    f[5] = rvn * q[5];
-    f[6] = rvn * q[6];
-  }
-}
-
-// q + du in conserved variables, back to primitives
-// (aither_tpu state.update_prim_with_cons, one species)
-template <int NEQ>
-__device__ __forceinline__ void update_prim(const Phys& ph,
-                                            const double q[NEQ],
-                                            const double dq[NEQ],
-                                            double out[NEQ]) {
-  const double rho = q[0], u = q[1], v = q[2], w = q[3], p = q[4];
-  const double t = p / (ph.R * rho);
-  const double e = ph.hf + ph.cv * t + 0.5 * (u * u + v * v + w * w);
-  const double c0 = rho + dq[0];
-  double mf = c0 / c0;             // species renormalisation (== 1)
-  mf = mf < 0.0 ? 0.0 : mf;
-  const double r = c0 * (mf / mf);
-  const double uu = (rho * u + dq[1]) / r;
-  const double vv = (rho * v + dq[2]) / r;
-  const double ww = (rho * w + dq[3]) / r;
-  const double se = (rho * e + dq[4]) / r - 0.5 * (uu * uu + vv * vv + ww * ww);
-  const double tu = (se - ph.hf) / ph.cv;
-  out[0] = r;
-  out[1] = uu;
-  out[2] = vv;
-  out[3] = ww;
-  out[4] = ph.R * r * tu;
-  if constexpr (NEQ == 7) {
-    const double k = (rho * q[5] + dq[5]) / r;
-    const double om = (rho * q[6] + dq[6]) / r;
-    out[5] = k < ph.tmin_k ? ph.tmin_k : k;     // NaN propagates
-    out[6] = om < ph.tmin_w ? ph.tmin_w : om;
-  }
-}
-
-// the mixture's sum_s c_s x_s over species, from 0 in species order (the
-// JAX package's Physics._sum_species)
-template <int NS>
-__device__ __forceinline__ double species_sum(const double c[NS],
-                                              const double x[NS]) {
-  double out = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) out += c[s] * x[s];
-  return out;
-}
-
-// F(q).n per unit area of a mixture (aither_tpu flux.physical_flux)
-template <int NS, int NEQ>
-__device__ __forceinline__ void physical_flux_mix(const Species<NS>& sp,
-                                                  const double q[NEQ],
-                                                  double n0, double n1,
-                                                  double n2, double f[NEQ]) {
-  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
-  double rho = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) rho += q[s];
-  const double vn = u * n0 + v * n1 + w * n2;
-  const double t = p / species_sum<NS>(sp.R, q);
-  double h = 0.0;  // sum_s mf_s (hf_s + cp_s t)
-#pragma unroll
-  for (int s = 0; s < NS; ++s) h += (sp.hf[s] + sp.cp[s] * t) * (q[s] / rho);
-  const double h0 = h + 0.5 * (u * u + v * v + w * w);
-  const double rvn = rho * vn;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) f[s] = q[s] * vn;
-  f[NS] = rvn * u + p * n0;
-  f[NS + 1] = rvn * v + p * n1;
-  f[NS + 2] = rvn * w + p * n2;
-  f[NS + 3] = rvn * h0;
-#pragma unroll
-  for (int e = NS + 4; e < NEQ; ++e) f[e] = rvn * q[e];
-}
-
-// q + du of a mixture in conserved variables, the species renormalised,
-// back to primitives (aither_tpu state.update_prim_with_cons)
-template <int NS, int NEQ>
-__device__ __forceinline__ void update_prim_mix(const Phys& ph,
-                                                const Species<NS>& sp,
-                                                const double q[NEQ],
-                                                const double dq[NEQ],
-                                                double out[NEQ]) {
-  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
-  double rho = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) rho += q[s];
-  const double t = p / species_sum<NS>(sp.R, q);
-  double e = 0.0;  // sum_s mf_s (hf_s + cv_s t)
-#pragma unroll
-  for (int s = 0; s < NS; ++s) e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
-  e += 0.5 * (u * u + v * v + w * w);
-  double c[NS];
-  double r = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    c[s] = q[s] + dq[s];
-    r += c[s];
-  }
-  double msum = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const double m = c[s] / r;
-    c[s] = m < 0.0 ? 0.0 : m;  // NaN propagates
-    msum += c[s];
-  }
-  double r2 = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    out[s] = r * (c[s] / msum);
-    r2 += out[s];
-  }
-  const double uu = (rho * u + dq[NS]) / r2;
-  const double vv = (rho * v + dq[NS + 1]) / r2;
-  const double ww = (rho * w + dq[NS + 2]) / r2;
-  const double se =
-      (rho * e + dq[NS + 3]) / r2 - 0.5 * (uu * uu + vv * vv + ww * ww);
-  double hf_mix = 0.0, cv_mix = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    hf_mix += sp.hf[s] * (out[s] / r2);
-    cv_mix += sp.cv[s] * (out[s] / r2);
-  }
-  const double tu = (se - hf_mix) / cv_mix;
-  out[NS] = uu;
-  out[NS + 1] = vv;
-  out[NS + 2] = ww;
-  out[NS + 3] = species_sum<NS>(sp.R, out) * tu;
-  if constexpr (NEQ == NS + 6) {
-    const double k = (rho * q[NS + 4] + dq[NS + 4]) / r2;
-    const double om = (rho * q[NS + 5] + dq[NS + 5]) / r2;
-    out[NS + 4] = k < ph.tmin_k ? ph.tmin_k : k;
-    out[NS + 5] = om < ph.tmin_w ? ph.tmin_w : om;
-  }
-}
 
 // scalar Rusanov off-diagonal product of one neighbour, added to acc
 // (aither_tpu implicit.offdiagonal_scalar).  mu, mut, f1 and dist are read
@@ -329,10 +199,12 @@ __device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
 }
 
 // Direction d's off-diagonal product of one cell, added to x: one step of
-// the plane kernel's direction loop.  c and pc are the cell's padded and
-// physical flat indices.  du is read through L2 (__ldcg): other SMs write
-// it during the launch.  A masked face adds nothing.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+// the plane kernel's direction loop, Rusanov or (ROE) the Roe flux change
+// (roe_offdiag.cuh), which also reads the cell's own state.  c and pc are
+// the cell's padded and physical flat indices.  du is read through L2
+// (__ldcg): other SMs write it during the launch.  A masked face adds
+// nothing.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __device__ __forceinline__ void direction_product(const Fields& fl,
                                                   const Phys& ph,
                                                   const Species<NS>& sp,
@@ -355,8 +227,16 @@ __device__ __forceinline__ void direction_product(const Fields& fl,
     dist = st[4];
     if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
   }
-  add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-      ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
+  if constexpr (ROE) {
+    double qd[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
+    flux::add_roe_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, q, dq, qd, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
+  } else {
+    add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
+  }
 }
 
 // Lane d's rows (e % 3 == d) of one cell's update from the sum acc of its
@@ -386,7 +266,7 @@ __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
 }
 
 // Prefetch into L2 what lane d reads for one cell but du.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
                                               int64_t pc, int d) {
   constexpr int T0 = NS + 4;
@@ -398,6 +278,10 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   prefetch_l2(st + NSTAT - 1);
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+  if constexpr (ROE) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
+  }
   if constexpr (VISCOUS) {
     prefetch_l2(fl.mu + nb);
     prefetch_l2(fl.mut + nb);
@@ -414,7 +298,7 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 }
 
 // one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
   const int nj = sc.n[1], nk = sc.n[2];
@@ -427,11 +311,11 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   wavefront::walk<FORWARD, NEQ, 1>(
       sc,
       [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
             fl, padded(i, j, k), physical(i, j, k), d);
       },
       [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
       },
       [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
@@ -440,15 +324,18 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
       });
 }
 
+// the off-diagonal of this translation unit's forms
+constexpr bool ROE = SWEEP_ROE != 0;
+
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
 int launch_tiles(int forward, const Fields& fl, const Phys& ph,
                  const Species<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st) {
   if (forward)
-    return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>,
-                             sc, st, fl, ph, sp);
-  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
-                           st, fl, ph, sp);
+    return wavefront::launch(
+        sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true, ROE>, sc, st, fl, ph, sp);
+  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false, ROE>,
+                           sc, st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -482,8 +369,10 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and neq is
 // ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
-// turbulence equations only with viscous).  R, cv, cp, hf, gamma and
-// prandtl are the one species' (read when ns is 1); species is a HOST
+// turbulence equations only with viscous); roe is 1 for the approximateRoe
+// forms, which only the library built with SWEEP_ROE holds.  R, cv, cp,
+// hf, gamma and prandtl are the one species' (read when ns is 1); species
+// is a HOST
 // array of the mixture's R_s, cv_s, cp_s and hf_s, ns each (read when ns
 // > 1).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
 // cell order.  sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk,
@@ -492,9 +381,10 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // null (variant (a)); mu, mut, f1 may be null when inviscid and inv_t
 // without turbulence equations.  Returns cudaGetLastError() after the
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a form
-// that does not exist.
+// that does not exist or that another library holds.
 extern "C" int lusgs_sweep_f64(
-    int forward, int ns, int neq, int viscous, int wilcox, const double* prim,
+    int forward, int ns, int neq, int viscous, int wilcox, int roe,
+    const double* prim,
     double* du, const double* mu, const double* mut, const double* f1,
     const double* b, const double* extra, const double* inv_f,
     const double* inv_t, const double* stat, const unsigned char* mask,
@@ -503,6 +393,7 @@ extern "C" int lusgs_sweep_f64(
     double R, double cv, double cp, double hf, double gamma, double prandtl,
     double prt, double scaling, double tmin_k, double tmin_w,
     double sigma_k1, double sigma_k2, const double* species, void* stream) {
+  if ((roe != 0) != ROE) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim, du,   mu,   mut, f1, b,   extra,
             inv_f, inv_t, stat, mask, nc, ncp, base,

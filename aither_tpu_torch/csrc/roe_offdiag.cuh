@@ -1,0 +1,425 @@
+// Gas-state and flux functions of the two LU-SGS sweep kernels
+// (lusgs_sweep.cu, blusgs_sweep.cu), float64, and the approximateRoe
+// off-diagonal product both take for `inviscidFluxJacobian:
+// approximateRoe`.
+//
+// The Roe forms replace the JAX package's scan path of
+// aither_tpu/solver/implicit.py:113 roe_offdiagonal: it has no Pallas
+// form (pallas_sweep.use_pallas sends approximateRoe to the scan, its
+// packed sweep stream lacking the diagonal cell's state), and these
+// kernels index cells directly, so they read that state.
+//
+// What the Roe product of one neighbour is (reference: fluxJacobian.cpp
+// :240-330 RoeOffDiagonal; aither_tpu_torch/solver/implicit.py
+// roe_offdiagonal):
+//   mag (F_roe(q_nb + du_nb | q_diag) - F_roe(q_nb | q_diag))
+//     +- (viscous-only face radius) du_nb
+// where q_nb + du_nb is the neighbour's state updated in conserved
+// variables, F_roe(a | b) is the Roe flux with a on the left for the lower
+// neighbour (forward sweep), and the new flux swaps sides, F_roe(q_diag,
+// q_nb + du_nb), for the upper one (backward sweep) while the old flux
+// keeps the neighbour on the left: the reference's asymmetry, so the upper
+// form is not zero at du = 0 but the side-swap offset.  The viscous radius
+// is the flow one (mu/Pr + mut/Prt) on the flow rows and the turbulence
+// one (mu + sigma_k mut) on the turbulence rows, with no inviscid part,
+// and with dist and f1 in their right order (the reference's call site
+// swaps them).  The turbulence rows of the flux change stay (unlike
+// Rusanov's).  The block solver takes the same vector; its block inverse
+// is unchanged.
+//
+// The old and the new flux are evaluated one after the other into one
+// array each, the updated state dying before the old flux starts, and the
+// dissipation of each flux is accumulated wave by wave into its rows in
+// the order of the plain version (aither_tpu_torch/solver/flux.py
+// roe_flux), so that kernel and plain differ by FMA contraction only.
+//
+// What bounds it: per neighbour two Roe fluxes (each a Roe average, a
+// square root for the ratio and one for the sound speed, two entropy
+// fixes, two physical fluxes) on top of q + du, about three times the
+// Rusanov product's FP64 work, on the same chain of dependent planes;
+// the bytes add the cell's own state (kernels/lusgs_sweep.py sweep_cost).
+//
+// PH is the kernel's struct of one-species constants (R, cv, cp, hf,
+// gamma, prandtl, prt, scaling, tmin_k, tmin_w, sigma_k1, sigma_k2), SP
+// its struct of a mixture's per-species constants (R, cv, cp, hf arrays).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace flux {
+
+constexpr double ENTROPY_FIX = 0.1;  // Harten (inviscidFlux.hpp:298)
+
+// F(q).n per unit area (aither_tpu flux.physical_flux)
+template <int NEQ, class PH>
+__device__ __forceinline__ void physical_flux(const PH& ph,
+                                              const double q[NEQ], double n0,
+                                              double n1, double n2,
+                                              double f[NEQ]) {
+  const double rho = q[0], u = q[1], v = q[2], w = q[3], p = q[4];
+  const double vn = u * n0 + v * n1 + w * n2;
+  const double t = p / (ph.R * rho);
+  const double h0 = ph.hf + ph.cp * t + 0.5 * (u * u + v * v + w * w);
+  const double rvn = rho * vn;
+  f[0] = rho * vn;
+  f[1] = rvn * u + p * n0;
+  f[2] = rvn * v + p * n1;
+  f[3] = rvn * w + p * n2;
+  f[4] = rvn * h0;
+  if constexpr (NEQ == 7) {
+    f[5] = rvn * q[5];
+    f[6] = rvn * q[6];
+  }
+}
+
+// q + du in conserved variables, back to primitives
+// (aither_tpu state.update_prim_with_cons, one species)
+template <int NEQ, class PH>
+__device__ __forceinline__ void update_prim(const PH& ph,
+                                            const double q[NEQ],
+                                            const double dq[NEQ],
+                                            double out[NEQ]) {
+  const double rho = q[0], u = q[1], v = q[2], w = q[3], p = q[4];
+  const double t = p / (ph.R * rho);
+  const double e = ph.hf + ph.cv * t + 0.5 * (u * u + v * v + w * w);
+  const double c0 = rho + dq[0];
+  double mf = c0 / c0;             // species renormalisation (== 1)
+  mf = mf < 0.0 ? 0.0 : mf;
+  const double r = c0 * (mf / mf);
+  const double uu = (rho * u + dq[1]) / r;
+  const double vv = (rho * v + dq[2]) / r;
+  const double ww = (rho * w + dq[3]) / r;
+  const double se = (rho * e + dq[4]) / r - 0.5 * (uu * uu + vv * vv + ww * ww);
+  const double tu = (se - ph.hf) / ph.cv;
+  out[0] = r;
+  out[1] = uu;
+  out[2] = vv;
+  out[3] = ww;
+  out[4] = ph.R * r * tu;
+  if constexpr (NEQ == 7) {
+    const double k = (rho * q[5] + dq[5]) / r;
+    const double om = (rho * q[6] + dq[6]) / r;
+    out[5] = k < ph.tmin_k ? ph.tmin_k : k;     // NaN propagates
+    out[6] = om < ph.tmin_w ? ph.tmin_w : om;
+  }
+}
+
+// the mixture's sum_s c_s x_s over species, from 0 in species order (the
+// JAX package's Physics._sum_species)
+template <int NS>
+__device__ __forceinline__ double species_sum(const double c[NS],
+                                              const double x[NS]) {
+  double out = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) out += c[s] * x[s];
+  return out;
+}
+
+// F(q).n per unit area of a mixture (aither_tpu flux.physical_flux)
+template <int NS, int NEQ, class SP>
+__device__ __forceinline__ void physical_flux_mix(const SP& sp,
+                                                  const double q[NEQ],
+                                                  double n0, double n1,
+                                                  double n2, double f[NEQ]) {
+  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
+  double rho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) rho += q[s];
+  const double vn = u * n0 + v * n1 + w * n2;
+  const double t = p / species_sum<NS>(sp.R, q);
+  double h = 0.0;  // sum_s mf_s (hf_s + cp_s t)
+#pragma unroll
+  for (int s = 0; s < NS; ++s) h += (sp.hf[s] + sp.cp[s] * t) * (q[s] / rho);
+  const double h0 = h + 0.5 * (u * u + v * v + w * w);
+  const double rvn = rho * vn;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] = q[s] * vn;
+  f[NS] = rvn * u + p * n0;
+  f[NS + 1] = rvn * v + p * n1;
+  f[NS + 2] = rvn * w + p * n2;
+  f[NS + 3] = rvn * h0;
+#pragma unroll
+  for (int e = NS + 4; e < NEQ; ++e) f[e] = rvn * q[e];
+}
+
+// q + du of a mixture in conserved variables, the species renormalised,
+// back to primitives (aither_tpu state.update_prim_with_cons)
+template <int NS, int NEQ, class PH, class SP>
+__device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
+                                                const double q[NEQ],
+                                                const double dq[NEQ],
+                                                double out[NEQ]) {
+  const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
+  double rho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) rho += q[s];
+  const double t = p / species_sum<NS>(sp.R, q);
+  double e = 0.0;  // sum_s mf_s (hf_s + cv_s t)
+#pragma unroll
+  for (int s = 0; s < NS; ++s) e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
+  e += 0.5 * (u * u + v * v + w * w);
+  double c[NS];
+  double r = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    c[s] = q[s] + dq[s];
+    r += c[s];
+  }
+  double msum = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const double m = c[s] / r;
+    c[s] = m < 0.0 ? 0.0 : m;  // NaN propagates
+    msum += c[s];
+  }
+  double r2 = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    out[s] = r * (c[s] / msum);
+    r2 += out[s];
+  }
+  const double uu = (rho * u + dq[NS]) / r2;
+  const double vv = (rho * v + dq[NS + 1]) / r2;
+  const double ww = (rho * w + dq[NS + 2]) / r2;
+  const double se =
+      (rho * e + dq[NS + 3]) / r2 - 0.5 * (uu * uu + vv * vv + ww * ww);
+  double hf_mix = 0.0, cv_mix = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    hf_mix += sp.hf[s] * (out[s] / r2);
+    cv_mix += sp.cv[s] * (out[s] / r2);
+  }
+  const double tu = (se - hf_mix) / cv_mix;
+  out[NS] = uu;
+  out[NS + 1] = vv;
+  out[NS + 2] = ww;
+  out[NS + 3] = species_sum<NS>(sp.R, out) * tu;
+  if constexpr (NEQ == NS + 6) {
+    const double k = (rho * q[NS + 4] + dq[NS + 4]) / r2;
+    const double om = (rho * q[NS + 5] + dq[NS + 5]) / r2;
+    out[NS + 4] = k < ph.tmin_k ? ph.tmin_k : k;
+    out[NS + 5] = om < ph.tmin_w ? ph.tmin_w : om;
+  }
+}
+
+// one species or a mixture: q + du, F(q).n
+template <int NS, int NEQ, class PH, class SP>
+__device__ __forceinline__ void update_state(const PH& ph, const SP& sp,
+                                             const double q[NEQ],
+                                             const double dq[NEQ],
+                                             double out[NEQ]) {
+  if constexpr (NS == 1)
+    update_prim<NEQ>(ph, q, dq, out);
+  else
+    update_prim_mix<NS, NEQ>(ph, sp, q, dq, out);
+}
+
+template <int NS, int NEQ, class PH, class SP>
+__device__ __forceinline__ void state_flux(const PH& ph, const SP& sp,
+                                           const double q[NEQ], double n0,
+                                           double n1, double n2,
+                                           double f[NEQ]) {
+  if constexpr (NS == 1)
+    physical_flux<NEQ>(ph, q, n0, n1, n2, f);
+  else
+    physical_flux_mix<NS, NEQ>(sp, q, n0, n1, n2, f);
+}
+
+// Harten's entropy fix of a wave speed
+__device__ __forceinline__ double entropy_fix(double ws) {
+  return ws < ENTROPY_FIX ? 0.5 * (ws * ws / ENTROPY_FIX + ENTROPY_FIX) : ws;
+}
+
+// The Roe flux F_roe(ql, qr).n per unit area, Harten's entropy fix
+// (aither_tpu flux.roe_flux; reference: inviscidFlux.hpp:259-382): the
+// Roe average of the two states (species densities ql_s sqrt(rho_r /
+// rho_l), the rest weighted by 1 and sqrt(rho_r / rho_l)), its enthalpy
+// and speed of sound, the dissipation of the two acoustic waves, the
+// entropy and shear waves and the turbulence waves, accumulated row by row
+// in the plain version's order into f, then 0.5 (F(ql) + F(qr) - diss).
+template <int NS, int NEQ, class PH, class SP>
+__device__ __forceinline__ void roe_flux(const PH& ph, const SP& sp,
+                                         const double ql[NEQ],
+                                         const double qr[NEQ], double n0,
+                                         double n1, double n2,
+                                         double f[NEQ]) {
+  constexpr int MX = NS, IE = NS + 3, T0 = NS + 4;
+  // Roe average
+  double rho_l = 0.0, rho_rt = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    rho_l += ql[s];
+    rho_rt += qr[s];
+  }
+  const double ratio = sqrt(rho_rt / rho_l);
+  const double coef = 1.0 / (1.0 + ratio);
+  double rs[NS];  // the Roe state's species densities
+  double rho_r = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    rs[s] = ql[s] * ratio;
+    rho_r += rs[s];
+  }
+  const double ur = (ql[MX] + ratio * qr[MX]) * coef;
+  const double vr = (ql[MX + 1] + ratio * qr[MX + 1]) * coef;
+  const double wr = (ql[MX + 2] + ratio * qr[MX + 2]) * coef;
+  const double pr = (ql[IE] + ratio * qr[IE]) * coef;
+  const double vel2 = ur * ur + vr * vr + wr * wr;
+  // enthalpy and speed of sound of the Roe state
+  double h_r, a_r;
+  if constexpr (NS == 1) {
+    const double t = pr / (ph.R * rs[0]);
+    h_r = ph.hf + ph.cp * t + 0.5 * vel2;
+    a_r = sqrt(ph.gamma * pr / rs[0]);
+  } else {
+    const double t = pr / species_sum<NS>(sp.R, rs);
+    double h = 0.0, cpm = 0.0, cvm = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const double mf = rs[s] / rho_r;
+      h += (sp.hf[s] + sp.cp[s] * t) * mf;
+      cpm += sp.cp[s] * mf;
+      cvm += sp.cv[s] * mf;
+    }
+    h_r = h + 0.5 * vel2;
+    a_r = sqrt(cpm / cvm * pr / rho_r);
+  }
+  const double vn_r = ur * n0 + vr * n1 + wr * n2;
+
+  const double d0 = qr[MX] - ql[MX], d1 = qr[MX + 1] - ql[MX + 1],
+               d2 = qr[MX + 2] - ql[MX + 2];
+  const double dvn = d0 * n0 + d1 * n1 + d2 * n2;
+  const double dp = qr[IE] - ql[IE];
+  double drho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) drho += qr[s] - ql[s];
+  const double a2 = a_r * a_r;
+
+  // left moving acoustic wave
+  double ws = entropy_fix(fabs(vn_r - a_r));
+  double wss = ws * ((dp - rho_r * a_r * dvn) / (2.0 * a2));
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] = wss * (rs[s] / rho_r);
+  f[MX] = wss * (ur - a_r * n0);
+  f[MX + 1] = wss * (vr - a_r * n1);
+  f[MX + 2] = wss * (wr - a_r * n2);
+  f[IE] = wss * (h_r - a_r * vn_r);
+#pragma unroll
+  for (int e = T0; e < NEQ; ++e)
+    f[e] = wss * ((ql[e] + ratio * qr[e]) * coef);
+
+  // entropy wave (species) and shear wave
+  ws = fabs(vn_r);
+  const double ss = ws * (-dp / a2);
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    f[s] = f[s] + (ss * (rs[s] / rho_r) + ws * (qr[s] - ql[s]));
+  wss = ws * (drho - dp / a2);
+  f[MX] = f[MX] + wss * ur;
+  f[MX + 1] = f[MX + 1] + wss * vr;
+  f[MX + 2] = f[MX + 2] + wss * wr;
+  f[IE] = f[IE] + wss * 0.5 * vel2;
+  wss = ws * rho_r;
+  f[MX] = f[MX] + wss * (d0 - dvn * n0);
+  f[MX + 1] = f[MX + 1] + wss * (d1 - dvn * n1);
+  f[MX + 2] = f[MX + 2] + wss * (d2 - dvn * n2);
+  f[IE] = f[IE] + wss * ((ur * d0 + vr * d1 + wr * d2) - vn_r * dvn);
+
+  // right moving acoustic wave
+  ws = entropy_fix(fabs(vn_r + a_r));
+  wss = ws * ((dp + rho_r * a_r * dvn) / (2.0 * a2));
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] = f[s] + wss * (rs[s] / rho_r);
+  f[MX] = f[MX] + wss * (ur + a_r * n0);
+  f[MX + 1] = f[MX + 1] + wss * (vr + a_r * n1);
+  f[MX + 2] = f[MX + 2] + wss * (wr + a_r * n2);
+  f[IE] = f[IE] + wss * (h_r + a_r * vn_r);
+  if constexpr (NEQ > T0) {
+    // and the turbulence waves
+    const double wt = fabs(vn_r);
+    const double dpa = dp / a2;
+#pragma unroll
+    for (int e = T0; e < NEQ; ++e) {
+      const double tr = (ql[e] + ratio * qr[e]) * coef;
+      f[e] = f[e] + wss * tr;
+      f[e] = f[e] + wt * ((rho_r * (qr[e] - ql[e]) + tr * drho) - dpa * tr);
+    }
+  }
+
+  // 0.5 (F(ql) + F(qr) - diss)
+  double fl[NEQ], fr[NEQ];
+  state_flux<NS, NEQ>(ph, sp, ql, n0, n1, n2, fl);
+  state_flux<NS, NEQ>(ph, sp, qr, n0, n1, n2, fr);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) f[e] = 0.5 * (fl[e] + fr[e] - f[e]);
+}
+
+// approximateRoe off-diagonal product of one neighbour (state q, update
+// dq) across a face (n, mag) of the cell with state qd, added to acc (head
+// of this file).  FORWARD: the lower neighbour (positive).  mu, mut, f1
+// and dist are read only by the forms that use them (0 otherwise).
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, class PH,
+          class SP>
+__device__ __forceinline__ void add_roe_offdiagonal(
+    const PH& ph, const SP& sp, const double q[NEQ], const double dq[NEQ],
+    const double qd[NEQ], double n0, double n1, double n2, double mag,
+    double dist, double mu, double mut, double f1, double acc[NEQ]) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
+  double df[NEQ];
+  {
+    double qu[NEQ];
+    update_state<NS, NEQ>(ph, sp, q, dq, qu);
+    if (FORWARD)
+      roe_flux<NS, NEQ>(ph, sp, qu, qd, n0, n1, n2, df);
+    else
+      roe_flux<NS, NEQ>(ph, sp, qd, qu, n0, n1, n2, df);
+  }
+  {
+    double fo[NEQ];
+    roe_flux<NS, NEQ>(ph, sp, q, qd, n0, n1, n2, fo);
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) df[e] = mag * (df[e] - fo[e]);
+  }
+  if constexpr (!VISCOUS) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) acc[e] += df[e];
+  } else {
+    // the viscous-only face radii of the neighbour state
+    double rho, gamma, prandtl;
+    if constexpr (NS == 1) {
+      rho = q[0];
+      gamma = ph.gamma;
+      prandtl = ph.prandtl;
+    } else {
+      rho = 0.0;
+      double cpm = 0.0, cvm = 0.0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) rho += q[s];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        cpm += sp.cp[s] * (q[s] / rho);
+        cvm += sp.cv[s] * (q[s] / rho);
+      }
+      gamma = cpm / cvm;
+      prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
+    }
+    const double max_term = fmax(4.0 / (3.0 * rho), gamma / rho);
+    const double sr = mag / dist * max_term *
+                      (ph.scaling * (mu / prandtl + mut / ph.prt));
+    const double sgn = FORWARD ? 1.0 : -1.0;
+#pragma unroll
+    for (int e = 0; e < T0; ++e) acc[e] += df[e] + sgn * (sr * dq[e]);
+    if constexpr (NEQ == T0 + 2) {
+      // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
+      const double sk = WILCOX ? ph.sigma_k1
+                               : f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+      const double mutx = WILCOX ? rho * q[T0] / q[T0 + 1] : mut;
+      const double sr_t = ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
+#pragma unroll
+      for (int e = T0; e < NEQ; ++e) acc[e] += df[e] + sgn * (sr_t * dq[e]);
+    }
+  }
+}
+
+}  // namespace flux

@@ -21,7 +21,14 @@ lagged opposite-side term of ``matrixSweeps > 1``) and (c)
 term), each in the forms of the models (``sweep_form``), for one species
 or a mixture of up to ``MAX_SPECIES``: ns + 4 equations inviscid (Euler)
 or viscous (laminar, LES), ns + 6 equations with the SST (sst2003,
-sstdes) or the Wilcox 2006 turbulence radii.  The plain
+sstdes) or the Wilcox 2006 turbulence radii; each with the Rusanov
+off-diagonal or, for ``inviscidFluxJacobian: approximateRoe``, the Roe
+flux change (``implicit.roe_offdiagonal``, which also reads the cell's
+own state; the same vector for the scalar and the block solver, whose
+block inverse stays).  The Roe forms replace the JAX package's scan path
+of ``roe_offdiagonal`` (it has no Pallas form: its packed sweep stream
+lacks the diagonal cell's state) and are built as libraries of their own
+(``utils.build.VARIANTS``).  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -78,13 +85,16 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     vgrad) and the inverse the channel-first block diagonal."""
     side = "lower" if forward else "upper"
     blk = bool(cfg.get("block_matrix"))
+    roe = cfg.get("inv_flux_jac", "rusanov") == "approximateRoe"
     C = prim.shape[0]
     qf = prim.reshape(C, -1)
     duf = du.view(C, -1)
     viscous = bool(cfg.get("viscous"))
     if viscous:
         muf, mutf, f1f = (aux[k].reshape(-1) for k in ("mu", "mut", "f1"))
-    vgf = aux["vgrad"].reshape(9, -1) if blk and viscous else None
+    # the Roe form reads no velocity gradient
+    vgf = (aux["vgrad"].reshape(9, -1) if blk and viscous and not roe
+           else None)
     bf = b.reshape(C, -1)
     ef = extra.reshape(C, -1) if extra is not None else None
     # without turbulence equations there is no turbulence inverse
@@ -115,8 +125,11 @@ def _plain_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         kw = {}
         if viscous:
             kw = dict(dist=stat[:, 4], mu=muf[nb], mut=mutf[nb], f1=f1f[nb])
-            if blk:
+            if vgf is not None:
                 kw["vgrad"] = vgf[:, nb].reshape(3, 3, -1)
+        if roe:
+            # the cell's own state, once per direction
+            kw["q_diag"] = qf[:, cells].repeat(1, 3)
         contrib = imp.offdiagonal(phys, cfg, qf[:, nb], duf[:, nb],
                                   stat[:, 0:3].T, stat[:, 3], forward, **kw)
         msk = mask[pcells]
@@ -154,27 +167,27 @@ def backward_plain(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux,
 # CUDA kernel
 
 
-def _library():
+def _library(roe: bool):
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("lusgs_sweep")
+    lib, _ = load_cuda_library("lusgs_sweep_roe" if roe else "lusgs_sweep")
     fn = lib.lusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 5 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
+        fn.argtypes = ([i] * 6 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _block_library():
+def _block_library(roe: bool):
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("blusgs_sweep")
+    lib, _ = load_cuda_library("blusgs_sweep_roe" if roe else "blusgs_sweep")
     fn = lib.blusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 5 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 15
+        fn.argtypes = ([i] * 6 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 18
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
@@ -191,8 +204,9 @@ def _check(t, name, shape, device):
 
 
 def sweep_form(phys: Physics, cfg):
-    """(ns, neq, viscous, wilcox) of the kernel instantiation this physics
-    takes.  A species count above ``MAX_SPECIES`` is refused with
+    """(ns, neq, viscous, wilcox, roe) of the kernel instantiation this
+    physics and off-diagonal (roe: approximateRoe) take.  A species count
+    above ``MAX_SPECIES`` is refused with
     NotImplementedError naming its ROADMAP.md item; a form no model has
     (turbulence equations without viscosity) raises ValueError."""
     viscous = bool(cfg.get("viscous", False))
@@ -204,7 +218,8 @@ def sweep_form(phys: Physics, cfg):
         raise ValueError("the CUDA sweeps cover ns + 4 equations (inviscid "
                          "or viscous) or ns + 6 (viscous RANS) only, got "
                          f"ns={ns} neq={neq} viscous={viscous}")
-    return ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006"
+    return (ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006",
+            cfg.get("inv_flux_jac", "rusanov") == "approximateRoe")
 
 
 def species_constants(phys: Physics, cfg, block: bool) -> np.ndarray:
@@ -224,7 +239,7 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
                     aux, extra):
     """Raise ValueError unless the operands are what the kernel of this
     solver (scalar or block) and this physics reads."""
-    ns, neq, viscous, _ = sweep_form(phys, cfg)
+    ns, neq, viscous, _, roe = sweep_form(phys, cfg)
     nturb = neq - ns - 4
     dev = prim.device
     NI, NJ, NK = plan.padded
@@ -236,7 +251,7 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
             _check(aux[k], k, (NI, NJ, NK), dev)
     _check(b, "b", (neq, ni, nj, nk), dev)
     if cfg.get("block_matrix"):
-        if viscous:
+        if viscous and not roe:
             _check(aux["vgrad"], "vgrad", (3, 3, NI, NJ, NK), dev)
         _check(inv_f, "inv_f", ((ns + 4) ** 2, ni, nj, nk), dev)
         inv_t_shape = (4, ni, nj, nk)
@@ -255,7 +270,7 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
 def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                   forward: bool, extra=None):
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
-    ns, neq, viscous, wilcox = sweep_form(phys, cfg)
+    ns, neq, viscous, wilcox, roe = sweep_form(phys, cfg)
     blk = bool(cfg.get("block_matrix"))
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
@@ -278,7 +293,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    form = (int(forward), ns, neq, int(viscous), int(wilcox))
+    form = (int(forward), ns, neq, int(viscous), int(wilcox), int(roe))
     fields = (prim.data_ptr(), du.data_ptr(),
               *(ptr(aux[k]) if viscous else None
                 for k in ("mu", "mut", "f1")))
@@ -289,17 +304,18 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             SST["sigma_w2"]))
     if blk:
         name = "blusgs_sweep_f64"
-        err = _block_library()(
-            *form, *fields, ptr(aux["vgrad"]) if viscous else None,
+        err = _block_library(roe)(
+            *form, *fields,
+            ptr(aux["vgrad"]) if viscous and not roe else None,
             b.data_ptr(), ptr(extra), inv_f.data_ptr(), ptr(inv_t),
-            *geometry, R, cv, cp, hf, g, phys.turb_prandtl(),
-            phys.nondim_scaling, phys.t_ref, phys.cond_c1[0],
-            phys.cond_s[0], phys.k_nondim, *sig, species.ctypes.data,
-            stream)
+            *geometry, R, cv, cp, hf, g, pr, phys.turb_prandtl(),
+            phys.nondim_scaling, *phys.turb_min(), phys.t_ref,
+            phys.cond_c1[0], phys.cond_s[0], phys.k_nondim, *sig,
+            species.ctypes.data, stream)
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
-        err = _library()(
+        err = _library(roe)(
             *form, *fields, b.data_ptr(), ptr(extra),
             inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
             phys.turb_prandtl(), phys.nondim_scaling, *phys.turb_min(),
@@ -330,10 +346,37 @@ NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 142, (5, True, False): 154,
 # N x N (+ 2x2) inverse product take 2 N^2 + N (+ 8).
 BLOCK_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 155, (5, True, False): 280,
                                (7, True, False): 312, (7, True, True): 306}
-SST_FORM = (1, 7, True, False)
+# csrc/roe_offdiag.cuh add_roe_offdiagonal, the same for both kernels:
+# update_prim 47 (39 with 5 equations), two roe_flux 542 (446), each the
+# Roe average, its enthalpy and speed of sound and the state differences
+# 51, the waves' dissipation rows 139 (101), two physical fluxes 60 (56)
+# and the combine 21 (15); the flux change 14 (10), and the rows into
+# the sum 7 (5) inviscid; viscous: max_term and the flow radius 11, each
+# row 4, the turbulence radius 10 with the SST blend, 8 for Wilcox
+ROE_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 500, (5, True, False): 526,
+                             (7, True, False): 652, (7, True, True): 650}
+SST_FORM = (1, 7, True, False, False)
 # the turbulence rows of a neighbour (SST blend, Wilcox), both kernels
 TURB_OPS = {False: 22, True: 20}
 BLOCK_TURB_OPS = {False: 30, True: 24}
+
+
+def roe_mixture_neighbour_ops(form) -> int:
+    """FP64 operations per contributing neighbour of a mixture's Roe form
+    (csrc/roe_offdiag.cuh, scalar and block alike): q + du 23 ns + 30 (+4
+    per turbulence equation), two Roe fluxes of 46 ns + 181 + 3 neq (+21
+    per turbulence equation: its wave rows and its flux row), the flux
+    change 2 neq; inviscid the rows into the sum, neq; viscous the state's
+    gamma and Prandtl number 7 ns + 5, max_term and the flow radius 11,
+    each row 4, the turbulence radius 10 (SST) or 8 (Wilcox)."""
+    ns, neq, viscous, wilcox, _ = form
+    nt = neq - ns - 4
+    flux = 46 * ns + 181 + 3 * neq + 21 * nt
+    ops = 23 * ns + 30 + 4 * nt + 2 * flux + 2 * neq
+    if not viscous:
+        return ops + neq
+    return (ops + 7 * ns + 16 + 4 * neq
+            + ((8 if wilcox else 10) if nt else 0))
 
 
 def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
@@ -350,7 +393,7 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
     rows with the mixture's conductivity 12 ns + 127 (+3 for the
     turbulent conductivity), Schmidt diffusion's species rows and
     enthalpy flux 14 ns + 4, the turbulence diagonal."""
-    ns, neq, viscous, wilcox = form
+    ns, neq, viscous, wilcox, _ = form
     turb = neq == ns + 6
     if block:
         ops = 24 * ns + 148
@@ -362,26 +405,42 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
     return ops + ((12 + TURB_OPS[wilcox]) if turb else 0)
 
 
+def _neighbours(plan, forward: bool):
+    """(per physical cell in plane order, whether each direction's face on
+    the sweep side is unmasked; the distinct padded cells read across
+    those faces)"""
+    mask = plan.mask["lower" if forward else "upper"][plan.phys_cells]
+    sign = -1 if forward else 1
+    return mask, torch.unique(torch.cat([plan.cells[mask[:, d]]
+                                         + sign * plan.strides[d]
+                                         for d in range(3)]))
+
+
 def neighbour_reads(plan, forward: bool):
     """(distinct padded cells read as neighbours across the unmasked faces
     of the sweep side, how many of them are ghosts)."""
-    mask = plan.mask["lower" if forward else "upper"][plan.phys_cells]
-    sign = -1 if forward else 1
-    nbs = torch.unique(torch.cat([plan.cells[mask[:, d]]
-                                  + sign * plan.strides[d]
-                                  for d in range(3)]))
+    _, nbs = _neighbours(plan, forward)
     return nbs.numel(), nbs.numel() - int(torch.isin(nbs, plan.cells).sum())
+
+
+def own_reads(plan, forward: bool) -> int:
+    """cells with an unmasked face on the sweep side that are not read as
+    a neighbour across one (the Roe form's own state)"""
+    mask, nbs = _neighbours(plan, forward)
+    return int((~torch.isin(plan.cells[mask.any(dim=1)], nbs)).sum())
 
 
 def sweep_cost(plan, forward: bool, with_extra: bool = False,
                block: bool = False, form=SST_FORM, diffusion: bool = False):
     """(bytes, FP64 operations) of one sweep of one block over ``plan``,
     each value the sweep needs read once and du's physical cells written
-    once, for the kernel form ``form`` = (ns, neq, viscous, wilcox) of
-    ``sweep_form`` (``diffusion``: a block mixture's Schmidt diffusion
+    once, for the kernel form ``form`` = (ns, neq, viscous, wilcox, roe)
+    of ``sweep_form`` (``diffusion``: a block mixture's Schmidt diffusion
     rows).  Reads: prim and, when viscous, mu, mut, f1 (not without
-    turbulence equations or for Wilcox) and for the block sweep vgrad at
-    the distinct neighbours across this run's unmasked faces; du's input
+    turbulence equations or for Wilcox) and for the block sweep's Rusanov
+    form vgrad at the distinct neighbours across this run's unmasked
+    faces; the Roe form also reads prim at the cells with an unmasked face
+    that are not read as neighbours; du's input
     where the sweep has not rewritten it first (the ghost neighbours, and
     every cell of a backward sweep without extra: du - D^-1 U); per cell
     the inverses (the scalar one or the (ns + 4)^2 block channels, the
@@ -390,7 +449,7 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     the unmasked faces (the centre distance only when viscous).
     Operations: the kernel's per contributing neighbour and per cell
     (+neq with extra)."""
-    ns, neq, viscous, wilcox = form
+    ns, neq, viscous, wilcox, roe = form
     N = ns + 4
     turb = neq == N + 2
     side = "lower" if forward else "upper"
@@ -402,19 +461,22 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     padded = neq
     if viscous:
         padded += 2 + (1 if turb and not wilcox else 0) \
-            + (9 if block else 0)
+            + (9 if block and not roe else 0)
     inverses = ((N * N if block else 1)
                 + ((4 if block else 1) if turb else 0))
     per_cell_in = (inverses + (0 if plain_backward else neq)
                    + (neq if with_extra else 0))
     nstat = plan.static[side].shape[-1] - (0 if viscous else 1)
-    values = (padded * nread
+    values = (padded * nread + (neq * own_reads(plan, forward) if roe else 0)
               + neq * (nghost + (ncell if plain_backward else 0))
               + per_cell_in * ncell
               + nstat * nfaces
               + neq * ncell)
     nbytes = 8 * values + mask.numel()
-    if ns == 1:
+    if roe:
+        per_nb = (ROE_NEIGHBOUR_OPS_BY_FORM[(neq, viscous, wilcox)]
+                  if ns == 1 else roe_mixture_neighbour_ops(form))
+    elif ns == 1:
         key = (neq, viscous, wilcox)
         per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block
                   else NEIGHBOUR_OPS_BY_FORM)[key]

@@ -4,8 +4,11 @@
                                [--iterations N] [--nproc N] [--no-files]
                                [--debug]
 
-Runs the implicit time-marching loop with residual logging to
-``<case>.resid`` / ``<case>.tme`` in the working directory.  ``--device``
+Runs the deck's time-marching loop (implicit Euler, Crank-Nicolson or
+BDF2 with dual time through LU-SGS, block LU-SGS, DPLUR or block DPLUR
+with the Rusanov or approximateRoe off-diagonal; or explicit Euler or
+RK4) with residual logging to ``<case>.resid`` / ``<case>.tme`` in the
+working directory.  ``--device``
 defaults to ``cuda`` and raises when no card is present; the CPU runs only
 when asked for.  Function and restart files are not written yet: without
 ``--no-files`` the run, and a restart argument, raise NotImplementedError

@@ -1,8 +1,10 @@
 """State carried across from the JAX package (or any numpy source).
 
-The JAX solver's per-block padded primitive arrays (``Solver.prims``) and
-time-n conserved interiors (``Solver.cons_n``), fetched to numpy, become
-the port's tensors here, so both packages can start from one state.
+The JAX solver's per-block padded primitive arrays (``Solver.prims``),
+time-n conserved interiors (``Solver.cons_n``) and, for a multilevel
+(bdf2) deck, time n-1 ones (``Solver.cons_nm1``), fetched to numpy, become
+the port's tensors here (``Solver.set_state``), so both packages can start
+from one state.
 Geometry is not converted: both packages build it with the same host code.
 """
 

@@ -3,7 +3,7 @@ residual, time step, update and norms.
 
 Port of ``aither_tpu/solver/step.py`` (``:31-436`` ghosts and swaps,
 ``:443-524`` inviscid residual, ``:556-695`` full residual, ``:698-746``
-time step, update and norms).  Arrays are padded equation-first blocks
+time step, the explicit Euler, RK4 and implicit updates and norms).  Arrays are padded equation-first blocks
 ``(neq, NI, NJ, NK)`` as in the JAX package.  The ghost fills return a
 filled copy of their input; the connection swap updates in place.
 
@@ -28,6 +28,7 @@ from . import state as st
 from .flux import inviscid_flux
 from .reconstruction import reconstruct_faces
 
+RK4_ALPHA = (0.25, 1.0 / 3.0, 0.5, 1.0)  # low-storage RK4 (procBlock.cpp:941)
 
 # ---------------------------------------------------------------------------
 # ghost-state assignment
@@ -614,6 +615,28 @@ def local_dt(cfg, geom, specrad, g, dims, cfl):
     if cfg["dt"] > 0.0:
         return torch.full_like(vol, cfg["dt_nondim"])
     return cfl * vol / specrad
+
+
+def explicit_euler_update(phys: Physics, block, prim, resid, dt):
+    """cons - dt/V R on the interior, back to primitives; returns a new
+    padded array (reference: procBlock.cpp:866-899)"""
+    vol = block.geom["vol"][block.interior[1:]]
+    cons = st.cons_from_prim(phys, prim[block.interior])
+    out = prim.clone()
+    out[block.interior] = st.prim_from_cons(
+        phys, cons - (dt / vol)[None] * resid)
+    return out
+
+
+def rk4_update(phys: Physics, block, prim, cons_n, resid, dt, stage):
+    """low-storage RK4 stage ``stage``: consN - alpha dt/V R on the
+    interior, back to primitives; returns a new padded array (reference:
+    procBlock.cpp:927-950)"""
+    vol = block.geom["vol"][block.interior[1:]]
+    out = prim.clone()
+    out[block.interior] = st.prim_from_cons(
+        phys, cons_n - (dt / vol)[None] * RK4_ALPHA[stage] * resid)
+    return out
 
 
 def implicit_update(phys: Physics, block, prim, du):

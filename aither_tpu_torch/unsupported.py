@@ -6,10 +6,6 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "dplur": f"{_Q1} 2 (linear-solver variants)",
-    "bdplur": f"{_Q1} 2 (linear-solver variants)",
-    "approximateRoe": f"{_Q1} 2 (linear-solver variants)",
-    "timeIntegration": f"{_Q1} 3 (time integration)",
     "multigrid": f"{_Q1} 4 (multigrid)",
     "wallLaw": f"{_Q1} 5 (remaining physics: wall law)",
     "faceReconstruction": f"{_Q1} 5 (remaining physics: WENO)",

@@ -4,7 +4,10 @@ first use, and load it with ctypes.
 The library goes to ``aither_tpu_torch/build/`` (git-ignored), named by a
 hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
 so an edited source or shared header is rebuilt and an unchanged one is
-reused within a checkout.  Usage::
+reused within a checkout.  A library of ``VARIANTS`` is another build of
+a source, with defines: the approximateRoe forms of both sweeps are their
+own translation units, so that the Rusanov ones build as they did and
+the two build in parallel.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
@@ -28,6 +31,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# library -> (source in csrc/ without ".cu", nvcc defines)
+VARIANTS = {"lusgs_sweep_roe": ("lusgs_sweep", ("-DSWEEP_ROE=1",)),
+            "blusgs_sweep_roe": ("blusgs_sweep", ("-DSWEEP_ROE=1",))}
 
 _LOADED: dict = {}
 
@@ -59,29 +66,33 @@ def local_headers(path: str) -> list:
 
 
 def _paths(name: str):
-    """(source, library) paths of ``csrc/<name>.cu``; the library's name
-    hashes the source, its local headers and the flags"""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    """(source, library path, nvcc flags) of library ``name``: built from
+    ``csrc/<name>.cu``, or from the source ``VARIANTS`` names with its
+    defines; the library's name hashes the source, its local headers and
+    the flags"""
+    source, defines = VARIANTS.get(name, (name, ()))
+    src = os.path.join(CSRC_DIR, f"{source}.cu")
+    flags = (*NVCC_FLAGS, *defines)
     digest = hashlib.sha256()
     for path in [src] + local_headers(src):
         with open(path, "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return src, os.path.join(BUILD_DIR,
-                             f"lib{name}_{digest.hexdigest()[:16]}.so")
+                             f"lib{name}_{digest.hexdigest()[:16]}.so"), flags
 
 
 def load_cuda_libraries(names):
-    """{name: (ctypes.CDLL, info)} for ``csrc/<name>.cu`` of every name.
+    """{name: (ctypes.CDLL, info)} for the library of every name.
     The libraries not built yet are compiled by one nvcc each, all started
     together.  ``info`` has the library path, whether it was built in this
     call, the build seconds and the compiler's ``-Xptxas -v`` lines."""
     infos = {}
     for name in names:
         if name not in _LOADED:
-            src, lib_path = _paths(name)
-            infos[name] = dict(src=src, path=lib_path, built=False,
-                               seconds=0.0, ptxas="")
+            src, lib_path, flags = _paths(name)
+            infos[name] = dict(src=src, path=lib_path, flags=flags,
+                               built=False, seconds=0.0, ptxas="")
     missing = [n for n, i in infos.items() if not os.path.isfile(i["path"])]
     if missing:
         nvcc = nvcc_path()
@@ -89,7 +100,8 @@ def load_cuda_libraries(names):
         builds = {}
         for name in missing:
             tmp = f"{infos[name]['path']}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, infos[name]["src"]]
+            cmd = [nvcc, *infos[name]["flags"], "-o", tmp,
+                   infos[name]["src"]]
             builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.PIPE,
                                              text=True),
@@ -116,6 +128,6 @@ def load_cuda_libraries(names):
 
 
 def load_cuda_library(name: str):
-    """(ctypes.CDLL, info) for ``csrc/<name>.cu``, building it if needed
+    """(ctypes.CDLL, info) for the library ``name``, building it if needed
     (see ``load_cuda_libraries``)."""
     return load_cuda_libraries([name])[name]

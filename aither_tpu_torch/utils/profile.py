@@ -2,18 +2,25 @@
 
     python -m aither_tpu_torch.utils.profile [--dims NI NJ NK]
                                              [--iterations N] [--warmup W]
-                                             [--matrix-solver lusgs|blusgs]
+                                             [--matrix-solver SOLVER]
+                                             [--matrix-sweeps S]
+                                             [--inviscid-flux-jacobian JAC]
+                                             [--time-integration TI]
                                              [--equation-set SET]
                                              [--turbulence-model MODEL]
                                              [--mixture NAME]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
-default the 1.05M-cell case; the deck's matrixSolver, equationSet and
-turbulenceModel as given, default lusgs, rans and sst2003; with
-``--mixture`` the gas of ``cases.MIXTURES``, e.g. n2o2 or air5_frozen) to
-``smoke_run/profile_<solver>_<set>_<model>[_<mixture>]/``, runs W warm-up
-iterations,
-then N iterations three times:
+default the 1.05M-cell case; the deck's matrixSolver (lusgs, blusgs,
+dplur, bdplur) and matrixSweeps, inviscidFluxJacobian (rusanov,
+approximateRoe), timeIntegration (the decks of ``cases.TIME_INTEGRATORS``),
+equationSet and turbulenceModel as given, default lusgs, 1, rusanov,
+implicitEuler, rans and sst2003; with ``--mixture`` the gas of
+``cases.MIXTURES``, e.g. n2o2 or air5_frozen) to
+``smoke_run/profile_<solver>_<set>_<model>[_<mixture>]_<jacobian>_<time
+integration>/``, runs W warm-up nonlinear iterations, then N nonlinear
+iterations (the rk4 stages in turn; bdf2 against its time n-1 solution)
+three times:
 
 1. plain, ending in one synchronise: the iteration time;
 2. with a device synchronise around each layer (ghosts, residual, linear
@@ -49,6 +56,7 @@ LAYERS = (("ghosts", step, "apply_all_bcs"),
           ("sweeps", driver.Solver, "_relax"),
           ("matrix_residual", implicit, "matrix_residual"),
           ("update", step, "implicit_update"),
+          ("explicit_update", driver.Solver, "_explicit_update"),
           ("norms", step, "residual_norms"))
 
 
@@ -80,10 +88,17 @@ def layer_timers(totals: dict):
 
 
 def iterate(solver, n):
-    for _ in range(n):
-        solver.cons_n = solver.store_old_solution()
+    """n nonlinear iterations from the time-n solution at the solver's
+    state, each an rk4 stage in turn on an rk4 deck (stage 0 from a new
+    time-n solution), each against the time n-1 solution on a bdf2 deck"""
+    stages = solver.deck["nonlinearIterations"]
+    rk4 = solver.cfg["time_integration"] == "rk4"
+    for m in range(n):
+        if not rk4 or m % stages == 0:
+            solver.cons_n = solver.store_old_solution()
         solver.prims, *_ = solver._iteration(
-            solver.prims, solver.cons_n, solver.deck.cfl(0))
+            solver.prims, solver.cons_n, solver.deck.cfl(0),
+            stage=m % stages if rk4 else 0, cons_nm1=solver.cons_nm1)
     torch.cuda.synchronize()
 
 
@@ -93,8 +108,13 @@ def main(argv=None):
                         default=list(cases.SMOKE_3D_DIMS))
     parser.add_argument("--iterations", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=3)
-    parser.add_argument("--matrix-solver", choices=("lusgs", "blusgs"),
-                        default="lusgs")
+    parser.add_argument("--matrix-solver", default="lusgs",
+                        choices=("lusgs", "blusgs", "dplur", "bdplur"))
+    parser.add_argument("--matrix-sweeps", type=int, default=1)
+    parser.add_argument("--inviscid-flux-jacobian", default="rusanov",
+                        choices=("rusanov", "approximateRoe"))
+    parser.add_argument("--time-integration", default="implicitEuler",
+                        choices=tuple(cases.TIME_INTEGRATORS))
     parser.add_argument("--equation-set", default="rans",
                         choices=("euler", "navierStokes",
                                  "largeEddySimulation", "rans"))
@@ -113,12 +133,17 @@ def main(argv=None):
     wd = os.path.join(os.getcwd(), "smoke_run",
                       f"profile_{args.matrix_solver}_{args.equation_set}_"
                       f"{args.turbulence_model}"
-                      + (f"_{args.mixture}" if args.mixture else ""))
+                      + (f"_{args.mixture}" if args.mixture else "")
+                      + f"_{args.inviscid_flux_jacobian}_"
+                        f"{args.time_integration}")
     path = cases.write_plate_case(
         wd, *args.dims, matrix_solver=args.matrix_solver,
+        matrix_sweeps=args.matrix_sweeps,
+        inviscid_flux_jacobian=args.inviscid_flux_jacobian,
         equation_set=args.equation_set,
         turbulence_model=args.turbulence_model,
-        **cases.MIXTURES.get(args.mixture, {}))
+        **cases.MIXTURES.get(args.mixture, {}),
+        **cases.TIME_INTEGRATORS[args.time_integration])
     here = os.getcwd()
     os.chdir(wd)            # a reacting deck's mechanism is read from here
     try:
@@ -155,6 +180,9 @@ def main(argv=None):
     print(json.dumps({
         "card": card, "dims": args.dims, "cells": solver.case.total_cells,
         "matrix_solver": args.matrix_solver,
+        "matrix_sweeps": args.matrix_sweeps,
+        "inviscid_flux_jacobian": args.inviscid_flux_jacobian,
+        "time_integration": args.time_integration,
         "equation_set": args.equation_set,
         "turbulence_model": args.turbulence_model,
         "mixture": args.mixture, "iterations": n, "iteration_ms": iteration_ms,

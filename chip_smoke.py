@@ -88,12 +88,26 @@ printing its own lines:
     launch;
 10. the viscous kernel on a ragged plate (RAGGED_DIMS, 2 x 51x44x37, whose
     dims the kernel's default tiles and segments do not divide), SST,
-    Wilcox, LES and laminar, each against its plain version as in phase 3.
+    Wilcox, LES and laminar, each against its plain version as in phase 3;
+11. the other linear solvers and time integrators (SOLVER_DECKS, decks
+    of TIME_DECKS), every solver built once, compared and driven as in
+    phase 8: on case B SST lusgs with the approximateRoe off-diagonal (the
+    Roe forms of the scalar sweep with and without the lagged term against
+    their plain versions; its drive launches the Roe sweep and K2), SST
+    dplur at matrixSweeps 4 (K2, no sweep launch) and SST bdf2 with dual
+    time (3 time steps of 3 nonlinear iterations); on case A the Roe forms
+    of both sweeps for SST, laminar, Euler, Wilcox and the mixtures of 2-5
+    species, each compared and driven, then explicitEuler (Euler), rk4
+    (laminar: K2 on an explicit path), crankNicholson (Wilcox) and bdplur
+    (laminar), each driven.  Phase 6 also holds SST approximateRoe lusgs,
+    SST dplur, laminar rk4 and SST bdf2 cuda against cpu.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
 tile, segment, CTAs, dynamic shared memory, CTAs per SM and registers;
-phase 2 fails if an instantiation of it spills.
+phase 2 fails if an instantiation of it spills; a sweep instantiation's
+spill is printed.  A line "phase N done" gives the seconds since the start
+after every phase.
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object (one row per kernel form; its times from case B where the form
@@ -121,11 +135,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "smoke_run")
 
 MAIN_ITERATIONS = 12
-LAGGED_ITERATIONS = 8
-BLOCK_ITERATIONS = 8
-BLOCK_LAGGED_ITERATIONS = 7
-NEW_ITERATIONS = 8       # phase 8, every deck
-MIXTURE_ITERATIONS = 8   # phase 9, every deck
+LAGGED_ITERATIONS = 6
+BLOCK_ITERATIONS = 6
+BLOCK_LAGGED_ITERATIONS = 5
+NEW_ITERATIONS = 5       # phase 8, every deck
+MIXTURE_ITERATIONS = 5   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 # the plane-per-launch sweep pairs (one launch per hyperplane) these
@@ -186,6 +200,25 @@ REF_ITERATIONS = 3
 # the update (tests/test_torch_reacting_blusgs.py holds the port to the JAX
 # package at 2e-6 on the same grounds)
 REACTING_BLOCK_RTOL = 2e-6
+# the approximateRoe and time-integration decks by tag: (time integrator of
+# cases.TIME_INTEGRATORS, further write_plate_case keywords).  The
+# hot-air decks take approximateRoe at CFL 1 ("roe_cfl1"): at the ramp
+# 10-1000 the Roe sweeps of five-species air give NaN from the second or
+# third iteration on, the plain sweep on the CPU as the kernel on the card
+# (q + du turns a pressure negative, whose Roe average takes a square
+# root; PERF.md section 6)
+ROE = dict(inviscid_flux_jacobian="approximateRoe")
+TIME_DECKS = {
+    "rusanov": ("implicitEuler", {}),
+    "roe": ("implicitEuler", ROE),
+    "roe_cfl1": ("implicitEuler", dict(ROE, cfl=(1.0, 0.0, 1.0))),
+    "bdf2": ("bdf2", {}),
+    "explicit": ("explicitEuler", {}),
+    "rk4": ("rk4", {}),
+    "cn": ("crankNicholson", {}),
+}
+ROE_REPLACES = ("aither_tpu/solver/implicit.py:113 roe_offdiagonal (scan "
+                "path; no Pallas form)")
 
 # name -> (equationSet, turbulenceModel, mixture of cases.MIXTURES or None)
 PHYSICS = {"euler": ("euler", "none", None),
@@ -241,6 +274,36 @@ MIXTURE_DECKS = (
     ("case A", "air4_frozen", "blusgs", 1, (False,)),
     ("case B", "n2o2", "lusgs", 1, (False,)),
     ("case B", "air5_frozen", "blusgs", 2, (True,)),
+)
+# phase 11: (case, physics, matrixSolver, matrixSweeps, deck tag of
+# TIME_DECKS, sweep comparisons, time steps driven).  Every compared form
+# is driven; the case-B Roe lusgs deck's lagged form by the case-A one at
+# matrixSweeps 2.  Frozen three- and four-species air give the Roe forms
+# the species counts 3 and 4.
+SOLVER_DECKS = (
+    ("case B", "sst", "lusgs", 1, "roe", (False, True), 6),
+    ("case B", "sst", "dplur", 4, "rusanov", (), 6),
+    ("case B", "sst", "lusgs", 1, "bdf2", (), 3),
+    ("case A", "sst", "lusgs", 2, "roe", (), 4),
+    ("case A", "sst", "blusgs", 1, "roe", (False,), 4),
+    ("case A", "sst", "blusgs", 2, "roe", (True,), 4),
+    ("case A", "laminar", "blusgs", 1, "roe", (False,), 4),
+    ("case A", "laminar", "blusgs", 2, "roe", (True,), 4),
+    ("case A", "laminar", "lusgs", 1, "roe", (False,), 4),
+    ("case A", "euler", "lusgs", 1, "roe", (False,), 4),
+    ("case A", "euler", "blusgs", 2, "roe", (True,), 4),
+    ("case A", "wilcox", "lusgs", 2, "roe", (True,), 4),
+    ("case A", "wilcox", "blusgs", 1, "roe", (False,), 4),
+    ("case A", "n2o2", "lusgs", 1, "roe", (False,), 4),
+    ("case A", "n2o2", "blusgs", 2, "roe", (True,), 4),
+    ("case A", "air5", "lusgs", 2, "roe_cfl1", (True,), 4),
+    ("case A", "air5", "blusgs", 1, "roe_cfl1", (False,), 4),
+    ("case A", "air3_frozen", "lusgs", 1, "roe", (False,), 4),
+    ("case A", "air4_frozen", "blusgs", 2, "roe_cfl1", (True,), 4),
+    ("case A", "euler", "lusgs", 1, "explicit", (), 4),
+    ("case A", "laminar", "lusgs", 1, "rk4", (), 2),
+    ("case A", "wilcox", "lusgs", 1, "cn", (), 4),
+    ("case A", "laminar", "bdplur", 1, "rusanov", (), 4),
 )
 
 
@@ -373,13 +436,14 @@ def sweep_pair(solver, system, du0, extras, kernel=True):
 
 
 def form_name(form):
-    """the sweep kernels' form (ns, neq, viscous, wilcox) in words"""
-    ns, neq, viscous, wilcox = form
+    """the sweep kernels' form (ns, neq, viscous, wilcox, roe) in words"""
+    ns, neq, viscous, wilcox, roe = form
     if neq == ns + 4:
         name = f"{neq} eq {'viscous' if viscous else 'inviscid'}"
     else:
         name = f"{neq} eq {'Wilcox' if wilcox else 'SST'}"
-    return name if ns == 1 else f"{name}, {ns} species"
+    name = name if ns == 1 else f"{name}, {ns} species"
+    return f"{name}, approximateRoe" if roe else name
 
 
 def sweep_errors(kern, plain):
@@ -607,22 +671,27 @@ def read_tme(path):
 
 def drive(torch, solver, iterations, sweep_pairs, label, card,
           case="case B"):
-    """Solver.run on the card with the launch counters set to 0 just
-    before and read just after; checks and prints; returns the launch
-    counts {kernel: n} and, as 'viscous_path_ms', the viscous kernel's time
-    per iteration inside the run (path_timings).  lusgs launches the
-    scalar sweep and, on a viscous deck, the viscous kernel; blusgs the
-    block sweep only; each sweep launch follows one reset of its
-    schedule's state."""
+    """Solver.run of ``iterations`` time steps on the card with the launch
+    counters set to 0 just before and read just after; checks and prints;
+    returns the launch counts {kernel: n} and, as 'viscous_path_ms', the
+    viscous kernel's time per nonlinear iteration inside the run
+    (path_timings).  Per nonlinear iteration (the deck's per step) lusgs
+    launches the scalar sweep and, on a viscous deck, the viscous kernel;
+    blusgs the block sweep only; each sweep launch follows one reset of
+    its schedule's state.  dplur and the explicit integrators launch no
+    sweep, dplur and explicit one-species viscous decks the viscous
+    kernel, bdplur neither."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     cells = solver.case.total_cells
     nblocks = len(solver.case.blocks)
+    nonlinear = solver.deck["nonlinearIterations"]
+    passes = iterations * nonlinear
     counters = {"lusgs_sweep": ls.LAUNCHES, "blusgs_sweep": ls.BLOCK_LAUNCHES,
                 "viscous_march": vm.LAUNCHES,
                 "sweep_state_resets": ls.STATE_RESETS}
     # one launch per block and sweep
-    sweeps = iterations * sweep_pairs * 2 * nblocks
+    sweeps = passes * sweep_pairs * 2 * nblocks if solver.sweeps else 0
     if solver.cfg["block_matrix"]:
         expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
                   "viscous_march": 0, "sweep_state_resets": sweeps}
@@ -630,7 +699,7 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
         # a mixture's viscous residual is the plain version (one species
         # only in the fused kernel, as in the JAX package's use_march)
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
-                  "viscous_march": (iterations * nblocks
+                  "viscous_march": (passes * nblocks
                                     if solver.cfg["viscous"]
                                     and solver.phys.ns == 1 else 0),
                   "sweep_state_resets": sweeps}
@@ -648,30 +717,33 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     if allocs is not None:
         allocs = device_allocs(torch) - allocs
     path_ms = path_timings(timings, nblocks, label, allocs, card)
-    print(f"{label}: {iterations} iterations of {case} ({cells} cells, "
-          f"{solver.deck['equationSet']} / {solver.deck['turbulenceModel']}, "
-          f"{solver.phys.ns} species, "
-          f"{solver.deck['matrixSolver']}, matrixSweeps {sweep_pairs}), "
-          f"kernel launches {launches} (expected {expect})", flush=True)
-    if sweeps == 0:
-        fail(f"{label}: no sweep launch expected")
+    deck = solver.deck
+    print(f"{label}: {iterations} steps of {nonlinear} nonlinear "
+          f"iterations of {case} ({cells} cells, "
+          f"{deck['equationSet']} / {deck['turbulenceModel']}, "
+          f"{solver.phys.ns} species, {deck['timeIntegration']}, "
+          f"{deck['matrixSolver']}, {deck['inviscidFluxJacobian']}, "
+          f"matrixSweeps {sweep_pairs}), kernel launches {launches} "
+          f"(expected {expect})", flush=True)
     for name, n in expect.items():
         if launches[name] != n:
             fail(f"{label}: {name} launched {launches[name]} times, "
                  f"expected {n}")
     l2 = solver.l2_history
-    if len(l2) != iterations or not np.isfinite(l2).all():
+    if len(l2) != passes or not np.isfinite(l2).all():
         fail(f"{label}: non-finite or missing residual L2: {l2}")
     with open(solver.sim_root + ".resid") as f:
         rows = [ln for ln in f.read().splitlines()[1:] if ln.strip()]
-    if len(rows) != iterations:
-        fail(f"{label}: .resid has {len(rows)} rows for {iterations} "
-             f"iterations")
+    if len(rows) != passes:
+        fail(f"{label}: .resid has {len(rows)} rows for {passes} "
+             f"nonlinear iterations")
+    first = min(STEADY_FROM, iterations - 1)
     steady = [t for n, t in read_tme(solver.sim_root + ".tme")
-              if n >= STEADY_FROM]
+              if n >= first]
     its = len(steady) / sum(steady)
-    print(f"{label}: {its:.4f} iterations/s steady (iterations "
-          f"{STEADY_FROM}-{iterations - 1}), {its * cells / 1e6:.4f} "
+    print(f"{label}: {its:.4f} steps/s steady (steps {first}-"
+          f"{iterations - 1}), {its * nonlinear:.4f} nonlinear "
+          f"iterations/s, {its * nonlinear * cells / 1e6:.4f} "
           f"Mcell-iterations/s, peak device memory {peak / 2**30:.3f} GiB "
           f"({card})", flush=True)
     print(f"{label}: last L2 {[f'{v:.4e}' for v in l2[-1]]}", flush=True)
@@ -703,17 +775,21 @@ def path_timings(timings, nblocks, label, allocs, card):
     return per_iteration
 
 
-def make_solver(wd, dims, device, solver_name, sweeps, physics):
+def make_solver(wd, dims, device, solver_name, sweeps, physics,
+                tag="rusanov"):
     """Solver of the generated plate in ``wd`` with the named physics
-    (PHYSICS), built in ``wd``: a reacting deck reads its mechanism from
-    the working directory"""
-    from aither_tpu_torch.cases import MIXTURES, write_plate_case
+    (PHYSICS) and deck (TIME_DECKS), built in ``wd``: a reacting deck
+    reads its mechanism from the working directory"""
+    from aither_tpu_torch.cases import (MIXTURES, TIME_INTEGRATORS,
+                                        write_plate_case)
     from aither_tpu_torch.solver.driver import Solver
     es, tm, mixture = PHYSICS[physics]
+    integrator, deck = TIME_DECKS[tag]
     path = write_plate_case(wd, *dims, matrix_sweeps=sweeps,
                             matrix_solver=solver_name, equation_set=es,
                             turbulence_model=tm,
-                            **MIXTURES.get(mixture, {}))
+                            **MIXTURES.get(mixture, {}),
+                            **TIME_INTEGRATORS[integrator], **deck)
     here = os.getcwd()
     os.chdir(wd)
     try:
@@ -722,13 +798,15 @@ def make_solver(wd, dims, device, solver_name, sweeps, physics):
         os.chdir(here)
 
 
-def reference_history(dims, device, solver_name, sweeps, physics):
-    """raw L2 history (REF_ITERATIONS, neq) of the small case from a
-    state perturbed by up to 1% on the interior (seeded; the unperturbed
-    plate has roundoff-level residual components)."""
+def reference_history(dims, device, solver_name, sweeps, physics,
+                      tag="rusanov"):
+    """raw L2 history (REF_ITERATIONS steps x nonlinear iterations, neq)
+    of the small case from a state perturbed by up to 1% on the interior
+    (seeded; the unperturbed plate has roundoff-level residual
+    components)."""
     wd = os.path.join(RUN_DIR, f"reference_{device}_{physics}_{solver_name}_"
-                               f"{sweeps}")
-    s = make_solver(wd, dims, device, solver_name, sweeps, physics)
+                               f"{sweeps}_{tag}")
+    s = make_solver(wd, dims, device, solver_name, sweeps, physics, tag)
     perturb(s)
     s.run(iterations=REF_ITERATIONS)
     return np.asarray(s.l2_history)
@@ -783,9 +861,14 @@ def main():
     print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvcc: {nvcc}", flush=True)
 
+    def done(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     # -- phase 2: build -------------------------------------------------------
     t0 = time.perf_counter()
     libs = load_cuda_libraries(["lusgs_sweep", "blusgs_sweep",
+                                "lusgs_sweep_roe", "blusgs_sweep_roe",
                                 "viscous_march"])
     print(f"phase 2 build: {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)",
@@ -800,18 +883,24 @@ def main():
             if name == "viscous_march" and (not spill
                                             or int(spill.group(1))):
                 fail(f"the viscous kernel spills: {ln}")
+            if spill and int(spill.group(1)):
+                print(f"phase 2 ptxas {name}: spills: {ln}", flush=True)
+    done(2)
 
-    def build(label, dims, solver_name, sweeps=1, physics="sst"):
+    def build(label, dims, solver_name, sweeps=1, physics="sst",
+              tag="rusanov"):
         wd = os.path.join(RUN_DIR, f"{label}_{physics}_{solver_name}_"
-                                   f"{sweeps}".replace(" ", "_"))
+                                   f"{sweeps}_{tag}".replace(" ", "_"))
         es, tm, mixture = PHYSICS[physics]
         t0 = time.perf_counter()
-        s = make_solver(wd, dims, "cuda", solver_name, sweeps, physics)
+        s = make_solver(wd, dims, "cuda", solver_name, sweeps, physics, tag)
         if es == "euler":           # a uniform flow otherwise
             perturb(s)
         gas = f", {mixture} ({s.phys.ns} species)" if mixture else ""
         print(f"{label}: 2 blocks of {dims} ({es} / {tm}{gas}, "
-              f"{solver_name}, matrixSweeps {sweeps}) built in "
+              f"{solver_name}, matrixSweeps {sweeps}, {tag}: "
+              f"{s.deck['timeIntegration']}, "
+              f"{s.deck['inviscidFluxJacobian']}) built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return s
 
@@ -853,20 +942,28 @@ def main():
         del solver
         solver = build(label, dims, "lusgs")
         compare_all(solver, label, case, (False, True), ("perturbed",))
+    done(3)
 
     # (kernel, form, with the lagged term) -> (launches of its drive, case)
     launches = {}
     # viscous kernel key -> (ms per iteration inside Solver.run, case)
     path_ms = {}
 
+    # phase 11: K2 launches of each drive of the new paths, with its model
+    new_path_k2 = {}
+
     def drive_and_count(solver, iterations, sweeps, label, case="case B"):
         from aither_tpu_torch.kernels import lusgs_sweep as ls
         n = drive(torch, solver, iterations, sweeps, label, card, case)
-        kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
-                  else "lusgs_sweep")
-        form = ls.sweep_form(solver.phys, solver.cfg)
-        # a form's first driven path gives its count
-        launches.setdefault((kernel, form, sweeps > 1), (n[kernel], case))
+        if label.startswith("phase 11"):
+            new_path_k2[label] = (n["viscous_march"], solver.phys.turb_model)
+        if solver.sweeps:
+            kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
+                      else "lusgs_sweep")
+            form = ls.sweep_form(solver.phys, solver.cfg)
+            # a form's first driven path gives its count
+            launches.setdefault((kernel, form, sweeps > 1),
+                                (n[kernel], case))
         if n["viscous_march"]:
             key = ("viscous_march", solver.phys.turb_model)
             launches.setdefault(key, (n["viscous_march"], case))
@@ -879,35 +976,45 @@ def main():
     # -- phase 4: main path, matrixSweeps 1 ----------------------------------
     drive_and_count(solver, MAIN_ITERATIONS, 1, "phase 4 main path")
     del solver
+    done(4)
 
     # -- phase 5: the lagged-term path, matrixSweeps 2 ------------------------
     solver = build("phase 5", SMOKE_3D_DIMS, "lusgs", 2)
     drive_and_count(solver, LAGGED_ITERATIONS, 2, "phase 5 matrixSweeps 2")
     del solver
+    done(5)
 
     # -- phase 6: small-case reference, cuda against cpu ----------------------
-    references = [("sst", name, sweeps) for name in ("lusgs", "blusgs")
-                  for sweeps in (1, 2)]
-    references += [(physics, "lusgs", 1)
+    references = [("sst", name, sweeps, "rusanov")
+                  for name in ("lusgs", "blusgs") for sweeps in (1, 2)]
+    references += [(physics, "lusgs", 1, "rusanov")
                    for physics in ("euler", "laminar", "les", "wilcox")]
-    references += [(physics, "blusgs", 1) for physics in ("laminar", "wilcox")]
-    references += [("n2o2", "lusgs", 1), ("air5", "blusgs", 1)]
-    for physics, solver_name, sweeps in references:
+    references += [(physics, "blusgs", 1, "rusanov")
+                   for physics in ("laminar", "wilcox")]
+    references += [("n2o2", "lusgs", 1, "rusanov"),
+                   ("air5", "blusgs", 1, "rusanov")]
+    references += [("sst", "lusgs", 1, "roe"), ("sst", "dplur", 4, "rusanov"),
+                   ("laminar", "lusgs", 1, "rk4"), ("sst", "lusgs", 1, "bdf2")]
+    for physics, solver_name, sweeps, tag in references:
         hist = {dev: reference_history(TEST_DIMS, dev, solver_name, sweeps,
-                                       physics)
+                                       physics, tag)
                 for dev in ("cuda", "cpu")}
         # per equation, relative to that equation's largest L2
         worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
                        / np.abs(hist["cpu"]).max(axis=0)).max())
         tol = (REACTING_BLOCK_RTOL if (physics, solver_name) == (
             "air5", "blusgs") else REF_RTOL)
+        if not np.isfinite(hist["cuda"]).all():
+            fail(f"{physics}, {solver_name}, {tag}: non-finite L2 on cuda")
         print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, {physics}, "
-              f"{solver_name}, matrixSweeps {sweeps}, {REF_ITERATIONS} "
-              f"iterations, cuda vs cpu raw L2 max rel diff {worst:.3e} "
+              f"{solver_name}, matrixSweeps {sweeps}, {tag}, "
+              f"{REF_ITERATIONS} steps ({len(hist['cpu'])} nonlinear "
+              f"iterations), cuda vs cpu raw L2 max rel diff {worst:.3e} "
               f"(tol {tol:.0e})", flush=True)
         if not worst <= tol:
-            fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}: the "
-                 f"cuda run disagrees with the cpu run")
+            fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}, {tag}: "
+                 f"the cuda run disagrees with the cpu run")
+    done(6)
 
     # -- phase 7: the blusgs path, matrixSweeps 1 and 2 -----------------------
     solver = build("phase 7", SMOKE_3D_DIMS, "blusgs", 1)
@@ -917,6 +1024,7 @@ def main():
     drive_and_count(solver, BLOCK_LAGGED_ITERATIONS, 2,
                     "phase 7 blusgs matrixSweeps 2")
     del solver
+    done(7)
 
     # -- phase 8: the other physics, compared and driven ----------------------
     for case, physics, solver_name, sweeps, extras, fields in NEW_DECKS:
@@ -925,6 +1033,7 @@ def main():
         compare_all(solver, label, case, extras, fields)
         drive_and_count(solver, NEW_ITERATIONS, sweeps, label, case)
         del solver
+    done(8)
 
     # -- phase 9: multispecies, compared and driven ---------------------------
     for case, physics, solver_name, sweeps, extras in MIXTURE_DECKS:
@@ -933,6 +1042,7 @@ def main():
         compare_all(solver, label, case, extras, ())
         drive_and_count(solver, MIXTURE_ITERATIONS, sweeps, label, case)
         del solver
+    done(9)
 
     # -- phase 10: the viscous kernel's tile and segment edges ----------------
     for physics in RAGGED_PHYSICS:
@@ -940,6 +1050,21 @@ def main():
         compare_viscous(torch, solver, "phase 10 ragged", card,
                         case="ragged")
         del solver
+    done(10)
+
+    # -- phase 11: the other linear solvers and time integrators -------------
+    for case, physics, solver_name, sweeps, tag, extras, steps in \
+            SOLVER_DECKS:
+        label = (f"phase 11 {case} {physics} {solver_name} matrixSweeps "
+                 f"{sweeps} {tag}")
+        solver = build(label, all_dims[case], solver_name, sweeps, physics,
+                       tag)
+        compare_all(solver, label, case, extras, ())
+        drive_and_count(solver, steps, sweeps, label, case)
+        del solver
+    print(f"phase 11: viscous kernel launches of the drives {new_path_k2}",
+          flush=True)
+    done(11)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -959,7 +1084,8 @@ def main():
                        "blusgs_sweep": ("c, block", "c+b, block, lagged term")
                        }[key[0]][int(key[2])]
             name = f"{key[0]} (variant {variant}; {form_name(key[1])})"
-            replaces = "aither_tpu/solver/pallas_sweep.py:239"
+            replaces = (ROE_REPLACES if key[1][4]
+                        else "aither_tpu/solver/pallas_sweep.py:239")
         kernels.append({
             "name": name, "route": "cuda", "source": sources[key[0]],
             "replaces": replaces, "launches": launches[key][0],
@@ -972,7 +1098,11 @@ def main():
             # Solver.run (all blocks, per iteration) with its case
             kernels[-1].update(cold_ms=by_case[case][5],
                                path_ms=path_ms[key][0],
-                               path_case=path_ms[key][1])
+                               path_case=path_ms[key][1],
+                               new_path_launches={
+                                   label: n for label, (n, model) in
+                                   new_path_k2.items()
+                                   if n and model == key[1]})
     for row in kernels:
         if not row["launches"] > 0:
             fail(f"{row['name']}: no launch on its driven path")

@@ -490,15 +490,17 @@ def test_residual_history(pair):
 # 5. routing
 
 
-def test_deck_check_admits_blusgs_and_refuses_bdplur(tmp_path):
+def test_deck_check_admits_blusgs_and_bdplur(tmp_path):
+    """both block solvers pass the deck check; bdplur builds a CPU solver
+    with the block matrix and no sweep plans (it sweeps nothing)"""
     from aither_tpu_torch.io.deck import parse_deck
-    from aither_tpu_torch.solver.driver import check_supported
+    from aither_tpu_torch.solver.driver import Solver, check_supported
     path = write_plate_case(str(tmp_path), 4, 3, 2, matrix_solver="blusgs")
     check_supported(parse_deck(path).finalize())
     path = write_plate_case(str(tmp_path), 4, 3, 2, matrix_solver="bdplur")
-    with pytest.raises(NotImplementedError,
-                       match="bdplur .*ROADMAP.md queue 1 item 2"):
-        check_supported(parse_deck(path).finalize())
+    check_supported(parse_deck(path).finalize())
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    assert ts.cfg["block_matrix"] and not ts.sweeps and not ts.plans
 
 
 def test_block_residual_takes_the_plain_viscous_residual(pair, monkeypatch):

@@ -122,16 +122,9 @@ def test_port_never_imports_jax(tmp_path, blocked):
     assert "NOJAX_OK" in proc.stdout
 
 
-@pytest.mark.parametrize("patch", [
-    ("matrixSolver", "bdplur"), ("matrixSolver", "dplur"),
-    ("multigridLevels", "2"), ("inviscidFluxJacobian", "approximateRoe"),
-    ("faceReconstruction", "weno"), ("inviscidFlux", "ausm"),
-    ("timeIntegration", "bdf2"),
-    ("viscousFaceReconstruction", "centralFourth"),
-    ("thermodynamicModel", "thermallyPerfect")])
-def test_refuses_settings_outside_the_slice(tmp_path, patch):
+def _patched_case(tmp_path, patch):
+    """the generated deck with one setting replaced or added"""
     import re
-    from aither_tpu_torch.solver.driver import Solver
     path = write_case(tmp_path, (4, 3, 2))
     key, val = patch
     with open(path) as f:
@@ -143,8 +136,37 @@ def test_refuses_settings_outside_the_slice(tmp_path, patch):
         text = line + "\n" + text
     with open(path, "w") as f:
         f.write(text)
+    return path
+
+
+@pytest.mark.parametrize("patch", [
+    pytest.param(("multigridLevels", "2"), id="patch2"),
+    pytest.param(("faceReconstruction", "weno"), id="patch4"),
+    pytest.param(("inviscidFlux", "ausm"), id="patch5"),
+    pytest.param(("viscousFaceReconstruction", "centralFourth"),
+                 id="patch7"),
+    pytest.param(("thermodynamicModel", "thermallyPerfect"), id="patch8")])
+def test_refuses_settings_outside_the_slice(tmp_path, patch):
+    from aither_tpu_torch.solver.driver import Solver
+    path = _patched_case(tmp_path, patch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         Solver(path, device="cpu", workdir=str(tmp_path))
+
+
+@pytest.mark.parametrize("patch", [
+    ("matrixSolver", "bdplur"), ("matrixSolver", "dplur"),
+    ("inviscidFluxJacobian", "approximateRoe"),
+    ("timeIntegration", "bdf2")])
+def test_admits_settings_of_the_slice(tmp_path, patch):
+    """the linear solvers and time integrators the port covers since they
+    were refused: the deck check admits each and the CPU solver builds"""
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import Solver, check_supported
+    path = _patched_case(tmp_path, patch)
+    check_supported(parse_deck(path).finalize())
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    key, val = patch
+    assert ts.deck[key] == val
 
 
 def test_cli_requires_cuda_or_explicit_cpu(tmp_path, monkeypatch):

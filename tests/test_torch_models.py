@@ -327,16 +327,9 @@ def test_cli_runs_the_deck_on_the_cpu(tmp_path, monkeypatch, name,
     assert nres == (7 if es == "rans" else 5)
 
 
-@pytest.mark.parametrize("patch,item", [
-    (("matrixSolver", "dplur"), "item 2"),
-    (("inviscidFluxJacobian", "approximateRoe"), "item 2"),
-    (("faceReconstruction", "weno"), "item 5"),
-    (("inviscidFlux", "ausm"), "item 5")])
-@pytest.mark.parametrize("name", ["euler", "wilcox"])
-def test_check_supported_still_refuses(tmp_path, name, patch, item):
+def _patched_deck(tmp_path, name, patch):
+    """the generated deck of physics ``name`` with one setting replaced"""
     import re
-    from aither_tpu_torch.io.deck import parse_deck
-    from aither_tpu_torch.solver.driver import check_supported
     es, tm = DECKS[name]
     path = write_plate_case(str(tmp_path), 4, 3, 2, equation_set=es,
                             turbulence_model=tm)
@@ -347,9 +340,37 @@ def test_check_supported_still_refuses(tmp_path, name, patch, item):
     assert n == 1
     with open(path, "w") as f:
         f.write(text)
+    return path
+
+
+@pytest.mark.parametrize("patch,item", [
+    pytest.param(("faceReconstruction", "weno"), "item 5",
+                 id="patch2-item 5"),
+    pytest.param(("inviscidFlux", "ausm"), "item 5", id="patch3-item 5")])
+@pytest.mark.parametrize("name", ["euler", "wilcox"])
+def test_check_supported_still_refuses(tmp_path, name, patch, item):
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import check_supported
+    path = _patched_deck(tmp_path, name, patch)
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1 {item}"):
         check_supported(parse_deck(path).finalize())
+
+
+@pytest.mark.parametrize("patch", [("matrixSolver", "dplur"),
+                                   ("inviscidFluxJacobian",
+                                    "approximateRoe")])
+@pytest.mark.parametrize("name", ["euler", "wilcox"])
+def test_check_supported_admits_the_linear_solvers(tmp_path, name, patch):
+    """dplur and approximateRoe, refused before the port covered them,
+    pass the deck check, and the CPU solver builds"""
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import Solver, check_supported
+    path = _patched_deck(tmp_path, name, patch)
+    check_supported(parse_deck(path).finalize())
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    key, val = patch
+    assert ts.deck[key] == val
 
 
 @pytest.mark.parametrize("matrix_solver", ["lusgs", "blusgs"])
@@ -371,7 +392,7 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
     assert [c.count for c in counters] == before
     assert np.isfinite(ts.l2_history).all()
     assert ls.sweep_form(ts.phys, ts.cfg) == (
-        1, ts.phys.neq, name != "euler", name == "wilcox")
+        1, ts.phys.neq, name != "euler", name == "wilcox", False)
 
     prims, res, sr, dg, dts, auxs = ts._residuals(dict(ts.prims),
                                                   ts.deck.cfl(0))
@@ -405,14 +426,14 @@ def test_wrappers_refuse_what_is_not_ported(physics):
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     _, tp, _, tc = physics["wilcox"]
-    assert ls.sweep_form(tp, tc) == (1, 7, True, True)
+    assert ls.sweep_form(tp, tc) == (1, 7, True, True, False)
     with pytest.raises(ValueError, match="ns \\+ 4 equations"):
         ls.sweep_form(tp, dict(tc, viscous=False))
     two = dataclasses.replace(tp, ns=2)
     with pytest.raises(ValueError, match="ns \\+ 4 equations"):
         ls.sweep_form(two, tc)
     assert ls.sweep_form(dataclasses.replace(two, neq=8), tc) == (
-        2, 8, True, True)
+        2, 8, True, True, False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
         ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
     with pytest.raises(ValueError, match="viscous residual kernel"):
@@ -427,8 +448,10 @@ def test_wrappers_refuse_what_is_not_ported(physics):
         assert vm._check_scope(p, c) == branch
 
 
-@pytest.mark.parametrize("form", [(1, 5, False, False), (1, 5, True, False),
-                                  (1, 7, True, False), (1, 7, True, True)])
+@pytest.mark.parametrize("form", [(1, 5, False, False, False),
+                                  (1, 5, True, False, False),
+                                  (1, 7, True, False, False),
+                                  (1, 7, True, True, False)])
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_by_form(tmp_path, form, block):
     """the bound counts each form's own bytes and operations: fewer
@@ -450,8 +473,10 @@ def test_sweep_cost_by_form(tmp_path, form, block):
     assert extra[1] - ops == form[1] * ncell
 
 
-@pytest.mark.parametrize("form", [(2, 8, True, False), (5, 9, True, False),
-                                  (2, 6, False, False), (5, 11, True, True)])
+@pytest.mark.parametrize("form", [(2, 8, True, False, False),
+                                  (5, 9, True, False, False),
+                                  (2, 6, False, False, False),
+                                  (5, 11, True, True, False)])
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_of_mixture_forms(tmp_path, form, block):
     """a mixture's bound, counted here value by value and operation by
@@ -465,7 +490,7 @@ def test_sweep_cost_of_mixture_forms(tmp_path, form, block):
     from aither_tpu_torch.solver.driver import Solver
     path = write_plate_case(str(tmp_path), 4, 3, 2)
     plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
-    ns, neq, viscous, wilcox = form
+    ns, neq, viscous, wilcox, _ = form
     N, turb = ns + 4, neq == ns + 6
     ncell = int(plan.cells.numel())
     nfaces = int(plan.mask["lower"].sum())

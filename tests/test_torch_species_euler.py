@@ -36,7 +36,8 @@ def test_deck_is_an_inviscid_mixture(pair):
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     _, ts = pair
     assert (ts.phys.ns, ts.phys.neq) == (2, 6) and not ts.cfg["viscous"]
-    assert ls.sweep_form(ts.phys, ts.cfg) == (2, 6, False, False)
+    assert ls.sweep_form(ts.phys, ts.cfg) == (2, 6, False, False,
+                                                False)
 
 
 def test_plain_scalar_sweep_pair_matches_pallas_kernel(pair):

@@ -296,20 +296,28 @@ def test_tile_order_sweep_on_a_flat_block(tmp_path):
 
 
 def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
-    """an edited csrc header renames (so rebuilds) both sweep libraries
-    that include it, and no other"""
+    """an edited csrc header renames (so rebuilds) the sweep libraries
+    that include it, Rusanov and Roe builds alike, and no other; a Roe
+    build is another library of the same source"""
     import shutil
     from aither_tpu_torch.utils import build
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
-    names = ("lusgs_sweep", "blusgs_sweep", "viscous_march")
+    sweeps = ("lusgs_sweep", "blusgs_sweep", "lusgs_sweep_roe",
+              "blusgs_sweep_roe")
+    names = sweeps + ("viscous_march",)
     assert [h.rsplit("/", 1)[-1] for h in build.local_headers(
-        str(csrc / "lusgs_sweep.cu"))] == ["sweep_wavefront.cuh"]
-    before = {n: build._paths(n)[1] for n in names}
-    with open(csrc / "sweep_wavefront.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: build._paths(n)[1] for n in names}
-    assert after["lusgs_sweep"] != before["lusgs_sweep"]
-    assert after["blusgs_sweep"] != before["blusgs_sweep"]
-    assert after["viscous_march"] == before["viscous_march"]
+        str(csrc / "lusgs_sweep.cu"))] == ["roe_offdiag.cuh",
+                                           "sweep_wavefront.cuh"]
+    for header in ("sweep_wavefront.cuh", "roe_offdiag.cuh"):
+        before = {n: build._paths(n) for n in names}
+        assert before["lusgs_sweep_roe"][0] == before["lusgs_sweep"][0]
+        assert before["lusgs_sweep_roe"][1] != before["lusgs_sweep"][1]
+        assert "-DSWEEP_ROE=1" in before["blusgs_sweep_roe"][2]
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        after = {n: build._paths(n) for n in names}
+        for n in sweeps:
+            assert after[n][1] != before[n][1], (header, n)
+        assert after["viscous_march"] == before["viscous_march"]

@@ -23,14 +23,16 @@ SEED = 7
 
 def write_case(tmp_dir, dims=TEST_DIMS, matrix_sweeps=1,
                matrix_solver="lusgs", equation_set="rans",
-               turbulence_model="sst2003", **mixture):
-    """the generated deck; ``mixture`` takes write_plate_case's species
-    keywords (cases.N2O2, cases.AIR5)"""
+               turbulence_model="sst2003", **deck):
+    """the generated deck; ``deck`` takes write_plate_case's other
+    keywords: the species ones (cases.N2O2, cases.AIR5) and the time
+    integration, Jacobian, time-step, nonlinear-iteration, dual-time and
+    CFL ones"""
     return write_plate_case(str(tmp_dir), *dims,
                             matrix_sweeps=matrix_sweeps,
                             matrix_solver=matrix_solver,
                             equation_set=equation_set,
-                            turbulence_model=turbulence_model, **mixture)
+                            turbulence_model=turbulence_model, **deck)
 
 
 def jax_solver(deck_path, workdir, scan=False):
@@ -187,19 +189,22 @@ def sweep_inputs(ts, seed=5):
     return inputs
 
 
-def jax_sweep_pair(js, inputs, with_extra):
+def jax_sweep_pair(js, inputs, with_extra, scan=False):
     """forward then backward group sweep of the JAX package over both
     (same-shape) blocks through its Pallas kernel in interpret mode
-    (whatever path the Solver's own iteration takes), scalar or block by
-    the deck: ({block: du after forward}, {block: du after backward})"""
+    (whatever path the Solver's own iteration takes), or with ``scan``
+    through its scan path (the only one of approximateRoe), scalar or
+    block by the deck: ({block: du after forward}, {block: du after
+    backward})"""
     import jax
     import jax.numpy as jnp
     from aither_tpu.solver import implicit as jim
     from aither_tpu.solver import pallas_sweep as ps
     blocks = js.case.blocks
     ctxs = [jim.build_implicit_context(b) for b in blocks]
-    cfg = {k: v for k, v in js.cfg.items() if k != "no_pallas"}
-    cfg["pallas_interpret"] = True
+    cfg = {k: v for k, v in js.cfg.items()
+           if k not in ("no_pallas", "pallas_interpret")}
+    cfg["no_pallas" if scan else "pallas_interpret"] = True
     blk = bool(cfg.get("block_matrix"))
 
     def inverse(ctx, ch):
@@ -227,7 +232,8 @@ def jax_sweep_pair(js, inputs, with_extra):
         bwd = jim.lusgs_backward_group(js.phys, cfg, items, with_extra)
         return fwd, bwd
 
-    assert ps.use_pallas(cfg, jnp.float64, js.phys)   # kernel path
+    # the kernel path, or the scan path
+    assert ps.use_pallas(cfg, jnp.float64, js.phys) != scan
     arrs = {bi: {k: jnp.asarray(v) for k, v in a.items()}
             for bi, a in inputs.items()}
     fwd, bwd = jax.jit(run)(arrs)
@@ -235,14 +241,15 @@ def jax_sweep_pair(js, inputs, with_extra):
             {b.index: np.asarray(f) for b, f in zip(blocks, bwd)})
 
 
-def check_sweep_pair(js, ts, inputs, with_extra, tol=1e-10):
+def check_sweep_pair(js, ts, inputs, with_extra, tol=1e-10, scan=False):
     """the port's plain forward + backward sweep pair (scalar or block by
-    the deck) against the JAX package's Pallas sweep, per equation within
-    ``tol`` of its scale; CPU tensors launch no kernel."""
+    the deck) against the JAX package's Pallas sweep (``scan``: its scan
+    sweep), per equation within ``tol`` of its scale; CPU tensors launch
+    no kernel."""
     import torch
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as tim
-    want_f, want_b = jax_sweep_pair(js, inputs, with_extra)
+    want_f, want_b = jax_sweep_pair(js, inputs, with_extra, scan)
     launches = (ls.LAUNCHES.count, ls.BLOCK_LAUNCHES.count)
     for b in ts.case.blocks:
         bi = b.index
