@@ -20,8 +20,10 @@ block 1's i-lo patch names surface 2 of block 0 (``2000``).
 ``dual_time_cfl`` set the time integrator (implicitEuler by default;
 crankNicholson, bdf2, explicitEuler, rk4), ``matrix_solver`` and
 ``inviscid_flux_jacobian`` the linear solver (lusgs, blusgs, dplur,
-bdplur; rusanov or approximateRoe) and ``cfl`` the ramp (start, step,
-max); the defaults write the implicit Euler deck of the main path.
+bdplur; rusanov or approximateRoe), ``cfl`` the ramp (start, step,
+max) and ``multigrid_levels`` / ``multigrid_cycle`` the FAS multigrid
+(V or W cycles); the defaults write the implicit Euler deck of the main
+path on one grid level.
 ``equation_set`` and ``turbulence_model`` select the other physics the
 port runs (euler, navierStokes, largeEddySimulation + wale, rans +
 kOmegaWilcox2006 / sst2003 / sstdes).  Without turbulence equations the
@@ -77,7 +79,7 @@ turbulenceModel: {turbulence_model}
 timeIntegration: {time_integration}
 {time_lines}matrixSolver: {matrix_solver}
 matrixSweeps: {matrix_sweeps}
-matrixRelaxation: 1.0
+{mg_lines}matrixRelaxation: 1.0
 inviscidFlux: roe
 inviscidFluxJacobian: {inviscid_flux_jacobian}
 faceReconstruction: thirdOrder
@@ -184,7 +186,9 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      time_step: float = 0.0,
                      nonlinear_iterations: int = 1,
                      dual_time_cfl: float = -1.0,
-                     cfl=(10.0, 10.0, 1000.0)) -> str:
+                     cfl=(10.0, 10.0, 1000.0),
+                     multigrid_levels: int = 1,
+                     multigrid_cycle: str = "V") -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
     ``matrix_solver`` "blusgs" the block-matrix LU-SGS, "dplur" / "bdplur"
@@ -194,7 +198,10 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     ``nonlinear_iterations`` the (dual-time) iterations of a step,
     ``dual_time_cfl`` the dual-time CFL (off when not positive; the three
     lines are written only when they differ from the deck's defaults);
-    ``cfl`` the ramp (cflStart, cflStep, cflMax); ``equation_set``
+    ``cfl`` the ramp (cflStart, cflStep, cflMax); ``multigrid_levels``
+    and ``multigrid_cycle`` (V, W) the FAS multigrid of the linear solve
+    (both lines written only when they differ from the deck's defaults,
+    1 and V); ``equation_set``
     and ``turbulence_model`` the physics; ``species``, ``mass_fractions``,
     ``diffusion`` and ``chemistry`` the mixture (module docstring);
     ``density`` (kg/m^3, at 101300 Pa) the state and ``wall_temperature``
@@ -225,6 +232,11 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
         time_lines += f"nonlinearIterations: {nonlinear_iterations}\n"
     if dual_time_cfl > 0.0:
         time_lines += f"dualTimeCFL: {dual_time_cfl}\n"
+    mg_lines = ""
+    if multigrid_levels != 1:
+        mg_lines += f"multigridLevels: {multigrid_levels}\n"
+    if multigrid_cycle != "V":
+        mg_lines += f"multigridCycle: {multigrid_cycle}\n"
     os.makedirs(out_dir, exist_ok=True)
     if chemistry is not None:
         with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
@@ -241,7 +253,7 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              fluids=fluids, mixture=mixture,
                              density=density,
                              time_integration=time_integration,
-                             time_lines=time_lines,
+                             time_lines=time_lines, mg_lines=mg_lines,
                              inviscid_flux_jacobian=inviscid_flux_jacobian,
                              cfl=tuple(float(c) for c in cfl)))
     return deck_path

@@ -96,6 +96,10 @@ class Case:
     dtype: Any
     device: Any
     swap_maps: list = None    # step.connection_index_maps
+    # node arrays and BCs of the blocks (after decomposition), from which
+    # multigrid builds the coarse levels (solver/multigrid.py)
+    grids: list = None
+    bcs: list = None
 
 
 def _surface_specs(deck: Deck, bc, g: int) -> list:
@@ -191,16 +195,24 @@ def nearest_distance(points, queries):
 
     Brute force over all points, chunked over the queries so that one
     chunk's distance matrix stays under ``WALL_DIST_CHUNK_BYTES``; runs on
-    the tensors' device.  The distance is the direct difference form (no
-    matrix-product expansion, which loses digits near zero)."""
+    the tensors' device.  A squared distance is the sum of the three
+    squared coordinate differences in the direct difference form (no
+    matrix-product expansion, which loses digits near zero), each step an
+    elementwise pass over the chunk; the root is taken of the least
+    one."""
     per_row = max(points.shape[0] * points.element_size(), 1)
     chunk = max(WALL_DIST_CHUNK_BYTES // per_row, 1)
+    cols = points.T.contiguous()
     out = torch.empty(queries.shape[0], dtype=queries.dtype,
                       device=queries.device)
     for s in range(0, queries.shape[0], chunk):
-        d = torch.cdist(queries[s:s + chunk], points,
-                        compute_mode="donot_use_mm_for_euclid_dist")
-        out[s:s + chunk] = d.min(dim=1).values
+        q = queries[s:s + chunk]
+        d2 = None
+        for a in range(3):
+            diff = q[:, a, None] - cols[a][None, :]
+            diff.mul_(diff)
+            d2 = diff if d2 is None else d2.add_(diff)
+        out[s:s + chunk] = torch.sqrt(d2.amin(dim=1))
     return out
 
 
@@ -278,7 +290,9 @@ def assemble_case(deck, phys, grids, bcs, dtype, device, total_cells,
                   parents=None) -> Case:
     """Build a Case from node arrays + block BCs (the JAX package's
     ``assemble_case`` ordering: boundary ghost geometry -> interblock ghost
-    geometry from donor nodes -> edge ghosts + widths -> wall distance)."""
+    geometry from donor nodes -> edge ghosts + widths -> wall distance),
+    shared by the fine grid and the multigrid coarse levels (reference:
+    gridLevel::Coarsen)."""
     g = deck.num_ghosts
     conns = conn_mod.find_connections(bcs, grids, deck.bc_states,
                                       l_ref=deck.l_ref)
@@ -315,7 +329,7 @@ def assemble_case(deck, phys, grids, bcs, dtype, device, total_cells,
             prim0=torch.as_tensor(prim0, dtype=dtype, device=device)))
     return Case(deck=deck, phys=phys, blocks=blocks, connections=conns,
                 total_cells=total_cells, dtype=dtype, device=device,
-                swap_maps=swap_maps)
+                swap_maps=swap_maps, grids=grids, bcs=bcs)
 
 
 def device_geometry(geo: BlockGeometry, dtype, device):

@@ -3,12 +3,15 @@ with or without dual time) or explicit (explicitEuler, rk4) steps of one
 or more nonlinear iterations, residual logging in the reference format.
 
 Port of ``aither_tpu/solver/driver.py`` for the slice the port runs:
-``Solver.__init__`` (the subset the decks need), ``_iteration`` (the
+``Solver.__init__`` (the subset the decks need, with the multigrid levels
+of an implicit deck, ``solver/multigrid.py``), ``_iteration`` (the
 implicit update, or the explicit Euler / RK4 stage update), ``_setup_linear``
-(scalar or block diagonal, the rhs of one or two time levels, with the
-matrix initialisation ``matrixSweeps > 1`` and DPLUR need), ``_relax`` at
-one grid level (lusgs / blusgs sweeps, dplur / bdplur Jacobi sweeps),
-``_implicit_update``,
+(scalar or block diagonal at a grid level with the W cycle's diagonal
+carry, the rhs of one or two time levels, with the matrix initialisation
+``matrixSweeps > 1`` and DPLUR need), ``_relax`` at a grid level (lusgs /
+blusgs sweeps, dplur / bdplur Jacobi sweeps, the coarse levels' forcing),
+the FAS V/W cycle (``_level_state``, ``_restrict_level``, ``_mg_cycle``,
+with the stage trace ``_mg_trace``), ``_implicit_update``,
 ``store_old_solution``, the ``.resid`` / ``.tme`` writers with the
 first-5-iteration re-max normalisation, the debug-mode physicality check
 (``check_physicality``), and the per-step branch of ``run`` with the time
@@ -31,7 +34,8 @@ from ..io.deck import parse_deck
 from ..kernels import lusgs_sweep
 from ..unsupported import refuse
 from . import implicit as imp
-from . import state as st
+from . import multigrid as mg
+from . import state as st_mod
 from . import step as step_mod
 from .case import build_case
 from .convert import state_from_numpy
@@ -45,8 +49,6 @@ SUPPORTED_BCS = ("slipWall", "viscousWall", "characteristic", "interblock")
 def check_supported(deck):
     """Refuse every deck setting the port does not cover yet."""
     v = deck.values
-    if v["multigridLevels"] > 1:
-        refuse("multigrid")
     if v["faceReconstruction"] in ("weno", "wenoZ"):
         refuse("faceReconstruction", v["faceReconstruction"])
     if v["viscousFaceReconstruction"] != "central":
@@ -64,7 +66,9 @@ class Solver:
     RANS (k-omega Wilcox 2006, SST 2003, SST-DES), one species or a
     calorically perfect mixture (Schmidt diffusion, frozen or reacting
     chemistry); implicit with scalar or block LU-SGS or DPLUR and the
-    Rusanov or approximateRoe off-diagonal, or explicit (Euler, RK4).
+    Rusanov or approximateRoe off-diagonal, on one grid level or by FAS
+    multigrid V or W cycles (``multigridLevels``, ``multigridCycle``), or
+    explicit (Euler, RK4).
 
     ``Solver(deck_path, device="cuda")`` builds the case on the device;
     ``run(iterations)`` marches and writes ``<deck>.resid`` / ``<deck>.tme``
@@ -136,13 +140,32 @@ class Solver:
             # refuse a form the sweep kernels are not built for (a species
             # count above lusgs_sweep.MAX_SPECIES) before any work
             lusgs_sweep.sweep_form(self.phys, self.cfg)
+        # multigrid levels of an implicit deck (an explicit one runs on
+        # one level, as the JAX package does): the coarse cases, each with
+        # its own connection swap maps, and the fine->coarse transfer maps
+        self.mg_nlevels = deck["multigridLevels"] if deck.is_implicit else 1
+        self.mg_cycle_index = 2 if deck["multigridCycle"] == "W" else 1
+        self.mg_cases, self.mg_maps = [self.case], []
+        t0 = time.perf_counter()
+        if self.mg_nlevels > 1:
+            self.mg_cases, self.mg_maps = mg.build_levels(self.case,
+                                                          self.mg_nlevels)
+        self.mg_build_seconds = time.perf_counter() - t0
+        self._mg_diag_carry = {}
+        self._mg_trace_log = None
         if deck.is_viscous:
             # static face geometry of the viscous residual, once per block
-            for b in self.case.blocks:
-                viscous_statics(b, needs_face_length(self.cfg))
+            # of every level
+            for c in self.mg_cases:
+                for b in c.blocks:
+                    viscous_statics(b, needs_face_length(self.cfg))
         self.prims = {b.index: b.prim0.clone() for b in self.case.blocks}
-        self.plans = ({b.index: imp.build_sweep_plan(b, dtype, self.device)
-                       for b in self.case.blocks} if self.sweeps else {})
+        # the hyperplane plans of the sweeps, per level and block
+        self.mg_plans = [
+            {b.index: imp.build_sweep_plan(b, dtype, self.device)
+             for b in c.blocks} if self.sweeps else {}
+            for c in self.mg_cases]
+        self.plans = self.mg_plans[0]
         self.cons_n = self.store_old_solution()
         # time n-1 conserved interiors of a multilevel (bdf2) deck; set to
         # time n at the first step of ``run`` unless carried in by
@@ -175,9 +198,9 @@ class Solver:
 
     def store_old_solution(self):
         """conserved state at time n (reference: mgSolution.cpp:103)."""
-        return {b.index: st.cons_from_prim(self.phys,
-                                           self.prims[b.index][b.interior])
-                for b in self.case.blocks}
+        return {b.index: st_mod.cons_from_prim(
+            self.phys, self.prims[b.index][b.interior])
+            for b in self.case.blocks}
 
     def check_physicality(self, nn, mm, l2=None):
         """Debug-mode guard: densities and pressures must stay positive,
@@ -258,7 +281,7 @@ class Solver:
         if self.cfg["implicit"]:
             new_prims, matrix_resid = self._implicit_update(
                 prims, residuals, specrads, diags, dts, cons_n, auxs,
-                cons_nm1)
+                cons_nm1, cfl)
         else:
             new_prims = self._explicit_update(prims, residuals, dts, cons_n,
                                               stage)
@@ -289,98 +312,259 @@ class Solver:
 
     # -- implicit path (reference: mgSolution::ImplicitUpdate) ---------------
     def _setup_linear(self, prims, residuals, specrads, diags, dts, auxs,
-                      cons_n, cons_nm1=None):
-        """Inverted diagonal, diagonal, rhs b and initial update per block:
-        zero, or D^-1 b on the interior when the deck needs the matrix
-        initialised (matrixSweeps > 1) (reference:
-        linearSolver::AddDiagonalTerms / Invert / InitializeMatrixUpdate).
-        ``cons_nm1`` enters the rhs of a multilevel (bdf2) deck.  For
-        blusgs and bdplur the diagonal is the (ni, nj, nk, N, N) flow and
-        (ni, nj, nk, 2, 2) turbulence blocks, and its inverse those blocks
-        as the
-        sweeps take them: channels (N*N, ni, nj, nk) and (4, ni, nj, nk),
-        permuted once here.  Without turbulence equations the turbulence
-        entry of both is None."""
+                      cons_n, cons_nm1=None, lvl=0, matrix_init=None):
+        """Inverted diagonal, diagonal, rhs b and initial update per block
+        of grid level ``lvl``: zero, or D^-1 b on the interior when the
+        deck needs the matrix initialised (matrixSweeps > 1; ``matrix_init``
+        None takes the deck's) (reference: linearSolver::AddDiagonalTerms /
+        Invert / InitializeMatrixUpdate).  ``cons_nm1`` enters the rhs of a
+        multilevel (bdf2) deck.  For blusgs and bdplur the diagonal is the
+        (ni, nj, nk, N, N) flow and (ni, nj, nk, 2, 2) turbulence blocks,
+        and its inverse those blocks as the sweeps take them: channels
+        (N*N, ni, nj, nk) and (4, ni, nj, nk), permuted once here.  Without
+        turbulence equations the turbulence entry of both is None.
+
+        The main diagonal is zeroed only after the whole multigrid cycle
+        (mgSolution.cpp:236-239 ResetDiagonal), so a coarse level visited
+        again within a W cycle adds the previous visit's full diagonal
+        (scalar 1/inv, block (af, at) before the channel permutation) to
+        its new one: the per-level carry, reset with level 0's set-up at
+        the start of every implicit update."""
         phys, cfg = self.phys, self.cfg
+        if matrix_init is None:
+            matrix_init = cfg["matrix_init"]
+        if lvl == 0:
+            self._mg_diag_carry = {}
+        carry = self._mg_diag_carry.get(lvl)
         inv_diag, a_diag, bs, dus = {}, {}, {}, {}
-        for b in self.case.blocks:
+        for b in self.mg_cases[lvl].blocks:
+            bi = b.index
             if cfg["block_matrix"]:
-                aux = auxs[b.index]
-                a_diag[b.index], inv = imp.build_block_diagonal(
-                    phys, b, cfg, aux["diag_flow_blk"], aux["diag_turb_blk"],
-                    specrads[b.index], dts[b.index])
+                dfb, dtb = auxs[bi]["diag_flow_blk"], auxs[bi]["diag_turb_blk"]
+                if carry is not None:
+                    dfb = dfb + carry[bi][0]
+                    if dtb is not None and carry[bi][1] is not None:
+                        dtb = dtb + carry[bi][1]
+                a_diag[bi], inv = imp.build_block_diagonal(
+                    phys, b, cfg, dfb, dtb, specrads[bi], dts[bi])
                 inv_flow, inv_turb = (None if m is None
                                       else imp.blk_to_channels(m)
                                       for m in inv)
                 dmul = imp.diag_mult_channels
             else:
-                df, dtu = diags[b.index]
+                df, dtu = diags[bi]
+                if carry is not None:
+                    df = df + carry[bi][0]
+                    if dtu is not None and carry[bi][1] is not None:
+                        dtu = dtu + carry[bi][1]
                 inv_flow, inv_turb = imp.build_diagonal(
-                    phys, b, cfg, df, dtu, specrads[b.index], dts[b.index])
-                a_diag[b.index] = (1.0 / inv_flow, None if inv_turb is None
-                                   else 1.0 / inv_turb)
+                    phys, b, cfg, df, dtu, specrads[bi], dts[bi])
+                a_diag[bi] = (1.0 / inv_flow, None if inv_turb is None
+                              else 1.0 / inv_turb)
                 dmul = imp.diag_mult
-            inv_diag[b.index] = (inv_flow, inv_turb)
-            bs[b.index] = imp.rhs_b(
-                phys, b, cfg, prims[b.index], residuals[b.index],
-                cons_n[b.index], dts[b.index],
-                None if cons_nm1 is None else cons_nm1[b.index])
+            inv_diag[bi] = (inv_flow, inv_turb)
+            bs[bi] = imp.rhs_b(
+                phys, b, cfg, prims[bi], residuals[bi], cons_n[bi], dts[bi],
+                None if cons_nm1 is None else cons_nm1[bi])
             du = torch.zeros((phys.neq,) + b.shape, dtype=self.case.dtype,
                              device=self.device)
-            if cfg["matrix_init"]:
-                du[b.interior] = dmul(phys, inv_flow, inv_turb, bs[b.index])
-            dus[b.index] = du
+            if matrix_init:
+                du[b.interior] = dmul(phys, inv_flow, inv_turb, bs[bi])
+            dus[bi] = du
+        self._mg_diag_carry[lvl] = a_diag
         return inv_diag, a_diag, bs, dus
 
-    def _relax(self, prims, auxs, inv_diag, bs, dus):
-        """matrixSweeps pairs of a forward and a backward LU-SGS sweep over
-        every block, with connection swaps of du before each sweep and once
-        after the last (reference: lusgs::Relax).  After the first pair, or
-        from the first when the matrix was initialised, each sweep takes the
-        lagged opposite-side sum of the du it starts from (the upper sum
-        forward, the lower sum backward).  The sweeps update du in place;
-        the blocks of one sweep run concurrently on the card
-        (``lusgs_sweep.sweep_blocks``).  dplur / bdplur instead take
-        matrixSweeps Jacobi sweeps (``implicit.dplur_sweep``), each after a
-        swap of du (reference: dplur::Relax)."""
+    def _swap_level(self, lvl, d):
+        """connection swaps of padded fields at grid level ``lvl``, in
+        place"""
+        return step_mod.swap_connections(d, self.mg_cases[lvl].swap_maps)
+
+    def _relax(self, lvl, st, sweeps):
+        """``sweeps`` relaxations at grid level ``lvl`` of the linear
+        system in ``st`` (prims, auxs, inv_diag, bs, dus and, on a coarse
+        level, the multigrid forcing, which adds to b): pairs of a forward
+        and a backward LU-SGS sweep over every block, with connection swaps
+        of du before each sweep and once after the last (reference:
+        lusgs::Relax).  Each sweep takes the lagged opposite-side sum of
+        the du it starts from (the upper sum forward, the lower sum
+        backward) after the first pair, or from the first when the matrix
+        was initialised or on a coarse level.  The fine level's
+        post-relaxation counts its pairs from 0 again, as the reference
+        does.  The sweeps update du in place; the blocks of one sweep run
+        concurrently on the card (``lusgs_sweep.sweep_blocks``).  dplur /
+        bdplur instead take Jacobi sweeps (``implicit.dplur_sweep``), each
+        after a swap of du (reference: dplur::Relax).  Returns ``st``."""
         phys, cfg = self.phys, self.cfg
-        maps = self.case.swap_maps
+        blocks = self.mg_cases[lvl].blocks
+        prims, auxs = st["prims"], st["auxs"]
+        inv_diag, dus = st["inv_diag"], st["dus"]
+        forcing = st.get("forcing")
+        bs = ({bi: st["bs"][bi] + forcing[bi] for bi in st["bs"]} if forcing
+              else st["bs"])
         if not self.sweeps:
-            for _ in range(cfg["matrix_sweeps"]):
-                step_mod.swap_connections(dus, maps)
-                for b in self.case.blocks:
+            for _ in range(sweeps):
+                self._swap_level(lvl, dus)
+                for b in blocks:
                     bi = b.index
                     imp.dplur_sweep(phys, cfg, b, prims[bi], dus[bi], bs[bi],
                                     *inv_diag[bi], auxs[bi])
-            return step_mod.swap_connections(dus, maps)
-        for sweep in range(cfg["matrix_sweeps"]):
-            with_extra = sweep > 0 or cfg["matrix_init"]
+            st["dus"] = self._swap_level(lvl, dus)
+            return st
+        plans = self.mg_plans[lvl]
+        for sweep in range(sweeps):
+            with_extra = sweep > 0 or cfg["matrix_init"] or lvl > 0
             for forward, side in ((True, "upper"), (False, "lower")):
-                step_mod.swap_connections(dus, maps)
-                blocks = []
-                for b in self.case.blocks:
+                self._swap_level(lvl, dus)
+                work = []
+                for b in blocks:
                     bi = b.index
                     extra = (imp.offdiag_sum(phys, cfg, b, prims[bi],
                                              dus[bi], side, auxs[bi])
                              if with_extra else None)
-                    blocks.append((self.plans[bi], prims[bi], dus[bi],
-                                   bs[bi], *inv_diag[bi], auxs[bi], extra))
-                lusgs_sweep.sweep_blocks(phys, cfg, blocks, forward)
-        return step_mod.swap_connections(dus, maps)
+                    work.append((plans[bi], prims[bi], dus[bi], bs[bi],
+                                 *inv_diag[bi], auxs[bi], extra))
+                lusgs_sweep.sweep_blocks(phys, cfg, work, forward)
+        st["dus"] = self._swap_level(lvl, dus)
+        return st
+
+    def _matrix_resid_field(self, lvl, st):
+        """forcing - (A x - b) per block of grid level ``lvl`` (reference:
+        linearSolver::Residual)."""
+        forcing = st.get("forcing")
+        return {b.index: imp.matrix_residual(
+            self.phys, self.cfg, b, st["prims"][b.index], st["dus"][b.index],
+            st["bs"][b.index], *st["a_diag"][b.index],
+            aux=st["auxs"][b.index],
+            forcing=forcing[b.index] if forcing else None)
+            for b in self.mg_cases[lvl].blocks}
+
+    def _level_state(self, lvl, prims_int, cfl):
+        """BCs + residual + time step on a coarse level from restricted
+        interior states (reference: gridLevel::Restriction midsection).
+        As in the JAX package, a coarse level swaps no eddy viscosity, f1
+        or velocity gradients across its connections."""
+        phys, cfg = self.phys, self.cfg
+        case = self.mg_cases[lvl]
+        prims = {}
+        for b in case.blocks:
+            pad = b.prim0.clone()
+            pad[b.interior] = prims_int[b.index]
+            prims[b.index] = pad
+        prims = step_mod.apply_all_bcs(phys, case, prims)
+        residuals, specrads, diags, dts, auxs, cons_n = {}, {}, {}, {}, {}, {}
+        for b in case.blocks:
+            bi = b.index
+            (resid, sr_f, sr_t, dg_f, dg_t, _, prim_v,
+             aux) = step_mod.full_residual(phys, cfg, b, prims[bi])
+            prims[bi] = prim_v
+            auxs[bi] = aux
+            residuals[bi] = resid
+            sr_max = torch.maximum(sr_f, sr_t) if phys.nturb else sr_f
+            specrads[bi] = sr_max
+            diags[bi] = (dg_f, dg_t)
+            dts[bi] = step_mod.local_dt(cfg, b.geom, sr_max, b.g,
+                                        (b.ni, b.nj, b.nk), cfl)
+            cons_n[bi] = st_mod.cons_from_prim(phys, prim_v[b.interior])
+        return prims, residuals, specrads, diags, dts, auxs, cons_n
+
+    def _restrict_level(self, lvl, st, resid_field, cfl):
+        """The solve state of level ``lvl + 1`` from that of ``lvl``
+        (reference: gridLevel::Restriction): restricted state and update,
+        the coarse residual and linear system (its time n-1 solution its
+        time n one), and the forcing (A_c x_c - b_c) + restrict(fine
+        matrix residual)."""
+        phys = self.phys
+        fine, coarse = self.mg_cases[lvl], self.mg_cases[lvl + 1]
+        maps = self.mg_maps[lvl]
+        prims_c_int, dus_c, force_r = {}, {}, {}
+        for b in fine.blocks:
+            bi = b.index
+            lm, cb = maps[bi], coarse.blocks[bi]
+            cshape = (cb.ni, cb.nj, cb.nk)
+            prims_c_int[bi] = mg.restrict_weighted(
+                st["prims"][bi][b.interior], lm, cshape)
+            du_c = torch.zeros((phys.neq,) + cb.shape, dtype=self.case.dtype,
+                               device=self.device)
+            du_c[cb.interior] = mg.restrict_weighted(
+                st["dus"][bi][b.interior], lm, cshape)
+            dus_c[bi] = du_c
+            force_r[bi] = mg.restrict_sum(resid_field[bi], lm, cshape)
+        self._swap_level(lvl + 1, dus_c)
+
+        (prims_c, residuals_c, specrads_c, diags_c, dts_c, auxs_c,
+         cons_n_c) = self._level_state(lvl + 1, prims_c_int, cfl)
+        inv_diag_c, a_diag_c, bs_c, _ = self._setup_linear(
+            prims_c, residuals_c, specrads_c, diags_c, dts_c, auxs_c,
+            cons_n_c, cons_n_c, lvl=lvl + 1, matrix_init=False)
+        cs = dict(prims=prims_c, auxs=auxs_c, inv_diag=inv_diag_c,
+                  a_diag=a_diag_c, bs=bs_c, dus=dus_c, forcing=None)
+        neg_axmb = self._matrix_resid_field(lvl + 1, cs)
+        self._mg_trace("axmb", lvl + 1, {bi: -v for bi, v in neg_axmb.items()})
+        self._mg_trace("force_r", lvl + 1, force_r)
+        cs["forcing"] = {bi: -neg_axmb[bi] + force_r[bi] for bi in neg_axmb}
+        return cs
+
+    def _mg_trace(self, stage, lvl, d):
+        """record a copy of ``d`` ({block: tensor}) under ``stage`` when
+        ``_mg_trace_log`` is a list (the tests compare the cycle stage by
+        stage with the JAX package's)"""
+        if self._mg_trace_log is not None:
+            self._mg_trace_log.append(
+                (stage, lvl, {k: v.clone() for k, v in d.items()}))
+
+    def _mg_cycle(self, lvl, st, cfl):
+        """FAS V/W cycle from level ``lvl`` (reference:
+        mgSolution::CycleAtLevel): pre-relaxation, restriction, the coarse
+        cycles (one for V, two for W), prolongation of the coarse
+        correction, post-relaxation; max(matrixSweeps // 2, 1) sweeps
+        before and after, matrixSweeps on the coarsest level."""
+        sweeps = self.cfg["matrix_sweeps"]
+        if lvl == self.mg_nlevels - 1:
+            return self._relax(lvl, st, sweeps)
+        pre = max(sweeps // 2, 1)
+        st = self._relax(lvl, st, pre)
+        self._mg_trace("prerelax", lvl, st["dus"])
+        resid_field = self._matrix_resid_field(lvl, st)
+        cs = self._restrict_level(lvl, st, resid_field, cfl)
+        self._mg_trace("postrestrict", lvl + 1, cs["dus"])
+        self._mg_trace("forcing", lvl + 1, cs["forcing"])
+        # the coarse sweeps update du in place: keep the restricted update
+        du_c0 = {bi: du.clone() for bi, du in cs["dus"].items()}
+        for _ in range(self.mg_cycle_index):
+            cs = self._mg_cycle(lvl + 1, cs, cfl)
+        corr = {bi: cs["dus"][bi] - du_c0[bi] for bi in du_c0}
+        coarse = self.mg_cases[lvl + 1]
+        for b in self.mg_cases[lvl].blocks:
+            cb = coarse.blocks[b.index]
+            st["dus"][b.index][b.interior] += mg.prolong(
+                corr[b.index][cb.interior], self.mg_maps[lvl][b.index])
+        self._mg_trace("corr", lvl + 1, corr)
+        self._mg_trace("postprolong", lvl, st["dus"])
+        self._swap_level(lvl, st["dus"])
+        return self._relax(lvl, st, pre)
 
     def _implicit_update(self, prims, residuals, specrads, diags, dts,
-                         cons_n, auxs, cons_nm1=None):
+                         cons_n, auxs, cons_nm1=None, cfl=None):
+        """The linear solve at level 0, by ``matrixSweeps`` relaxations or
+        one multigrid cycle, then the matrix residual (level 0, no
+        forcing) and the update.  Returns (new prims, matrix residual sum
+        of squares / padded size)."""
         phys = self.phys
         inv_diag, a_diag, bs, dus = self._setup_linear(
             prims, residuals, specrads, diags, dts, auxs, cons_n, cons_nm1)
-        dus = self._relax(prims, auxs, inv_diag, bs, dus)
+        st = dict(prims=prims, auxs=auxs, inv_diag=inv_diag, a_diag=a_diag,
+                  bs=bs, dus=dus, forcing=None)
+        if self.mg_nlevels == 1:
+            st = self._relax(0, st, self.cfg["matrix_sweeps"])
+        else:
+            st = self._mg_cycle(0, st, cfl)
+        dus = st["dus"]
         mr_sum = torch.zeros((), dtype=self.case.dtype, device=self.device)
         mr_count = 0
         new_prims = {}
+        mrf = self._matrix_resid_field(0, st)
         for b in self.case.blocks:
-            mr = imp.matrix_residual(phys, self.cfg, b, prims[b.index],
-                                     dus[b.index], bs[b.index],
-                                     *a_diag[b.index], aux=auxs[b.index])
+            mr = mrf[b.index]
             mr_sum = mr_sum + (mr * mr).sum()
             # the reference divides by the padded array size (ghost entries
             # are zero): mgSolution.cpp:199-207

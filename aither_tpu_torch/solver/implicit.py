@@ -7,7 +7,8 @@ Port of ``aither_tpu/solver/implicit.py`` (``:42-110`` spectral radii and
 the Rusanov off-diagonal, ``:113-150`` the Roe off-diagonal, ``:153-205``
 the block off-diagonal and its dispatch, ``:254-309`` neighbour masks,
 ``:441-481`` off-diagonal sums, ``:488-586`` time terms, rhs, scalar and
-block diagonals, ``:610-618`` DPLUR, ``:1130`` matrix residual;
+block diagonals, ``:610-618`` DPLUR, ``:1130`` matrix residual with the
+multigrid forcing;
 reference: src/linearSolver.cpp:45-535, src/fluxJacobian.cpp
 RusanovScalarOffDiagonal / RusanovBlockOffDiagonal / RoeOffDiagonal).
 
@@ -288,7 +289,8 @@ def rhs_b(phys: Physics, block, cfg, prim, resid, cons_n, dt,
     - (1+zeta)V/(dt theta)(cons - consN), the bracket when the time
     integrator is multilevel (bdf2: ``cfg['multilevel_time']``,
     ``cons_nm1`` the time n-1 interiors) (reference: linearSolver.cpp:56-76;
-    no multigrid forcing)."""
+    the multigrid forcing is added where the driver relaxes,
+    ``Solver._relax``)."""
     theta, zeta = cfg["theta"], cfg["zeta"]
     coeff_n, coeff_nm1 = sol_delta_coeffs(block, dt, theta, zeta)
     b = -(1.0 / theta) * resid
@@ -388,8 +390,9 @@ def dplur_sweep(phys: Physics, cfg, block, prim, du_padded, b, inv_flow,
 
 
 def matrix_residual(phys: Physics, cfg, block, prim, du_padded, b, a_flow,
-                    a_turb, aux=None):
-    """-(A.x - b) per cell, A's diagonal scalar or block (reference:
+                    a_turb, aux=None, forcing=None):
+    """forcing - (A.x - b) per cell, A's diagonal scalar or block, the
+    multigrid forcing zero unless given (reference:
     linearSolver.cpp:45-100)."""
     x = du_padded[block.interior]
     L = offdiag_sum(phys, cfg, block, prim, du_padded, "lower", aux)
@@ -400,7 +403,8 @@ def matrix_residual(phys: Physics, cfg, block, prim, du_padded, b, a_flow,
         ax = x * a_flow[None]
         if phys.nturb and a_turb is not None:
             ax = torch.cat([ax[:phys.it], x[phys.it:] * a_turb[None]])
-    return -(ax - (L - U) - b)
+    axmb = ax - (L - U) - b
+    return forcing - axmb if forcing is not None else -axmb
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,6 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "multigrid": f"{_Q1} 4 (multigrid)",
     "wallLaw": f"{_Q1} 5 (remaining physics: wall law)",
     "faceReconstruction": f"{_Q1} 5 (remaining physics: WENO)",
     "viscousFaceReconstruction": f"{_Q1} 5 (remaining physics: centralFourth)",

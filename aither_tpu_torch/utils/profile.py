@@ -9,6 +9,8 @@
                                              [--equation-set SET]
                                              [--turbulence-model MODEL]
                                              [--mixture NAME]
+                                             [--multigrid-levels L]
+                                             [--multigrid-cycle V|W]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
 default the 1.05M-cell case; the deck's matrixSolver (lusgs, blusgs,
@@ -16,17 +18,20 @@ dplur, bdplur) and matrixSweeps, inviscidFluxJacobian (rusanov,
 approximateRoe), timeIntegration (the decks of ``cases.TIME_INTEGRATORS``),
 equationSet and turbulenceModel as given, default lusgs, 1, rusanov,
 implicitEuler, rans and sst2003; with ``--mixture`` the gas of
-``cases.MIXTURES``, e.g. n2o2 or air5_frozen) to
+``cases.MIXTURES``, e.g. n2o2 or air5_frozen; with ``--multigrid-levels``
+above 1 FAS multigrid, V or W cycles) to
 ``smoke_run/profile_<solver>_<set>_<model>[_<mixture>]_<jacobian>_<time
-integration>/``, runs W warm-up nonlinear iterations, then N nonlinear
+integration>[_mg<levels><cycle>]/``, runs W warm-up nonlinear iterations,
+then N nonlinear
 iterations (the rk4 stages in turn; bdf2 against its time n-1 solution)
 three times:
 
 1. plain, ending in one synchronise: the iteration time;
 2. with a device synchronise around each layer (ghosts, residual, linear
-   setup, sweeps with their du swaps, matrix residual, update, norms),
-   timing each layer on the host clock; "other" is the rest of the
-   iteration (mut/f1 swaps, local dt, Python);
+   setup, sweeps with their du swaps, matrix residual, the multigrid
+   restriction and prolongation, update, norms; a layer sums its calls
+   at every grid level), timing each layer on the host clock; "other" is
+   the rest of the iteration (mut/f1 swaps, local dt, Python);
 3. under ``torch.profiler``: the device's busy time per iteration (sum of
    kernel times; one stream, so kernels do not overlap), kernel launches
    per iteration and the top kernels by device time.  The profiler slows
@@ -48,13 +53,15 @@ import time
 import torch
 
 from .. import cases
-from ..solver import driver, implicit, step
+from ..solver import driver, implicit, multigrid, step
 
 LAYERS = (("ghosts", step, "apply_all_bcs"),
           ("residual", step, "full_residual"),
           ("linear_setup", driver.Solver, "_setup_linear"),
           ("sweeps", driver.Solver, "_relax"),
           ("matrix_residual", implicit, "matrix_residual"),
+          ("multigrid_transfer", multigrid, "restrict_sum"),
+          ("multigrid_transfer", multigrid, "prolong"),
           ("update", step, "implicit_update"),
           ("explicit_update", driver.Solver, "_explicit_update"),
           ("norms", step, "residual_norms"))
@@ -123,6 +130,8 @@ def main(argv=None):
                                  "sst2003", "sstdes"))
     parser.add_argument("--mixture", choices=tuple(cases.MIXTURES),
                         default=None)
+    parser.add_argument("--multigrid-levels", type=int, default=1)
+    parser.add_argument("--multigrid-cycle", default="V", choices=("V", "W"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -135,13 +144,17 @@ def main(argv=None):
                       f"{args.turbulence_model}"
                       + (f"_{args.mixture}" if args.mixture else "")
                       + f"_{args.inviscid_flux_jacobian}_"
-                        f"{args.time_integration}")
+                        f"{args.time_integration}"
+                      + (f"_mg{args.multigrid_levels}{args.multigrid_cycle}"
+                         if args.multigrid_levels > 1 else ""))
     path = cases.write_plate_case(
         wd, *args.dims, matrix_solver=args.matrix_solver,
         matrix_sweeps=args.matrix_sweeps,
         inviscid_flux_jacobian=args.inviscid_flux_jacobian,
         equation_set=args.equation_set,
         turbulence_model=args.turbulence_model,
+        multigrid_levels=args.multigrid_levels,
+        multigrid_cycle=args.multigrid_cycle,
         **cases.MIXTURES.get(args.mixture, {}),
         **cases.TIME_INTEGRATORS[args.time_integration])
     here = os.getcwd()
@@ -185,7 +198,9 @@ def main(argv=None):
         "time_integration": args.time_integration,
         "equation_set": args.equation_set,
         "turbulence_model": args.turbulence_model,
-        "mixture": args.mixture, "iterations": n, "iteration_ms": iteration_ms,
+        "mixture": args.mixture, "multigrid_levels": args.multigrid_levels,
+        "multigrid_cycle": args.multigrid_cycle,
+        "iterations": n, "iteration_ms": iteration_ms,
         "iteration_ms_synced": synced_ms, "layers_ms": layers,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / iteration_ms,

@@ -10,7 +10,8 @@ LU-SGS (blusgs: the sweeps on the hand-written csrc/blusgs_sweep.cu), for
 every single-species physics: Euler, laminar Navier-Stokes, LES (WALE) and
 RANS (Wilcox 2006 k-omega, SST 2003, SST-DES), and for calorically perfect
 mixtures (N2/O2 with Schmidt diffusion, hot five-species air frozen and
-reacting; the mixture forms of both sweep kernels) — on the generated
+reacting; the mixture forms of both sweep kernels), the other linear
+solvers and time integrators, and FAS multigrid — on the generated
 two-block flat plate (aither_tpu_torch/cases.py) and checks them.  Phases, each
 printing its own lines:
 
@@ -100,7 +101,25 @@ printing its own lines:
     species, each compared and driven, then explicitEuler (Euler), rk4
     (laminar: K2 on an explicit path), crankNicholson (Wilcox) and bdplur
     (laminar), each driven.  Phase 6 also holds SST approximateRoe lusgs,
-    SST dplur, laminar rk4 and SST bdf2 cuda against cpu.
+    SST dplur, laminar rk4 and SST bdf2 cuda against cpu;
+12. multigrid (MG_DECKS), every solver built once, compared and driven:
+    case B SST lusgs with a 3-level W cycle (the host time to build the
+    levels and the cells of each printed; on each coarse level its own
+    linear system with its forcing, captured in one iteration, gives the
+    sweep pair of variant b, held against its plain version; K2 on a
+    level-1 block against its plain version; then Solver.run with exactly
+    40 sweep launches (10 pairs: 2 of variant a on level 0, 8 of b below
+    it) and 8 K2 launches (2 + 2 + 4: level 2 is restricted to twice) an
+    iteration), case B SST dplur at matrixSweeps 4 with a 2-level V cycle
+    at CFL 1000 (the solver settings of the reference's
+    turbFlatPlate-mg-rans deck: 4 K2 launches an iteration, no sweep) and
+    case A SST blusgs with a 2-level V cycle (the coarse level's c+b pair
+    against plain; 12 block-sweep launches an iteration, no scalar sweep
+    or K2).  Each drive prints iterations/s, peak memory and the share of
+    the iteration spent below level 0 (restriction from level 0 and the
+    coarse cycles, synchronised at their ends).  Phase 6 also holds SST
+    lusgs with a 3-level W cycle and SST blusgs with a 2-level V cycle
+    cuda against cpu.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -114,7 +133,9 @@ JSON object (one row per kernel form; its times from case B where the form
 ran there, else case A, named in the row as 'case'; 'launches_case' is the
 case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
-inside Solver.run per iteration, with 'path_case'), and last
+inside Solver.run per iteration, with 'path_case'; a row of a form on
+the multigrid path also has 'mg_launches', its launches in each phase-12
+drive, and 'mg_levels', its comparisons on the coarse levels), and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Case files go to ./smoke_run/ (git-ignored).
 """
@@ -139,6 +160,7 @@ LAGGED_ITERATIONS = 6
 BLOCK_ITERATIONS = 6
 BLOCK_LAGGED_ITERATIONS = 5
 NEW_ITERATIONS = 5       # phase 8, every deck
+MG_ITERATIONS = 6        # phase 12, every deck
 MIXTURE_ITERATIONS = 5   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
@@ -205,8 +227,8 @@ REACTING_BLOCK_RTOL = 2e-6
 # hot-air decks take approximateRoe at CFL 1 ("roe_cfl1"): at the ramp
 # 10-1000 the Roe sweeps of five-species air give NaN from the second or
 # third iteration on, the plain sweep on the CPU as the kernel on the card
-# (q + du turns a pressure negative, whose Roe average takes a square
-# root; PERF.md section 6)
+# and as the JAX package (du grows without bound along a sweep until the
+# Roe flux of q + du overflows; PERF.md section 6)
 ROE = dict(inviscid_flux_jacobian="approximateRoe")
 TIME_DECKS = {
     "rusanov": ("implicitEuler", {}),
@@ -216,6 +238,10 @@ TIME_DECKS = {
     "explicit": ("explicitEuler", {}),
     "rk4": ("rk4", {}),
     "cn": ("crankNicholson", {}),
+    "mg3W": ("implicitEuler", dict(multigrid_levels=3, multigrid_cycle="W")),
+    "mg2V": ("implicitEuler", dict(multigrid_levels=2)),
+    "mg2V_cfl1000": ("implicitEuler", dict(multigrid_levels=2,
+                                           cfl=(1000.0, 0.0, 1000.0))),
 }
 ROE_REPLACES = ("aither_tpu/solver/implicit.py:113 roe_offdiagonal (scan "
                 "path; no Pallas form)")
@@ -304,6 +330,20 @@ SOLVER_DECKS = (
     ("case A", "laminar", "lusgs", 1, "rk4", (), 2),
     ("case A", "wilcox", "lusgs", 1, "cn", (), 4),
     ("case A", "laminar", "bdplur", 1, "rusanov", (), 4),
+)
+
+# phase 12: (case, physics, matrixSolver, matrixSweeps, deck tag of
+# TIME_DECKS, launches per iteration {kernel: n}, compare the coarse
+# levels' kernels).  Per iteration, with 2 blocks and matrixSweeps 1, a
+# level visited v times relaxes 2 v pairs (pre and post) and the coarsest
+# v pairs; each coarse visit computes its level's residual once
+MG_DECKS = (
+    ("case B", "sst", "lusgs", 1, "mg3W",
+     {"lusgs_sweep": 40, "blusgs_sweep": 0, "viscous_march": 8}, True),
+    ("case B", "sst", "dplur", 4, "mg2V_cfl1000",
+     {"lusgs_sweep": 0, "blusgs_sweep": 0, "viscous_march": 4}, False),
+    ("case A", "sst", "blusgs", 1, "mg2V",
+     {"lusgs_sweep": 0, "blusgs_sweep": 12, "viscous_march": 0}, True),
 )
 
 
@@ -403,32 +443,60 @@ def linear_system(solver):
     cfl = solver.deck.cfl(0)
     prims, res, sr, dg, dts, auxs = solver._residuals(dict(solver.prims),
                                                       cfl)
-    inv_diag, _, bs, dus = solver._setup_linear(prims, res, sr, dg, dts,
-                                                auxs, solver.cons_n)
-    dus = solver._relax(prims, auxs, inv_diag, bs, dus)
-    return prims, auxs, inv_diag, bs, dus
+    inv_diag, a_diag, bs, dus = solver._setup_linear(prims, res, sr, dg,
+                                                     dts, auxs, solver.cons_n)
+    st = solver._relax(0, dict(prims=prims, auxs=auxs, inv_diag=inv_diag,
+                               a_diag=a_diag, bs=bs, dus=dus),
+                       solver.cfg["matrix_sweeps"])
+    return prims, auxs, inv_diag, bs, st["dus"]
 
 
-def sweep_pair(solver, system, du0, extras, kernel=True):
-    """forward then backward sweep of every block from copies of du0, with
-    the given lagged terms ({block: (forward extra, backward extra)}) or
-    none: the kernels through lusgs_sweep.sweep_blocks as Solver.run
-    launches them (the blocks of a sweep concurrently), or the plain
-    versions block by block."""
+def level_systems(solver):
+    """{level: (prims, auxs, inv_diag, b + forcing, du)} of every coarse
+    level of a multigrid solver: its linear system with its forcing and
+    the restricted du (connection ghosts swapped) as its first relaxation
+    of the first iteration starts (one iteration on the card, outside any
+    counted drive)"""
+    systems = {}
+    relax = solver._relax
+
+    def capture(lvl, st, sweeps):
+        if lvl > 0 and lvl not in systems:
+            bs = {bi: b + st["forcing"][bi] for bi, b in st["bs"].items()}
+            systems[lvl] = (st["prims"], st["auxs"], st["inv_diag"], bs,
+                            {bi: du.clone() for bi, du in st["dus"].items()})
+        return relax(lvl, st, sweeps)
+
+    solver._relax = capture
+    try:
+        solver._iteration(dict(solver.prims), solver.cons_n,
+                          solver.deck.cfl(0))
+    finally:
+        del solver._relax
+    return systems
+
+
+def sweep_pair(solver, system, du0, extras, kernel=True, lvl=0):
+    """forward then backward sweep of every block of grid level ``lvl``
+    from copies of du0, with the given lagged terms ({block: (forward
+    extra, backward extra)}) or none: the kernels through
+    lusgs_sweep.sweep_blocks as Solver.run launches them (the blocks of a
+    sweep concurrently), or the plain versions block by block."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     prims, auxs, inv_diag, bs, _ = system
     phys, cfg = solver.phys, solver.cfg
+    plans = solver.mg_plans[lvl]
     out = {bi: du.clone() for bi, du in du0.items()}
     if kernel:
         for n, forward in enumerate((True, False)):
             ls.sweep_blocks(phys, cfg, [
-                (solver.plans[bi], prims[bi], out[bi], bs[bi], *inv_diag[bi],
+                (plans[bi], prims[bi], out[bi], bs[bi], *inv_diag[bi],
                  auxs[bi], extras[bi][n] if extras else None)
                 for bi in out], forward)
         return out
     for bi, du in out.items():
         ef, eb = extras[bi] if extras else (None, None)
-        args = (phys, cfg, solver.plans[bi], prims[bi], du, bs[bi],
+        args = (phys, cfg, plans[bi], prims[bi], du, bs[bi],
                 *inv_diag[bi], auxs[bi])
         ls.forward_plain(*args, extra=ef)
         ls.backward_plain(*args, extra=eb)
@@ -467,13 +535,13 @@ def sweep_errors(kern, plain):
 
 
 def compare_sweeps(torch, solver, system, label, card, with_extra,
-                   case="case B"):
-    """The sweep pair on one case against its plain version: (max_abs_err,
-    kernel ms, plain ms, bound ms, bound_by).  The plain pair takes
-    seconds, so its checked run is its timed one; the kernel pair is timed
-    twice after it.  Printed beside it: the plane-per-launch pair's time
-    (BEFORE_MS, text from PERF.md), the critical path and the time of a
-    step of it."""
+                   case="case B", lvl=0):
+    """The sweep pair on one case (at grid level ``lvl``) against its
+    plain version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by).
+    The plain pair takes seconds, so its checked run is its timed one; the
+    kernel pair is timed twice after it.  Printed beside it: the
+    plane-per-launch pair's time (BEFORE_MS, text from PERF.md; level 0),
+    the critical path and the time of a step of it."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as imp
     prims, auxs, _, _, du0 = system
@@ -484,18 +552,21 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
                (True, False): "c (block)",
                (True, True): "c+b (block, lagged term)"}[(block, with_extra)]
     variant = f"{variant}, {form_name(form)}"
+    if lvl:
+        variant = f"{variant}, level {lvl}"
+    plans = solver.mg_plans[lvl]
     extras = None
     if with_extra:
         extras = {b.index: tuple(imp.offdiag_sum(
             solver.phys, solver.cfg, b, prims[b.index], du0[b.index], side,
             auxs[b.index]) for side in ("upper", "lower"))
-            for b in solver.case.blocks}
+            for b in solver.mg_cases[lvl].blocks}
 
     def run_plain():
-        return sweep_pair(solver, system, du0, extras, kernel=False)
+        return sweep_pair(solver, system, du0, extras, kernel=False, lvl=lvl)
 
     def run_kernel():
-        return sweep_pair(solver, system, du0, extras)
+        return sweep_pair(solver, system, du0, extras, lvl=lvl)
 
     kern = run_kernel()
     plain, plain_ms = timed_once(torch, run_plain)
@@ -515,12 +586,12 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     kernel_ms = 0.5 * (t[0] + t[1])
     diffusion = solver.phys.ns > 1 and solver.cfg["diffusion"] != "none"
     costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion)
-             for p in solver.plans.values() for fwd in (True, False)]
+             for p in plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
     # the critical path of the pair: the blocks of a sweep run concurrently
-    steps = 2 * max(p.nplanes for p in solver.plans.values())
+    steps = 2 * max(p.nplanes for p in plans.values())
     before = (BEFORE_MS.get((case, kernel, with_extra))
-              if form == ls.SST_FORM else None)
+              if form == ls.SST_FORM and lvl == 0 else None)
     print(f"{label}: sweep variant {variant}, forward+backward "
           f"pair over all blocks: kernel {kernel_ms:.4f} ms "
           f"[{t[0]:.4f}, {t[1]:.4f}] (one launch per plane, PERF.md: "
@@ -536,23 +607,24 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
 # phase 3: the viscous residual kernel
 
 
-def viscous_inputs(torch, solver, seed=3, perturbed=True):
-    """{block: (prim, T, mu)}: the initial state, perturbed by up to 1% on
-    the interior (seeded) unless ``perturbed`` is False, after the full and
-    the viscous ghost fill."""
+def viscous_inputs(torch, solver, seed=3, perturbed=True, lvl=0):
+    """{block: (prim, T, mu)}: the initial state of grid level ``lvl``,
+    perturbed by up to 1% on the interior (seeded) unless ``perturbed`` is
+    False, after the full and the viscous ghost fill."""
     from aither_tpu_torch.solver import step
     phys = solver.phys
+    case = solver.mg_cases[lvl]
     rng = np.random.default_rng(seed)
     prims = {}
-    for b in solver.case.blocks:
+    for b in case.blocks:
         prim = b.prim0.cpu().numpy().copy()
         if perturbed:
             prim[b.interior] *= 1.0 + 0.01 * rng.random(
                 prim[b.interior].shape)
         prims[b.index] = torch.as_tensor(prim, device=solver.device)
-    prims = step.apply_all_bcs(phys, solver.case, prims)
+    prims = step.apply_all_bcs(phys, case, prims)
     out = {}
-    for b in solver.case.blocks:
+    for b in case.blocks:
         prim = step.apply_boundary_ghosts(phys, b, prims[b.index],
                                           viscous_pass=True)
         prim = step.apply_edge_ghosts(phys, b, prim, viscous_pass=True)
@@ -570,21 +642,24 @@ def flat_outputs(res):
 
 
 def compare_viscous(torch, solver, label, card, perturbed=True,
-                    case="case B"):
-    """The viscous residual of every block on one case against its plain
-    version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by, cold
-    window ms).  A blusgs solver's blocks are taken with the scalar
-    solver's cfg: the kernel has no block-matrix form.  Printed beside the
-    time: the first design's (VISC_BEFORE_MS, text from PERF.md) and each
-    block's launch (tile, segment, CTAs, shared memory, CTAs per SM)."""
+                    case="case B", lvl=0, blocks=None):
+    """The viscous residual of every block (or of ``blocks``, indices) of
+    grid level ``lvl`` on one case against its plain version: (max_abs_err,
+    kernel ms, plain ms, bound ms, bound_by, cold window ms).  A blusgs
+    solver's blocks are taken with the scalar solver's cfg: the kernel has
+    no block-matrix form.  Printed beside the time: the first design's
+    (VISC_BEFORE_MS, text from PERF.md; level 0) and each block's launch
+    (tile, segment, CTAs, shared memory, CTAs per SM)."""
     from aither_tpu_torch.kernels import viscous_march as vm
     from aither_tpu_torch.solver import viscous as vis
     phys, cfg = solver.phys, dict(solver.cfg, block_matrix=False)
     model = phys.turb_model
     what = (f"viscous residual ({model}"
-            f"{'' if perturbed else ', unperturbed field'})")
-    inputs = viscous_inputs(torch, solver, perturbed=perturbed)
-    blocks = solver.case.blocks
+            f"{'' if perturbed else ', unperturbed field'}"
+            f"{f', level {lvl}' if lvl else ''})")
+    inputs = viscous_inputs(torch, solver, perturbed=perturbed, lvl=lvl)
+    blocks = [b for b in solver.mg_cases[lvl].blocks
+              if blocks is None or b.index in blocks]
     max_abs, worst, worst_name = 0.0, 0.0, ""
     for b in blocks:
         got = flat_outputs(vm.viscous_residual(phys, cfg, b,
@@ -625,7 +700,7 @@ def compare_viscous(torch, solver, label, card, perturbed=True,
         torch, run(vis.viscous_residual), run(vm.viscous_residual))
     costs = [vm.cost(b, model) for b in blocks]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
-    before = VISC_BEFORE_MS.get((case, model))
+    before = VISC_BEFORE_MS.get((case, model)) if lvl == 0 else None
     infos = [vm.launch_info(b, model) for b in blocks]
     for i in infos:
         if i["smem_bytes"] != vm.smem_bytes(vm.MODELS[model], *i["tile"]):
@@ -670,7 +745,7 @@ def read_tme(path):
 
 
 def drive(torch, solver, iterations, sweep_pairs, label, card,
-          case="case B"):
+          case="case B", per_iteration=None):
     """Solver.run of ``iterations`` time steps on the card with the launch
     counters set to 0 just before and read just after; checks and prints;
     returns the launch counts {kernel: n} and, as 'viscous_path_ms', the
@@ -680,7 +755,11 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     blusgs the block sweep only; each sweep launch follows one reset of
     its schedule's state.  dplur and the explicit integrators launch no
     sweep, dplur and explicit one-species viscous decks the viscous
-    kernel, bdplur neither."""
+    kernel, bdplur neither.  ``per_iteration`` ({kernel: launches per
+    nonlinear iteration}) states the counts of a multigrid deck; its drive
+    also returns, as 'sweeps_with_extra', the sweep launches that took the
+    lagged term, and, as 'coarse_share', the share of the steady
+    iterations' time spent below level 0 (coarse_timer)."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     cells = solver.case.total_cells
@@ -692,7 +771,11 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
                 "sweep_state_resets": ls.STATE_RESETS}
     # one launch per block and sweep
     sweeps = passes * sweep_pairs * 2 * nblocks if solver.sweeps else 0
-    if solver.cfg["block_matrix"]:
+    if per_iteration is not None:
+        expect = {k: passes * n for k, n in per_iteration.items()}
+        expect["sweep_state_resets"] = (expect["lusgs_sweep"]
+                                        + expect["blusgs_sweep"])
+    elif solver.cfg["block_matrix"]:
         expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
                   "viscous_march": 0, "sweep_state_resets": sweeps}
     else:
@@ -707,9 +790,18 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     torch.cuda.reset_peak_memory_stats()
     allocs = device_allocs(torch)
     vm.TIMINGS = []
+    multigrid = solver.mg_nlevels > 1
+    if multigrid:
+        coarse, with_extra = coarse_timer(torch, solver)
     for c in counters.values():
         c.reset()
-    solver.run(iterations=iterations)
+    try:
+        solver.run(iterations=iterations)
+    finally:
+        if multigrid:
+            for name in ("_restrict_level", "_mg_cycle"):
+                delattr(solver, name)
+            ls.sweep_blocks = with_extra[1]
     launches = {name: c.count for name, c in counters.items()}
     torch.cuda.synchronize()
     timings, vm.TIMINGS = vm.TIMINGS, None
@@ -747,7 +839,58 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
           f"Mcell-iterations/s, peak device memory {peak / 2**30:.3f} GiB "
           f"({card})", flush=True)
     print(f"{label}: last L2 {[f'{v:.4e}' for v in l2[-1]]}", flush=True)
-    return dict(launches, viscous_path_ms=path_ms)
+    out = dict(launches, viscous_path_ms=path_ms)
+    if multigrid:
+        per = len(coarse) // passes
+        below = sum(coarse[first * per:])
+        out["coarse_share"] = below / sum(steady)
+        out["sweeps_with_extra"] = with_extra[0][0]
+        print(f"{label}: {solver.mg_nlevels} levels, "
+              f"{solver.deck['multigridCycle']} cycle: below level 0 "
+              f"{1e3 * below / len(steady):.2f} ms of "
+              f"{1e3 * sum(steady) / len(steady):.2f} ms a step (share "
+              f"{out['coarse_share']:.4f}; restriction from level 0 and "
+              f"the coarse cycles, each synchronised at its ends); sweep "
+              f"launches with the lagged term {with_extra[0][0]} of "
+              f"{launches['lusgs_sweep'] + launches['blusgs_sweep']} "
+              f"({card})", flush=True)
+    return out
+
+
+def coarse_timer(torch, solver):
+    """Time below level 0 in a multigrid solver's run: wraps the
+    solver's restriction from level 0 and its level-1 cycles (instance
+    attributes, deleted by the caller after the run) so that each call is
+    timed between two synchronisations, and lusgs_sweep.sweep_blocks so
+    that the sweep launches which take the lagged term are counted.
+    Returns (the list of timed seconds, in call order; ([count],
+    the original sweep_blocks))"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    timed = []
+
+    def timer(fn, level):
+        def call(lvl, *args):
+            if lvl != level:
+                return fn(lvl, *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(lvl, *args)
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    solver._restrict_level = timer(solver._restrict_level, 0)
+    solver._mg_cycle = timer(solver._mg_cycle, 1)
+    count = [0]
+    sweep_blocks = ls.sweep_blocks
+
+    def counted(phys, cfg, blocks, forward):
+        count[0] += sum(1 for args in blocks if args[-1] is not None)
+        return sweep_blocks(phys, cfg, blocks, forward)
+
+    ls.sweep_blocks = counted
+    return timed, (count, sweep_blocks)
 
 
 def path_timings(timings, nblocks, label, allocs, card):
@@ -995,6 +1138,7 @@ def main():
                    ("air5", "blusgs", 1, "rusanov")]
     references += [("sst", "lusgs", 1, "roe"), ("sst", "dplur", 4, "rusanov"),
                    ("laminar", "lusgs", 1, "rk4"), ("sst", "lusgs", 1, "bdf2")]
+    references += [("sst", "lusgs", 1, "mg3W"), ("sst", "blusgs", 1, "mg2V")]
     for physics, solver_name, sweeps, tag in references:
         hist = {dev: reference_history(TEST_DIMS, dev, solver_name, sweeps,
                                        physics, tag)
@@ -1065,6 +1209,56 @@ def main():
     print(f"phase 11: viscous kernel launches of the drives {new_path_k2}",
           flush=True)
     done(11)
+
+    # -- phase 12: multigrid, compared and driven ----------------------------
+    # (kernel, form, with the lagged term) -> {label: launches of the drive}
+    mg_launches = {}
+    # (kernel, form, with the lagged term) -> {"<case> level <l>": result}
+    mg_levels = {}
+    for case, physics, solver_name, sweeps, tag, per_iteration, compare in \
+            MG_DECKS:
+        from aither_tpu_torch.kernels import lusgs_sweep as ls
+        label = f"phase 12 {case} {physics} {solver_name} {tag}"
+        solver = build(label, all_dims[case], solver_name, sweeps, physics,
+                       tag)
+        cells = [c.total_cells for c in solver.mg_cases]
+        dims = [[(b.ni, b.nj, b.nk) for b in c.blocks]
+                for c in solver.mg_cases]
+        print(f"{label}: {solver.mg_nlevels} levels of {dims} blocks, "
+              f"{cells} cells, built on the host in "
+              f"{solver.mg_build_seconds:.2f} s (coarse cases and "
+              f"transfer maps)", flush=True)
+        block = bool(solver.cfg["block_matrix"])
+        kernel = "blusgs_sweep" if block else "lusgs_sweep"
+        form = ls.sweep_form(solver.phys, solver.cfg) if solver.sweeps \
+            else None
+        if compare:
+            for lvl, system in sorted(level_systems(solver).items()):
+                mg_levels.setdefault((kernel, form, True), {})[
+                    f"{case} level {lvl}"] = compare_sweeps(
+                    torch, solver, system, label, card, True, case, lvl)
+            if not block and solver.cfg["viscous"]:
+                mg_levels.setdefault(
+                    ("viscous_march", solver.phys.turb_model), {})[
+                    f"{case} level 1"] = compare_viscous(
+                    torch, solver, label, card, case=case, lvl=1, blocks=(0,))
+        n = drive(torch, solver, MG_ITERATIONS, sweeps, label, card, case,
+                  per_iteration)
+        if solver.sweeps:
+            lagged = n["sweeps_with_extra"]
+            for with_extra, count in ((False, n[kernel] - lagged),
+                                      (True, lagged)):
+                if count:
+                    mg_launches.setdefault((kernel, form, with_extra), {})[
+                        label] = count
+        if n["viscous_march"]:
+            mg_launches.setdefault(
+                ("viscous_march", solver.phys.turb_model), {})[label] = \
+                n["viscous_march"]
+        print(f"{label}: below level 0 a share {n['coarse_share']:.4f} of "
+              f"the steady iterations ({card})", flush=True)
+        del solver
+    done(12)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -1103,6 +1297,17 @@ def main():
                                    label: n for label, (n, model) in
                                    new_path_k2.items()
                                    if n and model == key[1]})
+    for key in list(mg_launches) + list(mg_levels):
+        if key not in results:
+            fail(f"{key}: on the multigrid path but in no kernels row")
+    for row, key in zip(kernels, results):
+        if key in mg_launches:
+            row["mg_launches"] = mg_launches[key]
+        if key in mg_levels:
+            row["mg_levels"] = {
+                where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by"), r[:5]))
+                for where, r in mg_levels[key].items()}
     for row in kernels:
         if not row["launches"] > 0:
             fail(f"{row['name']}: no launch on its driven path")

@@ -140,7 +140,6 @@ def _patched_case(tmp_path, patch):
 
 
 @pytest.mark.parametrize("patch", [
-    pytest.param(("multigridLevels", "2"), id="patch2"),
     pytest.param(("faceReconstruction", "weno"), id="patch4"),
     pytest.param(("inviscidFlux", "ausm"), id="patch5"),
     pytest.param(("viscousFaceReconstruction", "centralFourth"),
@@ -156,17 +155,19 @@ def test_refuses_settings_outside_the_slice(tmp_path, patch):
 @pytest.mark.parametrize("patch", [
     ("matrixSolver", "bdplur"), ("matrixSolver", "dplur"),
     ("inviscidFluxJacobian", "approximateRoe"),
-    ("timeIntegration", "bdf2")])
+    ("timeIntegration", "bdf2"), ("multigridLevels", "2"),
+    ("multigridCycle", "W")])
 def test_admits_settings_of_the_slice(tmp_path, patch):
-    """the linear solvers and time integrators the port covers since they
-    were refused: the deck check admits each and the CPU solver builds"""
+    """the linear solvers, time integrators and multigrid settings the
+    port covers since they were refused: the deck check admits each and
+    the CPU solver builds"""
     from aither_tpu_torch.io.deck import parse_deck
     from aither_tpu_torch.solver.driver import Solver, check_supported
     path = _patched_case(tmp_path, patch)
     check_supported(parse_deck(path).finalize())
     ts = Solver(path, device="cpu", workdir=str(tmp_path))
     key, val = patch
-    assert ts.deck[key] == val
+    assert str(ts.deck[key]) == val
 
 
 def test_cli_requires_cuda_or_explicit_cpu(tmp_path, monkeypatch):

@@ -35,11 +35,12 @@ def write_case(tmp_dir, dims=TEST_DIMS, matrix_sweeps=1,
                             turbulence_model=turbulence_model, **deck)
 
 
-def jax_solver(deck_path, workdir, scan=False):
+def jax_solver(deck_path, workdir, scan=False, nproc=1):
     """aither_tpu Solver with its sweep on the Pallas kernel (interpret),
-    or with ``scan`` on its plain scan path (``cfg["no_pallas"]``)."""
+    or with ``scan`` on its plain scan path (``cfg["no_pallas"]``);
+    ``nproc`` decomposes the grid."""
     from aither_tpu.solver.driver import Solver
-    solver = Solver(deck_path, workdir=str(workdir))
+    solver = Solver(deck_path, workdir=str(workdir), nproc=nproc)
     solver.cfg["no_pallas" if scan else "pallas_interpret"] = True
     return solver
 
@@ -59,9 +60,10 @@ def enable_jax_march(solver):
     return solver
 
 
-def torch_solver(deck_path, workdir):
+def torch_solver(deck_path, workdir, nproc=1):
     from aither_tpu_torch.solver.driver import Solver
-    return Solver(deck_path, device="cpu", workdir=str(workdir))
+    return Solver(deck_path, device="cpu", workdir=str(workdir),
+                  nproc=nproc)
 
 
 def perturbed_prims(blocks, seed=SEED):
@@ -106,12 +108,14 @@ def rel_err(got, want):
 # equation set, the turbulence model and the matrix solver
 
 
-def solver_pair(workdir, scan=False, **deck):
-    """(JAX solver, port solver) of one generated deck, both holding the
-    same perturbed state and its conserved twin."""
+def solver_pair(workdir, scan=False, nproc=1, **deck):
+    """(JAX solver, port solver) of one generated deck (decomposed for
+    ``nproc`` processes), both holding the same perturbed state and its
+    conserved twin."""
     import jax.numpy as jnp
     path = write_case(workdir, **deck)
-    js, ts = jax_solver(path, workdir, scan), torch_solver(path, workdir)
+    js = jax_solver(path, workdir, scan, nproc)
+    ts = torch_solver(path, workdir, nproc)
     prims = perturbed_prims(js.case.blocks)
     js.prims = {b: jnp.asarray(v) for b, v in prims.items()}
     js.cons_n = js.store_old_solution()
@@ -347,3 +351,75 @@ def resid_columns(ts):
     """names of the residual columns in the port's .resid header"""
     with open(ts.sim_root + ".resid") as f:
         return [c for c in f.readline().split() if c.startswith("Res-")]
+
+
+# ---------------------------------------------------------------------------
+# multigrid (tests/test_torch_multigrid*.py)
+
+
+def traced_iterate(js):
+    """Replace the JAX Solver's jitted iteration by one program that also
+    returns its multigrid trace (``_mg_trace_log``, filled while it
+    traces): one compile serves the iteration, the history and the
+    stage-by-stage comparison.  The last call's trace is
+    ``js.last_trace``, a list of ((stage, level), {block: array})."""
+    import jax
+    names = []
+
+    def iteration(geo_args, prims, cons_n, cons_nm1, cfl, bc_aux):
+        js._mg_trace_log = []
+        try:
+            out = js._iteration_with_geo(geo_args, prims, cons_n, cons_nm1,
+                                         cfl, stage=0, bc_aux=bc_aux)
+            log = js._mg_trace_log
+        finally:
+            js._mg_trace_log = None
+        names[:] = [(stage, lvl) for stage, lvl, _ in log]
+        return out, [d for _, _, d in log]
+
+    jitted = jax.jit(iteration)
+
+    def _iterate(prims, cons_n, cons_nm1, cfl, stage, bc_aux=None):
+        assert stage == 0
+        out, trace = jitted(js._geo_args, prims, cons_n, cons_nm1, cfl,
+                            bc_aux)
+        js.last_trace = list(zip(names, trace))
+        return out
+
+    js._iterate = _iterate
+    return js
+
+
+def mg_solver_pair(workdir, **deck):
+    """``solver_pair`` of a multigrid deck, the JAX side on its scan sweep
+    path (its Pallas sweep in interpret mode compiles several times slower
+    at up to twenty sweeps an iteration; its multigrid code is the same on
+    both paths) through ``traced_iterate``"""
+    js, ts = solver_pair(workdir, scan=True, **deck)
+    assert js.mg_nlevels == ts.mg_nlevels > 1
+    assert js.mg_cycle_index == ts.mg_cycle_index
+    return traced_iterate(js), ts
+
+
+def check_cycle_stages(js, ts, forced, tol=1e-10):
+    """one iteration's multigrid cycle from the shared state, the port's
+    ``_mg_trace_log`` against the JAX package's: the same stages at the
+    same levels in the same order (``forced``: the levels of the forcing
+    stages, one per restriction), every field within ``tol`` of its
+    scale"""
+    assert ts._mg_trace_log is None
+    jax_step(js, 0)
+    ts._mg_trace_log = []
+    try:
+        ts._iteration(dict(ts.prims), ts.cons_n, ts.deck.cfl(0))
+        got = ts._mg_trace_log
+    finally:
+        ts._mg_trace_log = None
+    want = js.last_trace
+    assert [(s, lv) for s, lv, _ in got] == [key for key, _ in want]
+    assert [lv for s, lv, _ in got if s == "forcing"] == forced
+    for (stage, lvl, g), (_, w) in zip(got, want):
+        assert set(g) == set(w)
+        for bi in g:
+            err = rel_err(g[bi], w[bi])
+            assert err < tol, (stage, lvl, bi, err)
