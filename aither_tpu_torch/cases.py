@@ -56,6 +56,7 @@ import os
 import numpy as np
 
 from .io.plot3d import write_p3d
+from .physics.fluid import load_fluid
 
 # sizes used by the tests and by chip_smoke.py: (ni, nj, nk) of EACH block
 TEST_DIMS = (12, 8, 3)
@@ -66,6 +67,13 @@ PLATE_LENGTH = 1.0     # m, both blocks together
 PLATE_HEIGHT = 0.05    # m, wall to far field
 PLATE_WIDTH = 0.05     # m, spanwise extent
 CLUSTER = 3.0          # tanh clustering strength toward the wall
+# the clustering of a wall-law deck on the smoke cases (nj = 64 and 120):
+# its first cells sit at y+ of about 66 (case B) and 39 (case A) at the
+# plate's freestream, where CLUSTER puts them below 10.  The JAX package's
+# wall law brackets y+ in [10, 1e4] and sets an unbracketed face to 1e4
+# (it never takes its y+ < 10 low-Re switch), and its run then turns to
+# NaN; at TEST_DIMS (nj = 8) CLUSTER gives y+ of about 45.
+WALL_LAW_CLUSTER = 1.0
 
 _DECK = """\
 gridName: {grid}
@@ -89,23 +97,23 @@ cflStart: {cfl[0]}
 cflStep: {cfl[1]}
 cflMax: {cfl[2]}
 fluids: <{fluids}>
-initialConditions: <icState(tag=-1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf})>
-boundaryStates: <characteristic(tag=1; pressure=101300.0; density={density}; velocity=[68.0, 0.0, 0.0]{turb}{mf}){wall_state}>
+initialConditions: <icState(tag=-1; pressure=101300.0; density={density}; velocity=[{velocity}, 0.0, 0.0]{turb}{mf})>
+boundaryStates: <characteristic(tag=1; pressure=101300.0; density={density}; velocity=[{velocity}, 0.0, 0.0]{turb}{mf}){wall_state}{states}>
 boundaryConditions: 2
 2 2 2
-  characteristic  0 0 0 {nj} 0 {nk} 1
+  {inflow}  0 0 0 {nj} 0 {nk} {inflow_tag}
   interblock  {ni} {ni} 0 {nj} 0 {nk} 1001
   {wall}
   characteristic  0 {ni} {nj} {nj} 0 {nk} 1
-  slipWall  0 {ni} 0 {nj} 0 0 0
-  slipWall  0 {ni} 0 {nj} {nk} {nk} 0
+  {span}  0 {ni} 0 {nj} 0 0 {span_tags[0]}
+  {span}  0 {ni} 0 {nj} {nk} {nk} {span_tags[1]}
 2 2 2
   interblock  0 0 0 {nj} 0 {nk} 2000
-  characteristic  {ni} {ni} 0 {nj} 0 {nk} 1
+  {outflow}  {ni} {ni} 0 {nj} 0 {nk} {outflow_tag}
   {wall}
   characteristic  0 {ni} {nj} {nj} 0 {nk} 1
-  slipWall  0 {ni} 0 {nj} 0 0 0
-  slipWall  0 {ni} 0 {nj} {nk} {nk} 0
+  {span}  0 {ni} 0 {nj} 0 0 {span_tags[0]}
+  {span}  0 {ni} 0 {nj} {nk} {nk} {span_tags[1]}
 """
 
 
@@ -156,12 +164,14 @@ MIXTURES = {"n2o2": N2O2, "air5": AIR5,
                                 mass_fractions=(0.74, 0.2, 0.04, 0.02))}
 
 
-def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
-    """Node coordinates (ni+1, nj+1, nk+1, 3) of the two blocks."""
+def plate_nodes(ni: int, nj: int, nk: int,
+                cluster: float = CLUSTER) -> list[np.ndarray]:
+    """Node coordinates (ni+1, nj+1, nk+1, 3) of the two blocks, with the
+    tanh clustering strength ``cluster`` toward the wall."""
     half = 0.5 * PLATE_LENGTH
     eta = np.arange(nj + 1) / nj
-    y = PLATE_HEIGHT * (1.0 - np.tanh(CLUSTER * (1.0 - eta))
-                        / np.tanh(CLUSTER))
+    y = PLATE_HEIGHT * (1.0 - np.tanh(cluster * (1.0 - eta))
+                        / np.tanh(cluster))
     z = PLATE_WIDTH * np.arange(nk + 1) / nk
     blocks = []
     for b in range(2):
@@ -169,6 +179,21 @@ def plate_nodes(ni: int, nj: int, nk: int) -> list[np.ndarray]:
         xx, yy, zz = np.meshgrid(x, y, z, indexing="ij")
         blocks.append(np.stack([xx, yy, zz], axis=-1))
     return blocks
+
+
+def stagnation_state(density: float, velocity: float, species=None,
+                     mass_fractions=None):
+    """(p0 in Pa, T0 in K) of the plate's freestream (101300 Pa,
+    ``density``, ``velocity`` along x) for the calorically perfect gas of
+    the deck: air, or the mixture of ``species``"""
+    fluids = [load_fluid(name) for name in species or ("air",)]
+    mfs = mass_fractions or (1.0,)
+    r = sum(m * f.gas_constant for f, m in zip(fluids, mfs))
+    cv = sum(m * f.n * f.gas_constant for f, m in zip(fluids, mfs))
+    gamma = (cv + r) / cv
+    t = 101300.0 / (density * r)
+    t0 = t + 0.5 * velocity * velocity / (cv + r)
+    return 101300.0 * (t0 / t) ** (gamma / (gamma - 1.0)), t0
 
 
 def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
@@ -188,7 +213,14 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      dual_time_cfl: float = -1.0,
                      cfl=(10.0, 10.0, 1000.0),
                      multigrid_levels: int = 1,
-                     multigrid_cycle: str = "V") -> str:
+                     multigrid_cycle: str = "V",
+                     inflow: str = "characteristic",
+                     outflow: str = "characteristic",
+                     nonreflecting: bool = False,
+                     wall_treatment: str = "lowRe",
+                     span: str = "slipWall",
+                     velocity: float = 68.0,
+                     cluster: float = CLUSTER) -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
     ``matrix_solver`` "blusgs" the block-matrix LU-SGS, "dplur" / "bdplur"
@@ -204,15 +236,32 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     1 and V); ``equation_set``
     and ``turbulence_model`` the physics; ``species``, ``mass_fractions``,
     ``diffusion`` and ``chemistry`` the mixture (module docstring);
-    ``density`` (kg/m^3, at 101300 Pa) the state and ``wall_temperature``
-    (K) the isothermal wall."""
+    ``density`` (kg/m^3, at 101300 Pa) and ``velocity`` (m/s, along x)
+    the state and ``wall_temperature`` (K) the isothermal wall.
+
+    The boundaries: ``inflow`` (block 0's i-min: characteristic, inlet,
+    stagnationInlet at the freestream's p0 and T0 along x, or
+    supersonicInflow), ``outflow`` (block 1's i-max: characteristic,
+    pressureOutlet at 101300 Pa, or supersonicOutflow), ``nonreflecting``
+    (the LODI forms of inlet and pressureOutlet, lengthScale the plate's
+    length), ``wall_treatment`` (lowRe or wallLaw) and ``span`` (the k
+    faces: slipWall, or periodic with the translation [0, 0,
+    PLATE_WIDTH]); ``cluster`` the grid's tanh clustering toward the
+    wall (a wall-law deck on a fine grid takes a weaker one: the JAX
+    package's wall law needs y+ >= 10 at every wall face, see
+    ``WALL_LAW_CLUSTER``).
+    Every default writes the deck and grid of before these keywords, byte
+    for byte."""
     turb = ("; turbulenceIntensity=0.01; eddyViscosityRatio=10.0"
             if equation_set == "rans" else "")
     inviscid = equation_set == "euler"
     wall = (f"slipWall  0 {ni} 0 0 0 {nk} 0" if inviscid
             else f"viscousWall  0 {ni} 0 0 0 {nk} 2")
+    wall_law = ("" if wall_treatment == "lowRe"
+                else f"; wallTreatment={wall_treatment}")
     wall_state = ("" if inviscid else
-                  f", viscousWall(tag=2; temperature={wall_temperature})")
+                  f", viscousWall(tag=2; temperature={wall_temperature}"
+                  f"{wall_law})")
     fluids, mf, mixture = "fluid(name=air; referenceMassFraction=1.0)", "", ""
     if species is not None:
         fluids = ", ".join(f"fluid(name={s}; referenceMassFraction={m})"
@@ -225,6 +274,31 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                         f"chemistryMechanism: {chemistry}\n")
     if not inviscid:
         wall_state = wall_state[:-1] + mf + ")"
+    lodi = (f"; nonreflecting=true; lengthScale={PLATE_LENGTH}"
+            if nonreflecting else "")
+    free = (f"pressure=101300.0; density={density}; "
+            f"velocity=[{velocity}, 0.0, 0.0]{turb}{mf}")
+    states, inflow_tag, outflow_tag, span_tags = "", 1, 1, (0, 0)
+    if inflow == "inlet":
+        states += f", inlet(tag=3; {free}{lodi})"
+    elif inflow == "stagnationInlet":
+        p0, t0 = stagnation_state(density, velocity, species,
+                                  mass_fractions)
+        states += (f", stagnationInlet(tag=3; p0={p0!r}; t0={t0!r}; "
+                   f"direction=[1.0, 0.0, 0.0]{turb}{mf})")
+    elif inflow == "supersonicInflow":
+        states += f", supersonicInflow(tag=3; {free})"
+    if inflow != "characteristic":
+        inflow_tag = 3
+    if outflow == "pressureOutlet":
+        states += f", pressureOutlet(tag=6; pressure=101300.0{lodi})"
+        outflow_tag = 6
+    elif outflow == "supersonicOutflow":
+        outflow_tag = 0
+    if span == "periodic":
+        states += (f", periodic(startTag=4; endTag=5; "
+                   f"translation=[0.0, 0.0, {PLATE_WIDTH}])")
+        span_tags = (4, 5)
     time_lines = ""
     if time_step != 0.0:
         time_lines += f"timeStep: {time_step}\n"
@@ -241,7 +315,8 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     if chemistry is not None:
         with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
             f.write(MECHANISMS[chemistry])
-    write_p3d(os.path.join(out_dir, f"{name}.xyz"), plate_nodes(ni, nj, nk))
+    write_p3d(os.path.join(out_dir, f"{name}.xyz"),
+              plate_nodes(ni, nj, nk, cluster))
     deck_path = os.path.join(out_dir, f"{name}.inp")
     with open(deck_path, "w") as f:
         f.write(_DECK.format(grid=name, iterations=iterations, ni=ni, nj=nj,
@@ -255,5 +330,9 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              time_integration=time_integration,
                              time_lines=time_lines, mg_lines=mg_lines,
                              inviscid_flux_jacobian=inviscid_flux_jacobian,
-                             cfl=tuple(float(c) for c in cfl)))
+                             cfl=tuple(float(c) for c in cfl),
+                             velocity=velocity, states=states,
+                             inflow=inflow, inflow_tag=inflow_tag,
+                             outflow=outflow, outflow_tag=outflow_tag,
+                             span=span, span_tags=span_tags))
     return deck_path

@@ -17,11 +17,12 @@ Wilcox 2006, WALE and laminar, each an instantiation of the kernel.  Both
 versions read the block's static face geometry
 (``solver/viscous.viscous_statics``, with the face length for WALE), built
 once per block.  Scope, as the JAX package's ``use_march``: one species,
-scalar solver, central viscous reconstruction, no wall law, calorically
-perfect gas (the port's Physics refuses the others), no pressure-gradient
-output; the wrapper raises outside it, on every device: a mixture's
-residual takes ``solver/viscous.viscous_residual`` by the solver's own
-choice (``solver/step.full_residual``), as in the JAX package.
+scalar solver, central viscous reconstruction, no wall-law surface on the
+block, calorically perfect gas (the port's Physics refuses the others),
+no pressure-gradient output (no nonreflecting LODI surface in the deck,
+``cfg['need_pgrad']``); the wrapper raises outside it, on every device:
+such a residual takes ``solver/viscous.viscous_residual`` by the solver's
+own choice (``solver/step.full_residual``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,6 +94,16 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all):
     prim (neq, NI, NJ, NK) after the viscous ghost fill, t_all and mu_all
     (NI, NJ, NK)."""
     model = _check_scope(phys, cfg)
+    if cfg.get("need_pgrad"):
+        raise ValueError(
+            "the viscous residual kernel forms no cell pressure gradient, "
+            "which the nonreflecting (LODI) boundaries read: such a deck "
+            "takes solver/viscous.viscous_residual, as in the JAX package")
+    if vis.has_wall_law(block):
+        raise ValueError(
+            "the viscous residual kernel applies no wall-law face values: "
+            "a block with a wallLaw viscousWall takes "
+            "solver/viscous.viscous_residual, as in the JAX package")
     if prim.device.type == "cpu":
         return vis.viscous_residual(phys, cfg, block, prim, t_all, mu_all)
     if prim.device.type != "cuda":

@@ -6,14 +6,11 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "wallLaw": f"{_Q1} 5 (remaining physics: wall law)",
     "faceReconstruction": f"{_Q1} 5 (remaining physics: WENO)",
     "viscousFaceReconstruction": f"{_Q1} 5 (remaining physics: centralFourth)",
     "inviscidFlux": f"{_Q1} 5 (remaining physics: AUSM)",
     "thermallyPerfect": f"{_Q1} 5 (remaining physics: thermallyPerfect)",
     "species": f"{_Q1} 9 (species counts above 5 in the CUDA sweeps)",
-    "nonreflecting": f"{_Q1} 5 (remaining physics: LODI)",
-    "boundaryCondition": f"{_Q1} 5 (remaining physics: boundary conditions)",
     "output": f"{_Q1} 6 (output and restart)",
     "restart": f"{_Q1} 6 (output and restart)",
     "fileInitialCondition": f"{_Q1} 6 (output and restart: cloud ICs)",

@@ -11,9 +11,10 @@ every single-species physics: Euler, laminar Navier-Stokes, LES (WALE) and
 RANS (Wilcox 2006 k-omega, SST 2003, SST-DES), and for calorically perfect
 mixtures (N2/O2 with Schmidt diffusion, hot five-species air frozen and
 reacting; the mixture forms of both sweep kernels), the other linear
-solvers and time integrators, and FAS multigrid — on the generated
-two-block flat plate (aither_tpu_torch/cases.py) and checks them.  Phases, each
-printing its own lines:
+solvers and time integrators, FAS multigrid, and every boundary
+condition — on the generated two-block flat plate
+(aither_tpu_torch/cases.py) and checks them.  Phases, each printing its
+own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
@@ -119,7 +120,22 @@ printing its own lines:
     the iteration spent below level 0 (restriction from level 0 and the
     coarse cycles, synchronised at their ends).  Phase 6 also holds SST
     lusgs with a 3-level W cycle and SST blusgs with a 2-level V cycle
-    cuda against cpu.
+    cuda against cpu;
+13. boundaries (BC_DECKS, layouts of BC_LAYOUTS), every solver built once,
+    compared and driven BC_ITERATIONS steps: case B SST lusgs with a
+    stagnation inlet, pressure outlet and periodic span (the (a) pair and
+    K2 on block 0 against their plain versions; exactly 4 sweep and 2 K2
+    launches an iteration; its steps/s beside phase 4's and the share of
+    a further run spent in the boundary pass, timed between
+    synchronisations), with nonreflecting (LODI) inlet and outlet (the (a)
+    pair; 4 sweep launches, no K2: the JAX package's route for the
+    pressure gradient; the carried dt's range) and with the wall law (4
+    sweep launches, no K2; the wall faces' y+ shares and the wall-law
+    solve's time an iteration by CUDA events); case A SST blusgs with the
+    wall law (the (c) pair; 4 block-sweep launches) and a Mach-2 Euler
+    plate with the supersonic pair (the Euler (a) pair; 4 launches).
+    Phase 6 also holds the periodic, LODI and wall-law decks cuda against
+    cpu.  The wall-law decks take cases.WALL_LAW_CLUSTER.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -135,7 +151,9 @@ case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
 inside Solver.run per iteration, with 'path_case'; a row of a form on
 the multigrid path also has 'mg_launches', its launches in each phase-12
-drive, and 'mg_levels', its comparisons on the coarse levels), and last
+drive, and 'mg_levels', its comparisons on the coarse levels; a row of
+a form on a boundary path has 'bc_launches', its launches in each phase-13
+drive, and 'bc_compared', its comparisons there), and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Case files go to ./smoke_run/ (git-ignored).
 """
@@ -154,6 +172,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "smoke_run")
+# cases.WALL_LAW_CLUSTER, kept here: the script reads nothing of the
+# package before it has checked the card
+WALL_LAW_CLUSTER = 1.0
 
 MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 6
@@ -345,6 +366,38 @@ MG_DECKS = (
     ("case A", "sst", "blusgs", 1, "mg2V",
      {"lusgs_sweep": 0, "blusgs_sweep": 12, "viscous_march": 0}, True),
 )
+
+# phase 13: the boundary layouts of write_plate_case (BC_LAYOUTS) and the
+# decks (case, physics, matrixSolver, layout, launches per iteration
+# {kernel: n} with 2 blocks, sweep pair compared, K2 compared on block 0).
+# LODI needs the cell pressure gradient and the wall law its face values,
+# so both take the plain viscous residual (no K2), as in the JAX package.
+# The wall-law decks take a weaker clustering (cases.WALL_LAW_CLUSTER):
+# every wall face's y+ lies in the wall law's bracket [10, 1e4] there
+BC_LAYOUTS = {
+    "stagnation_periodic": dict(inflow="stagnationInlet",
+                                outflow="pressureOutlet", span="periodic"),
+    "lodi": dict(inflow="inlet", outflow="pressureOutlet",
+                 nonreflecting=True),
+    "wall_law": dict(inflow="stagnationInlet", outflow="pressureOutlet",
+                     wall_treatment="wallLaw", cluster=WALL_LAW_CLUSTER),
+    "supersonic": dict(inflow="supersonicInflow",
+                       outflow="supersonicOutflow", velocity=680.0),
+}
+BC_DECKS = (
+    ("case B", "sst", "lusgs", "stagnation_periodic",
+     {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 2}, True, True),
+    ("case B", "sst", "lusgs", "lodi",
+     {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
+    ("case B", "sst", "lusgs", "wall_law",
+     {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, False,
+     False),
+    ("case A", "sst", "blusgs", "wall_law",
+     {"lusgs_sweep": 0, "blusgs_sweep": 4, "viscous_march": 0}, True, False),
+    ("case A", "euler", "lusgs", "supersonic",
+     {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
+)
+BC_ITERATIONS = 5        # phase 13, every deck
 
 
 def fail(msg: str):
@@ -839,7 +892,7 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
           f"Mcell-iterations/s, peak device memory {peak / 2**30:.3f} GiB "
           f"({card})", flush=True)
     print(f"{label}: last L2 {[f'{v:.4e}' for v in l2[-1]]}", flush=True)
-    out = dict(launches, viscous_path_ms=path_ms)
+    out = dict(launches, viscous_path_ms=path_ms, steps_per_s=its)
     if multigrid:
         per = len(coarse) // passes
         below = sum(coarse[first * per:])
@@ -918,11 +971,91 @@ def path_timings(timings, nblocks, label, allocs, card):
     return per_iteration
 
 
+def wall_law_shares(solver) -> str:
+    """the share of the solver's wall faces at y+ >= 10 and of those
+    whose wall-law root the Ridder bracket [10, 1e4] holds (an
+    unbracketed face is set to y+ = 1e4), from its state, in words"""
+    import torch
+    from aither_tpu_torch.solver import step
+    from aither_tpu_torch.solver import wall_law
+    prims = step.apply_all_bcs(solver.phys, solver.case, dict(solver.prims))
+    yplus = []
+    for b in solver.case.blocks:
+        wall = {}
+        step.apply_boundary_ghosts(solver.phys, b, prims[b.index],
+                                   viscous_pass=True, cfg=solver.cfg,
+                                   wall_data=wall)
+        yplus += [v["yplus"].reshape(-1) for v in wall.values()]
+    y = torch.cat(yplus)
+    at_10 = float((y >= 10.0).double().mean())
+    bracketed = float((y < wall_law.YPLUS_HI).double().mean())
+    return (f"{y.numel()} wall faces, share at y+ >= 10 {at_10:.4f}, root "
+            f"bracketed {bracketed:.4f}, y+ in [{float(y.min()):.2f}, "
+            f"{float(y.max()):.2f}]")
+
+
+def wall_law_timer(torch):
+    """time every wall-law solve by CUDA events: wraps
+    wall_law.solve_wall_law (restored by the caller); returns (the list
+    of (start, stop) events, the original function)"""
+    from aither_tpu_torch.solver import wall_law
+    events = []
+    solve = wall_law.solve_wall_law
+
+    def timed(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = solve(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    wall_law.solve_wall_law = timed
+    return events, solve
+
+
+def boundary_share(torch, solver, iterations=3):
+    """share of a further ``iterations``-step run (from its step 1 on)
+    spent in the boundary pass: the full ghost fill
+    (step.apply_all_bcs) and the viscous wall ghosts (the viscous_pass
+    calls of step.apply_boundary_ghosts / apply_edge_ghosts), each timed
+    between two synchronisations"""
+    from aither_tpu_torch.solver import step
+    timed = []
+    names = ("apply_all_bcs", "apply_boundary_ghosts", "apply_edge_ghosts")
+    saved = {name: getattr(step, name) for name in names}
+
+    def timer(fn, always):
+        def call(*args, **kw):
+            if not (always or kw.get("viscous_pass")):
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name in names:
+        setattr(step, name, timer(saved[name], name == "apply_all_bcs"))
+    try:
+        solver.run(iterations=iterations)
+    finally:
+        for name, fn in saved.items():
+            setattr(step, name, fn)
+    steps = [t for n, t in read_tme(solver.sim_root + ".tme") if n >= 1]
+    per = len(timed) // iterations
+    return sum(timed[per:]) / sum(steps)
+
+
 def make_solver(wd, dims, device, solver_name, sweeps, physics,
-                tag="rusanov"):
+                tag="rusanov", layout=None):
     """Solver of the generated plate in ``wd`` with the named physics
-    (PHYSICS) and deck (TIME_DECKS), built in ``wd``: a reacting deck
-    reads its mechanism from the working directory"""
+    (PHYSICS), deck (TIME_DECKS) and boundary layout (BC_LAYOUTS, or the
+    plate's own), built in ``wd``: a reacting deck reads its mechanism
+    from the working directory"""
     from aither_tpu_torch.cases import (MIXTURES, TIME_INTEGRATORS,
                                         write_plate_case)
     from aither_tpu_torch.solver.driver import Solver
@@ -932,7 +1065,8 @@ def make_solver(wd, dims, device, solver_name, sweeps, physics,
                             matrix_solver=solver_name, equation_set=es,
                             turbulence_model=tm,
                             **MIXTURES.get(mixture, {}),
-                            **TIME_INTEGRATORS[integrator], **deck)
+                            **TIME_INTEGRATORS[integrator], **deck,
+                            **BC_LAYOUTS.get(layout, {}))
     here = os.getcwd()
     os.chdir(wd)
     try:
@@ -942,14 +1076,15 @@ def make_solver(wd, dims, device, solver_name, sweeps, physics,
 
 
 def reference_history(dims, device, solver_name, sweeps, physics,
-                      tag="rusanov"):
+                      tag="rusanov", layout=None):
     """raw L2 history (REF_ITERATIONS steps x nonlinear iterations, neq)
     of the small case from a state perturbed by up to 1% on the interior
     (seeded; the unperturbed plate has roundoff-level residual
     components)."""
     wd = os.path.join(RUN_DIR, f"reference_{device}_{physics}_{solver_name}_"
-                               f"{sweeps}_{tag}")
-    s = make_solver(wd, dims, device, solver_name, sweeps, physics, tag)
+                               f"{sweeps}_{tag}_{layout}")
+    s = make_solver(wd, dims, device, solver_name, sweeps, physics, tag,
+                    layout)
     perturb(s)
     s.run(iterations=REF_ITERATIONS)
     return np.asarray(s.l2_history)
@@ -986,6 +1121,7 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
     sys.path.insert(0, REPO)
     try:
+        from aither_tpu_torch import cases
         from aither_tpu_torch.cases import (SMOKE_2D_DIMS, SMOKE_3D_DIMS,
                                             TEST_DIMS)
         from aither_tpu_torch.utils.build import (load_cuda_libraries,
@@ -994,6 +1130,8 @@ def main():
         fail(f"the aither_tpu_torch package is not beside this script: "
              f"{exc}")
     check_no_jax_package()
+    if cases.WALL_LAW_CLUSTER != WALL_LAW_CLUSTER:
+        fail("WALL_LAW_CLUSTER differs from cases.WALL_LAW_CLUSTER")
 
     # -- phase 1: device facts ------------------------------------------------
     card = card_line()
@@ -1031,19 +1169,22 @@ def main():
     done(2)
 
     def build(label, dims, solver_name, sweeps=1, physics="sst",
-              tag="rusanov"):
+              tag="rusanov", layout=None):
         wd = os.path.join(RUN_DIR, f"{label}_{physics}_{solver_name}_"
-                                   f"{sweeps}_{tag}".replace(" ", "_"))
+                                   f"{sweeps}_{tag}_{layout}".replace(" ",
+                                                                      "_"))
         es, tm, mixture = PHYSICS[physics]
         t0 = time.perf_counter()
-        s = make_solver(wd, dims, "cuda", solver_name, sweeps, physics, tag)
+        s = make_solver(wd, dims, "cuda", solver_name, sweeps, physics, tag,
+                        layout)
         if es == "euler":           # a uniform flow otherwise
             perturb(s)
         gas = f", {mixture} ({s.phys.ns} species)" if mixture else ""
+        bcs = f", boundaries {layout}" if layout else ""
         print(f"{label}: 2 blocks of {dims} ({es} / {tm}{gas}, "
               f"{solver_name}, matrixSweeps {sweeps}, {tag}: "
               f"{s.deck['timeIntegration']}, "
-              f"{s.deck['inviscidFluxJacobian']}) built in "
+              f"{s.deck['inviscidFluxJacobian']}{bcs}) built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return s
 
@@ -1115,9 +1256,11 @@ def main():
             if key not in path_ms or (case == "case B"
                                       and path_ms[key][1] != case):
                 path_ms[key] = (n["viscous_path_ms"], case)
+        return n
 
     # -- phase 4: main path, matrixSweeps 1 ----------------------------------
-    drive_and_count(solver, MAIN_ITERATIONS, 1, "phase 4 main path")
+    main_rate = drive_and_count(solver, MAIN_ITERATIONS, 1,
+                                "phase 4 main path")["steps_per_s"]
     del solver
     done(4)
 
@@ -1139,9 +1282,13 @@ def main():
     references += [("sst", "lusgs", 1, "roe"), ("sst", "dplur", 4, "rusanov"),
                    ("laminar", "lusgs", 1, "rk4"), ("sst", "lusgs", 1, "bdf2")]
     references += [("sst", "lusgs", 1, "mg3W"), ("sst", "blusgs", 1, "mg2V")]
-    for physics, solver_name, sweeps, tag in references:
+    references = [r + (None,) for r in references]
+    # phase 13's decks 1-3: periodic span, LODI with its carry, wall law
+    references += [("sst", "lusgs", 1, "rusanov", layout)
+                   for layout in ("stagnation_periodic", "lodi", "wall_law")]
+    for physics, solver_name, sweeps, tag, layout in references:
         hist = {dev: reference_history(TEST_DIMS, dev, solver_name, sweeps,
-                                       physics, tag)
+                                       physics, tag, layout)
                 for dev in ("cuda", "cpu")}
         # per equation, relative to that equation's largest L2
         worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
@@ -1152,6 +1299,7 @@ def main():
             fail(f"{physics}, {solver_name}, {tag}: non-finite L2 on cuda")
         print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, {physics}, "
               f"{solver_name}, matrixSweeps {sweeps}, {tag}, "
+              f"{f'boundaries {layout}, ' if layout else ''}"
               f"{REF_ITERATIONS} steps ({len(hist['cpu'])} nonlinear "
               f"iterations), cuda vs cpu raw L2 max rel diff {worst:.3e} "
               f"(tol {tol:.0e})", flush=True)
@@ -1259,6 +1407,75 @@ def main():
               f"the steady iterations ({card})", flush=True)
         del solver
     done(12)
+
+    # -- phase 13: boundaries, compared and driven ----------------------------
+    # (kernel, form, with the lagged term) -> {label: launches of the drive}
+    bc_launches = {}
+    # (kernel, form, with the lagged term) -> {label: comparison result}
+    bc_compared = {}
+    for case, physics, solver_name, layout, per_iteration, pair, visc in \
+            BC_DECKS:
+        from aither_tpu_torch.kernels import lusgs_sweep as ls
+        label = f"phase 13 {case} {physics} {solver_name} {layout}"
+        solver = build(label, all_dims[case], solver_name, 1, physics,
+                       layout=layout)
+        block = bool(solver.cfg["block_matrix"])
+        kernel = "blusgs_sweep" if block else "lusgs_sweep"
+        form = ls.sweep_form(solver.phys, solver.cfg)
+        if pair:
+            bc_compared.setdefault((kernel, form, False), {})[label] = \
+                compare_sweeps(torch, solver, linear_system(solver), label,
+                               card, False, case)
+        if visc:
+            bc_compared.setdefault(
+                ("viscous_march", solver.phys.turb_model), {})[label] = \
+                compare_viscous(torch, solver, label, card, case=case,
+                                blocks=(0,))
+        wall_law = BC_LAYOUTS[layout].get("wall_treatment") == "wallLaw"
+        if wall_law:
+            print(f"{label}: {wall_law_shares(solver)} before the drive",
+                  flush=True)
+            events, solve = wall_law_timer(torch)
+        try:
+            n = drive(torch, solver, BC_ITERATIONS, 1, label, card, case,
+                      per_iteration)
+        finally:
+            if wall_law:
+                from aither_tpu_torch.solver import wall_law as wl
+                wl.solve_wall_law = solve
+        for name, count in per_iteration.items():
+            if count:
+                key = ((name, solver.phys.turb_model)
+                       if name == "viscous_march" else (name, form, False))
+                bc_launches.setdefault(key, {})[label] = n[name]
+        if wall_law:
+            torch.cuda.synchronize()
+            per = [e0.elapsed_time(e1) for e0, e1 in events]
+            steady = per[len(per) // BC_ITERATIONS:]
+            print(f"{label}: {wall_law_shares(solver)} after the drive; "
+                  f"the wall-law solve {len(per)} calls "
+                  f"({len(per) // BC_ITERATIONS} an iteration: blocks x "
+                  f"ghost layers), "
+                  f"{sum(steady) / (BC_ITERATIONS - 1):.3f} ms an iteration "
+                  f"from iteration 1 on by CUDA events ({card})", flush=True)
+        if layout == "stagnation_periodic":
+            share = boundary_share(torch, solver)
+            print(f"{label}: {n['steps_per_s']:.4f} steps/s against the "
+                  f"main path's {main_rate:.4f} (phase 4: characteristic "
+                  f"in/outflow, slipWall span); boundary pass (full ghost "
+                  f"fill and viscous wall ghosts) {share:.4f} of the "
+                  f"iteration in a further 3-step run timed between "
+                  f"synchronisations ({card})", flush=True)
+        if layout == "lodi":
+            dts = torch.stack([a["dt"].aminmax()[i]
+                               for a in solver.bc_aux.values()
+                               for i in (0, 1)]).cpu().numpy()
+            if not (np.isfinite(dts).all() and dts.min() > 0.0):
+                fail(f"{label}: the carried dt is {dts}")
+            print(f"{label}: carried bc_aux dt after the drive in "
+                  f"[{dts.min():.4e}, {dts.max():.4e}]", flush=True)
+        del solver
+    done(13)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -1308,6 +1525,17 @@ def main():
                 where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by"), r[:5]))
                 for where, r in mg_levels[key].items()}
+    for key in list(bc_launches) + list(bc_compared):
+        if key not in results:
+            fail(f"{key}: on a boundary path but in no kernels row")
+    for row, key in zip(kernels, results):
+        if key in bc_launches:
+            row["bc_launches"] = bc_launches[key]
+        if key in bc_compared:
+            row["bc_compared"] = {
+                where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by"), r[:5]))
+                for where, r in bc_compared[key].items()}
     for row in kernels:
         if not row["launches"] > 0:
             fail(f"{row['name']}: no launch on its driven path")

@@ -449,7 +449,7 @@ def _jax_step(js, nn):
 
 def _check_one_iteration(js, ts):
     want_prims, want_l2, want_mr = _jax_step(js, 0)
-    got_prims, got_l2, _, got_mr = ts._iteration(dict(ts.prims), ts.cons_n,
+    got_prims, got_l2, _, got_mr, _ = ts._iteration(dict(ts.prims), ts.cons_n,
                                                  ts.deck.cfl(0))
     for b in ts.case.blocks:
         g = b.g
