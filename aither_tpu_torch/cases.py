@@ -30,6 +30,12 @@ kOmegaWilcox2006 / sst2003 / sstdes).  Without turbulence equations the
 states carry no turbulence entries; for ``euler`` the j-min patches are
 ``slipWall`` and the ``viscousWall`` boundary state goes.
 
+``output_frequency``, ``restart_frequency``, ``output_variables``,
+``wall_output_variables`` and ``output_nodal`` set the function and
+restart files (``Solver.run(write_files=True)``, the CLI without
+``--no-files``); ``ic_file`` replaces the uniform initial state by a
+point-cloud file (``icState(file=...)``), such as ``write_cloud`` writes.
+
 ``species`` and ``mass_fractions`` make the gas a calorically perfect
 mixture (the ``fluids`` list, ``massFractions`` on every state),
 ``diffusion`` sets ``diffusionModel`` and ``chemistry`` names a mechanism
@@ -78,8 +84,8 @@ WALL_LAW_CLUSTER = 1.0
 _DECK = """\
 gridName: {grid}
 iterations: {iterations}
-outputFrequency: 1000
-referenceDensity: 1.2256
+outputFrequency: {output_frequency}
+{output_lines}referenceDensity: 1.2256
 referenceTemperature: 288.0
 referenceLength: 1.0
 {mixture}equationSet: {equation_set}
@@ -97,7 +103,7 @@ cflStart: {cfl[0]}
 cflStep: {cfl[1]}
 cflMax: {cfl[2]}
 fluids: <{fluids}>
-initialConditions: <icState(tag=-1; pressure=101300.0; density={density}; velocity=[{velocity}, 0.0, 0.0]{turb}{mf})>
+initialConditions: <icState(tag=-1; {ic})>
 boundaryStates: <characteristic(tag=1; pressure=101300.0; density={density}; velocity=[{velocity}, 0.0, 0.0]{turb}{mf}){wall_state}{states}>
 boundaryConditions: 2
 2 2 2
@@ -145,6 +151,18 @@ TIME_INTEGRATORS = {
     "rk4": dict(time_integration="rk4", nonlinear_iterations=4,
                 cfl=EXPLICIT_CFL),
 }
+
+# the function-file variables of the files tests and of chip_smoke.py's
+# phase 14: the state, every gradient family, the residuals, dt, the eddy
+# viscosity and the wall distance (every aux branch of
+# Solver.write_output), and the wall variables
+FILES_OUTPUT_VARIABLES = (
+    "density", "vel_x", "vel_y", "vel_z", "pressure", "temperature",
+    "viscosity", "mach", "tke", "sdr", "velGrad_uy", "tempGrad_y",
+    "densityGrad_y", "pressGrad_x", "tkeGrad_y", "omegaGrad_y",
+    "resid_mass", "resid_sdr", "dt", "turbulentViscosity", "viscosityRatio",
+    "wallDistance", "f1")
+FILES_WALL_VARIABLES = ("yplus", "shearStress", "heatFlux")
 
 N2O2 = dict(species=("N2", "O2"), mass_fractions=(0.767, 0.233),
             diffusion="schmidt")
@@ -220,7 +238,13 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      wall_treatment: str = "lowRe",
                      span: str = "slipWall",
                      velocity: float = 68.0,
-                     cluster: float = CLUSTER) -> str:
+                     cluster: float = CLUSTER,
+                     output_frequency: int = 1000,
+                     restart_frequency: int = 0,
+                     output_variables=None,
+                     wall_output_variables=None,
+                     output_nodal: bool = False,
+                     ic_file=None) -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
     ``matrix_solver`` "blusgs" the block-matrix LU-SGS, "dplur" / "bdplur"
@@ -250,6 +274,14 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     wall (a wall-law deck on a fine grid takes a weaker one: the JAX
     package's wall law needs y+ >= 10 at every wall face, see
     ``WALL_LAW_CLUSTER``).
+
+    The files: ``output_frequency`` and ``restart_frequency`` (steps; 0
+    writes no restart), ``output_variables`` and
+    ``wall_output_variables`` (sequences of names, None for the deck's
+    defaults), ``output_nodal`` (nodal function files); ``ic_file`` a
+    point-cloud initial condition, a file name looked up beside the deck
+    and then in the working directory.  Each line is written only when
+    it differs from the deck's template.
     Every default writes the deck and grid of before these keywords, byte
     for byte."""
     turb = ("; turbulenceIntensity=0.01; eddyViscosityRatio=10.0"
@@ -306,6 +338,18 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
         time_lines += f"nonlinearIterations: {nonlinear_iterations}\n"
     if dual_time_cfl > 0.0:
         time_lines += f"dualTimeCFL: {dual_time_cfl}\n"
+    output_lines = ""
+    if restart_frequency != 0:
+        output_lines += f"restartFrequency: {restart_frequency}\n"
+    for key, names in (("outputVariables", output_variables),
+                       ("wallOutputVariables", wall_output_variables)):
+        if names is not None:
+            output_lines += f"{key}: <{', '.join(names)}>\n"
+    if output_nodal:
+        output_lines += "outputNodalVariables: true\n"
+    ic = (f"file={ic_file}" if ic_file is not None else
+          f"pressure=101300.0; density={density}; "
+          f"velocity=[{velocity}, 0.0, 0.0]{turb}{mf}")
     mg_lines = ""
     if multigrid_levels != 1:
         mg_lines += f"multigridLevels: {multigrid_levels}\n"
@@ -334,5 +378,39 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              velocity=velocity, states=states,
                              inflow=inflow, inflow_tag=inflow_tag,
                              outflow=outflow, outflow_tag=outflow_tag,
-                             span=span, span_tags=span_tags))
+                             span=span, span_tags=span_tags,
+                             output_frequency=output_frequency,
+                             output_lines=output_lines, ic=ic))
     return deck_path
+
+
+def write_cloud(path: str, counts=(6, 4, 3), seed: int = 0,
+                density: float = 1.2256, velocity: float = 68.0,
+                species=None, mass_fractions=None) -> np.ndarray:
+    """Write a point-cloud initial condition for the plate to ``path`` in
+    the format ``io/cloud.py`` reads (line 1 the point count, line 2 the
+    species, then rows ``x y z rho u v w p tke omega mf...`` in SI units,
+    written with repr so that they read back exactly): a lattice of
+    ``counts`` points over the plate's box (both blocks), each point
+    twice with different states, so that every cell's nearest points tie
+    exactly and the k-d tree's traversal picks one.  The states are the
+    plate's freestream (``density``, ``velocity``, 101300 Pa, the mixture
+    of ``species``) times (1 + 0.05 U[0, 1)), seeded.  Returns the rows."""
+    rng = np.random.default_rng(seed)
+    axes = [np.linspace(0.0, extent, n) for extent, n in zip(
+        (PLATE_LENGTH, PLATE_HEIGHT, PLATE_WIDTH), counts)]
+    pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    pts = np.repeat(pts, 2, axis=0)
+    n = len(pts)
+    names = species or ("air",)
+    mfs = np.asarray(mass_fractions or (1.0,))
+    tke = 1.5 * (0.01 * velocity) ** 2
+    omega = density * tke / (10.0 * 1.8e-5)
+    base = np.array([density, velocity, 0.0, 0.0, 101300.0, tke, omega])
+    state = base * (1.0 + 0.05 * rng.random((n, len(base))))
+    rows = np.concatenate([pts, state, np.tile(mfs, (n, 1))], axis=1)
+    with open(path, "w") as f:
+        f.write(f"{n}\n{' '.join(names)}\n")
+        for row in rows:
+            f.write(" ".join(repr(float(v)) for v in row) + "\n")
+    return rows

@@ -1,4 +1,5 @@
-"""Host layers (deck parser and Plot3D reader) copied from ``aither_tpu/io/`` so that the
-port imports nothing of the JAX package.  Only imports (and, in
-``grid/connections.py``, the numpy-only orientation helpers) differ
-from the originals; keep them diffable."""
+"""Host layers copied from ``aither_tpu/io/`` so that the port imports
+nothing of the JAX package: the deck parser, Plot3D reader, restart and
+function-file writers and readers and the point-cloud loader.  Only
+imports (and, in ``output.py``, the Physics calls on torch tensors)
+differ from the originals; keep them diffable."""

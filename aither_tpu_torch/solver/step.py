@@ -506,13 +506,17 @@ def inviscid_residual(phys: Physics, cfg, block, prim):
     return resid, specrad, specrad_turb
 
 
-def full_residual(phys: Physics, cfg, block, prim):
+def full_residual(phys: Physics, cfg, block, prim, need_aux=False):
     """Residual + spectral radii + diagonal terms for one block: inviscid
     fluxes, viscous fluxes, turbulence sources (reference:
     procBlock.cpp:6111-6147 CalcResidualNoSource + :5956 CalcSrcTerms).
 
-    The JAX package's per-iteration form (``need_aux=False``): the
-    output-only gradient fields are not accumulated.  Returns
+    ``need_aux=False`` is the per-iteration form: the output-only gradient
+    fields are not accumulated.  ``need_aux=True`` is the file output's
+    (``Solver.write_output``): the plain viscous residual with the
+    cell-average temperature, density, pressure and mass-fraction
+    gradients and the wall records ``cellavg['wall_out']``
+    (``viscous.viscous_residual``).  Returns
     (resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg, prim, aux)
     where prim carries the viscous-wall ghosts and aux the padded mu, mut
     and f1 the implicit off-diagonals read (mut and f1 are zeros for a
@@ -552,7 +556,8 @@ def full_residual(phys: Physics, cfg, block, prim):
         t_all = phys.temperature(prim[phys.ie], prim[:phys.ns])
         mu_all = phys.viscosity(t_all, st.mixture_fractions(phys, prim))
         plain = dict(wall_data=wall_data,
-                     need_pgrad=bool(cfg.get("need_pgrad")))
+                     need_pgrad=bool(cfg.get("need_pgrad")),
+                     need_aux=need_aux)
         if blk:
             # blusgs takes the plain viscous residual, which also returns
             # the TSL block diagonal: the JAX package routes block-matrix
@@ -570,6 +575,14 @@ def full_residual(phys: Physics, cfg, block, prim):
             # fused march covers one species only (pallas_residual.py:112,
             # use_march), so K2 is not on this path there either — the
             # JAX package's route, not a fallback
+            (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
+             cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
+                                             mu_all, **plain)
+        elif need_aux:
+            # the output evaluation takes the plain viscous residual,
+            # which forms the output fields: the JAX package's
+            # full_residual picks its fused march only without need_aux
+            # (aither_tpu/solver/step.py:590) — its route, not a fallback
             (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
              cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
                                              mu_all, **plain)

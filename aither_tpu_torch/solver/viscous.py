@@ -4,11 +4,14 @@ Port of ``aither_tpu/solver/viscous.py`` for the slice: laminar, WALE
 (LES), k-omega Wilcox 2006, SST k-omega 2003 and SST-DES, low-Re and
 wall-law walls, any species count with the mixture's transport and, with
 ``diffusionModel: schmidt``, the species-diffusion fluxes, central viscous
-reconstruction, and the per-iteration form of ``viscous_residual``
-(``need_aux=False``: only the cell-average gradients the turbulence
-sources read are accumulated, and the pressure gradient the LODI
-boundaries read when ``need_pgrad``; the mass-fraction gradients are
-formed per face for the diffusion fluxes, never averaged to the cells).
+reconstruction.  ``viscous_residual`` has the JAX package's two forms:
+the per-iteration one (``need_aux=False``: only the cell-average
+gradients the turbulence sources read are accumulated, and the pressure
+gradient the LODI boundaries read when ``need_pgrad``; the mass-fraction
+gradients are formed per face for the diffusion fluxes, never averaged to
+the cells) and the output one (``need_aux=True``: also the cell-average
+temperature, density, pressure and mass-fraction gradients and the
+per-wall-patch records ``wall_out`` of the function files).
 Reference: src/procBlock.cpp:1233-1879 CalcViscFluxI/J/K, :5173-5955
 CalcGradsI/J/K, src/turbulence.cpp.
 
@@ -372,10 +375,11 @@ def _build_statics(block, with_len: bool = False):
 
 
 def face_cv_gradients(phys: Physics, block, prim, t_all, d: str,
-                      need_mix=False, need_pgrad=False):
+                      need_mix=False, need_pgrad=False, need_aux=False):
     """Face-centered-CV Green-Gauss gradients along direction d: 'vel'
     (3, 3, nf...) [a][b] = d v_b / d x_a, 'temp' (3, nf...), with
-    ``need_pgrad`` 'press' (3, nf...), for RANS 'tke' and 'omega' and,
+    ``need_aux`` 'rho' (3, nf...), with ``need_aux`` or ``need_pgrad``
+    'press' (3, nf...), for RANS 'tke' and 'omega' and,
     with ``need_mix`` and more than one species, 'mix': the mass
     fractions' gradients, a list of ns (3, nf...).
     Shapes trimmed to physical transverse extents, nf = n+1 faces along
@@ -436,7 +440,11 @@ def face_cv_gradients(phys: Physics, block, prim, t_all, d: str,
           + v2u[None] * a_2u[:, None] - v2l[None] * a_2l[:, None])
     out["vel"] = vg / vol_cv[None, None]
 
-    if need_pgrad:
+    if need_aux:
+        out["rho"] = scalar_grad_from(
+            cells(0)[:phys.ns].sum(dim=0), cells(1)[:phys.ns].sum(dim=0),
+            lambda *o: cells(*o)[:phys.ns].sum(dim=0))
+    if need_aux or need_pgrad:
         out["press"] = scalar_grad_from(cells(0)[phys.ie], cells(1)[phys.ie],
                                         lambda *o: cells(*o)[phys.ie])
     out["temp"] = scalar_grad_from(tcells(0), tcells(1), tcells)
@@ -554,13 +562,15 @@ def _wall_law_slabs(block, d: str, wall_data):
 
 
 def face_terms(phys: Physics, cfg, block, prim, t_all, mu_all, d: str,
-               wall_data=None, need_pgrad=False):
+               wall_data=None, need_pgrad=False, need_aux=False):
     """The faces of direction d (n_d + 1 along d by the physical cells
     across) of ``viscous_residual``: a dict of 'fa' (neq, *F), the flux
     times the face area, the face-CV gradients 'grads'
-    (``face_cv_gradients``, with 'press' for ``need_pgrad``), the face
-    state 'qf' and 'muf', 'mut', 'f1' and 'f2' (zeros without
-    turbulence), and the unit normal 'n' and area 'mag'.  Elementwise
+    (``face_cv_gradients``, with 'press' for ``need_pgrad`` and the output
+    fields for ``need_aux``), the face state 'qf' and 'muf', 'mut', 'f1'
+    and 'f2' (zeros without turbulence), the unit normal 'n' and area
+    'mag', the shear stress 'tau' (3, *F), and the conductivities 'k_eff'
+    and 'kt' (0.0 without turbulence) the wall records read.  Elementwise
     over the faces: the CUDA kernel (``kernels/viscous_march.py``)
     evaluates each face with the same expressions.  On the faces of a
     wall-law surface with values in ``wall_data`` (the viscous ghost
@@ -576,7 +586,8 @@ def face_terms(phys: Physics, cfg, block, prim, t_all, mu_all, d: str,
     prt = turb_prandtl(model)
     nf = dict(i=block.ni, j=block.nj, k=block.nk)[d] + 1
     grads = face_cv_gradients(phys, block, prim, t_all, d,
-                              need_mix=diffusion, need_pgrad=need_pgrad)
+                              need_mix=diffusion or need_aux,
+                              need_pgrad=need_pgrad, need_aux=need_aux)
     sf = face_fields(viscous_statics(block, needs_face_length(cfg)), d)
 
     c0, c1 = sf["c0"], sf["c1"]
@@ -691,11 +702,76 @@ def face_terms(phys: Physics, cfg, block, prim, t_all, mu_all, d: str,
     rows = [species, tau, e_flux[None]] + [t[None] for t in turb]
     fa = torch.cat(rows) * mag[None]
     return dict(fa=fa, grads=grads, qf=qf, muf=muf, mut=mutf, f1=f1f,
-                f2=f2f, n=nvec, mag=mag)
+                f2=f2f, n=nvec, mag=mag, tau=tau, k_eff=k_eff, kt=kt)
+
+
+def _wall_records(phys: Physics, block, d: str, faces, wall_data):
+    """{id(spec): record} of the viscousWall surfaces on axis d from the
+    faces of ``face_terms``: shear stress 'tau' (3, n1, n2), heat flux
+    'q', 'rho', 't', 'mu', 'mut', 'u_star', 'yplus' (the adjacent cell's
+    wall distance) and, for RANS, 'tke' / 'sdr' (else None).  On a
+    wall-law surface the faces where the wall law holds take the wall
+    law's values from ``wall_data`` (reference: procBlock.cpp:1340-1380
+    CalcWallFlux storage, wallData.hpp:40-115)."""
+    g = block.g
+    dims = dict(i=block.ni, j=block.nj, k=block.nk)
+    is_rans = phys.nturb > 0
+    scaling = phys.nondim_scaling
+    qf, nvec = faces["qf"], faces["n"]
+    mu_s = scaling * faces["muf"]
+    mut_s = scaling * faces["mut"]
+    kt = faces["kt"]
+    tgn = (faces["grads"]["temp"] * nvec).sum(dim=0)
+    out = {}
+    for spec in block.surfaces:
+        if spec.bc_type != "viscousWall" or spec.direction != d:
+            continue
+        sl = [None, None, None]
+        sl[AX[d]] = 0 if spec.lower else dims[d]
+        taxes = [a for a in range(3) if a != AX[d]]
+        for a, (lo, hi) in zip(taxes, spec.patch):
+            sl[a] = slice(lo - g, hi - g)
+        sl = tuple(sl)
+        esl = (slice(None),) + sl
+        qw_f = qf[esl]
+        rho_f = st.rho(phys, qw_f)
+        t_f = st.temperature(phys, qw_f)
+        tau_f = faces["tau"][esl]
+        ustar = torch.sqrt(torch.sqrt((tau_f * tau_f).sum(dim=0)) / rho_f)
+        mu_f, mut_f = mu_s[sl], mut_s[sl]
+        kt_f = kt[sl] if torch.is_tensor(kt) else 0.0
+        qflux = (faces["k_eff"][sl] + kt_f) * tgn[sl]
+        # wall distance of the boundary-adjacent cell
+        asl = [None, None, None]
+        asl[AX[d]] = g if spec.lower else g + dims[d] - 1
+        for a, (lo, hi) in zip(taxes, spec.patch):
+            asl[a] = slice(lo, hi)
+        ydist = block.geom["wall_dist"][tuple(asl)]
+        entry = dict(tau=tau_f, q=qflux, rho=rho_f, t=t_f, mu=mu_f,
+                     mut=mut_f, u_star=ustar,
+                     yplus=ydist * ustar * rho_f / (mu_f + mut_f),
+                     tke=qw_f[phys.it] if is_rans else None,
+                     sdr=qw_f[phys.it + 1] if is_rans else None)
+        if (wall_data and id(spec) in wall_data
+                and spec.data is not None and spec.data.wall_law):
+            wv = wall_data[id(spec)]
+            lr = wv["low_re"]
+            sgn = 1.0 if spec.lower else -1.0
+            for key in ("tau", "q", "rho", "t", "mu", "mut", "u_star",
+                        "yplus", "tke", "sdr"):
+                if entry[key] is None:
+                    continue
+                if key == "tau":
+                    entry[key] = torch.where(lr[None], entry[key],
+                                             sgn * wv[key])
+                else:
+                    entry[key] = torch.where(lr, entry[key], wv[key])
+        out[id(spec)] = entry
+    return out
 
 
 def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
-                     wall_data=None, need_pgrad=False):
+                     wall_data=None, need_pgrad=False, need_aux=False):
     """Viscous flux residual contribution + gradients + eddy viscosity +
     viscous spectral radii (reference: procBlock.cpp:1233-1879).
 
@@ -711,7 +787,10 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
     (procBlock.cpp:1414-1470).  ``wall_data`` holds the wall-law values
     of the viscous ghost pass (``face_terms``); ``need_pgrad`` (a deck
     with LODI surfaces) adds the cell-average pressure gradient
-    'press'."""
+    'press'.  ``need_aux`` (file output) adds the cell-average 'temp',
+    'rho' and 'press' gradients, with more than one species 'mix' (a
+    list of ns (3, ni, nj, nk)), and 'wall_out': per viscousWall surface
+    (by ``id(spec)``) its faces' records (``_wall_records``)."""
     g = block.g
     dims = dict(i=block.ni, j=block.nj, k=block.nk)
     model = cfg["turb_model"]
@@ -730,7 +809,8 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
     sr_turb = torch.zeros(shape_c, **kw)
     diag_flow = torch.zeros(shape_c, **kw)
     diag_turb = torch.zeros(shape_c, **kw)
-    ca_keys = (["vel"] + (["press"] if need_pgrad else [])
+    ca_keys = (["vel"] + (["temp", "rho"] if need_aux else [])
+               + (["press"] if need_aux or need_pgrad else [])
                + (["tke", "omega"] if is_rans else []))
     cellavg = dict(mut=torch.zeros(shape_c, **kw),
                    f1=torch.zeros(shape_c, **kw),
@@ -738,6 +818,11 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
     for key in ca_keys:
         lead = (3, 3) if key == "vel" else (3,)
         cellavg[key] = torch.zeros(lead + shape_c, **kw)
+    multi_aux = phys.ns > 1 and need_aux
+    if multi_aux:
+        cellavg["mix"] = [torch.zeros((3,) + shape_c, **kw)
+                          for _ in range(phys.ns)]
+    wall_out = {}
     if blk:
         from . import block_jac as bj     # block_jac imports this module
         N = phys.ns + 4
@@ -758,7 +843,10 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
         ax = 1 + AX[d]
         n = dims[d]
         faces = face_terms(phys, cfg, block, prim, t_all, mu_all, d,
-                           wall_data, need_pgrad)
+                           wall_data, need_pgrad, need_aux)
+        if need_aux:
+            wall_out.update(_wall_records(phys, block, d, faces,
+                                          wall_data))
         grads, fa = faces["grads"], faces["fa"]
         mutf, f1f, f2f = faces["mut"], faces["f1"], faces["f2"]
         lo = [slice(None)] * 4
@@ -793,6 +881,11 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
             garr = grads[key]
             cellavg[key] = cellavg[key] + sixth * (
                 garr[(Ellipsis,) + flo3] + garr[(Ellipsis,) + fhi3])
+        if multi_aux:
+            for ss in range(phys.ns):
+                garr = grads["mix"][ss]
+                cellavg["mix"][ss] = cellavg["mix"][ss] + sixth * (
+                    garr[(Ellipsis,) + flo3] + garr[(Ellipsis,) + fhi3])
         for key, farr in (("mut", mutf), ("f1", f1f), ("f2", f2f)):
             cellavg[key] = cellavg[key] + sixth * (farr[flo3] + farr[fhi3])
 
@@ -816,6 +909,8 @@ def viscous_residual(phys: Physics, cfg, block, prim, t_all, mu_all,
             sr_turb = sr_turb + visc_coeff * tvsr
             diag_turb = diag_turb + 2.0 * tvsr
 
+    if need_aux:
+        cellavg["wall_out"] = wall_out
     if blk:
         return (resid, sr_flow, sr_turb, diag_flow, diag_turb, cellavg,
                 diag_flow_blk, diag_turb_blk)

@@ -11,9 +11,6 @@ ITEMS = {
     "inviscidFlux": f"{_Q1} 5 (remaining physics: AUSM)",
     "thermallyPerfect": f"{_Q1} 5 (remaining physics: thermallyPerfect)",
     "species": f"{_Q1} 9 (species counts above 5 in the CUDA sweeps)",
-    "output": f"{_Q1} 6 (output and restart)",
-    "restart": f"{_Q1} 6 (output and restart)",
-    "fileInitialCondition": f"{_Q1} 6 (output and restart: cloud ICs)",
 }
 
 

@@ -1,5 +1,6 @@
 """Build a CUDA source of this package into a shared library with nvcc at
-first use, and load it with ctypes.
+first use, and load it with ctypes; a host C++ source likewise with g++
+(``load_host_library``).
 
 The library goes to ``aither_tpu_torch/build/`` (git-ignored), named by a
 hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
@@ -13,6 +14,7 @@ the two build in parallel.  Usage::
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
     load_cuda_libraries(["lusgs_sweep", "blusgs_sweep", "viscous_march"])
     # ^ one nvcc per library, all started together
+    lib = load_host_library("kdtree")     # csrc/kdtree.cpp, g++
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library -> (source in csrc/ without ".cu", nvcc defines)
 VARIANTS = {"lusgs_sweep_roe": ("lusgs_sweep", ("-DSWEEP_ROE=1",)),
             "blusgs_sweep_roe": ("blusgs_sweep", ("-DSWEEP_ROE=1",))}
+
+# the flags of the JAX package's native/Makefile, for the host sources
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++14", "-fPIC", "-fopenmp",
+             "-shared")
 
 _LOADED: dict = {}
 
@@ -65,14 +71,14 @@ def local_headers(path: str) -> list:
     return sorted(found)
 
 
-def _paths(name: str):
-    """(source, library path, nvcc flags) of library ``name``: built from
-    ``csrc/<name>.cu``, or from the source ``VARIANTS`` names with its
-    defines; the library's name hashes the source, its local headers and
-    the flags"""
+def _paths(name: str, ext: str = ".cu", base_flags=NVCC_FLAGS):
+    """(source, library path, compiler flags) of library ``name``: built
+    from ``csrc/<name><ext>``, or from the source ``VARIANTS`` names with
+    its defines; the library's name hashes the source, its local headers
+    and the flags"""
     source, defines = VARIANTS.get(name, (name, ()))
-    src = os.path.join(CSRC_DIR, f"{source}.cu")
-    flags = (*NVCC_FLAGS, *defines)
+    src = os.path.join(CSRC_DIR, f"{source}{ext}")
+    flags = (*base_flags, *defines)
     digest = hashlib.sha256()
     for path in [src] + local_headers(src):
         with open(path, "rb") as f:
@@ -131,3 +137,24 @@ def load_cuda_library(name: str):
     """(ctypes.CDLL, info) for the library ``name``, building it if needed
     (see ``load_cuda_libraries``)."""
     return load_cuda_libraries([name])[name]
+
+
+def load_host_library(name: str):
+    """ctypes.CDLL of the host C++ source ``csrc/<name>.cpp``, built with
+    g++ and ``GXX_FLAGS`` at first use into ``BUILD_DIR``.  A failed build
+    raises with the compiler's message."""
+    key = ("host", name)
+    if key not in _LOADED:
+        src, lib_path, flags = _paths(name, ".cpp", GXX_FLAGS)
+        if not os.path.isfile(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            cmd = ["g++", *flags, "-o", tmp, src]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, lib_path)
+        _LOADED[key] = ctypes.CDLL(lib_path)
+    return _LOADED[key]

@@ -135,7 +135,25 @@ own lines:
     wall law (the (c) pair; 4 block-sweep launches) and a Mach-2 Euler
     plate with the supersonic pair (the Euler (a) pair; 4 launches).
     Phase 6 also holds the periodic, LODI and wall-law decks cuda against
-    cpu.  The wall-law decks take cases.WALL_LAW_CLUSTER.
+    cpu.  The wall-law decks take cases.WALL_LAW_CLUSTER;
+14. files (files_phase): the case-B SST lusgs deck (matrixSweeps 1,
+    Rusanov, the constant FILES_CFL) through the CLI with files,
+    FILES_ITERATIONS steps with output and a restart every FILES_EVERY,
+    the variables of cases.FILES_OUTPUT_VARIABLES (every aux branch of
+    Solver.write_output), wall (cases.FILES_WALL_VARIABLES) and nodal
+    files: exactly 16 K1 (a) and 8 K2 launches (the output evaluation
+    takes the plain viscous residual, as in the JAX package); then the
+    CLI resumed from plate_2.rst in a second directory for 2 steps (8 and
+    4 launches): its .resid steps 2 and 3, its l2_first the file's, its
+    raw L2 within RESTART_RTOL of the uninterrupted run's; every file of
+    both runs parsed by the port's readers (block dims, variable counts,
+    finite values); the seconds of write_output (cell-center, wall,
+    nodal) and write_restart, the step seconds with and without a write,
+    and the file sizes; then a case-A point-cloud deck
+    (cases.write_cloud, every point twice) whose initial state on cuda
+    equals the cpu one bit for bit, driven 2 steps.  Phase 6 also holds
+    a small files deck's .fun and .rst values cuda against cpu
+    (reference_files).
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -153,7 +171,8 @@ inside Solver.run per iteration, with 'path_case'; a row of a form on
 the multigrid path also has 'mg_launches', its launches in each phase-12
 drive, and 'mg_levels', its comparisons on the coarse levels; a row of
 a form on a boundary path has 'bc_launches', its launches in each phase-13
-drive, and 'bc_compared', its comparisons there), and last
+drive, and 'bc_compared', its comparisons there; the SST K1 (a) and K2
+rows have 'files_launches', their launches in each phase-14 run), and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Case files go to ./smoke_run/ (git-ignored).
 """
@@ -398,6 +417,20 @@ BC_DECKS = (
      {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
 )
 BC_ITERATIONS = 5        # phase 13, every deck
+# phase 14: the files run (case B, output and restart every 2 steps) and
+# its resumption from the step-2 restart
+FILES_ITERATIONS = 4
+FILES_EVERY = 2
+# a constant CFL: a resumed run starts the CFL ramp again at its first
+# step (the JAX package's order), so only a constant CFL lets its steps
+# repeat the uninterrupted run's
+FILES_CFL = (50.0, 0.0, 50.0)
+# resumed against uninterrupted raw L2, per equation relative to its
+# largest: the .rst holds the state dimensional (times a_ref, r_ref) and
+# the resumed run reads it back, a few units in the last place of the
+# state that two implicit steps carry into the L2; the bound of the
+# parity tests' histories (tests/test_torch_restart.py)
+RESTART_RTOL = 1e-8
 
 
 def fail(msg: str):
@@ -1090,6 +1123,285 @@ def reference_history(dims, device, solver_name, sweeps, physics,
     return np.asarray(s.l2_history)
 
 
+def in_dir(path, fn):
+    """fn() with ``path`` as the working directory"""
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(here)
+
+
+def resid_steps(path):
+    """the step column of every row of a .resid (headers skipped)"""
+    with open(path) as f:
+        return [int(ln.split()[0]) for ln in f
+                if ln.strip() and not ln.startswith("Step")]
+
+
+def check_files(wd, label, dims, iterations, restarts):
+    """every file of a files run in ``wd`` exists and parses with the
+    port's readers, with the block dims, the variable counts and finite
+    values; returns {file: bytes}"""
+    from aither_tpu_torch import cases
+    from aither_tpu_torch.io.output import read_fun_file
+    from aither_tpu_torch.io.plot3d import read_p3d
+    from aither_tpu_torch.io.restart import read_restart
+    sizes = {}
+    cells = tuple(dims)
+    nodes = tuple(n + 1 for n in dims)
+    wall = (dims[0], 1, dims[2])
+    nvar = len(cases.FILES_OUTPUT_VARIABLES)
+    nwall = len(cases.FILES_WALL_VARIABLES)
+    for name, want in (("plate_center.xyz", cells),
+                       ("plate_wall_center.xyz", wall)):
+        blocks = read_p3d(os.path.join(wd, name))
+        if (len(blocks) != 2 or any(b.shape != want + (3,) for b in blocks)
+                or not all(np.isfinite(b).all() for b in blocks)):
+            fail(f"{label}: {name} has {[b.shape for b in blocks]}")
+        sizes[name] = os.path.getsize(os.path.join(wd, name))
+    for it in iterations:
+        for name, want, nv in ((f"plate_{it}_center.fun", cells, nvar),
+                               (f"plate_{it}.fun", nodes, nvar),
+                               (f"plate_{it}_wall_center.fun", wall, nwall)):
+            path = os.path.join(wd, name)
+            if not os.path.isfile(path):
+                fail(f"{label}: {name} was not written")
+            hdr, blocks = read_fun_file(path)
+            if (len(blocks) != 2 or any(tuple(h) != want for h in hdr)
+                    or any(b.shape[0] != nv for b in blocks)
+                    or not all(np.isfinite(b).all() for b in blocks)):
+                fail(f"{label}: {name} has dims {hdr.tolist()}, "
+                     f"{[b.shape[0] for b in blocks]} variables")
+            sizes[name] = os.path.getsize(path)
+    for it in restarts:
+        name = f"plate_{it}.rst"
+        rec = read_restart(os.path.join(wd, name))
+        # density, velocity, pressure, tke, sdr and the mass fractions
+        nv = 7 + len(rec["species"])
+        if (rec["iteration"] != it or len(rec["blocks"]) != 2
+                or any(b.shape != (nv,) + cells for b in rec["blocks"])
+                or not all(np.isfinite(b).all() for b in rec["blocks"])):
+            fail(f"{label}: {name} holds iteration {rec['iteration']}, "
+                 f"{[b.shape for b in rec['blocks']]}")
+        sizes[name] = os.path.getsize(os.path.join(wd, name))
+    for name in ("plate_center.p3d", "plate.p3d"):
+        if not os.path.isfile(os.path.join(wd, name)):
+            fail(f"{label}: {name} was not written")
+    return sizes
+
+
+def files_phase(torch, card, drive_cloud):
+    """phase 14: the case-B main-path deck with files through the CLI, its
+    resumption from the step-2 restart, and a case-A point-cloud deck.
+    Returns ({kernel: {run: launches}}, the SST lusgs solver's sweep form)
+    for the kernels rows."""
+    from aither_tpu_torch import cases
+    from aither_tpu_torch.io import output as out_mod
+    from aither_tpu_torch.io.restart import read_restart
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    from aither_tpu_torch.main import main as cli
+    from aither_tpu_torch.solver.driver import Solver
+    dims = cases.SMOKE_3D_DIMS
+    times = {"write_output": [], "_write_nodal": [], "write_wall_files": [],
+             "write_restart": []}
+    solvers = []
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        return wrapper
+
+    def recording(fn):
+        def wrapper(self, *args, **kw):
+            solvers.append(self)
+            return fn(self, *args, **kw)
+        return wrapper
+
+    saved = {name: getattr(Solver, name) for name in
+             ("write_output", "_write_nodal", "write_restart", "run")}
+    saved_wall = out_mod.write_wall_files
+    for name in ("write_output", "_write_nodal", "write_restart"):
+        setattr(Solver, name, timed(name, saved[name]))
+    Solver.run = recording(saved["run"])
+    out_mod.write_wall_files = timed("write_wall_files", saved_wall)
+    counters = (ls.LAUNCHES, ls.BLOCK_LAUNCHES, vm.LAUNCHES)
+    launches = {}
+    try:
+        # the uninterrupted run
+        wd1 = os.path.join(RUN_DIR, "files_run")
+        path = cases.write_plate_case(
+            wd1, *dims, iterations=FILES_ITERATIONS, cfl=FILES_CFL,
+            output_frequency=FILES_EVERY, restart_frequency=FILES_EVERY,
+            output_variables=cases.FILES_OUTPUT_VARIABLES,
+            wall_output_variables=cases.FILES_WALL_VARIABLES,
+            output_nodal=True)
+        runs = (("run", wd1, [path, "--device", "cuda"], FILES_ITERATIONS),
+                ("resumed", os.path.join(RUN_DIR, "files_resumed"),
+                 ["plate.inp", f"plate_{FILES_EVERY}.rst", "--device",
+                  "cuda", "--iterations", str(FILES_ITERATIONS - FILES_EVERY)],
+                 FILES_ITERATIONS - FILES_EVERY))
+        for tag, wd, argv, its in runs:
+            if tag == "resumed":
+                os.makedirs(wd)
+                for name in ("plate.inp", "plate.xyz",
+                             f"plate_{FILES_EVERY}.rst"):
+                    shutil.copy(os.path.join(wd1, name), wd)
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            if in_dir(wd, lambda: cli(argv)) != 0:
+                fail(f"phase 14 {tag}: the CLI failed")
+            seconds = time.perf_counter() - t0
+            got = tuple(c.count for c in counters)
+            want = (its * 2 * 2, 0, its * 2)
+            launches[tag] = got
+            print(f"phase 14 {tag}: case B SST lusgs, {its} steps with "
+                  f"files, kernel launches (lusgs_sweep, blusgs_sweep, "
+                  f"viscous_march) {got}, expected {want}; {seconds:.1f} s "
+                  f"through the CLI ({card})", flush=True)
+            if got != want:
+                fail(f"phase 14 {tag}: launches {got}, expected {want}")
+        first, resumed = solvers[0], solvers[-1]
+        wd2 = runs[1][1]
+        sizes = check_files(wd1, "phase 14 run", dims,
+                            range(0, FILES_ITERATIONS + 1, FILES_EVERY),
+                            range(FILES_EVERY, FILES_ITERATIONS + 1,
+                                  FILES_EVERY))
+        check_files(wd2, "phase 14 resumed", dims,
+                    (FILES_EVERY, FILES_ITERATIONS), (FILES_ITERATIONS,))
+        steps = resid_steps(os.path.join(wd2, "plate.resid"))
+        if steps != list(range(FILES_EVERY, FILES_ITERATIONS)):
+            fail(f"phase 14 resumed: .resid steps {steps}")
+        rec = read_restart(os.path.join(wd1, f"plate_{FILES_EVERY}.rst"))
+        if not (np.array_equal(resumed.l2_first, rec["l2_first"])
+                and resumed.is_restart):
+            fail(f"phase 14 resumed: l2_first {resumed.l2_first}, the "
+                 f"file's {rec['l2_first']}")
+        want = np.asarray(first.l2_history[FILES_EVERY:])
+        got = np.asarray(resumed.l2_history)
+        worst = float((np.abs(got - want).max(axis=0)
+                       / np.abs(want).max(axis=0)).max())
+        print(f"phase 14 resumed: .resid steps {steps}, l2_first the "
+              f"file's, raw L2 of steps {FILES_EVERY}-"
+              f"{FILES_ITERATIONS - 1} against the uninterrupted run's "
+              f"max rel diff {worst:.3e} (tol {RESTART_RTOL:.0e})",
+              flush=True)
+        if not worst <= RESTART_RTOL:
+            fail("phase 14 resumed: the resumed run left the "
+                 "uninterrupted run's history")
+        tme = read_tme(os.path.join(wd1, "plate.tme"))
+        out_s, nodal_s = times["write_output"], times["_write_nodal"]
+        wall_s = times["write_wall_files"]
+        center_s = [o - n - w for o, n, w in zip(out_s, nodal_s, wall_s)]
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)   # noqa: E731
+        print(f"phase 14 times, case B ({first.case.total_cells} cells), "
+              f"host clock "
+              f"between synchronisations, s per call (run at 0, "
+              f"{FILES_EVERY}, {FILES_ITERATIONS}; resumed at "
+              f"{FILES_EVERY}, {FILES_ITERATIONS}): write_output "
+              f"{fmt(out_s)}; of it cell-center {fmt(center_s)}, wall "
+              f"{fmt(wall_s)}, nodal {fmt(nodal_s)}; write_restart "
+              f"{fmt(times['write_restart'])} ({card})", flush=True)
+        print(f"phase 14 step seconds of the run (.tme; steps "
+              f"{FILES_EVERY - 1} and {FILES_ITERATIONS - 1} write output "
+              f"and a restart): {[round(t, 4) for _, t in tme]} ({card})",
+              flush=True)
+        print(f"phase 14 file bytes: {sizes}", flush=True)
+        form = ls.sweep_form(first.phys, first.cfg)
+        model = first.phys.turb_model
+    finally:
+        for name, fn in saved.items():
+            setattr(Solver, name, fn)
+        out_mod.write_wall_files = saved_wall
+    for wd in (wd1, wd2):
+        shutil.rmtree(wd, ignore_errors=True)
+
+    # a point-cloud initial condition, host-built: cuda equals cpu
+    wd3 = os.path.join(RUN_DIR, "files_cloud")
+    path = cases.write_plate_case(wd3, *cases.SMOKE_2D_DIMS, ic_file="cloud.dat")
+    rows = cases.write_cloud(os.path.join(wd3, "cloud.dat"))
+    built = {dev: Solver(path, device=dev, workdir=wd3)
+             for dev in ("cpu", "cuda")}
+    same = all(torch.equal(gb.prim0.cpu(), cb.prim0) for gb, cb in
+               zip(built["cuda"].case.blocks, built["cpu"].case.blocks))
+    print(f"phase 14 cloud: case A SST lusgs from {len(rows)} cloud points "
+          f"(each twice: every cell's nearest points tie), initial state on "
+          f"cuda equal to cpu bit for bit: {same}", flush=True)
+    if not same:
+        fail("phase 14 cloud: the initial state differs between cuda and cpu")
+    n = drive_cloud(built["cuda"])
+    launches["cloud"] = (n["lusgs_sweep"], n["blusgs_sweep"],
+                         n["viscous_march"])
+    rows_out = {("lusgs_sweep", form, False): {}, ("viscous_march", model): {}}
+    for tag, where in (("run", f"case B {FILES_ITERATIONS} steps with files"),
+                       ("resumed", f"case B resumed, "
+                                   f"{FILES_ITERATIONS - FILES_EVERY} steps"),
+                       ("cloud", "case A point-cloud IC, 2 steps")):
+        rows_out[("lusgs_sweep", form, False)][where] = launches[tag][0]
+        rows_out[("viscous_march", model)][where] = launches[tag][2]
+    return rows_out
+
+
+def reference_files(torch):
+    """phase 6's files deck: the small SST lusgs case from the seeded
+    perturbed state, REF_ITERATIONS steps with output and a restart every
+    step, the files variables, wall and nodal files, on cuda and on cpu;
+    every .fun and .rst value of the two within REF_RTOL of its variable's
+    largest magnitude per block"""
+    from aither_tpu_torch import cases
+    from aither_tpu_torch.io.output import read_fun_file
+    from aither_tpu_torch.io.restart import read_restart
+    from aither_tpu_torch.solver.driver import Solver
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        wd = os.path.join(RUN_DIR, f"reference_files_{dev}")
+        path = cases.write_plate_case(
+            wd, *cases.TEST_DIMS, iterations=REF_ITERATIONS,
+            output_frequency=1, restart_frequency=1,
+            output_variables=cases.FILES_OUTPUT_VARIABLES,
+            wall_output_variables=cases.FILES_WALL_VARIABLES,
+            output_nodal=True)
+        s = Solver(path, device=dev, workdir=wd)
+        perturb(s)
+        s.run(write_files=True)
+        dirs[dev] = wd
+    names = sorted(n for n in os.listdir(dirs["cpu"])
+                   if n.endswith((".fun", ".rst")))
+    if names != sorted(n for n in os.listdir(dirs["cuda"])
+                       if n.endswith((".fun", ".rst"))):
+        fail("phase 6 files: cuda and cpu wrote different files")
+    worst = 0.0
+    for name in names:
+        if name.endswith(".fun"):
+            got, want = (read_fun_file(os.path.join(dirs[d], name))[1]
+                         for d in ("cuda", "cpu"))
+        else:
+            got, want = (read_restart(os.path.join(dirs[d], name))["blocks"]
+                         for d in ("cuda", "cpu"))
+        for g, w in zip(got, want):
+            scale = np.abs(w).reshape(w.shape[0], -1).max(axis=1)
+            err = np.abs(g - w).reshape(w.shape[0], -1).max(axis=1)
+            worst = max(worst, float((err / np.where(scale > 0, scale,
+                                                     1.0)).max()))
+    print(f"phase 6 files: {cases.TEST_DIMS} x 2 blocks, SST lusgs, "
+          f"{REF_ITERATIONS} steps with output and a restart every step "
+          f"({len(names)} .fun and .rst files), cuda vs cpu max rel diff "
+          f"{worst:.3e} of each variable's largest (tol {REF_RTOL:.0e})",
+          flush=True)
+    if not worst <= REF_RTOL:
+        fail("phase 6 files: the cuda files disagree with the cpu files")
+
+
 def ptxas_report(text):
     """one line per kernel instantiation from nvcc's -Xptxas -v output:
     the kernel with its template arguments, its registers and its spills"""
@@ -1306,6 +1618,7 @@ def main():
         if not worst <= tol:
             fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}, {tag}: "
                  f"the cuda run disagrees with the cpu run")
+    reference_files(torch)
     done(6)
 
     # -- phase 7: the blusgs path, matrixSweeps 1 and 2 -----------------------
@@ -1476,6 +1789,12 @@ def main():
                   f"[{dts.min():.4e}, {dts.max():.4e}]", flush=True)
         del solver
     done(13)
+
+    # -- phase 14: files, restart and point-cloud initial conditions ---------
+    files_launches = files_phase(
+        torch, card, lambda s: drive(torch, s, 2, 1, "phase 14 cloud", card,
+                                     "case A"))
+    done(14)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -1536,6 +1855,12 @@ def main():
                 where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by"), r[:5]))
                 for where, r in bc_compared[key].items()}
+    for key in files_launches:
+        if key not in results:
+            fail(f"{key}: on the files path but in no kernels row")
+    for row, key in zip(kernels, results):
+        if key in files_launches:
+            row["files_launches"] = files_launches[key]
     for row in kernels:
         if not row["launches"] > 0:
             fail(f"{row['name']}: no launch on its driven path")

@@ -1,7 +1,8 @@
 """PyTorch port, debug mode and the command line: ``Solver.check_physicality``
 (the port of the JAX package's debug-mode guard, tests/test_debug.py's
 cases on the port's generated plate), the ``debug`` / ``AITHER_DEBUG``
-switch, and the CLI's ``--no-files``, ``--debug`` and restart argument.
+switch, and the CLI's files, ``--no-files``, ``--debug`` and restart
+argument.
 No JAX solver is built: these are the port's own behaviours."""
 
 import numpy as np
@@ -98,21 +99,34 @@ def test_debug_switch_defers_to_aither_debug(plate, monkeypatch, env, arg,
 
 
 def test_cli_without_no_files_refuses(tmp_path, monkeypatch):
+    """without --no-files the CLI writes the deck's files (the name is
+    kept from when this surface refused): the cell centers and the
+    function file and meta file at the start and at the deck's output
+    frequency, and a restart at its restart frequency"""
     from aither_tpu_torch.main import main
-    path = write_plate_case(str(tmp_path), *DIMS)
+    path = write_plate_case(str(tmp_path), *DIMS, output_frequency=2,
+                            restart_frequency=2)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=r"output .*ROADMAP.md queue 1 item 6"):
-        main([path, "--device", "cpu", "--iterations", "1"])
+    assert main([path, "--device", "cpu", "--iterations", "2"]) == 0
+    for name in ("plate_center.xyz", "plate_center.p3d", "plate_0_center.fun",
+                 "plate_2_center.fun", "plate_2.rst"):
+        assert (tmp_path / name).stat().st_size > 0, name
+    assert not (tmp_path / "plate_1_center.fun").exists()
 
 
 def test_cli_restart_argument_refuses(tmp_path, monkeypatch):
+    """the positional restart argument resumes (the name is kept from
+    when this surface refused): the resumed run's steps continue from
+    the file's iteration in the appended .resid"""
     from aither_tpu_torch.main import main
-    path = write_plate_case(str(tmp_path), *DIMS)
+    path = write_plate_case(str(tmp_path), *DIMS, restart_frequency=1)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=r"restart .*ROADMAP.md queue 1 item 6"):
-        main([path, "plate.rst", "--device", "cpu", "--no-files"])
+    assert main([path, "--device", "cpu", "--iterations", "1"]) == 0
+    assert main([path, "plate_1.rst", "--device", "cpu", "--no-files",
+                 "--iterations", "2"]) == 0
+    with open(tmp_path / "plate.resid") as f:
+        steps = [ln.split()[0] for ln in f if ln.strip()]
+    assert steps == ["Step", "0", "Step", "1", "2"]
 
 
 @pytest.mark.parametrize("debug", [False, True])
@@ -132,3 +146,13 @@ def test_cli_no_files_runs_on_the_cpu(tmp_path, monkeypatch, debug):
         rows = [ln for ln in f if ln.strip()]
     assert len(rows) == 3          # header + one row per iteration
     assert checked == ([0, 1] if debug else [])
+
+
+def test_file_refusals_are_gone():
+    """output, restart and point-cloud initial conditions run: no refusal
+    names ROADMAP.md queue 1 item 6; the others name item 5 or 9"""
+    from aither_tpu_torch import unsupported
+    for item in ("output", "restart", "fileInitialCondition"):
+        assert item not in unsupported.ITEMS
+    assert all(" item 5 " in v or " item 9 " in v
+               for v in unsupported.ITEMS.values())
