@@ -94,12 +94,12 @@ timeIntegration: {time_integration}
 {time_lines}matrixSolver: {matrix_solver}
 matrixSweeps: {matrix_sweeps}
 {mg_lines}matrixRelaxation: 1.0
-inviscidFlux: roe
+inviscidFlux: {inviscid_flux}
 inviscidFluxJacobian: {inviscid_flux_jacobian}
-faceReconstruction: thirdOrder
+faceReconstruction: {face_reconstruction}
 limiter: vanAlbada
-viscousFaceReconstruction: central
-cflStart: {cfl[0]}
+viscousFaceReconstruction: {viscous_face_reconstruction}
+{thermo_lines}cflStart: {cfl[0]}
 cflStep: {cfl[1]}
 cflMax: {cfl[2]}
 fluids: <{fluids}>
@@ -180,6 +180,13 @@ MIXTURES = {"n2o2": N2O2, "air5": AIR5,
             "air4_frozen": dict(AIR5, chemistry=None,
                                 species=("N2", "O2", "NO", "O"),
                                 mass_fractions=(0.74, 0.2, 0.04, 0.02))}
+# hot one-species air for a thermally perfect deck (write_plate_case
+# keywords): about 4,000 K at 101300 Pa, a wall at 3,500 K.  Air's
+# vibrational temperature is 3,056 K (physics/fluid.py), so the
+# vibrational terms are a few percent of the energy here, where at the
+# plate's 288 K they are about 1e-5 of it
+TP_AIR = dict(density=0.0882, wall_temperature=3500.0,
+              thermodynamic_model="thermallyPerfect")
 
 
 def plate_nodes(ni: int, nj: int, nk: int,
@@ -244,7 +251,11 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                      output_variables=None,
                      wall_output_variables=None,
                      output_nodal: bool = False,
-                     ic_file=None) -> str:
+                     ic_file=None,
+                     face_reconstruction: str = "thirdOrder",
+                     viscous_face_reconstruction: str = "central",
+                     inviscid_flux: str = "roe",
+                     thermodynamic_model: str = "caloricallyPerfect") -> str:
     """Write ``<name>.xyz`` and ``<name>.inp`` into ``out_dir``; returns
     the deck path.  ``matrix_sweeps`` > 1 gives the lagged-term LU-SGS;
     ``matrix_solver`` "blusgs" the block-matrix LU-SGS, "dplur" / "bdplur"
@@ -282,6 +293,12 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     point-cloud initial condition, a file name looked up beside the deck
     and then in the working directory.  Each line is written only when
     it differs from the deck's template.
+
+    The physics: ``face_reconstruction`` (thirdOrder MUSCL, constant,
+    weno, wenoZ), ``viscous_face_reconstruction`` (central,
+    centralFourth), ``inviscid_flux`` (roe, ausm) and
+    ``thermodynamic_model`` (caloricallyPerfect, thermallyPerfect; its
+    line is written only for thermallyPerfect).
     Every default writes the deck and grid of before these keywords, byte
     for byte."""
     turb = ("; turbulenceIntensity=0.01; eddyViscosityRatio=10.0"
@@ -350,6 +367,8 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     ic = (f"file={ic_file}" if ic_file is not None else
           f"pressure=101300.0; density={density}; "
           f"velocity=[{velocity}, 0.0, 0.0]{turb}{mf}")
+    thermo_lines = ("" if thermodynamic_model == "caloricallyPerfect" else
+                    f"thermodynamicModel: {thermodynamic_model}\n")
     mg_lines = ""
     if multigrid_levels != 1:
         mg_lines += f"multigridLevels: {multigrid_levels}\n"
@@ -380,7 +399,12 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
                              outflow=outflow, outflow_tag=outflow_tag,
                              span=span, span_tags=span_tags,
                              output_frequency=output_frequency,
-                             output_lines=output_lines, ic=ic))
+                             output_lines=output_lines, ic=ic,
+                             inviscid_flux=inviscid_flux,
+                             face_reconstruction=face_reconstruction,
+                             viscous_face_reconstruction=(
+                                 viscous_face_reconstruction),
+                             thermo_lines=thermo_lines))
     return deck_path
 
 

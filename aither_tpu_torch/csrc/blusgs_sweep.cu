@@ -35,6 +35,14 @@
 // roe_offdiagonal with block_matrix set (no Pallas form there).  A build
 // holds the Rusanov forms (library blusgs_sweep) or, with -DSWEEP_ROE=1,
 // the Roe forms (library blusgs_sweep_roe).
+// A build with -DSWEEP_TP=1 (library blusgs_sweep_tp) holds the thermally
+// perfect forms of the Rusanov and TSL rows for NS = 1..5: every species
+// count takes add_block_offdiagonal_mix (one species with mass fraction
+// 1), with each species' energy, enthalpy, cv and cp functions of T
+// (thermo_tp.cuh): the neighbour's gamma, energy and cp (the turbulent
+// conductivity) from its T, and the diffusion's species enthalpies.  It
+// replaces the JAX package's scan sweep of such a deck (pallas_sweep.
+// use_pallas turns its kernel off there).  Phys's gamma is not read.
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -130,7 +138,13 @@ struct Mixture {
   double R[NS], cv[NS], cp[NS], hf[NS], cond_c1[NS], cond_s[NS], mm[NS];
   double schmidt, turb_schmidt;
   int diffusion;
+#if SWEEP_TP
+  thermo::Vib<NS> vib;   // the thermally perfect forms' modes
+#endif
 };
+
+// the forms of this translation unit: the thermally perfect gas
+constexpr bool TP = SWEEP_TP != 0;
 
 struct Fields {
   const double* __restrict__ prim;
@@ -314,11 +328,17 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
   const double t = p / rr;
   double cpm = 0.0, cvm = 0.0, em = 0.0;
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    mf[s] = mf[s] / rho;
-    cpm += sp.cp[s] * mf[s];
-    cvm += sp.cv[s] * mf[s];
-    em += (sp.hf[s] + sp.cv[s] * t) * mf[s];
+  for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
+  if constexpr (TP) {
+    thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
+    em = thermo::energy<NS>(sp, mf, t);
+  } else {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      cpm += sp.cp[s] * mf[s];
+      cvm += sp.cv[s] * mf[s];
+      em += (sp.hf[s] + sp.cv[s] * t) * mf[s];
+    }
   }
   double S = 0.0;  // the species columns' common factor
 #pragma unroll
@@ -430,8 +450,12 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
 #pragma unroll
       for (int q = 0; q < NS; ++q) {
         acc_t[q] += scale * (dc * (dq[q] - mf[q] * S));
-        e_species += dc * (1.0 - mf[q]) *
-                     (sp.hf[q] + sp.cp[q] * t + 0.5 * vmag2) * dq[q];
+#if SWEEP_TP
+        const double hq = thermo::species_enthalpy(sp, q, t);
+#else
+        const double hq = sp.hf[q] + sp.cp[q] * t;
+#endif
+        e_species += dc * (1.0 - mf[q]) * (hq + 0.5 * vmag2) * dq[q];
       }
     }
     acc_t[NS + 3] += scale * (e_species +
@@ -507,7 +531,7 @@ __device__ __forceinline__ void direction_product(
     }
     flux::add_roe_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
         ph, sp, q, dq, qd, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
-  } else if constexpr (NS == 1)
+  } else if constexpr (NS == 1 && !TP)
     add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, dq,
                                                          x, x_t);
   else
@@ -651,7 +675,9 @@ int launch_tiles(int forward, const Fields& fl, const PhysRoe& ph_all,
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
 // hf_s, cond_c1_s, cond_s_s and the molar masses (NS each), then the
-// Schmidt number, the turbulent Schmidt number and the diffusion flag
+// Schmidt number, the turbulent Schmidt number and the diffusion flag,
+// then for the thermally perfect forms the vibrational table (the mode
+// counts, NS, then MAX_MODES temperatures per species)
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const PhysRoe& ph, const double* species,
@@ -670,6 +696,10 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
   sp.schmidt = species[7 * NS];
   sp.turb_schmidt = species[7 * NS + 1];
   sp.diffusion = species[7 * NS + 2] != 0.0;
+#if SWEEP_TP
+  if (!thermo::read_vib<NS>(species + 7 * NS + 3, sp.vib))
+    return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (neq == N && !viscous && !wilcox)
     return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
   if (neq == N && viscous && !wilcox)
@@ -688,10 +718,11 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
 // head of this file); roe is 1 for the approximateRoe forms, which only
 // the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
-// tmin_w, and no vgrad).  R, cv, cp, hf, gamma, prandtl, cond_c1 and
-// cond_s are the one species' (read when ns is 1); species is a HOST
-// array of the
-// mixture's constants (launch_form; read when ns > 1).  stat and mask are
+// tmin_w, and no vgrad); tp is 1 for the thermally perfect forms, which
+// only the library built with SWEEP_TP holds.  R, cv, cp, hf, gamma,
+// prandtl, cond_c1 and cond_s are the one species' (read when ns is 1 by
+// the calorically perfect forms); species is a HOST array of the
+// mixture's constants (launch_form; read when ns > 1 or tp).  stat and mask are
 // in physical cell order; sched is a HOST array {ntiles, ni, nj, nk, ti,
 // tj, tk, g}, tiles the device tile table and state
 // device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
@@ -700,7 +731,7 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // when it was accepted), or cudaErrorInvalidValue for a form that does not
 // exist or that another library holds.
 extern "C" int blusgs_sweep_f64(
-    int forward, int ns, int neq, int viscous, int wilcox, int roe,
+    int forward, int ns, int neq, int viscous, int wilcox, int roe, int tp,
     const double* prim,
     double* du, const double* mu, const double* mut, const double* f1,
     const double* vgrad, const double* b, const double* extra,
@@ -712,7 +743,8 @@ extern "C" int blusgs_sweep_f64(
     double t_ref, double cond_c1, double cond_s, double k_nondim,
     double sigma_k1, double sigma_k2, double sigma_w1, double sigma_w2,
     const double* species, void* stream) {
-  if ((roe != 0) != ROE) return static_cast<int>(cudaErrorInvalidValue);
+  if ((roe != 0) != ROE || (tp != 0) != TP)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,
             inv_f, inv_t, stat,  mask, nc,   ncp,   base,

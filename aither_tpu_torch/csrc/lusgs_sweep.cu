@@ -33,6 +33,19 @@
 // is, library lusgs_sweep) or, with -DSWEEP_ROE=1, the Roe forms (library
 // lusgs_sweep_roe): two translation units, built in parallel.
 //
+// A build with -DSWEEP_TP=1 (library lusgs_sweep_tp) holds the thermally
+// perfect forms (thermodynamicModel: thermallyPerfect) of the Rusanov
+// off-diagonal, for NS = 1..5: every species count takes the mixture
+// path, one species with mass fraction 1, and each species' energy,
+// enthalpy, cv and cp are functions of T (thermo_tp.cuh, struct
+// Species's vibrational table): the neighbour's gamma and Prandtl number
+// from its T, the energy of q + du inverted by Ridder's method
+// (roe_offdiag.cuh update_prim_mix), which replaces the JAX package's
+// scan sweep of such a deck (pallas_sweep.use_pallas turns its kernel
+// off there: aither_tpu/solver/implicit.py:89, 137 through
+// state.update_prim_with_cons and the thermally perfect Physics).  The
+// constant gamma and Prandtl number of Phys are not read.
+//
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
 // decreasing), every physical cell c of the plane becomes
@@ -108,10 +121,17 @@ struct Phys {
   double sigma_k1, sigma_k2;  // SST blend; Wilcox: sigma* in sigma_k1
 };
 
-// per-species constants of a mixture (read when NS > 1)
+// the forms of this translation unit: the thermally perfect gas
+constexpr bool TP = SWEEP_TP != 0;
+
+// per-species constants of a mixture (read when NS > 1, and for every NS
+// by the thermally perfect forms)
 template <int NS>
 struct Species {
   double R[NS], cv[NS], cp[NS], hf[NS];
+#if SWEEP_TP
+  thermo::Vib<NS> vib;
+#endif
 };
 
 struct Fields {
@@ -143,7 +163,7 @@ __device__ __forceinline__ void add_offdiagonal(
   constexpr int T0 = NS + 4;   // first turbulence equation
   double qu[NEQ], fu[NEQ], fq[NEQ];
   double rho, vn, gamma, prandtl;
-  if constexpr (NS == 1) {
+  if constexpr (NS == 1 && !TP) {
     update_prim<NEQ>(ph, q, dq, qu);
     physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
     physical_flux<NEQ>(ph, q, n0, n1, n2, fq);
@@ -159,10 +179,18 @@ __device__ __forceinline__ void add_offdiagonal(
     double cpm = 0.0, cvm = 0.0;
 #pragma unroll
     for (int s = 0; s < NS; ++s) rho += q[s];
+    if constexpr (TP) {
+      double mf[NS];
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      cpm += sp.cp[s] * (q[s] / rho);
-      cvm += sp.cv[s] * (q[s] / rho);
+      for (int s = 0; s < NS; ++s) mf[s] = q[s] / rho;
+      thermo::cp_cv<NS>(sp, mf, q[NS + 3] / flux::species_sum<NS>(sp.R, q),
+                        cpm, cvm);
+    } else {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        cpm += sp.cp[s] * (q[s] / rho);
+        cvm += sp.cv[s] * (q[s] / rho);
+      }
     }
     vn = q[NS] * n0 + q[NS + 1] * n1 + q[NS + 2] * n2;
     gamma = cpm / cvm;
@@ -339,7 +367,8 @@ int launch_tiles(int forward, const Fields& fl, const Phys& ph,
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
-// hf_s (NS each)
+// hf_s (NS each) and, for the thermally perfect forms, the vibrational
+// table: the mode counts (NS), then MAX_MODES temperatures per species
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const Phys& ph, const double* species,
@@ -352,6 +381,10 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
     sp.cp[s] = species[2 * NS + s];
     sp.hf[s] = species[3 * NS + s];
   }
+#if SWEEP_TP
+  if (!thermo::read_vib<NS>(species + 4 * NS, sp.vib))
+    return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (neq == N && !viscous && !wilcox)
     return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
   if (neq == N && viscous && !wilcox)
@@ -370,11 +403,12 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
 // turbulence equations only with viscous); roe is 1 for the approximateRoe
-// forms, which only the library built with SWEEP_ROE holds.  R, cv, cp,
-// hf, gamma and prandtl are the one species' (read when ns is 1); species
-// is a HOST
+// forms, which only the library built with SWEEP_ROE holds, tp 1 for the
+// thermally perfect forms, which only the library built with SWEEP_TP
+// holds.  R, cv, cp, hf, gamma and prandtl are the one species' (read
+// when ns is 1 by the calorically perfect forms); species is a HOST
 // array of the mixture's R_s, cv_s, cp_s and hf_s, ns each (read when ns
-// > 1).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
+// > 1 or tp), then for tp the vibrational table (launch_form).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
 // cell order.  sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk,
 // g}; tiles the device tile table (ntiles, 6) and state
 // device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
@@ -383,7 +417,7 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a form
 // that does not exist or that another library holds.
 extern "C" int lusgs_sweep_f64(
-    int forward, int ns, int neq, int viscous, int wilcox, int roe,
+    int forward, int ns, int neq, int viscous, int wilcox, int roe, int tp,
     const double* prim,
     double* du, const double* mu, const double* mut, const double* f1,
     const double* b, const double* extra, const double* inv_f,
@@ -393,7 +427,8 @@ extern "C" int lusgs_sweep_f64(
     double R, double cv, double cp, double hf, double gamma, double prandtl,
     double prt, double scaling, double tmin_k, double tmin_w,
     double sigma_k1, double sigma_k2, const double* species, void* stream) {
-  if ((roe != 0) != ROE) return static_cast<int>(cudaErrorInvalidValue);
+  if ((roe != 0) != ROE || (tp != 0) != TP)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim, du,   mu,   mut, f1, b,   extra,
             inv_f, inv_t, stat, mask, nc, ncp, base,

@@ -41,11 +41,25 @@
 //
 // PH is the kernel's struct of one-species constants (R, cv, cp, hf,
 // gamma, prandtl, prt, scaling, tmin_k, tmin_w, sigma_k1, sigma_k2), SP
-// its struct of a mixture's per-species constants (R, cv, cp, hf arrays).
+// its struct of a mixture's per-species constants (R, cv, cp, hf arrays,
+// and in a thermally perfect build the vibrational table vib).
+//
+// A build with SWEEP_TP=1 holds the thermally perfect forms of the two
+// sweeps: the mixture functions below (physical_flux_mix,
+// update_prim_mix) take each species' energy and enthalpy as functions of
+// T (thermo_tp.cuh) and invert the energy of q + du by Ridder's method;
+// both sweeps then send one species through them too (its mass fraction
+// is exactly 1).  The Roe flux has no thermally perfect form.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "thermo_tp.cuh"
+
+#ifndef SWEEP_TP
+#define SWEEP_TP 0
+#endif
 
 namespace flux {
 
@@ -128,9 +142,15 @@ __device__ __forceinline__ void physical_flux_mix(const SP& sp,
   for (int s = 0; s < NS; ++s) rho += q[s];
   const double vn = u * n0 + v * n1 + w * n2;
   const double t = p / species_sum<NS>(sp.R, q);
-  double h = 0.0;  // sum_s mf_s (hf_s + cp_s t)
+  double h = 0.0;  // sum_s mf_s h_s(t)
 #pragma unroll
-  for (int s = 0; s < NS; ++s) h += (sp.hf[s] + sp.cp[s] * t) * (q[s] / rho);
+  for (int s = 0; s < NS; ++s) {
+#if SWEEP_TP
+    h += thermo::species_enthalpy(sp, s, t) * (q[s] / rho);
+#else
+    h += (sp.hf[s] + sp.cp[s] * t) * (q[s] / rho);
+#endif
+  }
   const double h0 = h + 0.5 * (u * u + v * v + w * w);
   const double rvn = rho * vn;
 #pragma unroll
@@ -155,9 +175,15 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
 #pragma unroll
   for (int s = 0; s < NS; ++s) rho += q[s];
   const double t = p / species_sum<NS>(sp.R, q);
-  double e = 0.0;  // sum_s mf_s (hf_s + cv_s t)
+  double e = 0.0;  // sum_s mf_s e_s(t)
 #pragma unroll
-  for (int s = 0; s < NS; ++s) e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
+  for (int s = 0; s < NS; ++s) {
+#if SWEEP_TP
+    e += thermo::species_energy(sp, s, t) * (q[s] / rho);
+#else
+    e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
+#endif
+  }
   e += 0.5 * (u * u + v * v + w * w);
   double c[NS];
   double r = 0.0;
@@ -184,6 +210,12 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
   const double ww = (rho * w + dq[NS + 2]) / r2;
   const double se =
       (rho * e + dq[NS + 3]) / r2 - 0.5 * (uu * uu + vv * vv + ww * ww);
+#if SWEEP_TP
+  double mfu[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) mfu[s] = out[s] / r2;
+  const double tu = thermo::temperature_from_energy<NS>(sp, se, mfu);
+#else
   double hf_mix = 0.0, cv_mix = 0.0;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -191,6 +223,7 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
     cv_mix += sp.cv[s] * (out[s] / r2);
   }
   const double tu = (se - hf_mix) / cv_mix;
+#endif
   out[NS] = uu;
   out[NS + 1] = vv;
   out[NS + 2] = ww;

@@ -1,0 +1,179 @@
+// Thermally perfect gas of the two LU-SGS sweep kernels (lusgs_sweep.cu,
+// blusgs_sweep.cu built with -DSWEEP_TP=1), float64: per species the
+// energy, enthalpy, cv and cp with their vibrational parts, and the
+// mixture's temperature from its energy by Ridder's method.
+//
+// The plain version is aither_tpu_torch/physics/models.py (Physics with
+// thermo_model thermallyPerfect), a port of aither_tpu/physics/models.py
+// :193-306 (reference: thermodynamic.hpp:129-166, thermodynamic.cpp
+// :101-141, utility.hpp:130-184).  Each function keeps the plain
+// version's order of operations:
+//   e_s(T)  = hf_s + cv_s T + R_s sum_m theta_m / (exp(theta_m / T) - 1)
+//   h_s(T)  = hf_s + cp_s T + (the same vibrational sum times R_s)
+//   cv_s(T) = cv_s + R_s sum_m (tv / sinh(tv))^2,  tv = theta_m / (2 T)
+//   cp_s(T) = cp_s + (the same)
+// with cv_s = R_s n_s and cp_s = R_s (n_s + 1) the calorically perfect
+// constants and the modes summed from 0 in the fluid table's order.
+//
+// The species table SP has R[NS], cv[NS], cp[NS], hf[NS] and the
+// vibrational temperatures (nondimensional) in a padded table with
+// counts, nvib[NS] and theta[NS][MAX_MODES].
+//
+// The temperature inversion is the plain version's loop: the bracket
+// [RIDDER_LO, RIDDER_HI], at most RIDDER_ITERS iterations, each with two
+// energy evaluations, stopping once the bracket is within RIDDER_TOL or a
+// residual is exactly 0 (the plain version freezes such a point and runs
+// on: its values do not change again); T is the last evaluation point x4,
+// not a root refined to another tolerance, and an unbracketed point gives
+// RIDDER_HI.  sign() is numpy's and torch's: 0 for +-0 and NaN for NaN
+// (CUDA's copysign would give +-1 at 0).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace thermo {
+
+constexpr int MAX_MODES = 9;   // CH4 has 9 (physics/fluid.py)
+constexpr double RIDDER_LO = 1.0e-8, RIDDER_HI = 1.0e4, RIDDER_TOL = 1.0e-8;
+constexpr int RIDDER_ITERS = 64;
+
+// the padded vibrational table of NS species
+template <int NS>
+struct Vib {
+  int nvib[NS];
+  double theta[NS][MAX_MODES];
+};
+
+// fill vib from a host array: the mode counts (NS), then MAX_MODES
+// temperatures per species; false if a count is out of range
+template <int NS>
+inline bool read_vib(const double* src, Vib<NS>& vib) {
+  for (int s = 0; s < NS; ++s) {
+    const double c = src[s];
+    if (!(c >= 0.0 && c <= MAX_MODES)) return false;
+    vib.nvib[s] = static_cast<int>(c);
+    for (int m = 0; m < MAX_MODES; ++m)
+      vib.theta[s][m] = src[NS + s * MAX_MODES + m];
+  }
+  return true;
+}
+
+__device__ __forceinline__ double sign_of(double x) {
+  return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);   // +-0 -> +-0, NaN -> NaN
+}
+
+// sum over species s's modes of theta / (exp(theta / T) - 1)
+template <class SP>
+__device__ __forceinline__ double vib_energy(const SP& sp, int s, double t) {
+  double acc = 0.0;
+  for (int m = 0; m < sp.vib.nvib[s]; ++m) {
+    const double th = sp.vib.theta[s][m];
+    acc = acc + th / (exp(th / t) - 1.0);
+  }
+  return acc;
+}
+
+// sum over species s's modes of (tv / sinh(tv))^2, tv = theta / (2 T)
+template <class SP>
+__device__ __forceinline__ double vib_cpcv(const SP& sp, int s, double t) {
+  double acc = 0.0;
+  for (int m = 0; m < sp.vib.nvib[s]; ++m) {
+    const double tv = sp.vib.theta[s][m] / (2.0 * t);
+    const double r = tv / sinh(tv);
+    acc = acc + r * r;
+  }
+  return acc;
+}
+
+template <class SP>
+__device__ __forceinline__ double species_energy(const SP& sp, int s,
+                                                 double t) {
+  return sp.hf[s] + sp.cv[s] * t + sp.R[s] * vib_energy(sp, s, t);
+}
+
+template <class SP>
+__device__ __forceinline__ double species_enthalpy(const SP& sp, int s,
+                                                   double t) {
+  return sp.hf[s] + sp.cp[s] * t + sp.R[s] * vib_energy(sp, s, t);
+}
+
+template <class SP>
+__device__ __forceinline__ double species_cv(const SP& sp, int s, double t) {
+  return sp.cv[s] + sp.R[s] * vib_cpcv(sp, s, t);
+}
+
+template <class SP>
+__device__ __forceinline__ double species_cp(const SP& sp, int s, double t) {
+  return sp.cp[s] + sp.R[s] * vib_cpcv(sp, s, t);
+}
+
+// the mixture's energy sum_s e_s(T) mf_s from 0 in species order; one
+// species is its own (Physics.mix)
+template <int NS, class SP>
+__device__ __forceinline__ double energy(const SP& sp, const double mf[NS],
+                                         double t) {
+  if constexpr (NS == 1) {
+    return species_energy(sp, 0, t);
+  } else {
+    double out = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) out += species_energy(sp, s, t) * mf[s];
+    return out;
+  }
+}
+
+// the mixture's cp and cv at T (sum_s cp_s(T) mf_s, sum_s cv_s(T) mf_s)
+template <int NS, class SP>
+__device__ __forceinline__ void cp_cv(const SP& sp, const double mf[NS],
+                                      double t, double& cp, double& cv) {
+  if constexpr (NS == 1) {
+    const double v = vib_cpcv(sp, 0, t);
+    cp = sp.cp[0] + sp.R[0] * v;
+    cv = sp.cv[0] + sp.R[0] * v;
+  } else {
+    cp = 0.0;
+    cv = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const double v = vib_cpcv(sp, s, t);
+      cp += (sp.cp[s] + sp.R[s] * v) * mf[s];
+      cv += (sp.cv[s] + sp.R[s] * v) * mf[s];
+    }
+  }
+}
+
+// T of the mixture mf with specific internal energy e: Ridder's method
+// (head of this file)
+template <int NS, class SP>
+__device__ __forceinline__ double temperature_from_energy(
+    const SP& sp, double e, const double mf[NS]) {
+  double x1 = RIDDER_LO, x2 = RIDDER_HI;
+  double f1 = e - energy<NS>(sp, mf, x1);
+  double f2 = e - energy<NS>(sp, mf, x2);
+  if (!(sign_of(f1) != sign_of(f2))) return RIDDER_HI;
+  double x4 = RIDDER_HI;
+  for (int it = 0; it < RIDDER_ITERS; ++it) {
+    const double x3 = 0.5 * (x1 + x2);
+    const double f3 = e - energy<NS>(sp, mf, x3);
+    const double denom = sqrt(fabs(f3 * f3 - f1 * f2)) + 1.0e-300;
+    x4 = x3 + (x3 - x1) * (sign_of(f1 - f2) * f3) / denom;
+    const double f4 = e - energy<NS>(sp, mf, x4);
+    if (sign_of(f4) != sign_of(f3)) {
+      x1 = x3;
+      f1 = f3;
+      x2 = x4;
+      f2 = f4;
+    } else if (sign_of(f4) != sign_of(f1)) {
+      x2 = x4;
+      f2 = f4;
+    } else {
+      x1 = x4;
+      f1 = f4;
+    }
+    if (fabs(x2 - x1) <= RIDDER_TOL || f3 == 0.0 || f4 == 0.0) break;
+  }
+  return x4;
+}
+
+}  // namespace thermo

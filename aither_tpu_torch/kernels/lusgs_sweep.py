@@ -28,7 +28,15 @@ own state; the same vector for the scalar and the block solver, whose
 block inverse stays).  The Roe forms replace the JAX package's scan path
 of ``roe_offdiagonal`` (it has no Pallas form: its packed sweep stream
 lacks the diagonal cell's state) and are built as libraries of their own
-(``utils.build.VARIANTS``).  The plain
+(``utils.build.VARIANTS``).  A thermally perfect gas
+(``thermodynamicModel: thermallyPerfect``) takes the thermally perfect
+forms of the Rusanov off-diagonal, two more libraries
+(``lusgs_sweep_tp``, ``blusgs_sweep_tp``; ``csrc/thermo_tp.cuh``): each
+species' energy, enthalpy, cv and cp are functions of T and the energy of
+q + du is inverted by Ridder's method per neighbour.  They replace the
+JAX package's scan sweep of such a deck (its ``use_pallas`` turns the
+Pallas kernel off there); its approximateRoe forms are not built (ROADMAP
+item 5c: refused on the card).  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -49,11 +57,15 @@ import torch
 
 from ..physics.models import Physics
 from ..solver import implicit as imp
+from ..solver import state as st
 from ..solver.viscous import SST, WILCOX
 from ..unsupported import refuse
 
 # species counts the kernels are instantiated for (MAX_NS of both sources)
 MAX_SPECIES = 5
+# vibrational modes per species of the thermally perfect forms
+# (thermo_tp.cuh MAX_MODES; CH4 has 9)
+MAX_MODES = 9
 
 
 class LaunchCounter:
@@ -167,27 +179,34 @@ def backward_plain(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux,
 # CUDA kernel
 
 
-def _library(roe: bool):
+def library_name(block: bool, roe: bool, tp: bool) -> str:
+    """the library of a form: the Rusanov, approximateRoe (``_roe``) or
+    thermally perfect (``_tp``) build of the scalar or block sweep"""
+    return (("blusgs_sweep" if block else "lusgs_sweep")
+            + ("_roe" if roe else "_tp" if tp else ""))
+
+
+def _library(roe: bool, tp: bool):
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("lusgs_sweep_roe" if roe else "lusgs_sweep")
+    lib, _ = load_cuda_library(library_name(False, roe, tp))
     fn = lib.lusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 6 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
+        fn.argtypes = ([i] * 7 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _block_library(roe: bool):
+def _block_library(roe: bool, tp: bool):
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library("blusgs_sweep_roe" if roe else "blusgs_sweep")
+    lib, _ = load_cuda_library(library_name(True, roe, tp))
     fn = lib.blusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
-        fn.argtypes = ([i] * 6 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 18
+        fn.argtypes = ([i] * 7 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 18
                        + [p, p])
         fn.restype = ctypes.c_int
     return fn
@@ -204,34 +223,53 @@ def _check(t, name, shape, device):
 
 
 def sweep_form(phys: Physics, cfg):
-    """(ns, neq, viscous, wilcox, roe) of the kernel instantiation this
-    physics and off-diagonal (roe: approximateRoe) take.  A species count
-    above ``MAX_SPECIES`` is refused with
-    NotImplementedError naming its ROADMAP.md item; a form no model has
-    (turbulence equations without viscosity) raises ValueError."""
+    """(ns, neq, viscous, wilcox, roe, tp) of the kernel instantiation
+    this physics and off-diagonal (roe: approximateRoe) take, tp for a
+    thermally perfect gas.  A species count above ``MAX_SPECIES`` is
+    refused with NotImplementedError naming its ROADMAP.md item, and so is
+    a thermally perfect gas with the approximateRoe off-diagonal (no
+    library holds that form; its plain version runs on the CPU); a form no
+    model has (turbulence equations without viscosity) and a species with
+    more than ``MAX_MODES`` vibrational modes in a thermally perfect gas
+    raise ValueError."""
     viscous = bool(cfg.get("viscous", False))
     ns, neq = phys.ns, phys.neq
+    roe = cfg.get("inv_flux_jac", "rusanov") == "approximateRoe"
+    tp = phys.thermally_perfect
     if ns > MAX_SPECIES:
         refuse("species", f"{ns} species")
+    if roe and tp:
+        refuse("thermallyPerfectRoe", "approximateRoe")
     if ns < 1 or neq not in (ns + 4, ns + 6) or (neq == ns + 6
                                                  and not viscous):
         raise ValueError("the CUDA sweeps cover ns + 4 equations (inviscid "
                          "or viscous) or ns + 6 (viscous RANS) only, got "
                          f"ns={ns} neq={neq} viscous={viscous}")
-    return (ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006",
-            cfg.get("inv_flux_jac", "rusanov") == "approximateRoe")
+    if tp and max(len(v) for v in phys.vib) > MAX_MODES:
+        raise ValueError("the thermally perfect CUDA sweeps take at most "
+                         f"{MAX_MODES} vibrational modes a species, got "
+                         f"{[len(v) for v in phys.vib]}")
+    return (ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006", roe,
+            tp)
 
 
 def species_constants(phys: Physics, cfg, block: bool) -> np.ndarray:
     """the kernels' host array of the species constants: R_s, cv_s, cp_s,
     hf_s and, for the block sweep, the Sutherland conductivity
     coefficients, the molar masses, the Schmidt numbers and whether the
-    species diffuse (the ``launch_form`` of each source)"""
+    species diffuse, then for a thermally perfect gas the vibrational
+    table: each species' mode count, then per species ``MAX_MODES``
+    nondimensional vibrational temperatures padded with 0 (the
+    ``launch_form`` of each source)"""
     vals = [*phys.R, *phys.cv_s, *phys.cp_s, *phys.hf]
     if block:
         vals += [*phys.cond_c1, *phys.cond_s, *phys.molar_mass,
                  cfg.get("schmidt", 0.9), cfg.get("turb_schmidt", 0.7),
                  float(cfg.get("diffusion", "none") != "none")]
+    if phys.thermally_perfect:
+        vals += [float(len(v)) for v in phys.vib]
+        for v in phys.vib:
+            vals += [*v, *([0.0] * (MAX_MODES - len(v)))]
     return np.asarray(vals, dtype=np.float64)
 
 
@@ -239,7 +277,7 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
                     aux, extra):
     """Raise ValueError unless the operands are what the kernel of this
     solver (scalar or block) and this physics reads."""
-    ns, neq, viscous, _, roe = sweep_form(phys, cfg)
+    ns, neq, viscous, _, roe, _ = sweep_form(phys, cfg)
     nturb = neq - ns - 4
     dev = prim.device
     NI, NJ, NK = plan.padded
@@ -270,15 +308,17 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
 def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                   forward: bool, extra=None):
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
-    ns, neq, viscous, wilcox, roe = sweep_form(phys, cfg)
+    ns, neq, viscous, wilcox, roe, tp = sweep_form(phys, cfg)
     blk = bool(cfg.get("block_matrix"))
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
     side = "lower" if forward else "upper"
-    # the first species' scalars: the one-species forms read these, a
-    # mixture its species array
+    # the first species' scalars: the calorically perfect one-species
+    # forms read these, a mixture and the thermally perfect forms their
+    # species array (whose gamma is a function of T: NaN here, so that a
+    # read would show)
     R, cv, cp, hf = phys.R[0], phys.cv_s[0], phys.cp_s[0], phys.hf[0]
-    g = cp / cv
+    g = float("nan") if tp else cp / cv
     pr = 4.0 * g / (9.0 * g - 5.0)
     species = species_constants(phys, cfg, blk)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
@@ -293,7 +333,8 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    form = (int(forward), ns, neq, int(viscous), int(wilcox), int(roe))
+    form = (int(forward), ns, neq, int(viscous), int(wilcox), int(roe),
+            int(tp))
     fields = (prim.data_ptr(), du.data_ptr(),
               *(ptr(aux[k]) if viscous else None
                 for k in ("mu", "mut", "f1")))
@@ -304,7 +345,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             SST["sigma_w2"]))
     if blk:
         name = "blusgs_sweep_f64"
-        err = _block_library(roe)(
+        err = _block_library(roe, tp)(
             *form, *fields,
             ptr(aux["vgrad"]) if viscous and not roe else None,
             b.data_ptr(), ptr(extra), inv_f.data_ptr(), ptr(inv_t),
@@ -315,7 +356,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
-        err = _library(roe)(
+        err = _library(roe, tp)(
             *form, *fields, b.data_ptr(), ptr(extra),
             inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
             phys.turb_prandtl(), phys.nondim_scaling, *phys.turb_min(),
@@ -355,7 +396,7 @@ BLOCK_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 155, (5, True, False): 280,
 # row 4, the turbulence radius 10 with the SST blend, 8 for Wilcox
 ROE_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 500, (5, True, False): 526,
                              (7, True, False): 652, (7, True, True): 650}
-SST_FORM = (1, 7, True, False, False)
+SST_FORM = (1, 7, True, False, False, False)
 # the turbulence rows of a neighbour (SST blend, Wilcox), both kernels
 TURB_OPS = {False: 22, True: 20}
 BLOCK_TURB_OPS = {False: 30, True: 24}
@@ -369,7 +410,7 @@ def roe_mixture_neighbour_ops(form) -> int:
     change 2 neq; inviscid the rows into the sum, neq; viscous the state's
     gamma and Prandtl number 7 ns + 5, max_term and the flow radius 11,
     each row 4, the turbulence radius 10 (SST) or 8 (Wilcox)."""
-    ns, neq, viscous, wilcox, _ = form
+    ns, neq, viscous, wilcox = form[:4]
     nt = neq - ns - 4
     flux = 46 * ns + 181 + 3 * neq + 21 * nt
     ops = 23 * ns + 30 + 4 * nt + 2 * flux + 2 * neq
@@ -393,7 +434,7 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
     rows with the mixture's conductivity 12 ns + 127 (+3 for the
     turbulent conductivity), Schmidt diffusion's species rows and
     enthalpy flux 14 ns + 4, the turbulence diagonal."""
-    ns, neq, viscous, wilcox, _ = form
+    ns, neq, viscous, wilcox = form[:4]
     turb = neq == ns + 6
     if block:
         ops = 24 * ns + 148
@@ -403,6 +444,46 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
         return ops + (BLOCK_TURB_OPS[wilcox] if turb else 0)
     ops = 54 * ns + 119 + (16 if viscous else 0)
     return ops + ((12 + TURB_OPS[wilcox]) if turb else 0)
+
+
+def tp_extra_ops(form, modes, ridder_iters: float, block: bool,
+                 diffusion: bool) -> float:
+    """FP64 operations per contributing neighbour that a thermally perfect
+    form (csrc/thermo_tp.cuh) adds to ``mixture_neighbour_ops`` (every
+    species count takes the mixture path there); ``modes`` the species'
+    vibrational mode counts, ``ridder_iters`` the mean Ridder iterations
+    of this run's states (``mean_ridder_iterations``).  Per species and T:
+    its energy or enthalpy adds 2 + 5 per mode to the calorically perfect
+    one (each mode theta / T, exp, - 1, a division and the sum), its cv
+    and cp 3 + 6 per mode (2 T, theta / 2 T, sinh, the quotient, its
+    square and the sum).  Scalar: the energy of q and the enthalpies of
+    the two fluxes, cp and cv of the neighbour, and Ridder's inversion in
+    place of the closed form (4 ns + 2): 2 + 2 iterations energy
+    evaluations, each sum_s (4 + 5 m_s) (+ 2 ns for a mixture), 19 for
+    each iteration's bracket and ns for the mass fractions.  Block (no
+    q + du): cp and cv, the energy and, with diffusion, the species
+    enthalpies."""
+    ns = form[0]
+    e_extra = sum(2 + 5 * m for m in modes)
+    cpcv = sum(3 + 6 * m for m in modes)
+    if block:
+        return cpcv + e_extra + (e_extra if diffusion else 0)
+    evaluation = sum(4 + 5 * m for m in modes) + (2 * ns if ns > 1 else 0)
+    ridder = ((2 + 2 * ridder_iters) * evaluation + 19 * ridder_iters + ns
+              - (4 * ns + 2))
+    return 3 * e_extra + cpcv + ridder
+
+
+def mean_ridder_iterations(phys: Physics, prim, du) -> float:
+    """mean over the cells of the Ridder iterations that inverting the
+    energy of prim + du (in conserved variables, the sweep's q + du) takes
+    (``Physics._ridder_temperature``); prim and du (neq, ...)"""
+    cons = st.cons_from_prim(phys, prim) + du
+    r = cons[:phys.ns].sum(dim=0)
+    vel = cons[phys.mx:phys.mx + 3] / r[None]
+    e = cons[phys.ie] / r - 0.5 * (vel * vel).sum(dim=0)
+    mf = st.mixture_fractions(phys, cons)
+    return float(phys._ridder_temperature(e, mf, count=True)[1].mean())
 
 
 def _neighbours(plan, forward: bool):
@@ -431,12 +512,15 @@ def own_reads(plan, forward: bool) -> int:
 
 
 def sweep_cost(plan, forward: bool, with_extra: bool = False,
-               block: bool = False, form=SST_FORM, diffusion: bool = False):
+               block: bool = False, form=SST_FORM, diffusion: bool = False,
+               modes=(), ridder_iters: float = 0.0):
     """(bytes, FP64 operations) of one sweep of one block over ``plan``,
     each value the sweep needs read once and du's physical cells written
-    once, for the kernel form ``form`` = (ns, neq, viscous, wilcox, roe)
-    of ``sweep_form`` (``diffusion``: a block mixture's Schmidt diffusion
-    rows).  Reads: prim and, when viscous, mu, mut, f1 (not without
+    once, for the kernel form ``form`` = (ns, neq, viscous, wilcox, roe,
+    tp) of ``sweep_form`` (``diffusion``: a block mixture's Schmidt
+    diffusion rows; ``modes`` and ``ridder_iters``: a thermally perfect
+    form's vibrational mode counts and mean Ridder iterations,
+    ``tp_extra_ops``).  Reads: prim and, when viscous, mu, mut, f1 (not without
     turbulence equations or for Wilcox) and for the block sweep's Rusanov
     form vgrad at the distinct neighbours across this run's unmasked
     faces; the Roe form also reads prim at the cells with an unmasked face
@@ -449,7 +533,7 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     the unmasked faces (the centre distance only when viscous).
     Operations: the kernel's per contributing neighbour and per cell
     (+neq with extra)."""
-    ns, neq, viscous, wilcox, roe = form
+    ns, neq, viscous, wilcox, roe, tp = form
     N = ns + 4
     turb = neq == N + 2
     side = "lower" if forward else "upper"
@@ -476,12 +560,15 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     if roe:
         per_nb = (ROE_NEIGHBOUR_OPS_BY_FORM[(neq, viscous, wilcox)]
                   if ns == 1 else roe_mixture_neighbour_ops(form))
-    elif ns == 1:
+    elif ns == 1 and not tp:
         key = (neq, viscous, wilcox)
         per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block
                   else NEIGHBOUR_OPS_BY_FORM)[key]
     else:
         per_nb = mixture_neighbour_ops(form, block, diffusion)
+        if tp:
+            per_nb += tp_extra_ops(form, modes, ridder_iters, block,
+                                   diffusion)
     per_cell = 2 * N * N + N + (8 if turb else 0) if block else 2 * neq
     ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
     return nbytes, ops

@@ -18,8 +18,7 @@ versions read the block's static face geometry
 (``solver/viscous.viscous_statics``, with the face length for WALE), built
 once per block.  Scope, as the JAX package's ``use_march``: one species,
 scalar solver, central viscous reconstruction, no wall-law surface on the
-block, calorically perfect gas (the port's Physics refuses the others),
-no pressure-gradient output (no nonreflecting LODI surface in the deck,
+block, calorically perfect gas, no pressure-gradient output (no nonreflecting LODI surface in the deck,
 ``cfg['need_pgrad']``); the wrapper raises outside it, on every device:
 such a residual takes ``solver/viscous.viscous_residual`` by the solver's
 own choice (``solver/step.full_residual``), as in the JAX package.
@@ -81,11 +80,13 @@ def _check_scope(phys: Physics, cfg):
             or not cfg.get("viscous")
             or bool(cfg.get("turbulent")) != (model != "none")
             or cfg.get("block_matrix")
-            or cfg.get("viscous_recon", "central") != "central"):
+            or cfg.get("viscous_recon", "central") != "central"
+            or phys.thermally_perfect):
         raise ValueError(
-            "the viscous residual kernel covers one species, laminar, WALE, "
-            "Wilcox 2006, SST 2003 and SST-DES (5 or 7 equations, viscous, "
-            "central reconstruction, scalar solver) only")
+            "the viscous residual kernel covers one calorically perfect "
+            "species, laminar, WALE, Wilcox 2006, SST 2003 and SST-DES (5 "
+            "or 7 equations, viscous, central reconstruction, scalar "
+            "solver) only")
     return MODELS[model]
 
 

@@ -36,9 +36,7 @@ import numpy as np
 import torch
 
 from ..io import output as out_mod
-from ..io.deck import parse_deck
 from ..kernels import lusgs_sweep
-from ..unsupported import refuse
 from . import implicit as imp
 from . import multigrid as mg
 from . import state as st_mod
@@ -52,23 +50,19 @@ EPS = 1.0e-30
 
 
 def check_supported(deck):
-    """Refuse every deck setting the port does not cover yet.  Every
-    boundary type of the JAX package runs; an unknown one raises its
-    ValueError from ``bc.ghost_state``, as there."""
-    v = deck.values
-    if v["faceReconstruction"] in ("weno", "wenoZ"):
-        refuse("faceReconstruction", v["faceReconstruction"])
-    if v["viscousFaceReconstruction"] != "central":
-        refuse("viscousFaceReconstruction", v["viscousFaceReconstruction"])
-    if v["inviscidFlux"] != "roe":
-        refuse("inviscidFlux", v["inviscidFlux"])
+    """Admit every deck setting of the JAX package's decks: an unknown
+    boundary type raises its ValueError from ``bc.ghost_state``, as there,
+    and a form the sweep kernels lack is refused on the card by
+    ``lusgs_sweep.sweep_form`` at ``Solver`` construction."""
 
 
 class Solver:
     """Solver on one device: Euler, laminar Navier-Stokes, LES (WALE) and
     RANS (k-omega Wilcox 2006, SST 2003, SST-DES), one species or a
-    calorically perfect mixture (Schmidt diffusion, frozen or reacting
-    chemistry); implicit with scalar or block LU-SGS or DPLUR and the
+    mixture (Schmidt diffusion, frozen or reacting chemistry), calorically
+    or thermally perfect; MUSCL, constant, WENO or WENO-Z face
+    reconstruction, central or centralFourth viscous reconstruction, the
+    Roe or AUSMPW+ flux; implicit with scalar or block LU-SGS or DPLUR and the
     Rusanov or approximateRoe off-diagonal, on one grid level or by FAS
     multigrid V or W cycles (``multigridLevels``, ``multigridCycle``), or
     explicit (Euler, RK4).
@@ -105,7 +99,6 @@ class Solver:
             raise RuntimeError("device 'cuda' requested but "
                                "torch.cuda.is_available() is False (use "
                                "device 'cpu' to run on the CPU)")
-        check_supported(parse_deck(deck_path).finalize())
         self.case = build_case(deck_path, self.device, dtype=dtype,
                                nproc=nproc)
         self.deck = self.case.deck
@@ -116,8 +109,9 @@ class Solver:
         self.sim_root = os.path.join(self.workdir, sim_root)
         a_ref, l_ref = deck.a_ref, deck.l_ref
         self.cfg = dict(
-            recon="constant" if deck["faceReconstruction"] == "constant"
-            else "muscl",
+            recon={"constant": "constant", "weno": "weno",
+                   "wenoZ": "wenoZ"}.get(deck["faceReconstruction"],
+                                         "muscl"),
             kappa=deck.kappa,
             limiter=deck["limiter"],
             flux=deck["inviscidFlux"],
@@ -155,7 +149,8 @@ class Solver:
             "lusgs", "blusgs")
         if self.sweeps and self.device.type == "cuda":
             # refuse a form the sweep kernels are not built for (a species
-            # count above lusgs_sweep.MAX_SPECIES) before any work
+            # count above lusgs_sweep.MAX_SPECIES, a thermally perfect
+            # approximateRoe off-diagonal) before any work
             lusgs_sweep.sweep_form(self.phys, self.cfg)
         # multigrid levels of an implicit deck (an explicit one runs on
         # one level, as the JAX package does): the coarse cases, each with

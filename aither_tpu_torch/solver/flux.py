@@ -1,9 +1,9 @@
 """Inviscid flux functions over faces.
 
-Port of ``aither_tpu/solver/flux.py:20-108, 172-188`` (reference:
-include/inviscidFlux.hpp:128-382, 508-538).  Left/right primitive states
-are (neq, ...), the unit face normal is (3, ...), and the flux per unit
-area is (neq, ...).  AUSM is not in the port yet (the Solver refuses it).
+Port of ``aither_tpu/solver/flux.py`` (reference:
+include/inviscidFlux.hpp:128-538): Roe with Harten's entropy fix,
+AUSMPW+ and Rusanov.  Left/right primitive states are (neq, ...), the unit
+face normal is (3, ...), and the flux per unit area is (neq, ...).
 """
 
 from __future__ import annotations
@@ -105,6 +105,69 @@ def roe_flux(phys: Physics, ql, qr, n):
     return 0.5 * (fl + fr - diss)
 
 
+def ausm_flux(phys: Physics, ql, qr, n):
+    """AUSMPW+ flux (Kim, Kim & Rho 1998)
+    (reference: inviscidFlux.hpp:384-481)."""
+    vel_l = st.velocity(phys, ql)
+    vel_r = st.velocity(phys, qr)
+    vnl = (vel_l * n).sum(dim=0)
+    vnr = (vel_r * n).sum(dim=0)
+    sos_l = st.sos(phys, ql)
+    sos_r = st.sos(phys, qr)
+    sos_star = torch.sqrt(sos_l * sos_r)
+
+    vbar = 0.5 * (vnl + vnr)
+    sos = torch.where(
+        vbar < 0.0, sos_star * sos_star / torch.maximum(vnr, sos_star),
+        torch.where(vbar > 0.0,
+                    sos_star * sos_star / torch.maximum(vnl, sos_star),
+                    sos_star))
+
+    ml = vnl / sos
+    mr = vnr / sos
+
+    m_plus = torch.where(torch.abs(ml) <= 1.0, 0.25 * (ml + 1.0) ** 2,
+                         0.5 * (ml + torch.abs(ml)))
+    m_minus = torch.where(torch.abs(mr) <= 1.0, -0.25 * (mr - 1.0) ** 2,
+                          0.5 * (mr - torch.abs(mr)))
+    p_plus = torch.where(torch.abs(ml) <= 1.0,
+                         0.25 * (ml + 1.0) ** 2 * (2.0 - ml),
+                         0.5 * (1.0 + torch.sign(ml)))
+    p_minus = torch.where(torch.abs(mr) <= 1.0,
+                          0.25 * (mr - 1.0) ** 2 * (2.0 + mr),
+                          0.5 * (1.0 - torch.sign(mr)))
+
+    pl = st.pressure(phys, ql)
+    pr = st.pressure(phys, qr)
+    ps = p_plus * pl + p_minus * pr
+    w = 1.0 - torch.minimum(pl / pr, pr / pl) ** 3
+    fl_ = torch.where(torch.abs(ml) < 1.0, pl / ps - 1.0, 0.0)
+    fr_ = torch.where(torch.abs(mr) < 1.0, pr / ps - 1.0, 0.0)
+
+    mavg = m_plus + m_minus
+    m_plus_bar = torch.where(
+        mavg >= 0.0, m_plus + m_minus * ((1.0 - w) * (1.0 + fr_) - fl_),
+        m_plus * w * (1.0 + fl_))
+    m_minus_bar = torch.where(
+        mavg >= 0.0, m_minus * w * (1.0 + fr_),
+        m_minus + m_plus * ((1.0 - w) * (1.0 + fl_) - fr_))
+
+    def side(q, mbar, psplit, vel):
+        v = mbar * sos
+        r = st.rho(phys, q)
+        p = st.pressure(phys, q)
+        h0 = st.enthalpy(phys, q)
+        parts = [q[:phys.ns] * v[None],
+                 (r * v)[None] * vel + (psplit * p)[None] * n,
+                 (r * v * h0)[None]]
+        if phys.nturb:
+            parts.append((r * v)[None] * q[phys.it:])
+        return torch.cat(parts, dim=0)
+
+    return (side(ql, m_plus_bar, p_plus, vel_l)
+            + side(qr, m_minus_bar, p_minus, vel_r))
+
+
 def rusanov_flux(phys: Physics, ql, qr, n, positive: bool):
     """Rusanov flux (reference: inviscidFlux.hpp:508-538)."""
     sr_l = torch.abs((st.velocity(phys, ql) * n).sum(0)) + st.sos(phys, ql)
@@ -119,4 +182,6 @@ def rusanov_flux(phys: Physics, ql, qr, n, positive: bool):
 def inviscid_flux(phys: Physics, ql, qr, n, scheme: str):
     if scheme == "roe":
         return roe_flux(phys, ql, qr, n)
+    if scheme == "ausm":
+        return ausm_flux(phys, ql, qr, n)
     raise ValueError(f"unknown inviscid flux scheme {scheme!r}")

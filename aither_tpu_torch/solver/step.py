@@ -586,6 +586,17 @@ def full_residual(phys: Physics, cfg, block, prim, need_aux=False):
             (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
              cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
                                              mu_all, **plain)
+        elif (cfg.get("viscous_recon", "central") == "centralFourth"
+              or phys.thermally_perfect):
+            # a centralFourth deck reconstructs its face states from four
+            # cells, and a thermally perfect gas takes its cp and gamma as
+            # functions of T, neither of which the fused march does: the
+            # JAX package's use_march sends both to the plain viscous
+            # residual (pallas_residual.py:116-119) — its route, not a
+            # fallback
+            (rv, vsr_f, vsr_t, vdiag_f, vdiag_t,
+             cellavg) = vis.viscous_residual(phys, cfg, block, prim, t_all,
+                                             mu_all, **plain)
         elif cfg.get("need_pgrad") or vis.has_wall_law(block):
             # a deck with LODI (nonreflecting) surfaces needs the cell
             # pressure gradient, which the fused march does not form, and

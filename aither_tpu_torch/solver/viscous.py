@@ -3,8 +3,8 @@
 Port of ``aither_tpu/solver/viscous.py`` for the slice: laminar, WALE
 (LES), k-omega Wilcox 2006, SST k-omega 2003 and SST-DES, low-Re and
 wall-law walls, any species count with the mixture's transport and, with
-``diffusionModel: schmidt``, the species-diffusion fluxes, central viscous
-reconstruction.  ``viscous_residual`` has the JAX package's two forms:
+``diffusionModel: schmidt``, the species-diffusion fluxes, central or
+centralFourth viscous reconstruction.  ``viscous_residual`` has the JAX package's two forms:
 the per-iteration one (``need_aux=False``: only the cell-average
 gradients the turbulence sources read are accumulated, and the pressure
 gradient the LODI boundaries read when ``need_pgrad``; the mass-fraction
@@ -29,7 +29,7 @@ import torch
 from ..grid.geometry import AX
 from ..physics.models import Physics
 from . import state as st
-from .reconstruction import central_coeffs
+from .reconstruction import central4, central_coeffs
 
 EPS = 1.0e-30
 
@@ -590,11 +590,23 @@ def face_terms(phys: Physics, cfg, block, prim, t_all, mu_all, d: str,
                               need_pgrad=need_pgrad, need_aux=need_aux)
     sf = face_fields(viscous_statics(block, needs_face_length(cfg)), d)
 
-    c0, c1 = sf["c0"], sf["c1"]
-    qf = (c0[None] * _cellslab(block, d, prim, 1)
-          + c1[None] * _cellslab(block, d, prim, 0))
-    muf = (c0 * _cellslab(block, d, mu_all, 1, False)
-           + c1 * _cellslab(block, d, mu_all, 0, False))
+    if cfg.get("viscous_recon", "central") == "centralFourth":
+        # 4-point central face state (the turbulence variables 2-point)
+        # and viscosity; the wall distance stays 2-point (aither_tpu
+        # viscous.py:550-563)
+        w_all = block.geom[f"width_{d}"]
+        cs = [_cellslab(block, d, prim, o) for o in (-1, 0, 1, 2)]
+        ms = [_cellslab(block, d, mu_all, o, False)[None]
+              for o in (-1, 0, 1, 2)]
+        ws = [_cellslab(block, d, w_all, o, False) for o in (-1, 0, 1, 2)]
+        qf = central4(*cs, *ws, turb_index=phys.it if is_rans else None)
+        muf = central4(*ms, *ws)[0]
+    else:
+        c0, c1 = sf["c0"], sf["c1"]
+        qf = (c0[None] * _cellslab(block, d, prim, 1)
+              + c1[None] * _cellslab(block, d, prim, 0))
+        muf = (c0 * _cellslab(block, d, mu_all, 1, False)
+               + c1 * _cellslab(block, d, mu_all, 0, False))
     wdf = sf["wdf"]
     if is_rans:
         tmin = phys.turb_min()

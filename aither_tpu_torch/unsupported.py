@@ -6,10 +6,8 @@ from __future__ import annotations
 _Q1 = "ROADMAP.md queue 1 item"
 
 ITEMS = {
-    "faceReconstruction": f"{_Q1} 5 (remaining physics: WENO)",
-    "viscousFaceReconstruction": f"{_Q1} 5 (remaining physics: centralFourth)",
-    "inviscidFlux": f"{_Q1} 5 (remaining physics: AUSM)",
-    "thermallyPerfect": f"{_Q1} 5 (remaining physics: thermallyPerfect)",
+    "thermallyPerfectRoe": f"{_Q1} 5c (the thermally perfect approximateRoe "
+                           "forms of the CUDA sweeps)",
     "species": f"{_Q1} 9 (species counts above 5 in the CUDA sweeps)",
 }
 

@@ -6,9 +6,9 @@ The library goes to ``aither_tpu_torch/build/`` (git-ignored), named by a
 hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
 so an edited source or shared header is rebuilt and an unchanged one is
 reused within a checkout.  A library of ``VARIANTS`` is another build of
-a source, with defines: the approximateRoe forms of both sweeps are their
-own translation units, so that the Rusanov ones build as they did and
-the two build in parallel.  Usage::
+a source, with defines: the approximateRoe and the thermally perfect
+forms of both sweeps are their own translation units, so that the
+Rusanov ones build as they did and all of them build in parallel.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # library -> (source in csrc/ without ".cu", nvcc defines)
 VARIANTS = {"lusgs_sweep_roe": ("lusgs_sweep", ("-DSWEEP_ROE=1",)),
-            "blusgs_sweep_roe": ("blusgs_sweep", ("-DSWEEP_ROE=1",))}
+            "blusgs_sweep_roe": ("blusgs_sweep", ("-DSWEEP_ROE=1",)),
+            "lusgs_sweep_tp": ("lusgs_sweep", ("-DSWEEP_TP=1",)),
+            "blusgs_sweep_tp": ("blusgs_sweep", ("-DSWEEP_TP=1",))}
 
 # the flags of the JAX package's native/Makefile, for the host sources
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++14", "-fPIC", "-fopenmp",

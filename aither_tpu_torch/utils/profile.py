@@ -11,6 +11,10 @@
                                              [--mixture NAME]
                                              [--multigrid-levels L]
                                              [--multigrid-cycle V|W]
+                                             [--face-reconstruction R]
+                                             [--viscous-face-reconstruction V]
+                                             [--inviscid-flux F]
+                                             [--thermodynamic-model M]
 
 Writes the generated two-block plate (each block NI x NJ x NK cells;
 default the 1.05M-cell case; the deck's matrixSolver (lusgs, blusgs,
@@ -19,9 +23,14 @@ approximateRoe), timeIntegration (the decks of ``cases.TIME_INTEGRATORS``),
 equationSet and turbulenceModel as given, default lusgs, 1, rusanov,
 implicitEuler, rans and sst2003; with ``--mixture`` the gas of
 ``cases.MIXTURES``, e.g. n2o2 or air5_frozen; with ``--multigrid-levels``
-above 1 FAS multigrid, V or W cycles) to
+above 1 FAS multigrid, V or W cycles; faceReconstruction (thirdOrder,
+constant, weno, wenoZ), viscousFaceReconstruction (central,
+centralFourth), inviscidFlux (roe, ausm) and thermodynamicModel
+(caloricallyPerfect, thermallyPerfect: one species is then the hot air
+of ``cases.TP_AIR``), each written when it is not the default) to
 ``smoke_run/profile_<solver>_<set>_<model>[_<mixture>]_<jacobian>_<time
-integration>[_mg<levels><cycle>]/``, runs W warm-up nonlinear iterations,
+integration>[_mg<levels><cycle>][_<each physics setting not the
+default>]/``, runs W warm-up nonlinear iterations,
 then N nonlinear
 iterations (the rk4 stages in turn; bdf2 against its time n-1 solution)
 three times:
@@ -132,6 +141,15 @@ def main(argv=None):
                         default=None)
     parser.add_argument("--multigrid-levels", type=int, default=1)
     parser.add_argument("--multigrid-cycle", default="V", choices=("V", "W"))
+    parser.add_argument("--face-reconstruction", default="thirdOrder",
+                        choices=("thirdOrder", "constant", "weno", "wenoZ"))
+    parser.add_argument("--viscous-face-reconstruction", default="central",
+                        choices=("central", "centralFourth"))
+    parser.add_argument("--inviscid-flux", default="roe",
+                        choices=("roe", "ausm"))
+    parser.add_argument("--thermodynamic-model",
+                        default="caloricallyPerfect",
+                        choices=("caloricallyPerfect", "thermallyPerfect"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA card")
@@ -146,7 +164,20 @@ def main(argv=None):
                       + f"_{args.inviscid_flux_jacobian}_"
                         f"{args.time_integration}"
                       + (f"_mg{args.multigrid_levels}{args.multigrid_cycle}"
-                         if args.multigrid_levels > 1 else ""))
+                         if args.multigrid_levels > 1 else "")
+                      + "".join(f"_{v}" for v, default in (
+                          (args.face_reconstruction, "thirdOrder"),
+                          (args.viscous_face_reconstruction, "central"),
+                          (args.inviscid_flux, "roe"),
+                          (args.thermodynamic_model, "caloricallyPerfect"))
+                                if v != default))
+    physics = dict(
+        face_reconstruction=args.face_reconstruction,
+        viscous_face_reconstruction=args.viscous_face_reconstruction,
+        inviscid_flux=args.inviscid_flux,
+        thermodynamic_model=args.thermodynamic_model)
+    if args.thermodynamic_model == "thermallyPerfect" and not args.mixture:
+        physics.update(cases.TP_AIR)
     path = cases.write_plate_case(
         wd, *args.dims, matrix_solver=args.matrix_solver,
         matrix_sweeps=args.matrix_sweeps,
@@ -156,7 +187,7 @@ def main(argv=None):
         multigrid_levels=args.multigrid_levels,
         multigrid_cycle=args.multigrid_cycle,
         **cases.MIXTURES.get(args.mixture, {}),
-        **cases.TIME_INTEGRATORS[args.time_integration])
+        **cases.TIME_INTEGRATORS[args.time_integration], **physics)
     here = os.getcwd()
     os.chdir(wd)            # a reacting deck's mechanism is read from here
     try:
@@ -200,6 +231,10 @@ def main(argv=None):
         "turbulence_model": args.turbulence_model,
         "mixture": args.mixture, "multigrid_levels": args.multigrid_levels,
         "multigrid_cycle": args.multigrid_cycle,
+        "face_reconstruction": args.face_reconstruction,
+        "viscous_face_reconstruction": args.viscous_face_reconstruction,
+        "inviscid_flux": args.inviscid_flux,
+        "thermodynamic_model": args.thermodynamic_model,
         "iterations": n, "iteration_ms": iteration_ms,
         "iteration_ms_synced": synced_ms, "layers_ms": layers,
         "device_busy_ms": busy_ms,

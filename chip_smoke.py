@@ -13,13 +13,17 @@ mixtures (N2/O2 with Schmidt diffusion, hot five-species air frozen and
 reacting; the mixture forms of both sweep kernels), the other linear
 solvers and time integrators, FAS multigrid, and every boundary
 condition — on the generated two-block flat plate
-(aither_tpu_torch/cases.py) and checks them.  Phases, each printing its
-own lines:
+(aither_tpu_torch/cases.py) and checks them, and the remaining physics:
+WENO and WENO-Z at three ghost layers, AUSMPW+, centralFourth and a
+thermally perfect gas (the thermally perfect forms of both sweep
+kernels).  Phases, each printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
- 2. build: the three kernels from csrc/, one nvcc each, started together
-    (time, ptxas report: registers and spills of every instantiation);
+ 2. build: the three kernels from csrc/ as seven libraries (the Rusanov,
+    approximateRoe and thermally perfect builds of both sweeps, and the
+    viscous kernel), one nvcc each, started together (time, ptxas report:
+    registers and spills of every instantiation);
  3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
     1.05M cells), identical inputs, times with CUDA events (a sweep pair:
@@ -55,6 +59,8 @@ own lines:
     and blusgs at matrixSweeps 1 and 2; Euler, laminar, LES and Wilcox
     with lusgs; laminar and Wilcox with blusgs; N2/O2 SST with lusgs and
     the reacting five-species air with blusgs (REACTING_BLOCK_RTOL);
+    WENO-Z, AUSM and centralFourth SST lusgs and thermally perfect hot
+    air SST lusgs and blusgs;
  7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
@@ -153,7 +159,19 @@ own lines:
     (cases.write_cloud, every point twice) whose initial state on cuda
     equals the cpu one bit for bit, driven 2 steps.  Phase 6 also holds
     a small files deck's .fun and .rst values cuda against cpu
-    (reference_files).
+    (reference_files);
+15. the remaining physics (PHYSICS_DECKS, decks of TIME_DECKS), every
+    solver built once, compared and driven: case-B SST lusgs with WENO-Z
+    (three ghost layers; the slice's main path): the (a) and (b) pairs and
+    K2 on every block against their plain versions (recorded as the rows'
+    'g3'), then 5 steps with exactly 4 K1 and 2 K2 launches a step; WENO,
+    AUSMPW+ (4 and 2) and centralFourth (4 and 0: the plain viscous
+    residual, the JAX package's route) driven the same; the thermally
+    perfect forms of both sweeps against their plain versions with their
+    mean Ridder iterations (case-B hot air SST lusgs (a) and (b), driven
+    with 4 K1 and 0 K2 launches a step; case-A hot air SST blusgs (c)
+    and (c)+(b), N2/O2 SST lusgs (a) and reacting five-species air
+    blusgs (c) at CFL 1), each form driven on case A.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -191,9 +209,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "smoke_run")
-# cases.WALL_LAW_CLUSTER, kept here: the script reads nothing of the
-# package before it has checked the card
+# cases.WALL_LAW_CLUSTER and cases.TP_AIR, kept here: the script reads
+# nothing of the package before it has checked the card
 WALL_LAW_CLUSTER = 1.0
+TP_AIR = dict(density=0.0882, wall_temperature=3500.0,
+              thermodynamic_model="thermallyPerfect")
 
 MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 6
@@ -282,9 +302,21 @@ TIME_DECKS = {
     "mg2V": ("implicitEuler", dict(multigrid_levels=2)),
     "mg2V_cfl1000": ("implicitEuler", dict(multigrid_levels=2,
                                            cfl=(1000.0, 0.0, 1000.0))),
+    "wenoZ": ("implicitEuler", dict(face_reconstruction="wenoZ")),
+    "weno": ("implicitEuler", dict(face_reconstruction="weno")),
+    "ausm": ("implicitEuler", dict(inviscid_flux="ausm")),
+    "c4": ("implicitEuler",
+           dict(viscous_face_reconstruction="centralFourth")),
+    "tp": ("implicitEuler", TP_AIR),
+    "tp_gas": ("implicitEuler", dict(thermodynamic_model="thermallyPerfect")),
+    "tp_gas_cfl1": ("implicitEuler", dict(
+        thermodynamic_model="thermallyPerfect", cfl=(1.0, 0.0, 1.0))),
 }
 ROE_REPLACES = ("aither_tpu/solver/implicit.py:113 roe_offdiagonal (scan "
                 "path; no Pallas form)")
+TP_REPLACES = ("aither_tpu/solver/pallas_sweep.py:239 (a thermally perfect "
+               "deck takes the JAX package's scan sweep, implicit.py:89, "
+               "137: use_pallas is off there)")
 
 # name -> (equationSet, turbulenceModel, mixture of cases.MIXTURES or None)
 PHYSICS = {"euler": ("euler", "none", None),
@@ -417,6 +449,27 @@ BC_DECKS = (
      {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
 )
 BC_ITERATIONS = 5        # phase 13, every deck
+# phase 15: (case, physics, matrixSolver, matrixSweeps, deck tag of
+# TIME_DECKS, sweep comparisons, compare K2, steps driven).  The case-B
+# decks are the slice's paths; the case-A ones give every thermally
+# perfect form its comparison and a driven path (the lagged forms by a
+# matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: K2
+# none on centralFourth and thermally perfect decks.  Reacting hot air
+# takes CFL 1, as its Roe decks do
+PHYSICS_DECKS = (
+    ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 5),
+    ("case B", "sst", "lusgs", 1, "weno", (), False, 5),
+    ("case B", "sst", "lusgs", 1, "ausm", (), False, 5),
+    ("case B", "sst", "lusgs", 1, "c4", (), False, 5),
+    ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 5),
+    ("case A", "sst", "lusgs", 2, "tp", (), False, 3),
+    ("case A", "sst", "blusgs", 1, "tp", (False, True), False, 3),
+    ("case A", "sst", "blusgs", 2, "tp", (), False, 3),
+    ("case A", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 3),
+    ("case A", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 3),
+)
+# the case label of phase 15's WENO-Z comparisons (three ghost layers)
+G3_CASE = "case B g3"
 # phase 14: the files run (case B, output and restart every 2 steps) and
 # its resumption from the step-2 restart
 FILES_ITERATIONS = 4
@@ -590,13 +643,15 @@ def sweep_pair(solver, system, du0, extras, kernel=True, lvl=0):
 
 
 def form_name(form):
-    """the sweep kernels' form (ns, neq, viscous, wilcox, roe) in words"""
-    ns, neq, viscous, wilcox, roe = form
+    """the sweep kernels' form (ns, neq, viscous, wilcox, roe, tp) in
+    words"""
+    ns, neq, viscous, wilcox, roe, tp = form
     if neq == ns + 4:
         name = f"{neq} eq {'viscous' if viscous else 'inviscid'}"
     else:
         name = f"{neq} eq {'Wilcox' if wilcox else 'SST'}"
     name = name if ns == 1 else f"{name}, {ns} species"
+    name = f"{name}, thermally perfect" if tp else name
     return f"{name}, approximateRoe" if roe else name
 
 
@@ -671,7 +726,20 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(2)]
     kernel_ms = 0.5 * (t[0] + t[1])
     diffusion = solver.phys.ns > 1 and solver.cfg["diffusion"] != "none"
-    costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion)
+    modes, iters, ridder = (), 0.0, ""
+    if form[5]:
+        modes = [len(v) for v in solver.phys.vib]
+    if form[5] and not block:
+        # the Ridder iterations of this run's q + du, cell by cell (the
+        # scalar form's: the block form inverts no energy)
+        iters = float(np.mean([ls.mean_ridder_iterations(
+            solver.phys, prims[b.index][b.interior],
+            du0[b.index][b.interior])
+            for b in solver.mg_cases[lvl].blocks]))
+        ridder = (f", Ridder iterations of q + du mean {iters:.3f} "
+                  f"(modes {modes})")
+    costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion,
+                           modes, iters)
              for p in plans.values() for fwd in (True, False)]
     bound, by = bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
     # the critical path of the pair: the blocks of a sweep run concurrently
@@ -684,8 +752,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
           f"{before + ' ms' if before else 'not measured'}), critical path "
           f"{steps} planes, "
           f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
-          f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}) ({card})",
-          flush=True)
+          f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}){ridder} "
+          f"({card})", flush=True)
     return max_abs, kernel_ms, plain_ms, bound, by
 
 
@@ -865,12 +933,15 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
         expect = {"lusgs_sweep": 0, "blusgs_sweep": sweeps,
                   "viscous_march": 0, "sweep_state_resets": sweeps}
     else:
-        # a mixture's viscous residual is the plain version (one species
-        # only in the fused kernel, as in the JAX package's use_march)
+        # a mixture's, a thermally perfect gas's and a centralFourth
+        # deck's viscous residual is the plain version (one calorically
+        # perfect species and central reconstruction only in the fused
+        # kernel, as in the JAX package's use_march)
+        fused = (solver.cfg["viscous"] and solver.phys.ns == 1
+                 and not solver.phys.thermally_perfect
+                 and solver.cfg["viscous_recon"] == "central")
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
-                  "viscous_march": (passes * nblocks
-                                    if solver.cfg["viscous"]
-                                    and solver.phys.ns == 1 else 0),
+                  "viscous_march": passes * nblocks if fused else 0,
                   "sweep_state_resets": sweeps}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -901,6 +972,9 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
           f"{deck['equationSet']} / {deck['turbulenceModel']}, "
           f"{solver.phys.ns} species, {deck['timeIntegration']}, "
           f"{deck['matrixSolver']}, {deck['inviscidFluxJacobian']}, "
+          f"{deck['faceReconstruction']}, {deck['inviscidFlux']}, "
+          f"{deck['viscousFaceReconstruction']}, "
+          f"{deck['thermodynamicModel']}, "
           f"matrixSweeps {sweep_pairs}), kernel launches {launches} "
           f"(expected {expect})", flush=True)
     for name, n in expect.items():
@@ -1444,6 +1518,8 @@ def main():
     check_no_jax_package()
     if cases.WALL_LAW_CLUSTER != WALL_LAW_CLUSTER:
         fail("WALL_LAW_CLUSTER differs from cases.WALL_LAW_CLUSTER")
+    if cases.TP_AIR != TP_AIR:
+        fail("TP_AIR differs from cases.TP_AIR")
 
     # -- phase 1: device facts ------------------------------------------------
     card = card_line()
@@ -1462,6 +1538,7 @@ def main():
     t0 = time.perf_counter()
     libs = load_cuda_libraries(["lusgs_sweep", "blusgs_sweep",
                                 "lusgs_sweep_roe", "blusgs_sweep_roe",
+                                "lusgs_sweep_tp", "blusgs_sweep_tp",
                                 "viscous_march"])
     print(f"phase 2 build: {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)",
@@ -1594,6 +1671,10 @@ def main():
     references += [("sst", "lusgs", 1, "roe"), ("sst", "dplur", 4, "rusanov"),
                    ("laminar", "lusgs", 1, "rk4"), ("sst", "lusgs", 1, "bdf2")]
     references += [("sst", "lusgs", 1, "mg3W"), ("sst", "blusgs", 1, "mg2V")]
+    # phase 15's: WENO-Z, AUSM, centralFourth, thermally perfect hot air
+    references += [("sst", "lusgs", 1, tag)
+                   for tag in ("wenoZ", "ausm", "c4", "tp")]
+    references += [("sst", "blusgs", 1, "tp")]
     references = [r + (None,) for r in references]
     # phase 13's decks 1-3: periodic span, LODI with its carry, wall law
     references += [("sst", "lusgs", 1, "rusanov", layout)
@@ -1795,6 +1876,24 @@ def main():
         torch, card, lambda s: drive(torch, s, 2, 1, "phase 14 cloud", card,
                                      "case A"))
     done(14)
+
+    # -- phase 15: the remaining physics, compared and driven ----------------
+    for case, physics, solver_name, sweeps, tag, extras, visc, steps in \
+            PHYSICS_DECKS:
+        label = (f"phase 15 {case} {physics} {solver_name} matrixSweeps "
+                 f"{sweeps} {tag}")
+        solver = build(label, all_dims[case], solver_name, sweeps, physics,
+                       tag)
+        # the WENO-Z comparisons of the SST forms run at three ghost
+        # layers: a case of their own in the rows
+        where = G3_CASE if tag == "wenoZ" else case
+        print(f"{label}: {solver.case.blocks[0].g} ghost layers",
+              flush=True)
+        compare_all(solver, label, where, extras,
+                    ("perturbed",) if visc else ())
+        drive_and_count(solver, steps, sweeps, label, case)
+        del solver
+    done(15)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -1805,6 +1904,8 @@ def main():
         if key not in launches:
             fail(f"{key} was compared but no driven path launched it")
         case = "case B" if "case B" in by_case else "case A"
+        if case not in by_case:
+            fail(f"{key}: compared only at {sorted(by_case)}")
         _, ms, plain_ms, bound, by = by_case[case][:5]
         if key[0] == "viscous_march":
             name = f"viscous_march ({key[1]})"
@@ -1814,7 +1915,8 @@ def main():
                        "blusgs_sweep": ("c, block", "c+b, block, lagged term")
                        }[key[0]][int(key[2])]
             name = f"{key[0]} (variant {variant}; {form_name(key[1])})"
-            replaces = (ROE_REPLACES if key[1][4]
+            replaces = (ROE_REPLACES if key[1][4] else TP_REPLACES
+                        if key[1][5]
                         else "aither_tpu/solver/pallas_sweep.py:239")
         kernels.append({
             "name": name, "route": "cuda", "source": sources[key[0]],
@@ -1855,6 +1957,12 @@ def main():
                 where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by"), r[:5]))
                 for where, r in bc_compared[key].items()}
+    for row, key in zip(kernels, results):
+        if G3_CASE in results[key]:
+            # phase 15's WENO-Z comparison at three ghost layers
+            row["g3"] = dict(zip(("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by"),
+                                 results[key][G3_CASE][:5]))
     for key in files_launches:
         if key not in results:
             fail(f"{key}: on the files path but in no kernels row")

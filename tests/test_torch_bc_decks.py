@@ -281,6 +281,9 @@ def test_boundary_refusals_are_gone():
     from aither_tpu_torch import unsupported
     for item in ("wallLaw", "nonreflecting", "boundaryCondition"):
         assert item not in unsupported.ITEMS
+    # the remaining physics (item 5) runs too since: what is left is the
+    # card's thermally perfect approximateRoe sweeps and the species count
     for item in ("faceReconstruction", "viscousFaceReconstruction",
                  "inviscidFlux", "thermallyPerfect"):
-        assert "item 5" in unsupported.ITEMS[item]
+        assert item not in unsupported.ITEMS
+    assert set(unsupported.ITEMS) == {"thermallyPerfectRoe", "species"}

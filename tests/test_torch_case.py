@@ -1,7 +1,7 @@
 """PyTorch port, case and ghost parity with aither_tpu on the generated
 two-block SST plate: geometry, wall distance, initial state, boundary and
 edge ghosts, the connection swap, plus the port's import boundary (no
-jax, no aither_tpu) and its refusal of deck settings outside the slice.
+jax, no aither_tpu) and the deck settings it admits.
 
 Tolerances: geometry comes from the same host code (exact); the wall
 distance from a brute-force search in torch against the JAX package's
@@ -145,11 +145,18 @@ def _patched_case(tmp_path, patch):
     pytest.param(("viscousFaceReconstruction", "centralFourth"),
                  id="patch7"),
     pytest.param(("thermodynamicModel", "thermallyPerfect"), id="patch8")])
-def test_refuses_settings_outside_the_slice(tmp_path, patch):
-    from aither_tpu_torch.solver.driver import Solver
+def test_admits_the_remaining_physics(tmp_path, patch):
+    """WENO, AUSM, centralFourth and the thermally perfect gas, refused
+    until the port covered them: the deck check admits each and the CPU
+    solver builds (WENO with three ghost layers, centralFourth two)"""
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.solver.driver import Solver, check_supported
     path = _patched_case(tmp_path, patch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Solver(path, device="cpu", workdir=str(tmp_path))
+    check_supported(parse_deck(path).finalize())
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    key, val = patch
+    assert str(ts.deck[key]) == val
+    assert ts.case.blocks[0].g == (3 if val == "weno" else 2)
 
 
 @pytest.mark.parametrize("patch", [

@@ -150,9 +150,9 @@ def test_cli_no_files_runs_on_the_cpu(tmp_path, monkeypatch, debug):
 
 def test_file_refusals_are_gone():
     """output, restart and point-cloud initial conditions run: no refusal
-    names ROADMAP.md queue 1 item 6; the others name item 5 or 9"""
+    names ROADMAP.md queue 1 item 6; the others name item 5c or 9"""
     from aither_tpu_torch import unsupported
     for item in ("output", "restart", "fileInitialCondition"):
         assert item not in unsupported.ITEMS
-    assert all(" item 5 " in v or " item 9 " in v
+    assert all(" item 5c " in v or " item 9 " in v
                for v in unsupported.ITEMS.values())

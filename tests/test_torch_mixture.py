@@ -332,7 +332,7 @@ def test_cpu_mixture_iteration_launches_no_kernel(tmp_path, monkeypatch,
     assert np.isfinite(ts.l2_history).all()
     ns, neq = ts.phys.ns, ts.phys.neq
     assert ls.sweep_form(ts.phys, ts.cfg) == (ns, neq, True, False,
-                                                False)
+                                              False, False)
     b = ts.case.blocks[0]
     meta = torch.empty((neq,) + b.shape, dtype=torch.float64, device="meta")
     t_meta = torch.empty(b.shape, dtype=torch.float64, device="meta")

@@ -13,8 +13,10 @@ with mut > 0, Wilcox; both signs; each row against its own scale, as
 test_torch_physics), ``diag_mult`` / ``diag_mult_channels`` without a
 turbulence block, ``turb_src_jacobian`` (Wilcox, sstdes).
 
-Routing: ``check_supported`` admits each new deck and still refuses what
-is not ported, naming its ROADMAP item; the wrappers launch nothing on CPU
+Routing: ``check_supported`` admits each new deck and the remaining
+physics (WENO, AUSM); ``sweep_form`` still refuses what the sweep kernels
+are not built for, naming its ROADMAP item (the thermally perfect
+approximateRoe sweeps, species counts above 5); the wrappers launch nothing on CPU
 tensors and reject a meta tensor in every form; the generated deck's
 default text is what it was before the physics became fields.
 """
@@ -348,13 +350,62 @@ def _patched_deck(tmp_path, name, patch):
                  id="patch2-item 5"),
     pytest.param(("inviscidFlux", "ausm"), "item 5", id="patch3-item 5")])
 @pytest.mark.parametrize("name", ["euler", "wilcox"])
-def test_check_supported_still_refuses(tmp_path, name, patch, item):
+def test_check_supported_admits_the_remaining_physics(tmp_path, name, patch,
+                                                      item):
+    """WENO and AUSM, refused until the port covered them (ROADMAP queue 1
+    ``item``), pass the deck check, and the CPU solver builds"""
     from aither_tpu_torch.io.deck import parse_deck
-    from aither_tpu_torch.solver.driver import check_supported
+    from aither_tpu_torch.solver.driver import Solver, check_supported
     path = _patched_deck(tmp_path, name, patch)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md queue 1 {item}"):
+    check_supported(parse_deck(path).finalize())
+    ts = Solver(path, device="cpu", workdir=str(tmp_path))
+    key, val = patch
+    assert ts.deck[key] == val
+
+
+def test_check_supported_refuses_the_thermally_perfect_roe_sweeps(tmp_path):
+    """a thermally perfect approximateRoe lusgs / blusgs deck passes the
+    deck check and the CPU solver builds (its plain sweep); the sweep form
+    the Solver asks for on the card is refused, naming ROADMAP item 5c;
+    dplur takes no sweep kernel"""
+    from aither_tpu_torch.io.deck import parse_deck
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver, check_supported
+    for solver_name in ("lusgs", "blusgs", "dplur"):
+        path = write_plate_case(str(tmp_path), 4, 3, 2,
+                                matrix_solver=solver_name,
+                                inviscid_flux_jacobian="approximateRoe",
+                                thermodynamic_model="thermallyPerfect")
         check_supported(parse_deck(path).finalize())
+        ts = Solver(path, device="cpu", workdir=str(tmp_path))
+        assert ts.sweeps == (solver_name != "dplur")
+        if ts.sweeps:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP.md queue 1 item 5c"):
+                ls.sweep_form(ts.phys, ts.cfg)
+
+
+@pytest.mark.cuda
+def test_solver_refuses_the_thermally_perfect_roe_deck_on_the_card(
+        tmp_path):
+    from aither_tpu_torch.solver.driver import Solver
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    path = write_plate_case(str(tmp_path), 4, 3, 2,
+                            inviscid_flux_jacobian="approximateRoe",
+                            thermodynamic_model="thermallyPerfect")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 5c"):
+        Solver(path, device="cuda", workdir=str(tmp_path))
+
+
+def test_species_refusal_still_stands(physics):
+    """more species than the sweep kernels are built for: ROADMAP item 9"""
+    import dataclasses
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    _, tp, _, tc = physics["wilcox"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
 
 
 @pytest.mark.parametrize("patch", [("matrixSolver", "dplur"),
@@ -392,7 +443,7 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
     assert [c.count for c in counters] == before
     assert np.isfinite(ts.l2_history).all()
     assert ls.sweep_form(ts.phys, ts.cfg) == (
-        1, ts.phys.neq, name != "euler", name == "wilcox", False)
+        1, ts.phys.neq, name != "euler", name == "wilcox", False, False)
 
     prims, res, sr, dg, dts, auxs = ts._residuals(dict(ts.prims),
                                                   ts.deck.cfl(0))
@@ -421,23 +472,27 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
 def test_wrappers_refuse_what_is_not_ported(physics):
     """a 7-equation inviscid form, equation counts no species count has,
     more species than the kernels are built for, and for the fused
-    viscous residual two species, centralFourth and the block solver"""
+    viscous residual two species, centralFourth, a thermally perfect gas
+    and the block solver"""
     import dataclasses
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
     _, tp, _, tc = physics["wilcox"]
-    assert ls.sweep_form(tp, tc) == (1, 7, True, True, False)
+    assert ls.sweep_form(tp, tc) == (1, 7, True, True, False, False)
     with pytest.raises(ValueError, match="ns \\+ 4 equations"):
         ls.sweep_form(tp, dict(tc, viscous=False))
     two = dataclasses.replace(tp, ns=2)
     with pytest.raises(ValueError, match="ns \\+ 4 equations"):
         ls.sweep_form(two, tc)
     assert ls.sweep_form(dataclasses.replace(two, neq=8), tc) == (
-        2, 8, True, True, False)
+        2, 8, True, True, False, False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
         ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
     with pytest.raises(ValueError, match="viscous residual kernel"):
         vm._check_scope(dataclasses.replace(two, neq=8), tc)
+    with pytest.raises(ValueError, match="viscous residual kernel"):
+        vm._check_scope(dataclasses.replace(
+            tp, thermo_model="thermallyPerfect"), tc)
     for key, val in (("viscous_recon", "centralFourth"),
                      ("block_matrix", True), ("viscous", False)):
         with pytest.raises(ValueError, match="viscous residual kernel"):
@@ -448,10 +503,10 @@ def test_wrappers_refuse_what_is_not_ported(physics):
         assert vm._check_scope(p, c) == branch
 
 
-@pytest.mark.parametrize("form", [(1, 5, False, False, False),
-                                  (1, 5, True, False, False),
-                                  (1, 7, True, False, False),
-                                  (1, 7, True, True, False)])
+@pytest.mark.parametrize("form", [(1, 5, False, False, False, False),
+                                  (1, 5, True, False, False, False),
+                                  (1, 7, True, False, False, False),
+                                  (1, 7, True, True, False, False)])
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_by_form(tmp_path, form, block):
     """the bound counts each form's own bytes and operations: fewer
@@ -473,10 +528,10 @@ def test_sweep_cost_by_form(tmp_path, form, block):
     assert extra[1] - ops == form[1] * ncell
 
 
-@pytest.mark.parametrize("form", [(2, 8, True, False, False),
-                                  (5, 9, True, False, False),
-                                  (2, 6, False, False, False),
-                                  (5, 11, True, True, False)])
+@pytest.mark.parametrize("form", [(2, 8, True, False, False, False),
+                                  (5, 9, True, False, False, False),
+                                  (2, 6, False, False, False, False),
+                                  (5, 11, True, True, False, False)])
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_of_mixture_forms(tmp_path, form, block):
     """a mixture's bound, counted here value by value and operation by
@@ -490,7 +545,7 @@ def test_sweep_cost_of_mixture_forms(tmp_path, form, block):
     from aither_tpu_torch.solver.driver import Solver
     path = write_plate_case(str(tmp_path), 4, 3, 2)
     plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
-    ns, neq, viscous, wilcox, _ = form
+    ns, neq, viscous, wilcox = form[:4]
     N, turb = ns + 4, neq == ns + 6
     ncell = int(plan.cells.numel())
     nfaces = int(plan.mask["lower"].sum())
@@ -610,3 +665,33 @@ def test_euler_deck_has_slip_walls_and_no_wall_state(tmp_path):
         text = f.read()
     assert text.count("viscousWall  0 4 0 0 0 2 2") == 2
     assert "turbulenceIntensity" not in text
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_sweep_cost_of_thermally_perfect_forms(tmp_path, block):
+    """a thermally perfect form reads what its calorically perfect form
+    reads; its operations per neighbour are the mixture path's (every
+    species count takes it) plus ``tp_extra_ops``: the scalar form's grow
+    with the Ridder iterations (two energy evaluations each), the block
+    form's do not (it inverts no energy)"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 4, 3, 2)
+    plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
+    nfaces = int(plan.mask["lower"].sum())
+    ncell = int(plan.cells.numel())
+    tp = ls.SST_FORM[:5] + (True,)
+    caloric = ls.sweep_cost(plan, True, False, block)
+    costs = [ls.sweep_cost(plan, True, False, block, tp, modes=(1,),
+                           ridder_iters=it) for it in (5.0, 10.0)]
+    assert costs[0][0] == costs[1][0] == caloric[0]
+    per_cell = 2 * 5 * 5 + 5 + 8 if block else 2 * 7
+    for (_, ops), it in zip(costs, (5.0, 10.0)):
+        per_nb = (ls.mixture_neighbour_ops(tp, block, False)
+                  + ls.tp_extra_ops(tp, (1,), it, block, False))
+        assert ops == per_nb * nfaces + per_cell * ncell
+    if block:
+        assert costs[0][1] == costs[1][1]
+    else:
+        # 10 more energy evaluations of 9 operations and 5 brackets of 19
+        assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nfaces

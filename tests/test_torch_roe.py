@@ -208,13 +208,13 @@ def test_sweep_cost_of_roe_forms(tmp_path, block):
                  (1, 7, True, False), (1, 7, True, True),
                  (2, 8, True, False), (5, 9, True, False)):
         ns, neq, viscous, wilcox = form
-        rus = ls.sweep_cost(plan, True, False, block, form + (False,))
-        roe = ls.sweep_cost(plan, True, False, block, form + (True,))
+        rus = ls.sweep_cost(plan, True, False, block, form + (False, False))
+        roe = ls.sweep_cost(plan, True, False, block, form + (True, False))
         vgrad = 9 * nread if block and viscous else 0
         assert roe[0] == rus[0] + 8 * (neq * own - vgrad)
         per_nb = (ls.ROE_NEIGHBOUR_OPS_BY_FORM[(neq, viscous, wilcox)]
                   if ns == 1 else
-                  ls.roe_mixture_neighbour_ops(form + (True,)))
+                  ls.roe_mixture_neighbour_ops(form + (True, False)))
         N = ns + 4
         per_cell = (2 * N * N + N + (8 if neq == N + 2 else 0) if block
                     else 2 * neq)

@@ -43,7 +43,7 @@ def test_deck_is_a_two_species_sst_mixture(pair):
     assert (js.phys.ns, js.phys.neq) == (2, 8)
     assert ts.phys.diffusion_model == "schmidt" and ts.phys.chemistry is None
     assert ls.sweep_form(ts.phys, ts.cfg) == (2, 8, True, False,
-                                                False)
+                                                False, False)
 
 
 @pytest.mark.parametrize("with_extra", [False, True])

@@ -37,7 +37,7 @@ def test_deck_is_an_inviscid_mixture(pair):
     _, ts = pair
     assert (ts.phys.ns, ts.phys.neq) == (2, 6) and not ts.cfg["viscous"]
     assert ls.sweep_form(ts.phys, ts.cfg) == (2, 6, False, False,
-                                                False)
+                                                False, False)
 
 
 def test_plain_scalar_sweep_pair_matches_pallas_kernel(pair):

@@ -139,15 +139,24 @@ def test_critical_path(dims, tile, forward):
 # the schedule on the plain per-cell math
 
 
-@pytest.fixture(scope="module", params=["lusgs", "blusgs"])
+# the fixture's decks: scalar and block SST at two ghost layers, and the
+# scalar one with WENO-Z's three
+SYSTEMS = {"lusgs": dict(matrix_solver="lusgs"),
+           "blusgs": dict(matrix_solver="blusgs"),
+           "lusgs_g3": dict(matrix_solver="lusgs",
+                            face_reconstruction="wenoZ")}
+
+
+@pytest.fixture(scope="module", params=list(SYSTEMS))
 def system(request, tmp_path_factory):
     """(solver, per block: prim, aux, b, inverses, a seeded du0 with random
     ghosts, the lagged terms of both sweeps) of the 1%-perturbed SST plate
     of 2 x 9x7x5 cells on the CPU"""
     from aither_tpu_torch.solver.driver import Solver
     wd = str(tmp_path_factory.mktemp("tiles"))
-    path = write_plate_case(wd, 9, 7, 5, matrix_solver=request.param)
+    path = write_plate_case(wd, 9, 7, 5, **SYSTEMS[request.param])
     s = Solver(path, device="cpu", workdir=wd)
+    assert s.case.blocks[0].g == (3 if request.param == "lusgs_g3" else 2)
     rng = np.random.default_rng(11)
     prims = {}
     for b in s.case.blocks:
@@ -297,24 +306,31 @@ def test_tile_order_sweep_on_a_flat_block(tmp_path):
 
 def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     """an edited csrc header renames (so rebuilds) the sweep libraries
-    that include it, Rusanov and Roe builds alike, and no other; a Roe
-    build is another library of the same source"""
+    that include it, Rusanov, Roe and thermally perfect builds alike, and
+    no other; a Roe or thermally perfect build is another library of the
+    same source"""
     import shutil
     from aither_tpu_torch.utils import build
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
     sweeps = ("lusgs_sweep", "blusgs_sweep", "lusgs_sweep_roe",
-              "blusgs_sweep_roe")
+              "blusgs_sweep_roe", "lusgs_sweep_tp", "blusgs_sweep_tp")
     names = sweeps + ("viscous_march",)
     assert [h.rsplit("/", 1)[-1] for h in build.local_headers(
         str(csrc / "lusgs_sweep.cu"))] == ["roe_offdiag.cuh",
-                                           "sweep_wavefront.cuh"]
-    for header in ("sweep_wavefront.cuh", "roe_offdiag.cuh"):
+                                           "sweep_wavefront.cuh",
+                                           "thermo_tp.cuh"]
+    for header in ("sweep_wavefront.cuh", "roe_offdiag.cuh",
+                   "thermo_tp.cuh"):
         before = {n: build._paths(n) for n in names}
-        assert before["lusgs_sweep_roe"][0] == before["lusgs_sweep"][0]
-        assert before["lusgs_sweep_roe"][1] != before["lusgs_sweep"][1]
-        assert "-DSWEEP_ROE=1" in before["blusgs_sweep_roe"][2]
+        for variant, define in (("roe", "-DSWEEP_ROE=1"),
+                                ("tp", "-DSWEEP_TP=1")):
+            assert (before[f"lusgs_sweep_{variant}"][0]
+                    == before["lusgs_sweep"][0])
+            assert (before[f"lusgs_sweep_{variant}"][1]
+                    != before["lusgs_sweep"][1])
+            assert define in before[f"blusgs_sweep_{variant}"][2]
         with open(csrc / header, "a") as f:
             f.write("// edited\n")
         after = {n: build._paths(n) for n in names}

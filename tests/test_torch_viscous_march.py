@@ -113,6 +113,11 @@ def test_wrapper_rejects_other_devices_and_scopes(pair):
         with pytest.raises(ValueError, match="SST 2003"):
             vm.viscous_residual(ts.phys, dict(ts.cfg, **{key: val}), b,
                                 *inputs[b.index])
+    import dataclasses
+    with pytest.raises(ValueError, match="SST 2003"):
+        vm.viscous_residual(dataclasses.replace(
+            ts.phys, thermo_model="thermallyPerfect"), ts.cfg, b,
+            *inputs[b.index])
 
 
 def test_cost_counts_every_face_once(pair):

@@ -158,12 +158,13 @@ def plates(tmp_path_factory):
     from aither_tpu_torch.solver.driver import Solver
     have = {}
 
-    def get(model, dims):
-        if (model, dims) not in have:
+    def get(model, dims, face="thirdOrder"):
+        if (model, dims, face) not in have:
             wd = str(tmp_path_factory.mktemp("plate"))
             s = Solver(write_plate_case(wd, *dims,
                                         equation_set=PHYSICS[model],
-                                        turbulence_model=model),
+                                        turbulence_model=model,
+                                        face_reconstruction=face),
                        device="cpu", workdir=wd)
             rng = np.random.default_rng(5)
             prims = {}
@@ -182,8 +183,8 @@ def plates(tmp_path_factory):
                 t_all = s.phys.temperature(prim[s.phys.ie],
                                            prim[:s.phys.ns])
                 blocks.append((b, prim, t_all, s.phys.viscosity(t_all)))
-            have[(model, dims)] = (s.phys, s.cfg, blocks)
-        return have[(model, dims)]
+            have[(model, dims, face)] = (s.phys, s.cfg, blocks)
+        return have[(model, dims, face)]
     return get
 
 
@@ -347,7 +348,22 @@ SCHEDULES = ([(model, dims, plan) for dims, plan in PLANS[:4]
 
 @pytest.mark.parametrize("model,dims,plan", SCHEDULES)
 def test_schedule_is_the_plain_residual(plates, model, dims, plan):
-    phys, cfg, blocks = plates(model, dims)
+    check_schedule(plates(model, dims), dims, plan)
+
+
+@pytest.mark.parametrize("dims,plan", [PLANS[1]])
+def test_schedule_is_the_plain_residual_at_three_ghost_layers(plates, dims,
+                                                              plan):
+    """SST with WENO-Z's three ghost layers, on the plan ragged in i, j
+    and k"""
+    phys, cfg, blocks = plates("sst2003", dims, "wenoZ")
+    assert blocks[0][0].g == 3
+    check_schedule((phys, cfg, blocks), dims, plan)
+
+
+def check_schedule(plate, dims, plan):
+    """the emulated schedule against the plain residual, bit for bit"""
+    phys, cfg, blocks = plate
     for block, prim, t_all, mu_all in blocks[:1 if dims[2] == 1 else None]:
         got = vm.split_outputs(emulate(phys, cfg, block, prim, t_all,
                                        mu_all, plan))
