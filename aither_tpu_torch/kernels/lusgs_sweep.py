@@ -618,7 +618,10 @@ def sweep_blocks(phys, cfg, blocks, forward: bool):
     the work queued on the current stream and joined back to it before
     this returns; on the CPU they run one after another.  A temporary the
     caller frees after the return (the lagged term) is reused only by work
-    queued after that join, so the side streams need no record_stream."""
+    queued after that join, so the side streams need no record_stream.
+    On a rank of a multi-rank run ``blocks`` are that rank's own whole
+    blocks, the TPU kernel's variant (d) (``pallas_sweep.py:362-378``); a
+    rank with one block launches on one side stream."""
     if not blocks or blocks[0][2].device.type != "cuda":
         for plan, prim, du, b, inv_f, inv_t, aux, extra in blocks:
             _sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward,

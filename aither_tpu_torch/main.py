@@ -1,8 +1,8 @@
 """Command-line entry point of the PyTorch/CUDA port:
 
     python -m aither_tpu_torch case.inp [restart.rst] [--device cuda|cpu]
-                               [--iterations N] [--nproc N] [--no-files]
-                               [--debug]
+                               [--iterations N] [--nproc N] [--shard N]
+                               [--no-files] [--debug]
 
 Runs the deck's time-marching loop (implicit Euler, Crank-Nicolson or
 BDF2 with dual time through LU-SGS, block LU-SGS, DPLUR or block DPLUR
@@ -21,6 +21,17 @@ is present; the CPU runs only when asked for.  ``--debug`` checks
 physicality after every iteration (non-finite residual, non-positive
 density or pressure, non-finite tke) and aborts with the block and cell;
 unset, it defers to ``AITHER_DEBUG=1``.
+
+``--shard N`` runs the deck over N ranks, one process each
+(``parallel/distributed.launch_local``; reference: ``mpirun -np N``):
+each rank owns whole blocks of the (``--nproc``-decomposed) grid, holds
+only those on its device (``cuda:{rank % device_count}``, or the CPU with
+``--device cpu``), runs the kernels on them and exchanges connection
+ghosts with the others at every grid level over gloo with host staging.
+Only rank 0 reads the case directory and the restart file; it prints the
+rows and writes the logs and files into the case directory, the same as
+a one-rank run's.  N may not exceed the number of blocks.  ``--shard 1``
+(the default) is the one-process run.
 """
 
 from __future__ import annotations
@@ -42,12 +53,33 @@ def main(argv=None):
     parser.add_argument("--nproc", type=int, default=1,
                         help="decompose the grid into this many blocks "
                              "(reference: mpirun -np N)")
+    parser.add_argument("--shard", type=int, default=1,
+                        help="run over this many ranks, one process each, "
+                             "each owning whole blocks (reference: mpirun "
+                             "-np N)")
     parser.add_argument("--no-files", action="store_true",
                         help="skip .fun/.rst output")
     parser.add_argument("--debug", action="store_true", default=None,
                         help="per-iteration physicality checks; unset "
                              "defers to AITHER_DEBUG=1")
     args = parser.parse_args(argv)
+
+    if args.shard < 1:
+        parser.error(f"--shard {args.shard}: at least one rank")
+    if args.shard > 1:
+        import os
+        from .parallel.distributed import launch_local
+        case_dir = os.path.dirname(os.path.abspath(args.input))
+        print(f"aither_tpu_torch running over {args.shard} ranks on "
+              f"{args.device} (exchange: gloo with host staging)",
+              flush=True)
+        launch_local(args.shard, case_dir, os.path.basename(args.input),
+                     iterations=args.iterations, device=args.device,
+                     nproc=args.nproc, restart=args.restart,
+                     write_files=not args.no_files, debug=args.debug,
+                     echo=True)
+        print("Program Complete")
+        return 0
 
     import torch
     from .solver.driver import Solver

@@ -14,7 +14,13 @@ port's own copies of the JAX package's host layers (``io/``, ``grid/``,
   JAX package's host rules (``case.py:277-344``) and the connection ghosts
   take it through the same index maps as the state swap,
 * geometry is returned as torch tensors on the device, with a numpy mirror
-  (``geom_host``) for host consumers.
+  (``geom_host``) for host consumers,
+* in a multi-rank run (``comm``) every rank builds the host case of the
+  whole grid, which is cheap, and puts only its own blocks on its device:
+  ``Case.blocks`` are that rank's blocks (their ``index`` global), the
+  wall distance of each takes every wall face of every block, and the
+  connection ghosts come through the rank's exchange (``step.RankExchange``,
+  ``Case.exchange``); ``Case.layout`` describes every block of the grid.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from ..io.deck import Deck, parse_deck
 from ..io.plot3d import read_p3d
 from ..physics.models import Physics
 from .bc import BCData, make_bc_data
-from .step import connection_index_maps, swap_connections
+from .step import (RankExchange, connection_index_maps, rank_exchange_plan,
+                   swap_case)
 
 # size of one chunk's (cells x wall faces) distance matrix in the
 # wall-distance search
@@ -88,6 +95,24 @@ class Block:
                 slice(g, g + self.nk))
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockInfo:
+    """What every rank knows of every block of the grid, its own or not."""
+
+    index: int
+    parent: int
+    ni: int
+    nj: int
+    nk: int
+    g: int
+    surfaces: list
+
+    @property
+    def shape(self):
+        return (self.ni + 2 * self.g, self.nj + 2 * self.g,
+                self.nk + 2 * self.g)
+
+
 @dataclasses.dataclass
 class Case:
     deck: Deck
@@ -105,6 +130,24 @@ class Case:
     # the grid's decomposition (parallel.decompose.Decomposition) of an
     # nproc > 1 case, else None; file output recombines by it
     decomp: Any = None
+    # every block of the grid (BlockInfo), in block order
+    layout: list = None
+    # a multi-rank run: the owning rank of every block, the rank's
+    # communicator (parallel/distributed.Comm) and its connection exchange
+    # (step.RankExchange); None on one rank
+    owners: list = None
+    comm: Any = None
+    exchange: Any = None
+
+    def block(self, index: int) -> Block:
+        """the (own) block of global index ``index``"""
+        if self.comm is None:
+            return self.blocks[index]
+        for b in self.blocks:
+            if b.index == index:
+                return b
+        raise KeyError(f"block {index} is rank {self.owners[index]}'s, "
+                       f"not rank {self.comm.rank}'s")
 
 
 def _surface_specs(deck: Deck, bc, g: int) -> list:
@@ -280,10 +323,13 @@ def compute_wall_distance(geo: BlockGeometry, bc, wall_pts, device):
 
 
 def build_case(deck_path: str, device, dtype=torch.float64,
-               nproc: int = 1) -> Case:
+               nproc: int = 1, comm=None) -> Case:
     """Build the solver Case on ``device``.  nproc > 1 decomposes the grid
     into sub-blocks exactly as the JAX package (and the reference) does
-    (reference: main.cpp:121-148, parallel.cpp:44-178)."""
+    (reference: main.cpp:121-148, parallel.cpp:44-178).  With ``comm`` (a
+    rank of a multi-rank run) the blocks go to the ranks by
+    ``parallel.shard.block_owners`` and only this rank's are built on the
+    device."""
     deck = parse_deck(deck_path).finalize()
     phys = Physics.from_deck(deck)
     case_dir = os.path.dirname(os.path.abspath(deck_path))
@@ -298,19 +344,28 @@ def build_case(deck_path: str, device, dtype=torch.float64,
         grids, bcs, decomp = decompose(grids, bcs, nproc,
                                        method=deck["decompositionMethod"])
         parents = decomp.parent
+    owners = None
+    if comm is not None:
+        from ..parallel.shard import block_owners
+        cells = [int(np.prod([d - 1 for d in gr.shape[:3]])) for gr in grids]
+        owners = block_owners(cells, comm.world,
+                              decomp.rank if decomp is not None
+                              and nproc == comm.world else None)
     case = assemble_case(deck, phys, grids, bcs, dtype, torch.device(device),
-                         total_cells, parents=parents, workdir=case_dir)
+                         total_cells, parents=parents, workdir=case_dir,
+                         owners=owners, comm=comm)
     case.decomp = decomp
     return case
 
 
 def assemble_case(deck, phys, grids, bcs, dtype, device, total_cells,
-                  parents=None, workdir=None) -> Case:
+                  parents=None, workdir=None, owners=None, comm=None) -> Case:
     """Build a Case from node arrays + block BCs (the JAX package's
     ``assemble_case`` ordering: boundary ghost geometry -> interblock ghost
     geometry from donor nodes -> edge ghosts + widths -> wall distance),
     shared by the fine grid and the multigrid coarse levels (reference:
-    gridLevel::Coarsen)."""
+    gridLevel::Coarsen).  With ``comm`` only the blocks that ``owners``
+    gives its rank go on the device (module docstring)."""
     g = deck.num_ghosts
     conns = conn_mod.find_connections(bcs, grids, deck.bc_states,
                                       l_ref=deck.l_ref)
@@ -319,39 +374,53 @@ def assemble_case(deck, phys, grids, bcs, dtype, device, total_cells,
     fill_interblock_geometry(geos, conns, grids, g)
     for geo in geos:
         finalize_block_geometry(geo)
-    swap_maps = connection_index_maps(geos, conns, g, device)
+    own = (list(range(len(geos))) if comm is None
+           else [b for b, r in enumerate(owners) if r == comm.rank])
+    exchange = None
+    if comm is None:
+        swap_maps = connection_index_maps(geos, conns, g, device)
+    else:
+        swap_maps = connection_index_maps(geos, conns, g, "cpu")
+        exchange = RankExchange(
+            rank_exchange_plan(swap_maps, owners, comm.rank, device), comm)
+    if parents is None:
+        parents = list(range(len(geos)))
+    layout = [BlockInfo(index=b, parent=parents[b], ni=geo.ni, nj=geo.nj,
+                        nk=geo.nk, g=g,
+                        surfaces=_surface_specs(deck, bcs[b], g))
+              for b, geo in enumerate(geos)]
+    case = Case(deck=deck, phys=phys, blocks=[], connections=conns,
+                total_cells=total_cells, dtype=dtype, device=device,
+                swap_maps=swap_maps, grids=grids, bcs=bcs, layout=layout,
+                owners=owners, comm=comm, exchange=exchange)
 
     if deck.is_viscous:
         wall_pts = torch.as_tensor(viscous_wall_face_centers(geos, bcs),
                                    device=device)
-        for geo, bc in zip(geos, bcs):
-            compute_wall_distance(geo, bc, wall_pts, device)
+        for b in own:
+            compute_wall_distance(geos[b], bcs[b], wall_pts, device)
         # connection ghosts take the donor's interior wall distance
         # (reference: gridLevel::SwapWallDist)
-        wd = {b: torch.as_tensor(geo.wall_dist[None], device=device)
-              for b, geo in enumerate(geos)}
-        swap_connections(wd, swap_maps)
-        for b, geo in enumerate(geos):
-            geo.wall_dist = wd[b][0].cpu().numpy()
+        wd = {b: torch.as_tensor(geos[b].wall_dist[None], device=device)
+              for b in own}
+        swap_case(case, wd)
+        for b in own:
+            geos[b].wall_dist = wd[b][0].cpu().numpy()
 
-    if parents is None:
-        parents = list(range(len(geos)))
-    blocks = []
-    for b, geo in enumerate(geos):
+    for b in own:
+        geo = geos[b]
         prim0 = initial_prim(deck, phys, parents[b], geo.shape,
                              centers=geo.center, workdir=workdir)
         geom, geom_host = device_geometry(geo, dtype, device)
-        blocks.append(Block(
+        case.blocks.append(Block(
             index=b, parent=parents[b], ni=geo.ni, nj=geo.nj, nk=geo.nk,
             g=g, geom=geom, geom_host=geom_host,
-            surfaces=_surface_specs(deck, bcs[b], g),
+            surfaces=layout[b].surfaces,
             # a cloud state's gather is not C-ordered; the kernels take
             # contiguous arrays, and clones keep the layout
             prim0=torch.as_tensor(np.ascontiguousarray(prim0), dtype=dtype,
                                   device=device)))
-    return Case(deck=deck, phys=phys, blocks=blocks, connections=conns,
-                total_cells=total_cells, dtype=dtype, device=device,
-                swap_maps=swap_maps, grids=grids, bcs=bcs)
+    return case
 
 
 def device_geometry(geo: BlockGeometry, dtype, device):

@@ -6,7 +6,8 @@ time-n conserved interiors (``Solver.cons_n``) and, for a multilevel
 boundaries' carry (``Solver.bc_aux``: dt and the cell pressure and
 velocity gradients of the previous iteration), fetched to numpy, become
 the port's tensors here (``Solver.set_state``), so both packages can start
-from one state.
+from one state; on the ranks of a multi-rank run ``scatter_state`` hands
+each rank its own blocks of rank 0's whole-case state.
 Geometry is not converted: both packages build it with the same host code.
 """
 
@@ -30,3 +31,16 @@ def bc_aux_from_numpy(bc_aux: dict, device, dtype=torch.float64) -> dict:
                                         device=device)
                      for name, v in aux.items()}
             for k, aux in bc_aux.items()}
+
+
+def scatter_state(comm, owners, *dicts):
+    """Rank 0's whole-case {block: ...} dicts (None where not given) as
+    each rank's own blocks of them: rank 0 sends rank r the entries of the
+    blocks ``owners`` gives r; the other ranks pass None for every dict.
+    Returns the rank's dicts, in order."""
+    parts = None
+    if comm.rank == 0:
+        parts = [tuple(None if d is None else
+                       {int(b): v for b, v in d.items() if owners[int(b)] == r}
+                       for d in dicts) for r in range(comm.world)]
+    return comm.scatter_objects(parts)

@@ -43,7 +43,7 @@ from . import state as st_mod
 from . import step as step_mod
 from . import viscous as vis
 from .case import build_case
-from .convert import bc_aux_from_numpy, state_from_numpy
+from .convert import bc_aux_from_numpy, scatter_state, state_from_numpy
 from .viscous import needs_face_length, viscous_statics
 
 EPS = 1.0e-30
@@ -82,11 +82,24 @@ class Solver:
     ``outputNodalVariables`` ``<deck>_<n>.fun`` and ``<deck>.p3d`` (at the
     grid's nodes), at the start and every ``outputFrequency`` steps, and
     ``<deck>_<n>.rst`` every ``restartFrequency`` steps.
+
+    ``comm`` (``parallel/distributed.Comm``) makes this Solver one rank of
+    a multi-rank run (``parallel/distributed.rank_solver``): the rank owns
+    whole blocks (``parallel/shard.block_owners``) and holds on its device
+    only their state, geometry, statics, sweep plans and multigrid levels;
+    ``case.blocks`` and every per-block dict are its blocks, by their
+    global index, and ``case.layout`` describes them all.  It runs the
+    kernels on its blocks (K1 (d): each rank's sweeps over its own whole
+    blocks), swaps connection ghosts with the other ranks at every level
+    (``case.exchange``), gathers the norms per block and reduces them in
+    block order as one rank does, so that every rank's rows are the
+    one-rank run's, and takes part in the files, which rank 0 alone
+    writes (``_sync_output_view``).
     """
 
     def __init__(self, deck_path: str, device="cuda", dtype=torch.float64,
                  workdir=None, nproc: int = 1, restart_path=None,
-                 debug=None):
+                 debug=None, comm=None):
         # debug mode: per-iteration physicality checks, the analogue of the
         # reference's armed FP exceptions + MSG_ASSERT guards
         # (reference: main.cpp:78-82, procBlock.cpp:434-437)
@@ -94,13 +107,15 @@ class Solver:
             debug = os.environ.get("AITHER_DEBUG", "0") not in ("0", "")
         self.debug = bool(debug)
         self._deck_path = deck_path
+        self._nproc = nproc
+        self.comm = comm
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
                                "torch.cuda.is_available() is False (use "
                                "device 'cpu' to run on the CPU)")
         self.case = build_case(deck_path, self.device, dtype=dtype,
-                               nproc=nproc)
+                               nproc=nproc, comm=comm)
         self.deck = self.case.deck
         self.phys = self.case.phys
         deck = self.deck
@@ -142,7 +157,7 @@ class Solver:
         # the residual skips its accumulation (step.full_residual)
         self.cfg["need_pgrad"] = any(
             spec.data is not None and spec.data.nonreflecting
-            for b in self.case.blocks for spec in b.surfaces)
+            for b in self.case.layout for spec in b.surfaces)
         # the LU-SGS sweeps (lusgs, blusgs) walk hyperplane plans; DPLUR
         # and the explicit integrators sweep nothing
         self.sweeps = deck.is_implicit and deck["matrixSolver"] in (
@@ -175,6 +190,10 @@ class Solver:
         # restart: the state, iteration and residual normalisation of a
         # .rst file (the time n-1 solution of a bdf2 deck below)
         self.is_restart = restart_path is not None
+        if comm is not None:
+            # rank 0 alone is given the file; every rank takes part in
+            # its scatter
+            self.is_restart = comm.broadcast_object(self.is_restart)
         self.l2_first = None
         self.iteration_start = 0
         self._restart_nm1 = None
@@ -211,6 +230,7 @@ class Solver:
             self._nm1_carried = True
             self._restart_nm1 = None
         self.l2_history = []     # raw per-equation L2 of every iteration
+        self.step_seconds = []   # host seconds of every step of ``run``
 
     # -- state ---------------------------------------------------------------
     def set_state(self, prims, cons_n=None, cons_nm1=None, bc_aux=None):
@@ -220,7 +240,13 @@ class Solver:
         {'dt', 'pgrad', 'vgrad'}}) (e.g. the JAX package's
         ``Solver.prims`` / ``cons_n`` / ``cons_nm1`` / ``bc_aux``).  A
         carried ``cons_nm1`` is kept by the next ``run``, as a restart's
-        is, where ``run`` otherwise starts it at time n."""
+        is, where ``run`` otherwise starts it at time n.  On the ranks of a
+        multi-rank run rank 0 passes the whole case's dicts, the others
+        None, and each rank keeps its own blocks
+        (``convert.scatter_state``)."""
+        if self.comm is not None:
+            prims, cons_n, cons_nm1, bc_aux = scatter_state(
+                self.comm, self.case.owners, prims, cons_n, cons_nm1, bc_aux)
         dt = self.case.dtype
         self._prev_prims = None
         self.prims = state_from_numpy(prims, self.device, dt)
@@ -264,6 +290,8 @@ class Solver:
             raise FloatingPointError(
                 f"non-finite residual L2 {l2} at iteration {nn} "
                 f"nonlinear-iter {mm}")
+        if self.comm is not None:
+            return self._check_physicality_ranks(nn, mm)
         checks = []
         for b in self.case.blocks:
             q = self.prims[b.index][b.interior]
@@ -285,6 +313,42 @@ class Solver:
                     f"non-physical {name} {float(f[loc]):.6e} at iteration "
                     f"{nn} nonlinear-iter {mm}, block {b.parent}, "
                     f"cell {loc}")
+
+    def _check_physicality_ranks(self, nn, mm):
+        """``check_physicality`` of a multi-rank run: per own block and
+        field its flag, the first offending value and flat cell, gathered
+        (``Comm.block_rows``), so that every rank raises on the first
+        offence in block and field order with the same message, whichever
+        rank holds the block"""
+        phys = self.phys
+        names = ["density", "pressure"] + (["tke"] if phys.nturb else [])
+        parts = {}
+        for b in self.case.blocks:
+            q = self.prims[b.index][b.interior]
+            fields = [q[:phys.ns].sum(dim=0), q[phys.ie]]
+            if phys.nturb:
+                fields.append(q[phys.it])
+            row = []
+            for name, f in zip(names, fields):
+                bad = ~torch.isfinite(f)
+                if name != "tke":
+                    bad = bad | (f <= 0.0)
+                flat = torch.argmax(bad.reshape(-1).to(torch.uint8))
+                row += [bad.any().to(f.dtype), f.reshape(-1)[flat],
+                        flat.to(f.dtype)]
+            parts[b.index] = torch.stack(row)
+        rows = self.comm.block_rows(parts, len(self.case.layout),
+                                    self.case.owners).tolist()
+        for info, row in zip(self.case.layout, rows):
+            for k, name in enumerate(names):
+                hit, val, flat = row[3 * k:3 * k + 3]
+                if hit:
+                    loc = tuple(int(x) for x in np.unravel_index(
+                        int(flat), (info.ni, info.nj, info.nk)))
+                    raise FloatingPointError(
+                        f"non-physical {name} {val:.6e} at iteration "
+                        f"{nn} nonlinear-iter {mm}, block {info.parent}, "
+                        f"cell {loc}")
 
     # -- one nonlinear iteration ---------------------------------------------
     def _residuals(self, prims, cfl, bc_aux=None, cons_n=None):
@@ -316,12 +380,12 @@ class Solver:
         # step has no off-diagonals
         if cfg["implicit"] and cfg["viscous"]:
             for key in ["mut"] + (["f1"] if phys.nturb else []):
-                step_mod.swap_connections(
-                    {bi: auxs[bi][key][None] for bi in auxs}, case.swap_maps)
+                step_mod.swap_case(
+                    case, {bi: auxs[bi][key][None] for bi in auxs})
             if cfg["block_matrix"]:
-                step_mod.swap_connections(
-                    {bi: auxs[bi]["vgrad"].view((9,) + auxs[bi]["mu"].shape)
-                     for bi in auxs}, case.swap_maps)
+                step_mod.swap_case(
+                    case, {bi: auxs[bi]["vgrad"].view(
+                        (9,) + auxs[bi]["mu"].shape) for bi in auxs})
         return prims, residuals, specrads, diags, dts, auxs
 
     def _iteration(self, prims, cons_n, cfl, stage=0, cons_nm1=None,
@@ -346,13 +410,17 @@ class Solver:
                                               stage)
             matrix_resid = torch.zeros((), dtype=self.case.dtype,
                                        device=self.device)
-        l2 = torch.zeros(self.phys.neq, dtype=self.case.dtype,
-                         device=self.device)
-        linfs = []
-        for b in self.case.blocks:
-            bl2, blinf, bloc = step_mod.residual_norms(residuals[b.index])
-            l2 = l2 + bl2
-            linfs.append((blinf, bloc))
+        if self.comm is None:
+            l2 = torch.zeros(self.phys.neq, dtype=self.case.dtype,
+                             device=self.device)
+            linfs = []
+            for b in self.case.blocks:
+                bl2, blinf, bloc = step_mod.residual_norms(residuals[b.index])
+                l2 = l2 + bl2
+                linfs.append((blinf, bloc))
+        else:
+            l2, linfs, matrix_resid = self._reduce_norms(
+                residuals, matrix_resid if self.cfg["implicit"] else None)
         # the carry of the next iteration's nonreflecting BCs: this
         # iteration's dt and gradients; an inviscid deck has none and
         # carries zero gradients, as the JAX package does
@@ -365,6 +433,41 @@ class Solver:
                 pgrad=aux.get("press_grad", torch.zeros_like(zero["pgrad"])),
                 vgrad=aux.get("vel_grad", torch.zeros_like(zero["vgrad"])))
         return new_prims, l2, linfs, matrix_resid, new_bc_aux
+
+    def _reduce_norms(self, residuals, mr_parts):
+        """The norms of a multi-rank run on the host: each own block's L2
+        squares, max residual and its flat location, and matrix residual
+        part (``mr_parts``, {block: sum of squares}; None for an explicit
+        step, whose matrix residual is zero) gathered into one row per
+        block, then summed in block order as one rank sums them
+        (``_iteration``, ``_implicit_update``), so every rank gets the
+        one-rank values to the last bit.  Returns (l2, linfs, matrix
+        residual)."""
+        neq, dt = self.phys.neq, self.case.dtype
+        zero = torch.zeros((), dtype=dt, device=self.device)
+        parts = {}
+        for b in self.case.blocks:
+            bl2, blinf, bloc = step_mod.residual_norms(residuals[b.index])
+            mr = zero if mr_parts is None else mr_parts[b.index]
+            parts[b.index] = torch.cat([bl2, torch.stack(
+                [blinf, bloc.to(dt), mr])])
+        rows = self.comm.block_rows(parts, len(self.case.layout),
+                                    self.case.owners)
+        l2 = torch.zeros(neq, dtype=dt)
+        mr_sum = torch.zeros((), dtype=dt)
+        for row in rows:
+            l2 = l2 + row[:neq]
+            mr_sum = mr_sum + row[neq + 2]
+        linfs = [(row[neq], row[neq + 1].to(torch.int64)) for row in rows]
+        if mr_parts is None:
+            return l2, linfs, zero.cpu()
+        return l2, linfs, mr_sum / self._mr_count()
+
+    def _mr_count(self):
+        """the matrix residual's divisor: every block's padded size times
+        the equations (mgSolution.cpp:199-207)"""
+        return sum(self.phys.neq * int(np.prod(b.shape))
+                   for b in self.case.layout)
 
     def _explicit_update(self, prims, residuals, dts, cons_n, stage):
         """explicitEuler, or the rk4 stage ``stage`` from the time-n
@@ -446,8 +549,8 @@ class Solver:
 
     def _swap_level(self, lvl, d):
         """connection swaps of padded fields at grid level ``lvl``, in
-        place"""
-        return step_mod.swap_connections(d, self.mg_cases[lvl].swap_maps)
+        place (through the rank exchange of a multi-rank run)"""
+        return step_mod.swap_case(self.mg_cases[lvl], d)
 
     def _relax(self, lvl, st, sweeps):
         """``sweeps`` relaxations at grid level ``lvl`` of the linear
@@ -551,7 +654,7 @@ class Solver:
         prims_c_int, dus_c, force_r = {}, {}, {}
         for b in fine.blocks:
             bi = b.index
-            lm, cb = maps[bi], coarse.blocks[bi]
+            lm, cb = maps[bi], coarse.block(bi)
             cshape = (cb.ni, cb.nj, cb.nk)
             prims_c_int[bi] = mg.restrict_weighted(
                 st["prims"][bi][b.interior], lm, cshape)
@@ -607,7 +710,7 @@ class Solver:
         corr = {bi: cs["dus"][bi] - du_c0[bi] for bi in du_c0}
         coarse = self.mg_cases[lvl + 1]
         for b in self.mg_cases[lvl].blocks:
-            cb = coarse.blocks[b.index]
+            cb = coarse.block(b.index)
             st["dus"][b.index][b.interior] += mg.prolong(
                 corr[b.index][cb.interior], self.mg_maps[lvl][b.index])
         self._mg_trace("corr", lvl + 1, corr)
@@ -620,7 +723,9 @@ class Solver:
         """The linear solve at level 0, by ``matrixSweeps`` relaxations or
         one multigrid cycle, then the matrix residual (level 0, no
         forcing) and the update.  Returns (new prims, matrix residual sum
-        of squares / padded size)."""
+        of squares / padded size); on a rank of a multi-rank run the sum
+        of squares of each own block instead ({block: tensor}), which
+        ``_reduce_norms`` reduces."""
         phys = self.phys
         inv_diag, a_diag, bs, dus = self._setup_linear(
             prims, residuals, specrads, diags, dts, auxs, cons_n, cons_nm1)
@@ -632,18 +737,20 @@ class Solver:
             st = self._mg_cycle(0, st, cfl)
         dus = st["dus"]
         mr_sum = torch.zeros((), dtype=self.case.dtype, device=self.device)
-        mr_count = 0
+        mr_parts = {}
         new_prims = {}
         mrf = self._matrix_resid_field(0, st)
         for b in self.case.blocks:
             mr = mrf[b.index]
-            mr_sum = mr_sum + (mr * mr).sum()
-            # the reference divides by the padded array size (ghost entries
-            # are zero): mgSolution.cpp:199-207
-            mr_count += phys.neq * int(np.prod(b.shape))
+            mr_parts[b.index] = (mr * mr).sum()
+            mr_sum = mr_sum + mr_parts[b.index]
             new_prims[b.index] = step_mod.implicit_update(
                 phys, b, prims[b.index], dus[b.index][b.interior])
-        return new_prims, mr_sum / mr_count
+        if self.comm is not None:
+            return new_prims, mr_parts
+        # the reference divides by the padded array size (ghost entries
+        # are zero)
+        return new_prims, mr_sum / self._mr_count()
 
     # -- restart / output -----------------------------------------------------
     def _interior(self, prim, b):
@@ -656,18 +763,36 @@ class Solver:
         and the residual normalisation; a decomposed case re-splits the
         file's original blocks (reference: parallel.hpp:137-154
         DecompArray on ReadRestart); a multilevel (bdf2) deck keeps the
-        file's time n-1 solution for ``__init__``."""
+        file's time n-1 solution for ``__init__``.  In a multi-rank run
+        rank 0 alone reads the file and sends each rank its blocks."""
         from ..io.restart import prim_from_restart, read_restart
-        rec = read_restart(path)
+        rec = None
+        if self.comm is None or self.comm.rank == 0:
+            rec = read_restart(path)
+            decomp = self.case.decomp
+            if decomp is not None and decomp.splits:
+                from ..parallel.decompose import split_cell_arrays
+                rec["blocks"] = split_cell_arrays(decomp.splits,
+                                                  rec["blocks"])
+                if rec["blocks_nm1"] is not None:
+                    rec["blocks_nm1"] = split_cell_arrays(decomp.splits,
+                                                          rec["blocks_nm1"])
+        if self.comm is not None:
+            owners = self.case.owners
+            parts = None
+            if rec is not None:
+                def mine(arrs, r):
+                    return None if arrs is None else {
+                        bi: a for bi, a in enumerate(arrs)
+                        if owners[bi] == r}
+                parts = [dict(iteration=rec["iteration"],
+                              l2_first=rec["l2_first"],
+                              blocks=mine(rec["blocks"], r),
+                              blocks_nm1=mine(rec["blocks_nm1"], r))
+                         for r in range(self.comm.world)]
+            rec = self.comm.scatter_objects(parts)
         self.iteration_start = rec["iteration"]
         self.l2_first = np.asarray(rec["l2_first"]).copy()
-        decomp = self.case.decomp
-        if decomp is not None and decomp.splits:
-            from ..parallel.decompose import split_cell_arrays
-            rec["blocks"] = split_cell_arrays(decomp.splits, rec["blocks"])
-            if rec["blocks_nm1"] is not None:
-                rec["blocks_nm1"] = split_cell_arrays(decomp.splits,
-                                                      rec["blocks_nm1"])
         for b in self.case.blocks:
             prim = prim_from_restart(rec["blocks"][b.index], self.phys,
                                      self.deck, mu_ref=self.phys.mu_mix_ref)
@@ -676,45 +801,98 @@ class Solver:
         if rec["blocks_nm1"] is not None and self.deck.is_multilevel_in_time:
             self._restart_nm1 = rec["blocks_nm1"]
 
+    def _output_arrays(self, padded):
+        """numpy copies of what the files read, by own block: the state
+        and the pre-update state (padded, or their interiors), the time-n
+        and (bdf2) time n-1 interiors and the nonreflecting BCs' carry"""
+        prev = self._prev_prims
+        multilevel = self.cfg["multilevel_time"]
+
+        def host(t):
+            return t.cpu().numpy()
+
+        out = {}
+        for b in self.case.blocks:
+            bi = b.index
+            sl = (slice(None),) if padded else b.interior
+            out[bi] = dict(
+                prim=host(self.prims[bi][sl]),
+                prev=None if prev is None else host(prev[bi][sl]),
+                cons_n=host(self.cons_n[bi]),
+                cons_nm1=host(self.cons_nm1[bi]) if multilevel else None,
+                **{k: host(v) for k, v in self.bc_aux[bi].items()})
+        return out
+
     def _sync_output_view(self):
-        """For decomposed runs, push the current state (recombined into
-        the ORIGINAL block structure) onto a parent-layout Solver on the
-        same device, so that all file output matches the reference's
-        Recombine semantics (reference: output.cpp:595,1089-1166; restart
-        compatibility across process counts depends on this).  Returns
-        self when not decomposed."""
+        """The Solver whose blocks the files are written from.  For
+        decomposed runs, push the current state (recombined into the
+        ORIGINAL block structure) onto a parent-layout Solver on the same
+        device, so that all file output matches the reference's Recombine
+        semantics (reference: output.cpp:595,1089-1166; restart
+        compatibility across process counts depends on this).  In a
+        multi-rank run every rank sends rank 0 its blocks' arrays (the
+        reference's Recombine on ROOT), and rank 0 writes from a one-rank
+        Solver of the whole grid on its device: the parent layout of a
+        decomposed grid, or the same layout, given the padded state
+        as it is, so that the files are the one-rank run's; the other
+        ranks get None and write nothing.  Returns self when neither."""
         decomp = self.case.decomp
-        if decomp is None or not decomp.splits:
+        split = decomp is not None and bool(decomp.splits)
+        if self.comm is None and not split:
             return self
-        from ..parallel.decompose import join_cell_arrays
+        arrs = self._output_arrays(padded=not split)
+        if self.comm is not None:
+            got = self.comm.gather_objects(arrs)
+            if got is None:
+                return None
+            arrs = {bi: a for part in got for bi, a in part.items()}
         if self._parent_view is None:
             self._parent_view = Solver(self._deck_path, device=self.device,
                                        dtype=self.case.dtype,
-                                       workdir=self.workdir, nproc=1,
+                                       workdir=self.workdir,
+                                       nproc=1 if split else self._nproc,
                                        debug=False)
         view = self._parent_view
-        splits = decomp.splits
-
-        def joined(fn, axes=(1, 2, 3)):
-            return join_cell_arrays(
-                splits, [fn(b).cpu().numpy() for b in self.case.blocks],
-                axes)
-
-        prim_j = joined(lambda b: self.prims[b.index][b.interior])
-        prev = self._prev_prims or self.prims
-        prev_j = joined(lambda b: prev[b.index][b.interior])
-        consn_j = joined(lambda b: self.cons_n[b.index])
+        view.l2_first = self.l2_first
+        view.iteration_start = self.iteration_start
         multilevel = self.cfg["multilevel_time"]
-        nm1_j = (joined(lambda b: self.cons_nm1[b.index])
-                 if multilevel else None)
-        dt_j = joined(lambda b: self.bc_aux[b.index]["dt"], axes=(0, 1, 2))
-        pg_j = joined(lambda b: self.bc_aux[b.index]["pgrad"])
-        vg_j = joined(lambda b: self.bc_aux[b.index]["vgrad"],
-                      axes=(2, 3, 4))
 
         def dev(a):
             return torch.as_tensor(a, dtype=view.case.dtype,
                                    device=view.device)
+
+        if not split:
+            has_prev = self._prev_prims is not None
+            for vb in view.case.blocks:
+                a = arrs[vb.index]
+                view.prims[vb.index] = dev(a["prim"])
+                view.cons_n[vb.index] = dev(a["cons_n"])
+                if multilevel:
+                    view.cons_nm1[vb.index] = dev(a["cons_nm1"])
+                view.bc_aux[vb.index] = {k: dev(a[k])
+                                         for k in ("dt", "pgrad", "vgrad")}
+            view._prev_prims = ({vb.index: dev(arrs[vb.index]["prev"])
+                                 for vb in view.case.blocks}
+                                if has_prev else None)
+            return view
+
+        from ..parallel.decompose import join_cell_arrays
+        splits = decomp.splits
+        nblocks = len(self.case.layout)
+
+        def joined(key, axes=(1, 2, 3)):
+            return join_cell_arrays(
+                splits, [arrs[bi][key] if arrs[bi][key] is not None
+                         else arrs[bi]["prim"] for bi in range(nblocks)],
+                axes)
+
+        prim_j = joined("prim")
+        prev_j = joined("prev")
+        consn_j = joined("cons_n")
+        nm1_j = joined("cons_nm1") if multilevel else None
+        dt_j = joined("dt", axes=(0, 1, 2))
+        pg_j = joined("pgrad")
+        vg_j = joined("vgrad", axes=(2, 3, 4))
 
         prev_pads = {}
         for i, vb in enumerate(view.case.blocks):
@@ -734,17 +912,15 @@ class Solver:
                                             view.prims, bc_aux=view.bc_aux,
                                             cons_n=view.cons_n)
         view._prev_prims = prev_pads
-        view.l2_first = self.l2_first
-        view.iteration_start = self.iteration_start
         # recombined per-cell decomposition fields: owning rank and owning
         # block's global position (reference: output.cpp:278-283
         # SplitBlockNumber -> Rank()/GlobalPos()), constant per split
         # block, joined back into the parent layout like every field
         rank_j = join_cell_arrays(splits, [np.full(
             (b.ni, b.nj, b.nk), float(decomp.rank[b.index]))
-            for b in self.case.blocks], (0, 1, 2))
+            for b in self.case.layout], (0, 1, 2))
         gpos_j = join_cell_arrays(splits, [np.full(
-            (b.ni, b.nj, b.nk), float(b.index)) for b in self.case.blocks],
+            (b.ni, b.nj, b.nk), float(b.index)) for b in self.case.layout],
             (0, 1, 2))
         view._decomp_fields = {
             vb.index: (rank_j[i], gpos_j[i])
@@ -755,6 +931,8 @@ class Solver:
         """``<deck>_<iteration>.rst`` of the current state (reference:
         output.cpp:591-754 WriteRestart)"""
         view = self._sync_output_view()
+        if view is None:             # a rank other than 0
+            return None
         if view is not self:
             return view.write_restart(iteration)
         from ..io.restart import write_restart
@@ -781,6 +959,8 @@ class Solver:
         itself is the current one.  Computed on the state's device, then
         copied to the host for writing."""
         view = self._sync_output_view()
+        if view is None:             # a rank other than 0
+            return None
         if view is not self:
             return view.write_output(iteration)
         deck, phys, cfg = self.deck, self.phys, self.cfg
@@ -960,6 +1140,8 @@ class Solver:
         """``<gridName>_center.xyz``: the cell centers (reference:
         output.cpp:55-104 WriteCellCenter)"""
         view = self._sync_output_view()
+        if view is None:             # a rank other than 0
+            return None
         if view is not self:
             return view.write_grid_center()
         centers = [np.moveaxis(b.geom_host["center"][b.interior], 0, -1)
@@ -971,7 +1153,11 @@ class Solver:
     # -- logging (reference format) ------------------------------------------
     def _open_logs(self, restart=False):
         """the .resid (appended to on a restart, as the JAX package does)
-        and .tme logs with their headers"""
+        and .tme logs with their headers; on rank 0 alone of a multi-rank
+        run"""
+        self.resid_file = self.time_file = None
+        if self.comm is not None and self.comm.rank != 0:
+            return
         self.resid_file = open(self.sim_root + ".resid",
                                "a" if restart else "w")
         self.time_file = open(self.sim_root + ".tme", "w")
@@ -1025,14 +1211,15 @@ class Solver:
         parts += [f"{eqn:<8d}{blk:<8d}{iloc:<8d}{jloc:<8d}{kloc:<8d}"]
         parts += [f"{linf_val:<12.4e}{matrix_resid:<12.4e}"]
         line = "".join(parts)
-        self.resid_file.write(line + "\n")
-        print(line)
+        if self.resid_file is not None:
+            self.resid_file.write(line + "\n")
+            print(line)
 
     def _decode_linf(self, linfs):
         vals = torch.stack([v for v, _ in linfs]).cpu().numpy()
         locs = torch.stack([loc for _, loc in linfs]).cpu().numpy()
         bi = int(np.argmax(vals))
-        b = self.case.blocks[bi]
+        b = self.case.layout[bi]
         ncell = b.nj * b.nk
         eqn, rem = divmod(int(locs[bi]), b.ni * ncell)
         i, rem = divmod(rem, ncell)
@@ -1053,7 +1240,9 @@ class Solver:
         the cell centers and the output at the start, the output every
         ``outputFrequency`` steps and a restart every ``restartFrequency``
         steps (class docstring); without it no iteration keeps, copies or
-        synchronises anything for output."""
+        synchronises anything for output.  On the ranks of a multi-rank run
+        every rank marches its blocks and takes part in the files; rank 0
+        alone prints the rows and writes the logs and files."""
         deck = self.deck
         iterations = iterations or deck["iterations"]
         self._open_logs(restart=self.is_restart)
@@ -1104,9 +1293,12 @@ class Solver:
                 if write_files and rst_freq > 0 and (nn + 1) % rst_freq == 0:
                     self.write_restart(nn + start + 1)
                 now = time.perf_counter()
-                self.time_file.write(f"{nn:<7d}{now - iter_start:<16.6e}"
-                                     f"{now - sim_start:<16.6e}\n")
+                self.step_seconds.append(now - iter_start)
+                if self.time_file is not None:
+                    self.time_file.write(f"{nn:<7d}{now - iter_start:<16.6e}"
+                                         f"{now - sim_start:<16.6e}\n")
         finally:
-            self.resid_file.close()
-            self.time_file.close()
+            for f in (self.resid_file, self.time_file):
+                if f is not None:
+                    f.close()
         return self

@@ -181,18 +181,25 @@ def _device_form(lm: LevelMap, dtype, device) -> dict:
 def coarsen_case(case):
     """Build the next-coarser Case + transfer maps from `case`
     (reference: gridLevel::Coarsen).  Needs ``case.grids`` / ``case.bcs``
-    (kept by ``case.assemble_case``)."""
+    (kept by ``case.assemble_case``).  A rank of a multi-rank run coarsens
+    the whole grid on the host, owns the same blocks on every level (its
+    coarse Case has its own rank exchange) and builds the transfer maps
+    of its own blocks only: the others' entries are None."""
     from .case import assemble_case
 
     coarse_grids = []
     coarse_bcs = []
     maps = []
+    own = {b.index for b in case.blocks}
     for b, (nodes, bc) in enumerate(zip(case.grids, case.bcs)):
         kept = {d: _kept_indices(bc, d, nodes.shape[a])
                 for a, d in enumerate("ijk")}
         cn = nodes[np.ix_(kept["i"], kept["j"], kept["k"])]
         coarse_grids.append(cn)
         coarse_bcs.append(_remap_surfaces(bc, kept))
+        if b not in own:
+            maps.append(None)
+            continue
 
         ni, nj, nk = (nodes.shape[0] - 1, nodes.shape[1] - 1,
                       nodes.shape[2] - 1)
@@ -204,7 +211,7 @@ def coarsen_case(case):
         ck = np.broadcast_to(mk[None, None, :], (ni, nj, nk))
 
         # volume weighting factor
-        blk = case.blocks[b]
+        blk = case.block(b)
         g = blk.g
         vol = blk.geom_host["vol"][g:g + ni, g:g + nj, g:g + nk]
         cni = len(kept["i"]) - 1
@@ -230,7 +237,8 @@ def coarsen_case(case):
     total = sum((gr.shape[0] - 1) * (gr.shape[1] - 1) * (gr.shape[2] - 1)
                 for gr in coarse_grids)
     coarse = assemble_case(case.deck, case.phys, coarse_grids, coarse_bcs,
-                           case.dtype, case.device, total)
+                           case.dtype, case.device, total, owners=case.owners,
+                           comm=case.comm)
     return coarse, maps
 
 

@@ -9,10 +9,17 @@ filled copy of their input; the connection swap updates in place.
 
 Connection swaps are index maps built once on the host (the orientation
 helpers of ``grid/connections.py`` run on numpy index arrays), so a swap on the device is
-one gather and one scatter per connection side.
+one gather and one scatter per connection side.  A rank of a multi-rank
+run walks the same connections in the same order with its exchange plan
+(``rank_exchange_plan``, ``RankExchange``): a side whose donor block is
+another rank's arrives as that rank's packed slab, staged through host
+memory (``swap_case`` picks the form).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -393,11 +400,15 @@ def connection_index_maps(blocks, conns, g, device):
 
 def swap_connections(fields: dict, maps) -> dict:
     """Ghost-slab swaps of padded (C, NI, NJ, NK) fields across every
-    connection, IN PLACE, one connection at a time (a later connection's
-    extended donor slab may read an earlier one's corner writes, exactly
-    as the reference's sequential SwapSlice loop, gridLevel.cpp:299-313).
-    Within one connection both sides gather before either scatters.
-    Returns ``fields``."""
+    connection, IN PLACE, one connection at a time.  The order matters
+    where connections meet: a connection's acceptor slab is extended by g
+    along the patch except where the patch borders another connection, so
+    a later connection's donor slab reads ghost corners that an earlier
+    one wrote (the four connections of the plate at ``--nproc 4``), exactly
+    as the reference's sequential SwapSlice loop (gridLevel.cpp:299-313).
+    Batching every connection at once gives other corner ghosts.  Within
+    one connection both sides gather before either scatters.  A multi-rank
+    run walks the same order (``RankExchange``).  Returns ``fields``."""
     for sides in maps:
         vals = [fields[don_b].reshape(fields[don_b].shape[0], -1)[:, don_idx]
                 for _, _, don_b, don_idx in sides]
@@ -405,6 +416,110 @@ def swap_connections(fields: dict, maps) -> dict:
             dst = fields[acc_b]
             dst.view(dst.shape[0], -1)[:, acc_idx] = v
     return fields
+
+
+@dataclasses.dataclass
+class ExchangeStep:
+    """One connection as one rank sees it.  ``local``: the sides whose
+    acceptor and donor blocks are both this rank's, as in
+    ``connection_index_maps``; ``peer``: the rank owning the connection's
+    other block when that is not this rank (else -1), with ``send`` (donor
+    block, flat indices: this rank's slab of the peer's ghosts) and
+    ``recv`` (acceptor block, flat indices: this rank's ghosts from the
+    peer's slab)."""
+
+    conn: int
+    local: list
+    peer: int = -1
+    send: tuple = None
+    recv: tuple = None
+
+
+def rank_exchange_plan(maps, owners, rank, device) -> list:
+    """The ``ExchangeStep`` of every connection that touches a block of
+    ``rank``, in the global connection order (``maps`` from
+    ``connection_index_maps``, ``owners[block]`` the owning rank), its
+    indices on ``device``.  A connection joins at most two blocks, so a
+    remote one has one send and one receive, both with the same peer."""
+    steps = []
+    for c, sides in enumerate(maps):
+        local, send, recv, peer = [], None, None, -1
+        for acc_b, acc_idx, don_b, don_idx in sides:
+            mine_a, mine_d = owners[acc_b] == rank, owners[don_b] == rank
+            if mine_a and mine_d:
+                local.append((acc_b, acc_idx.to(device), don_b,
+                              don_idx.to(device)))
+            elif mine_a:
+                recv, peer = (acc_b, acc_idx.to(device)), owners[don_b]
+            elif mine_d:
+                send, peer = (don_b, don_idx.to(device)), owners[acc_b]
+        if local or peer >= 0:
+            if peer >= 0 and (send is None or recv is None):
+                raise ValueError(f"connection {c}: one side remote only")
+            steps.append(ExchangeStep(c, local, peer, send, recv))
+    return steps
+
+
+class RankExchange:
+    """The connection swaps of one rank's blocks (``swap``, in place, as
+    ``swap_connections`` on the whole case): every rank walks the
+    connections in the global order; a connection with both blocks local
+    is the gather and scatter of ``swap_connections``; one with a remote
+    side packs this rank's donor slab into one contiguous buffer, stages it
+    through host memory, and ``transport.sendrecv(peer, host_slab,
+    recv_shape)`` returns the peer's slab (host) for this rank's ghosts,
+    before the next connection.  ``transport`` is the rank's communicator
+    (``parallel/distributed.Comm``) or, in a test, a stand-in.
+
+    ``bytes`` counts the bytes sent and received, ``seconds`` the host time
+    inside ``swap`` (with ``timed`` the device is synchronised on entry, so
+    that it is the exchange's own time: packing, staging, the peer's
+    wait and the scatter), ``calls`` the swaps."""
+
+    def __init__(self, steps, transport):
+        self.steps = steps
+        self.transport = transport
+        self.timed = False
+        self.bytes = 0
+        self.seconds = 0.0
+        self.calls = 0
+
+    def swap(self, fields: dict) -> dict:
+        if self.timed and fields:
+            dev = next(iter(fields.values())).device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for step in self.steps:
+            vals = [fields[don_b].reshape(fields[don_b].shape[0], -1)[
+                :, don_idx] for _, _, don_b, don_idx in step.local]
+            got = None
+            if step.peer >= 0:
+                don_b, don_idx = step.send
+                src = fields[don_b]
+                slab = src.reshape(src.shape[0], -1)[:, don_idx].cpu()
+                acc_b, acc_idx = step.recv
+                got = self.transport.sendrecv(
+                    step.peer, slab, (src.shape[0], acc_idx.numel()))
+                self.bytes += (slab.numel() + got.numel()) * slab.element_size()
+            for (acc_b, acc_idx, _, _), v in zip(step.local, vals):
+                dst = fields[acc_b]
+                dst.view(dst.shape[0], -1)[:, acc_idx] = v
+            if got is not None:
+                acc_b, acc_idx = step.recv
+                dst = fields[acc_b]
+                dst.view(dst.shape[0], -1)[:, acc_idx] = got.to(dst.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return fields
+
+
+def swap_case(case, fields: dict) -> dict:
+    """``swap_connections`` of ``case``'s connections on its blocks: the
+    rank's exchange in a multi-rank run (``case.exchange``)."""
+    if case.exchange is not None:
+        return case.exchange.swap(fields)
+    return swap_connections(fields, case.swap_maps)
 
 
 def apply_all_bcs(phys: Physics, case, prims, bc_aux=None, cons_n=None):
@@ -418,7 +533,7 @@ def apply_all_bcs(phys: Physics, case, prims, bc_aux=None, cons_n=None):
         bc_aux=None if bc_aux is None else bc_aux.get(b.index),
         cons_n=None if cons_n is None else cons_n.get(b.index))
         for b in case.blocks}
-    swap_connections(prims, case.swap_maps)
+    swap_case(case, prims)
     return {b.index: apply_edge_ghosts(phys, b, prims[b.index])
             for b in case.blocks}
 

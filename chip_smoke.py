@@ -164,14 +164,33 @@ kernels).  Phases, each printing its own lines:
     solver built once, compared and driven: case-B SST lusgs with WENO-Z
     (three ghost layers; the slice's main path): the (a) and (b) pairs and
     K2 on every block against their plain versions (recorded as the rows'
-    'g3'), then 5 steps with exactly 4 K1 and 2 K2 launches a step; WENO,
+    'g3'), then 4 steps with exactly 4 K1 and 2 K2 launches a step; WENO,
     AUSMPW+ (4 and 2) and centralFourth (4 and 0: the plain viscous
     residual, the JAX package's route) driven the same; the thermally
     perfect forms of both sweeps against their plain versions with their
     mean Ridder iterations (case-B hot air SST lusgs (a) and (b), driven
     with 4 K1 and 0 K2 launches a step; case-A hot air SST blusgs (c)
     and (c)+(b), N2/O2 SST lusgs (a) and reacting five-species air
-    blusgs (c) at CFL 1), each form driven on case A.
+    blusgs (c) at CFL 1), each form driven on case A;
+16. multi-rank runs on the card (ranks_phase, RANK_DECKS): each deck run
+    on one rank (the reference) and then over its ranks, processes of
+    this script (``--rank-worker``, rank_worker) that share the card and
+    join by the torchrun environment; rank 0 alone is given the case and
+    sends it to the others (distribute_case); each rank holds only its
+    own blocks on the card and exchanges connection ghosts over gloo with
+    host staging.  Case-B SST lusgs over 2 ranks, a block each: each
+    rank's K1 (a) pair and K2 on its own block against their plain
+    versions (as in phase 3), then RANK_ITERATIONS steps with exactly 2
+    K1 and 1 K2 launches per own block a step (K1 variant d: the sweeps
+    of each rank over its own whole blocks); case-A SST blusgs on a
+    2-level V cycle at --nproc 4 over 4 ranks (the four connections'
+    corner exchange), 6 block-sweep launches per own block a step.  Every
+    rank's raw L2 within REF_RTOL of the one-rank run's (bit for bit
+    printed), its .resid rows beside the one-rank ones; per rank its pair
+    and K2 times, steps/s beside the one-rank run's (ranks time-sliced on
+    one card: no speed-up is claimed), the bytes exchanged a step, the
+    exchange's share of its run (timed apart: the device synchronised at
+    each swap) and its peak device memory.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -190,7 +209,9 @@ the multigrid path also has 'mg_launches', its launches in each phase-12
 drive, and 'mg_levels', its comparisons on the coarse levels; a row of
 a form on a boundary path has 'bc_launches', its launches in each phase-13
 drive, and 'bc_compared', its comparisons there; the SST K1 (a) and K2
-rows have 'files_launches', their launches in each phase-14 run), and last
+rows have 'files_launches', their launches in each phase-14 run; the K1
+(d) row's times are the slower rank's, with each rank's in 'ranks'), and
+last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Case files go to ./smoke_run/ (git-ignored).
 """
@@ -219,9 +240,9 @@ MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 6
 BLOCK_ITERATIONS = 6
 BLOCK_LAGGED_ITERATIONS = 5
-NEW_ITERATIONS = 5       # phase 8, every deck
-MG_ITERATIONS = 6        # phase 12, every deck
-MIXTURE_ITERATIONS = 5   # phase 9, every deck
+NEW_ITERATIONS = 4       # phase 8, every deck
+MG_ITERATIONS = 4        # phase 12, every deck
+MIXTURE_ITERATIONS = 4   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 # the plane-per-launch sweep pairs (one launch per hyperplane) these
@@ -274,7 +295,7 @@ VISC_RTOL, VISC_ATOL = 1e-9, 1e-13
 # cuda vs cpu raw L2 history of the small case: reduction order on the
 # card, FMA in the kernels, amplified over REF_ITERATIONS implicit steps.
 REF_RTOL = 1e-8
-REF_ITERATIONS = 3
+REF_ITERATIONS = 2
 # the reacting blusgs deck's block diagonal holds the reference's
 # forward-difference chemistry Jacobian (step 1e-10 rho): the card's and the
 # CPU's exp differ by an ulp, which the quotient turns into ~1e-7 relative
@@ -379,8 +400,8 @@ MIXTURE_DECKS = (
 # matrixSweeps 2.  Frozen three- and four-species air give the Roe forms
 # the species counts 3 and 4.
 SOLVER_DECKS = (
-    ("case B", "sst", "lusgs", 1, "roe", (False, True), 6),
-    ("case B", "sst", "dplur", 4, "rusanov", (), 6),
+    ("case B", "sst", "lusgs", 1, "roe", (False, True), 4),
+    ("case B", "sst", "dplur", 4, "rusanov", (), 4),
     ("case B", "sst", "lusgs", 1, "bdf2", (), 3),
     ("case A", "sst", "lusgs", 2, "roe", (), 4),
     ("case A", "sst", "blusgs", 1, "roe", (False,), 4),
@@ -448,7 +469,7 @@ BC_DECKS = (
     ("case A", "euler", "lusgs", "supersonic",
      {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
 )
-BC_ITERATIONS = 5        # phase 13, every deck
+BC_ITERATIONS = 4        # phase 13, every deck
 # phase 15: (case, physics, matrixSolver, matrixSweeps, deck tag of
 # TIME_DECKS, sweep comparisons, compare K2, steps driven).  The case-B
 # decks are the slice's paths; the case-A ones give every thermally
@@ -457,11 +478,11 @@ BC_ITERATIONS = 5        # phase 13, every deck
 # none on centralFourth and thermally perfect decks.  Reacting hot air
 # takes CFL 1, as its Roe decks do
 PHYSICS_DECKS = (
-    ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 5),
-    ("case B", "sst", "lusgs", 1, "weno", (), False, 5),
-    ("case B", "sst", "lusgs", 1, "ausm", (), False, 5),
-    ("case B", "sst", "lusgs", 1, "c4", (), False, 5),
-    ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 5),
+    ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 4),
+    ("case B", "sst", "lusgs", 1, "weno", (), False, 4),
+    ("case B", "sst", "lusgs", 1, "ausm", (), False, 4),
+    ("case B", "sst", "lusgs", 1, "c4", (), False, 4),
+    ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 4),
     ("case A", "sst", "lusgs", 2, "tp", (), False, 3),
     ("case A", "sst", "blusgs", 1, "tp", (False, True), False, 3),
     ("case A", "sst", "blusgs", 2, "tp", (), False, 3),
@@ -470,6 +491,17 @@ PHYSICS_DECKS = (
 )
 # the case label of phase 15's WENO-Z comparisons (three ghost layers)
 G3_CASE = "case B g3"
+# phase 16: (case, physics, matrixSolver, matrixSweeps, deck tag of
+# TIME_DECKS, ranks, --nproc, compare each rank's kernels, launches per
+# block and iteration {kernel: n}).  A 2-level V cycle with matrixSweeps 1
+# relaxes one pair before and one after on level 0 and one on level 1
+RANK_DECKS = (
+    ("case B", "sst", "lusgs", 1, "rusanov", 2, 1, True,
+     {"lusgs_sweep": 2, "blusgs_sweep": 0, "viscous_march": 1}),
+    ("case A", "sst", "blusgs", 1, "mg2V", 4, 4, False,
+     {"lusgs_sweep": 0, "blusgs_sweep": 6, "viscous_march": 0}),
+)
+RANK_ITERATIONS = 5
 # phase 14: the files run (case B, output and restart every 2 steps) and
 # its resumption from the step-2 restart
 FILES_ITERATIONS = 4
@@ -796,14 +828,15 @@ def flat_outputs(res):
 
 
 def compare_viscous(torch, solver, label, card, perturbed=True,
-                    case="case B", lvl=0, blocks=None):
+                    case="case B", lvl=0, blocks=None, inputs=None):
     """The viscous residual of every block (or of ``blocks``, indices) of
     grid level ``lvl`` on one case against its plain version: (max_abs_err,
     kernel ms, plain ms, bound ms, bound_by, cold window ms).  A blusgs
     solver's blocks are taken with the scalar solver's cfg: the kernel has
     no block-matrix form.  Printed beside the time: the first design's
     (VISC_BEFORE_MS, text from PERF.md; level 0) and each block's launch
-    (tile, segment, CTAs, shared memory, CTAs per SM)."""
+    (tile, segment, CTAs, shared memory, CTAs per SM).  ``inputs``: the
+    viscous_inputs to take (a rank's, built with the other ranks)."""
     from aither_tpu_torch.kernels import viscous_march as vm
     from aither_tpu_torch.solver import viscous as vis
     phys, cfg = solver.phys, dict(solver.cfg, block_matrix=False)
@@ -811,7 +844,8 @@ def compare_viscous(torch, solver, label, card, perturbed=True,
     what = (f"viscous residual ({model}"
             f"{'' if perturbed else ', unperturbed field'}"
             f"{f', level {lvl}' if lvl else ''})")
-    inputs = viscous_inputs(torch, solver, perturbed=perturbed, lvl=lvl)
+    if inputs is None:
+        inputs = viscous_inputs(torch, solver, perturbed=perturbed, lvl=lvl)
     blocks = [b for b in solver.mg_cases[lvl].blocks
               if blocks is None or b.index in blocks]
     max_abs, worst, worst_name = 0.0, 0.0, ""
@@ -1157,27 +1191,33 @@ def boundary_share(torch, solver, iterations=3):
     return sum(timed[per:]) / sum(steps)
 
 
-def make_solver(wd, dims, device, solver_name, sweeps, physics,
-                tag="rusanov", layout=None):
-    """Solver of the generated plate in ``wd`` with the named physics
-    (PHYSICS), deck (TIME_DECKS) and boundary layout (BC_LAYOUTS, or the
-    plate's own), built in ``wd``: a reacting deck reads its mechanism
-    from the working directory"""
+def write_deck(wd, dims, solver_name, sweeps, physics, tag="rusanov",
+               layout=None):
+    """the generated plate in ``wd`` with the named physics (PHYSICS),
+    deck (TIME_DECKS) and boundary layout (BC_LAYOUTS, or the plate's
+    own); returns the deck's path"""
     from aither_tpu_torch.cases import (MIXTURES, TIME_INTEGRATORS,
                                         write_plate_case)
-    from aither_tpu_torch.solver.driver import Solver
     es, tm, mixture = PHYSICS[physics]
     integrator, deck = TIME_DECKS[tag]
-    path = write_plate_case(wd, *dims, matrix_sweeps=sweeps,
+    return write_plate_case(wd, *dims, matrix_sweeps=sweeps,
                             matrix_solver=solver_name, equation_set=es,
                             turbulence_model=tm,
                             **MIXTURES.get(mixture, {}),
                             **TIME_INTEGRATORS[integrator], **deck,
                             **BC_LAYOUTS.get(layout, {}))
+
+
+def make_solver(wd, dims, device, solver_name, sweeps, physics,
+                tag="rusanov", layout=None, nproc=1):
+    """Solver of ``write_deck``'s plate, built in ``wd``: a reacting deck
+    reads its mechanism from the working directory"""
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_deck(wd, dims, solver_name, sweeps, physics, tag, layout)
     here = os.getcwd()
     os.chdir(wd)
     try:
-        return Solver(path, device=device, workdir=wd)
+        return Solver(path, device=device, workdir=wd, nproc=nproc)
     finally:
         os.chdir(here)
 
@@ -1476,6 +1516,275 @@ def reference_files(torch):
         fail("phase 6 files: the cuda files disagree with the cpu files")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-rank runs on the card
+
+
+def run_stats(solver, seconds) -> dict:
+    """one rank's statistics of its run: its blocks and cells, the run's
+    seconds and step seconds (host clock), the exchange's bytes, calls and
+    seconds summed over the grid levels, each kernel's launches, and the
+    device's peak memory"""
+    import torch
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    xs = [c.exchange for c in solver.mg_cases]
+    return dict(
+        rank=solver.comm.rank, blocks=[b.index for b in solver.case.blocks],
+        cells=sum(b.ni * b.nj * b.nk for b in solver.case.blocks),
+        seconds=seconds, step_seconds=solver.step_seconds,
+        exchange_bytes=sum(x.bytes for x in xs),
+        exchange_calls=sum(x.calls for x in xs),
+        exchange_seconds=sum(x.seconds for x in xs),
+        launches=dict(lusgs_sweep=ls.LAUNCHES.count,
+                      blusgs_sweep=ls.BLOCK_LAUNCHES.count,
+                      viscous_march=vm.LAUNCHES.count),
+        max_memory_allocated=torch.cuda.max_memory_allocated(solver.device))
+
+
+def rank_worker(spec_json):
+    """One rank of a phase-16 run, a process of this script: joins the
+    job from RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT
+    (``distributed.initialize`` bare), receives the case from rank 0
+    (``distribute_case``) and builds its Solver (``rank_solver``: its own
+    blocks on the card).  With ``compare``, the K1 (a) pair and K2 on its
+    own block against their plain versions, as in phase 3 (the linear
+    system and the viscous inputs built with the other ranks, the
+    comparisons and their timings one rank after another).  Then the
+    launch counters to 0, the exchange timed apart and ``Solver.run``;
+    with ``compare``, after it, the device memory of rank 0's view of the
+    whole grid for the files.  Writes its ``run_stats`` with the
+    comparisons and the raw L2 history as JSON."""
+    import torch
+    sys.path.insert(0, REPO)
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.kernels import viscous_march as vm
+    from aither_tpu_torch.parallel import distributed as dd
+    spec = json.loads(spec_json)
+    comm = dd.initialize(device="cuda")
+    try:
+        label = f"{spec['label']} rank {comm.rank}"
+        wd = os.path.join(spec["root"], f"rank{comm.rank}")
+        dd.distribute_case(comm, wd,
+                           spec["case_dir"] if comm.rank == 0 else None)
+        t0 = time.perf_counter()
+        solver = dd.rank_solver(comm, os.path.join(wd, spec["deck"]),
+                                nproc=spec["nproc"], workdir=wd)
+        out = dict(build_seconds=time.perf_counter() - t0)
+        if spec["compare"]:
+            system = linear_system(solver)
+            inputs = viscous_inputs(torch, solver)
+            for r in range(comm.world):
+                if r == comm.rank:
+                    out["sweep"] = compare_sweeps(torch, solver, system,
+                                                  label, spec["card"], False)
+                    out["viscous"] = compare_viscous(
+                        torch, solver, label, spec["card"], inputs=inputs)
+                comm.barrier()
+        for c in solver.mg_cases:
+            c.exchange.timed = True
+            c.exchange.bytes, c.exchange.seconds, c.exchange.calls = 0, 0.0, 0
+        for counter in (ls.LAUNCHES, ls.BLOCK_LAUNCHES, vm.LAUNCHES):
+            counter.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(solver.device)
+        comm.barrier()
+        t0 = time.perf_counter()
+        solver.run(iterations=spec["iterations"])
+        seconds = time.perf_counter() - t0
+        out.update(run_stats(solver, seconds),
+                   l2_history=np.asarray(solver.l2_history).tolist())
+        if spec["compare"]:
+            # the files' view: every rank sends rank 0 its blocks, and
+            # rank 0 holds a one-rank Solver of the whole grid on the card
+            before = torch.cuda.memory_allocated(solver.device)
+            t0 = time.perf_counter()
+            view = solver._sync_output_view()
+            torch.cuda.synchronize()
+            out["view_seconds"] = time.perf_counter() - t0
+            out["view_bytes"] = (torch.cuda.memory_allocated(solver.device)
+                                 - before)
+            del view
+        with open(os.path.join(spec["root"], f"stats{comm.rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+        check_no_jax_package()
+    finally:
+        dd.finalize()
+    return 0
+
+
+def spawn_ranks(world, spec, root, timeout=900):
+    """``world`` processes of ``rank_worker`` on a free port (the torchrun
+    environment); fails with every rank's tail if one exits non-zero, the
+    others killed; returns each rank's output"""
+    from aither_tpu_torch.parallel.distributed import _free_port
+    os.makedirs(root, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(root, f"rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             json.dumps(spec)], env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        if (any(p.returncode not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.1)
+    outs = []
+    for p, log in zip(procs, logs):
+        p.wait()
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"{spec['label']}: a rank failed:\n" + "\n".join(
+            f"--- rank {r} (rc={p.returncode}) ---\n{o[-3000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    return outs
+
+
+def one_rank_reference(solver):
+    """(raw L2 history, .resid lines, steady steps/s) of a one-rank drive"""
+    with open(solver.sim_root + ".resid") as f:
+        rows = f.read().splitlines()
+    steady = solver.step_seconds[STEADY_FROM:]
+    return (np.asarray(solver.l2_history), rows,
+            len(steady) / sum(steady))
+
+
+def ranks_phase(torch, card, main_path):
+    """phase 16 (RANK_DECKS): each deck once on one rank (the reference:
+    raw L2, .resid rows, iterations/s; for case-B SST lusgs the first
+    RANK_ITERATIONS steps of phase 4's drive, ``main_path``) and once over
+    its ranks, processes of this script sharing the card (rank_worker);
+    the ranks' L2 within
+    REF_RTOL of the one-rank run's, their launches exact, every block on
+    one rank; prints per rank its K1 (a) pair and K2 times (case B), its
+    iterations/s beside the one-rank run's, the bytes it exchanged per
+    iteration, the exchange's share of its run and its peak memory.
+    Returns the case-B ranks' stats for the K1 (d) row."""
+    from aither_tpu_torch.cases import SMOKE_2D_DIMS, SMOKE_3D_DIMS
+    rows = None
+    for (case, physics, solver_name, sweeps, tag, world, nproc, compare,
+         per_block) in RANK_DECKS:
+        dims = {"case A": SMOKE_2D_DIMS, "case B": SMOKE_3D_DIMS}[case]
+        label = (f"phase 16 {case} {physics} {solver_name} {tag} {world} "
+                 f"ranks nproc {nproc}")
+        base = os.path.join(RUN_DIR, label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        if (case, physics, solver_name, sweeps, tag, nproc) == (
+                "case B", "sst", "lusgs", 1, "rusanov", 1):
+            ref, ref_rows, ref_rate = main_path
+            ref = ref[:RANK_ITERATIONS]
+            ref_rows = ref_rows[:RANK_ITERATIONS + 1]
+            nblocks = 2
+            print(f"{label}: one rank: the first {RANK_ITERATIONS} steps of "
+                  f"phase 4's drive ({ref_rate:.4f} steps/s steady there)",
+                  flush=True)
+        else:
+            one = make_solver(base + "_one", dims, "cuda", solver_name,
+                              sweeps, physics, tag, nproc=nproc)
+            one.run(iterations=RANK_ITERATIONS)
+            ref, ref_rows, ref_rate = one_rank_reference(one)
+            nblocks = len(one.case.blocks)
+            del one
+            torch.cuda.empty_cache()
+            print(f"{label}: one rank {RANK_ITERATIONS} steps, "
+                  f"{ref_rate:.4f} steps/s steady (steps {STEADY_FROM}-"
+                  f"{RANK_ITERATIONS - 1}), built and run in "
+                  f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+        src = base + "_src"
+        deck = os.path.basename(write_deck(src, dims, solver_name, sweeps,
+                                           physics, tag))
+        root = base + "_ranks"
+        spec = dict(label=label, case_dir=src, deck=deck, root=root,
+                    iterations=RANK_ITERATIONS, nproc=nproc,
+                    compare=compare, card=card)
+        t0 = time.perf_counter()
+        outs = spawn_ranks(world, spec, root)
+        seconds = time.perf_counter() - t0
+        for r, o in enumerate(outs):
+            for ln in o.splitlines():
+                if ln.startswith(("phase 16", "FAIL")):
+                    print(f"[rank {r}] {ln}", flush=True)
+        stats = []
+        for r in range(world):
+            with open(os.path.join(root, f"stats{r}.json")) as f:
+                stats.append(json.load(f))
+        owned = sorted(b for st in stats for b in st["blocks"])
+        if owned != list(range(nblocks)) or not all(st["blocks"]
+                                                    for st in stats):
+            fail(f"{label}: blocks by rank {[st['blocks'] for st in stats]}")
+        worst, exact = 0.0, True
+        scale = np.abs(ref).max(axis=0)
+        scale[scale == 0.0] = 1.0      # the k momentum of a 2-D plate
+        for st in stats:
+            got = np.asarray(st["l2_history"])
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                fail(f"{label}: rank {st['rank']} L2 history {got.shape}")
+            worst = max(worst, float((np.abs(got - ref).max(axis=0)
+                                      / scale).max()))
+            exact = exact and bool((got == ref).all())
+        with open(os.path.join(root, "rank0", "plate.resid")) as f:
+            rows_got = f.read().splitlines()
+        same_rows = sum(a == b for a, b in zip(rows_got[1:], ref_rows[1:]))
+        print(f"{label}: {world} ranks, raw L2 of every rank against the "
+              f"one-rank run max rel diff {worst:.3e} (tol {REF_RTOL:.0e}; "
+              f"bit for bit: {exact}), .resid rows identical "
+              f"{same_rows} of {len(ref_rows) - 1}; {world} processes in "
+              f"{seconds:.1f} s", flush=True)
+        if not worst <= REF_RTOL or len(rows_got) != len(ref_rows):
+            fail(f"{label}: the ranks disagree with the one-rank run")
+        for st in stats:
+            want = {k: RANK_ITERATIONS * n * len(st["blocks"])
+                    for k, n in per_block.items()}
+            if st["launches"] != want:
+                fail(f"{label}: rank {st['rank']} launched "
+                     f"{st['launches']}, expected {want}")
+            steady = st["step_seconds"][STEADY_FROM:]
+            rate = len(steady) / sum(steady)
+            pair = ""
+            if compare:
+                pair = (f"K1 (a) pair on its block {st['sweep'][1]:.4f} ms "
+                        f"(plain {st['sweep'][2]:.1f}, bound "
+                        f"{st['sweep'][3]:.4f}), K2 {st['viscous'][1]:.4f} "
+                        f"ms (plain {st['viscous'][2]:.2f}, bound "
+                        f"{st['viscous'][3]:.4f}); ")
+            print(f"{label}: rank {st['rank']} blocks {st['blocks']} "
+                  f"({st['cells']} cells): {pair}launches {st['launches']} "
+                  f"(expected {want}); {rate:.4f} steps/s steady against "
+                  f"{ref_rate:.4f} on one rank ({world} ranks time-sliced "
+                  f"on one card, the exchange timed apart); exchange "
+                  f"{st['exchange_bytes'] / RANK_ITERATIONS:.0f} bytes a "
+                  f"step in {st['exchange_calls'] // RANK_ITERATIONS} swaps "
+                  f"(gloo, host staging), {st['exchange_seconds']:.3f} s of "
+                  f"the {st['seconds']:.3f} s run (share "
+                  f"{st['exchange_seconds'] / st['seconds']:.4f}); peak "
+                  f"device memory {st['max_memory_allocated'] / 2**30:.3f} "
+                  f"GiB; built in {st['build_seconds']:.1f} s ({card})",
+                  flush=True)
+            if st.get("view_bytes") and st["rank"] == 0:
+                print(f"{label}: rank 0's view of the whole grid for the "
+                      f"files (a one-rank Solver, the state gathered from "
+                      f"every rank) {st['view_bytes'] / 2**30:.3f} GiB on "
+                      f"the card, built in {st['view_seconds']:.1f} s "
+                      f"({card})", flush=True)
+        if compare:
+            rows = stats
+    return rows
+
+
 def ptxas_report(text):
     """one line per kernel instantiation from nvcc's -Xptxas -v output:
     the kernel with its template arguments, its registers and its spills"""
@@ -1498,6 +1807,8 @@ def ptxas_report(text):
 
 
 def main():
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-worker":
+        return rank_worker(sys.argv[2])
     t_start = time.perf_counter()
     try:
         import torch
@@ -1650,6 +1961,7 @@ def main():
     # -- phase 4: main path, matrixSweeps 1 ----------------------------------
     main_rate = drive_and_count(solver, MAIN_ITERATIONS, 1,
                                 "phase 4 main path")["steps_per_s"]
+    main_path = one_rank_reference(solver)
     del solver
     done(4)
 
@@ -1894,6 +2206,10 @@ def main():
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(15)
+
+    # -- phase 16: multi-rank runs on the card --------------------------------
+    rank_rows = ranks_phase(torch, card, main_path)
+    done(16)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -1969,6 +2285,33 @@ def main():
     for row, key in zip(kernels, results):
         if key in files_launches:
             row["files_launches"] = files_launches[key]
+    # K1 (d): the scalar SST sweep (variant a) of each rank on its own
+    # whole blocks, compared on each rank and launched by the ranks' drive
+    kernels.append({
+        "name": "lusgs_sweep (variant d: each rank's sweeps over its own "
+                "whole blocks; a, 7 eq SST)",
+        "route": "cuda", "source": sources["lusgs_sweep"],
+        "replaces": "aither_tpu/solver/pallas_sweep.py:362-378 (sweep in "
+                    "a shard_map, variant d)",
+        "launches": sum(st["launches"]["lusgs_sweep"] for st in rank_rows),
+        "max_abs_err": max(st["sweep"][0] for st in rank_rows),
+        "ms": max(st["sweep"][1] for st in rank_rows),
+        "plain_ms": max(st["sweep"][2] for st in rank_rows),
+        "bound_ms": max(st["sweep"][3] for st in rank_rows),
+        "bound_by": rank_rows[0]["sweep"][4], "library_ms": None,
+        "case": "case B, one block per rank", "launches_case": "case B",
+        "ranks": [{"rank": st["rank"], "blocks": st["blocks"],
+                   "ms": st["sweep"][1], "plain_ms": st["sweep"][2],
+                   "launches": st["launches"],
+                   "viscous_ms": st["viscous"][1],
+                   "viscous_max_abs_err": st["viscous"][0],
+                   "steps_per_s": len(st["step_seconds"][STEADY_FROM:])
+                   / sum(st["step_seconds"][STEADY_FROM:]),
+                   "exchange_bytes_per_step":
+                       st["exchange_bytes"] / RANK_ITERATIONS,
+                   "exchange_share": st["exchange_seconds"] / st["seconds"],
+                   "max_memory_allocated": st["max_memory_allocated"]}
+                  for st in rank_rows]})
     for row in kernels:
         if not row["launches"] > 0:
             fail(f"{row['name']}: no launch on its driven path")

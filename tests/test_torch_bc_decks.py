@@ -49,6 +49,7 @@ from aither_tpu_torch.cases import (AIR5, N2O2, TEST_DIMS,  # noqa: E402
 from tests.torch_parity import (check_one_iteration, jax_step,  # noqa: E402
                                 np_, perturbed_prims, quick_jax_compiles,
                                 rel_err, solver_pair, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 # one deck with every new boundary of chip_smoke.py phase 13's SST decks:
 # a stagnation inlet, a nonreflecting (LODI) pressure outlet, periodic k

@@ -38,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 from aither_tpu_torch.cases import TEST_DIMS, write_plate_case  # noqa: E402
 from tests.torch_parity import (jax_solver, np_, perturbed_prims,  # noqa: E402
                                 rel_err, torch_solver)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 TOL = 1e-10
 ITERATIONS = 5

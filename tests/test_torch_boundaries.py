@@ -54,6 +54,7 @@ from aither_tpu_torch.cases import N2O2, write_plate_case  # noqa: E402
 from tests.torch_parity import (check_history, check_one_iteration,  # noqa
                                 jax_solver, np_, perturbed_prims,
                                 quick_jax_compiles, rel_err, torch_solver)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 TOL = 1e-12
 RIDDER_TOL = 1e-10

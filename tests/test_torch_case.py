@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import (assert_close, jax_solver,  # noqa: E402
                                 perturbed_prims, torch_solver, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from tests.torch_parity import (AUX_KEYS, check_history,  # noqa: E402
                                 check_one_iteration, rel_err, solver_pair,
                                 sweep_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECKS = {
     "sst_dplur": dict(matrix_solver="dplur", matrix_sweeps=4),

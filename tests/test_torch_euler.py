@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 from tests.torch_parity import (check_history, check_one_iteration,  # noqa: E402
                                 check_sweep_pair, resid_columns, solver_pair,
                                 sweep_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECK = dict(equation_set="euler", turbulence_model="none")
 

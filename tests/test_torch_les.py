@@ -29,6 +29,7 @@ from tests.torch_parity import (check_march, check_one_iteration,  # noqa: E402
                                 check_sweep_pair, perturbed_prims,
                                 resid_columns, solver_pair, sweep_inputs,
                                 viscous_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECK = dict(equation_set="largeEddySimulation", turbulence_model="wale")
 CELLAVG = ("vel", "mut", "f1", "f2")

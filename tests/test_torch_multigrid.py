@@ -35,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 from tests.torch_parity import (check_cycle_stages,  # noqa: E402
                                 check_history, check_one_iteration,
                                 mg_solver_pair, rel_err, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 GEOM_KEYS = ("vol", "center", "n_i", "n_j", "n_k", "mag_i", "mag_j",
              "mag_k")

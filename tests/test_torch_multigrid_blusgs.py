@@ -17,6 +17,7 @@ jax = pytest.importorskip("jax")
 from tests.torch_parity import (check_cycle_stages,  # noqa: E402
                                 check_history, check_one_iteration,
                                 mg_solver_pair)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ jax = pytest.importorskip("jax")
 from tests.torch_parity import (check_history,  # noqa: E402
                                 check_one_iteration, enable_jax_march,
                                 quick_jax_compiles, solver_pair)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

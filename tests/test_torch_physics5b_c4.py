@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 
 from tests.torch_parity import (check_one_iteration,  # noqa: E402
                                 quick_jax_compiles, solver_pair)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 
 def test_one_iteration(tmp_path):

@@ -28,6 +28,7 @@ from tests.torch_parity import (check_history,  # noqa: E402
                                 check_one_iteration, check_sweep_pair,
                                 quick_jax_compiles, solver_pair,
                                 sweep_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 SWEEP_DIMS = (5, 4, 2)
 # the 5-iteration history of the thermally perfect deck: the Ridder

@@ -33,6 +33,7 @@ from tests.torch_parity import (check_history,  # noqa: E402
                                 check_one_iteration, check_sweep_pair,
                                 jax_solver, np_, solver_pair,
                                 sweep_inputs, torch_solver)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 RTOL, ATOL = 1e-12, 1e-14
 N = 48

@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from tests.torch_parity import (enable_jax_march, jax_solver,  # noqa: E402
                                 np_, perturbed_prims, rel_err, torch_solver,
                                 write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 ITERATIONS = 5
 

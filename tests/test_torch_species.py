@@ -23,6 +23,7 @@ from aither_tpu_torch import cases  # noqa: E402
 from tests.torch_parity import (check_history,  # noqa: E402
                                 check_one_iteration, check_sweep_pair,
                                 solver_pair, sweep_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

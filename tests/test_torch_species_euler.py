@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 from aither_tpu_torch import cases  # noqa: E402
 from tests.torch_parity import (check_one_iteration,  # noqa: E402
                                 check_sweep_pair, solver_pair, sweep_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECK = dict(cases.N2O2, equation_set="euler", turbulence_model="none",
             diffusion="none")

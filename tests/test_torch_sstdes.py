@@ -21,6 +21,7 @@ jax = pytest.importorskip("jax")
 
 from tests.torch_parity import (check_march, check_one_iteration,  # noqa: E402
                                 perturbed_prims, solver_pair, viscous_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECK = dict(equation_set="rans", turbulence_model="sstdes")
 

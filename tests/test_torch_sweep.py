@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import (jax_solver, perturbed_prims,  # noqa: E402
                                 rel_err, torch_solver, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 TOL = 1e-10
 

@@ -30,6 +30,7 @@ from aither_tpu_torch.cases import TIME_INTEGRATORS  # noqa: E402
 from tests.torch_parity import (jax_solver, np_, perturbed_prims,  # noqa
                                 rel_err, resid_columns, solver_pair,
                                 torch_solver, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 EULER = dict(equation_set="euler", turbulence_model="none")
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import (assert_close, jax_solver,  # noqa: E402
                                 perturbed_prims, torch_solver, write_case)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 RTOL, ATOL = 1e-9, 1e-13
 NAMES = ("resid", "sr_flow", "sr_turb", "diag_flow", "diag_turb")

@@ -26,6 +26,7 @@ from tests.torch_parity import (check_history, check_march,  # noqa: E402
                                 check_one_iteration, check_sweep_pair,
                                 perturbed_prims, resid_columns, solver_pair,
                                 sweep_inputs, viscous_inputs)
+from tests.torch_parity import quick_jax_module  # noqa: E402,F401 (autouse)
 
 DECK = dict(equation_set="rans", turbulence_model="kOmegaWilcox2006")
 

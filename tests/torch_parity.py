@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import pytest
 
 from aither_tpu_torch.cases import TEST_DIMS, write_plate_case
 
@@ -50,6 +51,14 @@ def quick_jax_compiles():
         yield
     finally:
         jax.config.update("jax_disable_most_optimizations", old)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def quick_jax_module():
+    """``quick_jax_compiles`` over a whole test module: autouse where a
+    module imports it"""
+    with quick_jax_compiles():
+        yield
 
 
 def jax_solver(deck_path, workdir, scan=False, nproc=1):
