@@ -46,8 +46,13 @@ use: nitrogen/oxygen air at the plate's 288 K, and five-species air
 (N2, O2, NO, N, O) at about 3,900 K with a wall at 3,500 K, hot enough
 for the mechanism's dissociation to move the residual.  ``MIXTURES``
 names them with the frozen (non-reacting) forms of hot air in five, four
-and three species, which give the sweep kernels every species count they
-are built for.
+and three species, frozen burned hydrogen-air in seven and a frozen
+mixture of every species of the fluid database and a tracer (16), which
+give the sweep kernels' base libraries every count they hold and two
+counts of libraries of their own.  A species of ``TRACERS`` is another
+species' properties under a name of its own: its fluid file is written
+beside the deck (``<out_dir>/<name>.dat``) and read from the working
+directory, as ``load_fluid`` reads any species file.
 
 Usage::
 
@@ -180,6 +185,24 @@ MIXTURES = {"n2o2": N2O2, "air5": AIR5,
             "air4_frozen": dict(AIR5, chemistry=None,
                                 species=("N2", "O2", "NO", "O"),
                                 mass_fractions=(0.74, 0.2, 0.04, 0.02))}
+# the species of the seven-species hydrogen-air mechanisms, frozen, at the
+# mass fractions of lean (equivalence ratio 0.5) hydrogen-air burned to
+# H2O with traces of the radicals (about 3,560 K at hot air's density)
+MIXTURES["h2air7_frozen"] = dict(
+    AIR5, chemistry=None, species=("H2", "O2", "H2O", "OH", "H", "O", "N2"),
+    mass_fractions=(0.001, 0.112, 0.126, 0.004, 0.0005, 0.0015, 0.755))
+# a tracer: N2's properties under its own name (module docstring)
+TRACERS = {"N2t": "N2"}
+# the species of the fluid database (physics/fluid.py)
+DATABASE_SPECIES = ("air", "Ar", "CH4", "CO", "CO2", "H", "H2", "H2O", "He",
+                    "N", "N2", "NO", "O", "O2", "OH")
+# every species of the fluid database and the tracer, in equal parts
+# (about 960 K at hot air's density): the top count a deck of the plate
+# names, a test of the kernels' widest forms rather than a physical gas
+MIXTURES["db16_frozen"] = dict(
+    AIR5, chemistry=None, wall_temperature=1000.0,
+    species=DATABASE_SPECIES + tuple(TRACERS),
+    mass_fractions=(0.0625,) * 16)
 # hot one-species air for a thermally perfect deck (write_plate_case
 # keywords): about 4,000 K at 101300 Pa, a wall at 3,500 K.  Air's
 # vibrational temperature is 3,056 K (physics/fluid.py), so the
@@ -187,6 +210,23 @@ MIXTURES = {"n2o2": N2O2, "air5": AIR5,
 # plate's 288 K they are about 1e-5 of it
 TP_AIR = dict(density=0.0882, wall_temperature=3500.0,
               thermodynamic_model="thermallyPerfect")
+
+
+def species_file_text(name: str) -> str:
+    """the fluid file (``<species>.dat``, the format ``load_fluid``
+    reads) of species ``name``'s properties"""
+    f = load_fluid(name)
+    vib = ", ".join(repr(t) for t in f.vib_temps)
+    return (f"n: {f.n!r}\nmolarMass: {1000.0 * f.molar_mass!r}\n"
+            f"vibrationalTemperature: [{vib}]\n"
+            f"heatOfFormation: {f.heat_of_formation!r}\n"
+            f"referencePressure: {f.ref_p!r}\n"
+            f"referenceTemperature: {f.ref_t!r}\n"
+            f"referenceEntropy: {f.ref_s!r}\n"
+            f"sutherlandViscosityC1: {f.visc_c1!r}\n"
+            f"sutherlandViscosityS: {f.visc_s!r}\n"
+            f"sutherlandConductivityC1: {f.cond_c1!r}\n"
+            f"sutherlandConductivityS: {f.cond_s!r}\n")
 
 
 def plate_nodes(ni: int, nj: int, nk: int,
@@ -211,7 +251,8 @@ def stagnation_state(density: float, velocity: float, species=None,
     """(p0 in Pa, T0 in K) of the plate's freestream (101300 Pa,
     ``density``, ``velocity`` along x) for the calorically perfect gas of
     the deck: air, or the mixture of ``species``"""
-    fluids = [load_fluid(name) for name in species or ("air",)]
+    fluids = [load_fluid(TRACERS.get(name, name))
+              for name in species or ("air",)]
     mfs = mass_fractions or (1.0,)
     r = sum(m * f.gas_constant for f, m in zip(fluids, mfs))
     cv = sum(m * f.n * f.gas_constant for f, m in zip(fluids, mfs))
@@ -375,6 +416,9 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     if multigrid_cycle != "V":
         mg_lines += f"multigridCycle: {multigrid_cycle}\n"
     os.makedirs(out_dir, exist_ok=True)
+    for tracer in set(species or ()) & set(TRACERS):
+        with open(os.path.join(out_dir, f"{tracer}.dat"), "w") as f:
+            f.write(species_file_text(TRACERS[tracer]))
     if chemistry is not None:
         with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
             f.write(MECHANISMS[chemistry])

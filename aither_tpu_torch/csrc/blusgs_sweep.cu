@@ -5,8 +5,9 @@
 // (pallas_call at pallas_sweep.py:342) with block_matrix set, variant (c):
 // Rusanov off-diagonal, without and with the lagged opposite-side term
 // `extra` (matrixSweeps > 1, variant (c)+(b)), for one species or a
-// calorically perfect mixture of NS = 2..5 species (flow blocks of
-// N = NS + 4), in the forms the models need, each a compile-time
+// mixture of any count NS (flow blocks of N = NS + 4; a build holds NS =
+// 1..BASE_NS, or with -DSWEEP_NS=N one count N > BASE_NS, the library
+// <name>_ns<N>), in the forms the models need, each a compile-time
 // instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>:
 //   N equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
 //     vgrad and the centre distance are not read;
@@ -36,7 +37,8 @@
 // holds the Rusanov forms (library blusgs_sweep) or, with -DSWEEP_ROE=1,
 // the Roe forms (library blusgs_sweep_roe).
 // A build with -DSWEEP_TP=1 (library blusgs_sweep_tp) holds the thermally
-// perfect forms of the Rusanov and TSL rows for NS = 1..5: every species
+// perfect forms of the Rusanov and TSL rows, and with -DSWEEP_ROE=1 as
+// well (blusgs_sweep_roe_tp) those of the Roe flux change: every species
 // count takes add_block_offdiagonal_mix (one species with mass fraction
 // 1), with each species' energy, enthalpy, cv and cp functions of T
 // (thermo_tp.cuh): the neighbour's gamma, energy and cp (the turbulent
@@ -92,7 +94,10 @@
 // planes per block and sweep: the time of one step is a barrier, the
 // flags between tiles and one cell's serial FP64 work, split over three
 // lanes.  A Roe step does two Roe fluxes per direction in place of the
-// block rows.
+// block rows.  Past about 8 species the per-thread rows (NS + 6 doubles
+// each) and the N x N inverse product (N up to 20 at 16 species) spill to
+// local memory; the species table passes by value, under the classic 4 KB
+// of kernel parameters up to 16 species of the thermally perfect form.
 
 #include <cuda_runtime.h>
 
@@ -111,7 +116,8 @@
 namespace {
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
-constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
+// species counts of a build without SWEEP_NS: 1..BASE_NS
+constexpr int BASE_NS = 5;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prt, scaling;
@@ -714,8 +720,8 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole block sweep of one block: a cudaMemsetAsync of the schedule's
-// state and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and
-// neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
+// state and one tile-wavefront launch on `stream`.  ns is 1..BASE_NS, or
+// SWEEP_NS in a build for that count, and neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
 // head of this file); roe is 1 for the approximateRoe forms, which only
 // the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
 // tmin_w, and no vgrad); tp is 1 for the thermally perfect forms, which
@@ -754,6 +760,13 @@ extern "C" int blusgs_sweep_f64(
              prandtl, tmin_k, tmin_w};
   const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef SWEEP_NS
+  static_assert(SWEEP_NS > BASE_NS, "a SWEEP_NS build is of a count above "
+                                    "the base build's");
+  if (ns == SWEEP_NS)
+    return launch_form<SWEEP_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                 species, sc, st);
+#else
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
@@ -767,9 +780,10 @@ extern "C" int blusgs_sweep_f64(
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
                             sc, st);
-    case MAX_NS:
-      return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, sc, st);
+    case BASE_NS:
+      return launch_form<BASE_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                  species, sc, st);
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }

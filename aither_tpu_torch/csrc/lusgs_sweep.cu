@@ -4,8 +4,10 @@
 // (pallas_call at pallas_sweep.py:342), variants (a) and (b): scalar
 // LU-SGS, Rusanov off-diagonal, without and with the lagged opposite-side
 // term `extra` (matrixSweeps > 1, pallas_sweep.py:315-324), for one
-// species or a calorically perfect mixture of NS = 2..5 species, in the
-// forms the models need, each a compile-time instantiation of one
+// species or a mixture of any count NS (a build holds NS = 1..BASE_NS, or
+// with -DSWEEP_NS=N one count N > BASE_NS: the library <name>_ns<N>, built
+// when a deck first needs it), in the forms the models need, each a
+// compile-time instantiation of one
 // sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE> with NEQ = NS + 4
 // (+ 2 turbulence equations, the first at NS + 4):
 //   NS + 4 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a)
@@ -35,8 +37,9 @@
 //
 // A build with -DSWEEP_TP=1 (library lusgs_sweep_tp) holds the thermally
 // perfect forms (thermodynamicModel: thermallyPerfect) of the Rusanov
-// off-diagonal, for NS = 1..5: every species count takes the mixture
-// path, one species with mass fraction 1, and each species' energy,
+// off-diagonal, and with -DSWEEP_ROE=1 as well (lusgs_sweep_roe_tp) those
+// of the Roe off-diagonal (roe_offdiag.cuh): every species count takes the
+// mixture path, one species with mass fraction 1, and each species' energy,
 // enthalpy, cv and cp are functions of T (thermo_tp.cuh, struct
 // Species's vibrational table): the neighbour's gamma and Prandtl number
 // from its T, the energy of q + du inverted by Ridder's method
@@ -90,7 +93,11 @@
 // ~20 us a step; the wavefront takes the launch out of it and splits the
 // cell's work over three lanes (PERF.md, section 6).  A Roe step does two
 // Roe fluxes per direction, about three times the Rusanov product's FP64
-// chain.
+// chain.  From about 8 species on the per-thread arrays (q, du, the
+// fluxes: NS + 6 doubles each) spill to local memory; the species table
+// passes by value, under the classic 4 KB of kernel parameters up to 16
+// species of the thermally perfect form (utils/build.py resolves a
+// library's name into this source and its defines).
 
 #include <cuda_runtime.h>
 
@@ -113,7 +120,8 @@ using flux::update_prim;
 using flux::update_prim_mix;
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
-constexpr int MAX_NS = 5;      // species counts instantiated: 1..MAX_NS
+// species counts of a build without SWEEP_NS: 1..BASE_NS
+constexpr int BASE_NS = 5;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prandtl, prt, scaling;
@@ -399,7 +407,8 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole sweep of one block: a cudaMemsetAsync of the schedule's state
-// and one tile-wavefront launch on `stream`.  ns is 1..MAX_NS and neq is
+// and one tile-wavefront launch on `stream`.  ns is 1..BASE_NS, or
+// SWEEP_NS in a build for that count, and neq is
 // ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
 // turbulence equations only with viscous); roe is 1 for the approximateRoe
@@ -437,6 +446,13 @@ extern "C" int lusgs_sweep_f64(
           tmin_k, tmin_w, sigma_k1, sigma_k2};
   const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef SWEEP_NS
+  static_assert(SWEEP_NS > BASE_NS, "a SWEEP_NS build is of a count above "
+                                    "the base build's");
+  if (ns == SWEEP_NS)
+    return launch_form<SWEEP_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                 species, sc, st);
+#else
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
@@ -450,9 +466,10 @@ extern "C" int lusgs_sweep_f64(
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
                             sc, st);
-    case MAX_NS:
-      return launch_form<MAX_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, sc, st);
+    case BASE_NS:
+      return launch_form<BASE_NS>(forward, neq, viscous, wilcox, fl, ph,
+                                  species, sc, st);
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }

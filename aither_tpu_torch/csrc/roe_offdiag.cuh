@@ -49,7 +49,12 @@
 // update_prim_mix) take each species' energy and enthalpy as functions of
 // T (thermo_tp.cuh) and invert the energy of q + du by Ridder's method;
 // both sweeps then send one species through them too (its mass fraction
-// is exactly 1).  The Roe flux has no thermally perfect form.
+// is exactly 1).  With SWEEP_ROE=1 as well (libraries lusgs_sweep_roe_tp,
+// blusgs_sweep_roe_tp) the Roe flux takes its Roe state's T from the ideal
+// gas law, p_r / sum_s R_s rho_s, its enthalpy sum_s mf_s h_s(T) + |v|^2/2
+// and its speed of sound sqrt(cp(T) / cv(T) p_r / rho_r), and the viscous
+// radius the neighbour state's cp(T) / cv(T) (the plain roe_flux and
+// roe_offdiagonal of a thermally perfect Physics).
 
 #pragma once
 
@@ -236,13 +241,14 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
   }
 }
 
-// one species or a mixture: q + du, F(q).n
+// one species or a mixture: q + du, F(q).n (one species takes the
+// mixture path in a thermally perfect build)
 template <int NS, int NEQ, class PH, class SP>
 __device__ __forceinline__ void update_state(const PH& ph, const SP& sp,
                                              const double q[NEQ],
                                              const double dq[NEQ],
                                              double out[NEQ]) {
-  if constexpr (NS == 1)
+  if constexpr (NS == 1 && !SWEEP_TP)
     update_prim<NEQ>(ph, q, dq, out);
   else
     update_prim_mix<NS, NEQ>(ph, sp, q, dq, out);
@@ -253,7 +259,7 @@ __device__ __forceinline__ void state_flux(const PH& ph, const SP& sp,
                                            const double q[NEQ], double n0,
                                            double n1, double n2,
                                            double f[NEQ]) {
-  if constexpr (NS == 1)
+  if constexpr (NS == 1 && !SWEEP_TP)
     physical_flux<NEQ>(ph, q, n0, n1, n2, f);
   else
     physical_flux_mix<NS, NEQ>(sp, q, n0, n1, n2, f);
@@ -301,13 +307,22 @@ __device__ __forceinline__ void roe_flux(const PH& ph, const SP& sp,
   const double vel2 = ur * ur + vr * vr + wr * wr;
   // enthalpy and speed of sound of the Roe state
   double h_r, a_r;
-  if constexpr (NS == 1) {
+  if constexpr (NS == 1 && !SWEEP_TP) {
     const double t = pr / (ph.R * rs[0]);
     h_r = ph.hf + ph.cp * t + 0.5 * vel2;
     a_r = sqrt(ph.gamma * pr / rs[0]);
   } else {
     const double t = pr / species_sum<NS>(sp.R, rs);
     double h = 0.0, cpm = 0.0, cvm = 0.0;
+#if SWEEP_TP
+    double mf[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mf[s] = rs[s] / rho_r;
+      h += thermo::species_enthalpy(sp, s, t) * mf[s];
+    }
+    thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
+#else
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       const double mf = rs[s] / rho_r;
@@ -315,6 +330,7 @@ __device__ __forceinline__ void roe_flux(const PH& ph, const SP& sp,
       cpm += sp.cp[s] * mf;
       cvm += sp.cv[s] * mf;
     }
+#endif
     h_r = h + 0.5 * vel2;
     a_r = sqrt(cpm / cvm * pr / rho_r);
   }
@@ -420,7 +436,7 @@ __device__ __forceinline__ void add_roe_offdiagonal(
   } else {
     // the viscous-only face radii of the neighbour state
     double rho, gamma, prandtl;
-    if constexpr (NS == 1) {
+    if constexpr (NS == 1 && !SWEEP_TP) {
       rho = q[0];
       gamma = ph.gamma;
       prandtl = ph.prandtl;
@@ -429,11 +445,19 @@ __device__ __forceinline__ void add_roe_offdiagonal(
       double cpm = 0.0, cvm = 0.0;
 #pragma unroll
       for (int s = 0; s < NS; ++s) rho += q[s];
+#if SWEEP_TP
+      double mf[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) mf[s] = q[s] / rho;
+      thermo::cp_cv<NS>(sp, mf, q[NS + 3] / species_sum<NS>(sp.R, q), cpm,
+                        cvm);
+#else
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
         cpm += sp.cp[s] * (q[s] / rho);
         cvm += sp.cv[s] * (q[s] / rho);
       }
+#endif
       gamma = cpm / cvm;
       prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
     }

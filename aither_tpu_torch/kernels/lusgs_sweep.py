@@ -19,7 +19,9 @@ lagged opposite-side term of ``matrixSweeps > 1``) and (c)
 (``block_matrix``: the block off-diagonal and the inverted N x N flow and
 2x2 turbulence diagonal blocks, N = ns + 4, with or without the lagged
 term), each in the forms of the models (``sweep_form``), for one species
-or a mixture of up to ``MAX_SPECIES``: ns + 4 equations inviscid (Euler)
+or a mixture of any count (1 to ``BASE_SPECIES`` in each source's base
+library, a count above it in a library of its own, ``_ns<N>``, built when a
+deck first needs it): ns + 4 equations inviscid (Euler)
 or viscous (laminar, LES), ns + 6 equations with the SST (sst2003,
 sstdes) or the Wilcox 2006 turbulence radii; each with the Rusanov
 off-diagonal or, for ``inviscidFluxJacobian: approximateRoe``, the Roe
@@ -28,15 +30,14 @@ own state; the same vector for the scalar and the block solver, whose
 block inverse stays).  The Roe forms replace the JAX package's scan path
 of ``roe_offdiagonal`` (it has no Pallas form: its packed sweep stream
 lacks the diagonal cell's state) and are built as libraries of their own
-(``utils.build.VARIANTS``).  A thermally perfect gas
-(``thermodynamicModel: thermallyPerfect``) takes the thermally perfect
-forms of the Rusanov off-diagonal, two more libraries
-(``lusgs_sweep_tp``, ``blusgs_sweep_tp``; ``csrc/thermo_tp.cuh``): each
-species' energy, enthalpy, cv and cp are functions of T and the energy of
-q + du is inverted by Ridder's method per neighbour.  They replace the
-JAX package's scan sweep of such a deck (its ``use_pallas`` turns the
-Pallas kernel off there); its approximateRoe forms are not built (ROADMAP
-item 5c: refused on the card).  The plain
+(``library_name``, ``utils.build.library_source``).  A thermally perfect
+gas (``thermodynamicModel: thermallyPerfect``) takes the thermally
+perfect forms of either off-diagonal, libraries ``*_tp`` and ``*_roe_tp``
+(``csrc/thermo_tp.cuh``): each species' energy, enthalpy, cv and cp are
+functions of T, the energy of q + du is inverted by Ridder's method per
+neighbour, and the Roe state's enthalpy and speed of sound are those of
+its T.  They replace the JAX package's scan sweep of such a deck (its
+``use_pallas`` turns the Pallas kernel off there).  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -59,10 +60,11 @@ from ..physics.models import Physics
 from ..solver import implicit as imp
 from ..solver import state as st
 from ..solver.viscous import SST, WILCOX
-from ..unsupported import refuse
+from ..utils.build import SWEEP_BASE_NS
 
-# species counts the kernels are instantiated for (MAX_NS of both sources)
-MAX_SPECIES = 5
+# species counts of each source's base library (BASE_NS of both sources);
+# a count above it takes a library of its own
+BASE_SPECIES = SWEEP_BASE_NS
 # vibrational modes per species of the thermally perfect forms
 # (thermo_tp.cuh MAX_MODES; CH4 has 9)
 MAX_MODES = 9
@@ -179,16 +181,34 @@ def backward_plain(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux,
 # CUDA kernel
 
 
-def library_name(block: bool, roe: bool, tp: bool) -> str:
-    """the library of a form: the Rusanov, approximateRoe (``_roe``) or
-    thermally perfect (``_tp``) build of the scalar or block sweep"""
+def library_name(block: bool, roe: bool, tp: bool, ns: int = 1) -> str:
+    """the library of a form: the Rusanov, approximateRoe (``_roe``),
+    thermally perfect (``_tp``) or thermally perfect approximateRoe
+    (``_roe_tp``) build of the scalar or block sweep, for 1 to
+    ``BASE_SPECIES`` species, or for ``ns`` species alone above that
+    (``_ns<ns>``)"""
     return (("blusgs_sweep" if block else "lusgs_sweep")
-            + ("_roe" if roe else "_tp" if tp else ""))
+            + ("_roe" if roe else "") + ("_tp" if tp else "")
+            + (f"_ns{ns}" if ns > BASE_SPECIES else ""))
 
 
-def _library(roe: bool, tp: bool):
+def form_library(phys: Physics, cfg) -> str:
+    """the library that holds this solver's sweep form (``sweep_form``;
+    blusgs: the block sweep)"""
+    ns, _, _, _, roe, tp = sweep_form(phys, cfg)
+    return library_name(bool(cfg.get("block_matrix")), roe, tp, ns)
+
+
+def load_form_library(phys: Physics, cfg):
+    """build (at first use) and load the library of this solver's sweep
+    form; a failed build raises with the compiler's message"""
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library(library_name(False, roe, tp))
+    return load_cuda_library(form_library(phys, cfg))
+
+
+def _library(name: str):
+    from ..utils.build import load_cuda_library
+    lib, _ = load_cuda_library(name)
     fn = lib.lusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -199,9 +219,9 @@ def _library(roe: bool, tp: bool):
     return fn
 
 
-def _block_library(roe: bool, tp: bool):
+def _block_library(name: str):
     from ..utils.build import load_cuda_library
-    lib, _ = load_cuda_library(library_name(True, roe, tp))
+    lib, _ = load_cuda_library(name)
     fn = lib.blusgs_sweep_f64
     if fn.argtypes is None:
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -225,21 +245,14 @@ def _check(t, name, shape, device):
 def sweep_form(phys: Physics, cfg):
     """(ns, neq, viscous, wilcox, roe, tp) of the kernel instantiation
     this physics and off-diagonal (roe: approximateRoe) take, tp for a
-    thermally perfect gas.  A species count above ``MAX_SPECIES`` is
-    refused with NotImplementedError naming its ROADMAP.md item, and so is
-    a thermally perfect gas with the approximateRoe off-diagonal (no
-    library holds that form; its plain version runs on the CPU); a form no
-    model has (turbulence equations without viscosity) and a species with
-    more than ``MAX_MODES`` vibrational modes in a thermally perfect gas
-    raise ValueError."""
+    thermally perfect gas; every species count has one (``library_name``).
+    A form no model has (turbulence equations without viscosity) and a
+    species with more than ``MAX_MODES`` vibrational modes in a thermally
+    perfect gas raise ValueError."""
     viscous = bool(cfg.get("viscous", False))
     ns, neq = phys.ns, phys.neq
     roe = cfg.get("inv_flux_jac", "rusanov") == "approximateRoe"
     tp = phys.thermally_perfect
-    if ns > MAX_SPECIES:
-        refuse("species", f"{ns} species")
-    if roe and tp:
-        refuse("thermallyPerfectRoe", "approximateRoe")
     if ns < 1 or neq not in (ns + 4, ns + 6) or (neq == ns + 6
                                                  and not viscous):
         raise ValueError("the CUDA sweeps cover ns + 4 equations (inviscid "
@@ -343,9 +356,10 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             WILCOX["sigma"]) if wilcox else
            (SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
             SST["sigma_w2"]))
+    library = library_name(blk, roe, tp, ns)
     if blk:
         name = "blusgs_sweep_f64"
-        err = _block_library(roe, tp)(
+        err = _block_library(library)(
             *form, *fields,
             ptr(aux["vgrad"]) if viscous and not roe else None,
             b.data_ptr(), ptr(extra), inv_f.data_ptr(), ptr(inv_t),
@@ -356,14 +370,15 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
-        err = _library(roe, tp)(
+        err = _library(library)(
             *form, *fields, b.data_ptr(), ptr(extra),
             inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
             phys.turb_prandtl(), phys.nondim_scaling, *phys.turb_min(),
             *sig[:2], species.ctypes.data, stream)
         counter = LAUNCHES
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{name} of {library}: CUDA error {err} at "
+                           f"launch")
     STATE_RESETS.count += 1
     counter.count += 1
     return du
@@ -463,15 +478,40 @@ def tp_extra_ops(form, modes, ridder_iters: float, block: bool,
     each iteration's bracket and ns for the mass fractions.  Block (no
     q + du): cp and cv, the energy and, with diffusion, the species
     enthalpies."""
-    ns = form[0]
     e_extra = sum(2 + 5 * m for m in modes)
     cpcv = sum(3 + 6 * m for m in modes)
     if block:
         return cpcv + e_extra + (e_extra if diffusion else 0)
+    return 3 * e_extra + cpcv + _ridder_ops(form[0], modes, ridder_iters)
+
+
+def _ridder_ops(ns: int, modes, ridder_iters: float) -> float:
+    """FP64 operations that Ridder's inversion of q + du adds to the
+    closed form it replaces (4 ns + 2): 2 + 2 iterations energy
+    evaluations, each sum_s (4 + 5 m_s) (+ 2 ns for a mixture), 19 for
+    each iteration's bracket and ns for the mass fractions
+    (``tp_extra_ops``)"""
     evaluation = sum(4 + 5 * m for m in modes) + (2 * ns if ns > 1 else 0)
-    ridder = ((2 + 2 * ridder_iters) * evaluation + 19 * ridder_iters + ns
-              - (4 * ns + 2))
-    return 3 * e_extra + cpcv + ridder
+    return ((2 + 2 * ridder_iters) * evaluation + 19 * ridder_iters + ns
+            - (4 * ns + 2))
+
+
+def tp_roe_extra_ops(form, modes, ridder_iters: float) -> float:
+    """FP64 operations per contributing neighbour that a thermally
+    perfect approximateRoe form (csrc/roe_offdiag.cuh with SWEEP_TP, the
+    same for the scalar and the block sweep) adds to
+    ``roe_mixture_neighbour_ops`` (one species takes the mixture path
+    there too), counted as ``tp_extra_ops`` counts its own: in q + du the
+    energy of q (2 + 5 m_s per species) and Ridder's inversion in place of
+    the closed form (``_ridder_ops``); in each of the two Roe fluxes the
+    Roe state's enthalpy and its cp and cv at its T and the enthalpies of
+    the two physical fluxes, 3 (2 + 5 m_s) + (3 + 6 m_s) per species;
+    viscous, the neighbour state's cp and cv for its gamma and Prandtl
+    number, 3 + 6 m_s per species."""
+    e_extra = sum(2 + 5 * m for m in modes)
+    cpcv = sum(3 + 6 * m for m in modes)
+    return (e_extra + _ridder_ops(form[0], modes, ridder_iters)
+            + 2 * (3 * e_extra + cpcv) + (cpcv if form[2] else 0))
 
 
 def mean_ridder_iterations(phys: Physics, prim, du) -> float:
@@ -520,8 +560,8 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     tp) of ``sweep_form`` (``diffusion``: a block mixture's Schmidt
     diffusion rows; ``modes`` and ``ridder_iters``: a thermally perfect
     form's vibrational mode counts and mean Ridder iterations,
-    ``tp_extra_ops``).  Reads: prim and, when viscous, mu, mut, f1 (not without
-    turbulence equations or for Wilcox) and for the block sweep's Rusanov
+    ``tp_extra_ops``, ``tp_roe_extra_ops``).  Reads: prim and, when
+    viscous, mu, mut, f1 (not without turbulence equations or for Wilcox) and for the block sweep's Rusanov
     form vgrad at the distinct neighbours across this run's unmasked
     faces; the Roe form also reads prim at the cells with an unmasked face
     that are not read as neighbours; du's input
@@ -559,7 +599,9 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     nbytes = 8 * values + mask.numel()
     if roe:
         per_nb = (ROE_NEIGHBOUR_OPS_BY_FORM[(neq, viscous, wilcox)]
-                  if ns == 1 else roe_mixture_neighbour_ops(form))
+                  if ns == 1 and not tp else roe_mixture_neighbour_ops(form))
+        if tp:
+            per_nb += tp_roe_extra_ops(form, modes, ridder_iters)
     elif ns == 1 and not tp:
         key = (neq, viscous, wilcox)
         per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block

@@ -23,8 +23,8 @@ of the residual at the pre-update state), ``write_restart`` and
 original blocks for a decomposed run (``_sync_output_view``) (reference:
 src/main.cpp:231-302, output.cpp:55-1166).
 
-Every deck setting outside the slice is refused with NotImplementedError
-naming its ROADMAP.md item; nothing silently takes another path.
+Every deck setting of the JAX package's decks runs, on the CPU and on the
+card; nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -51,9 +51,10 @@ EPS = 1.0e-30
 
 def check_supported(deck):
     """Admit every deck setting of the JAX package's decks: an unknown
-    boundary type raises its ValueError from ``bc.ghost_state``, as there,
-    and a form the sweep kernels lack is refused on the card by
-    ``lusgs_sweep.sweep_form`` at ``Solver`` construction."""
+    boundary type raises its ValueError from ``bc.ghost_state``, as there.
+    On the card ``Solver`` builds the sweep library of its form at
+    construction (``lusgs_sweep.load_form_library``), so that a failed
+    build raises before the first iteration."""
 
 
 class Solver:
@@ -163,10 +164,10 @@ class Solver:
         self.sweeps = deck.is_implicit and deck["matrixSolver"] in (
             "lusgs", "blusgs")
         if self.sweeps and self.device.type == "cuda":
-            # refuse a form the sweep kernels are not built for (a species
-            # count above lusgs_sweep.MAX_SPECIES, a thermally perfect
-            # approximateRoe off-diagonal) before any work
-            lusgs_sweep.sweep_form(self.phys, self.cfg)
+            # build (at first use) and load the library of the deck's sweep
+            # form before any work: a species count above the base
+            # libraries' has one of its own (lusgs_sweep.library_name)
+            lusgs_sweep.load_form_library(self.phys, self.cfg)
         # multigrid levels of an implicit deck (an explicit one runs on
         # one level, as the JAX package does): the coarse cases, each with
         # its own connection swap maps, and the fine->coarse transfer maps

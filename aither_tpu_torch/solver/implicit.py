@@ -475,34 +475,26 @@ def build_sweep_plan(block, dtype, device) -> SweepPlan:
     cells = (pi * NJ + pj) * NK + pk
     phys_cells = (ii * nj + jj) * nk + kk
 
+    # the statics and masks in physical order: slices of the padded
+    # geometry, raveled as the (ni, nj, nk) block is
     center = block.geom_host["center"]
-    # the statics and masks are built cell by cell in plane order and
-    # stored in physical order
-    at = np.empty_like(phys_cells)
-    at[phys_cells] = np.arange(len(phys_cells))
+    cell = (slice(None),) + tuple(slice(g, g + n) for n in (ni, nj, nk))
     static, mask = {}, {}
     for side in ("lower", "upper"):
-        off = -1 if side == "lower" else 1
-        fo = 0 if side == "lower" else 1
         masks = neighbor_masks(block, side)
         stat = np.zeros((len(cells), 3, len(STATIC_CHANNELS)))
         msk = np.zeros((len(cells), 3), dtype=bool)
         for a, d in enumerate("ijk"):
-            nb = [pi, pj, pk]
-            face = [pi, pj, pk]
-            nb[a] = nb[a] + off
-            face[a] = face[a] + fo
-            nvec = block.geom_host[f"n_{d}"][:, face[0], face[1], face[2]]
-            c2c = (center[:, pi, pj, pk]
-                   - center[:, nb[0], nb[1], nb[2]])
+            nb, face = _neighbor_slices(block, d, side)
+            nvec = block.geom_host[f"n_{d}"][(slice(None),) + face].reshape(
+                3, -1)
+            c2c = (center[cell] - center[(slice(None),) + nb]).reshape(3, -1)
             stat[:, a, 0:3] = nvec.T
-            stat[:, a, 3] = block.geom_host[f"mag_{d}"][face[0], face[1],
-                                                        face[2]]
+            stat[:, a, 3] = block.geom_host[f"mag_{d}"][face].reshape(-1)
             stat[:, a, 4] = np.abs((c2c * nvec).sum(axis=0))
-            msk[:, a] = masks[d][ii, jj, kk]
-        static[side] = torch.as_tensor(stat[at], dtype=dtype,
-                                       device=device)
-        mask[side] = torch.as_tensor(msk[at], device=device)
+            msk[:, a] = masks[d].reshape(-1)
+        static[side] = torch.as_tensor(stat, dtype=dtype, device=device)
+        mask[side] = torch.as_tensor(msk, device=device)
     tile = sweep_tile((ni, nj, nk))
     tiles = tile_table((ni, nj, nk), tile)
     return SweepPlan(

@@ -5,15 +5,21 @@ first use, and load it with ctypes; a host C++ source likewise with g++
 The library goes to ``aither_tpu_torch/build/`` (git-ignored), named by a
 hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
 so an edited source or shared header is rebuilt and an unchanged one is
-reused within a checkout.  A library of ``VARIANTS`` is another build of
-a source, with defines: the approximateRoe and the thermally perfect
-forms of both sweeps are their own translation units, so that the
-Rusanov ones build as they did and all of them build in parallel.  Usage::
+reused within a checkout.  A sweep library's name says which build of
+its source it is (``library_source``): ``<source>[_roe][_tp][_ns<N>]``,
+the approximateRoe (``-DSWEEP_ROE=1``) and thermally perfect
+(``-DSWEEP_TP=1``) forms of both sweeps, and a species count N above the
+base build's ``SWEEP_BASE_NS`` (``-DSWEEP_NS=N``: that count alone, built
+when a deck first needs it), each its own translation unit, so that the
+Rusanov forms of 1-5 species build as they did and all of them build in
+parallel.  Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
     load_cuda_libraries(["lusgs_sweep", "blusgs_sweep", "viscous_march"])
     # ^ one nvcc per library, all started together
+    load_cuda_library("blusgs_sweep_roe_tp_ns7")
+    # ^ csrc/blusgs_sweep.cu, -DSWEEP_ROE=1 -DSWEEP_TP=1 -DSWEEP_NS=7
     lib = load_host_library("kdtree")     # csrc/kdtree.cpp, g++
 """
 
@@ -25,6 +31,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,17 +41,18 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# library -> (source in csrc/ without ".cu", nvcc defines)
-VARIANTS = {"lusgs_sweep_roe": ("lusgs_sweep", ("-DSWEEP_ROE=1",)),
-            "blusgs_sweep_roe": ("blusgs_sweep", ("-DSWEEP_ROE=1",)),
-            "lusgs_sweep_tp": ("lusgs_sweep", ("-DSWEEP_TP=1",)),
-            "blusgs_sweep_tp": ("blusgs_sweep", ("-DSWEEP_TP=1",))}
+# species counts of a sweep library without an _ns<N> suffix (BASE_NS of
+# csrc/lusgs_sweep.cu and csrc/blusgs_sweep.cu)
+SWEEP_BASE_NS = 5
+_SWEEP_LIBRARY = re.compile(
+    r"(lusgs_sweep|blusgs_sweep)(_roe)?(_tp)?(?:_ns([1-9][0-9]*))?")
 
 # the flags of the JAX package's native/Makefile, for the host sources
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++14", "-fPIC", "-fopenmp",
              "-shared")
 
 _LOADED: dict = {}
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -73,12 +81,33 @@ def local_headers(path: str) -> list:
     return sorted(found)
 
 
+def library_source(name: str):
+    """(source in ``csrc/`` without its extension, compiler defines) of
+    library ``name``: a sweep library ``<source>[_roe][_tp][_ns<N>]`` is
+    its source with ``-DSWEEP_ROE=1``, ``-DSWEEP_TP=1`` and
+    ``-DSWEEP_NS=N`` for its suffixes (N above ``SWEEP_BASE_NS``: the
+    base build holds 1 to SWEEP_BASE_NS species); any other name is its
+    own source without defines"""
+    m = _SWEEP_LIBRARY.fullmatch(name)
+    if m is None:
+        return name, ()
+    source, roe, tp, ns = m.groups()
+    defines = (("-DSWEEP_ROE=1",) if roe else ()) + (
+        ("-DSWEEP_TP=1",) if tp else ())
+    if ns is not None:
+        if int(ns) <= SWEEP_BASE_NS:
+            raise ValueError(f"{name}: the base build holds 1-"
+                             f"{SWEEP_BASE_NS} species; an _ns<N> library "
+                             f"is of a count above it")
+        defines += (f"-DSWEEP_NS={int(ns)}",)
+    return source, defines
+
+
 def _paths(name: str, ext: str = ".cu", base_flags=NVCC_FLAGS):
     """(source, library path, compiler flags) of library ``name``: built
-    from ``csrc/<name><ext>``, or from the source ``VARIANTS`` names with
-    its defines; the library's name hashes the source, its local headers
-    and the flags"""
-    source, defines = VARIANTS.get(name, (name, ()))
+    from the source and defines of ``library_source``; the library's name
+    hashes the source, its local headers and the flags"""
+    source, defines = library_source(name)
     src = os.path.join(CSRC_DIR, f"{source}{ext}")
     flags = (*base_flags, *defines)
     digest = hashlib.sha256()
@@ -94,44 +123,52 @@ def load_cuda_libraries(names):
     """{name: (ctypes.CDLL, info)} for the library of every name.
     The libraries not built yet are compiled by one nvcc each, all started
     together.  ``info`` has the library path, whether it was built in this
-    call, the build seconds and the compiler's ``-Xptxas -v`` lines."""
-    infos = {}
-    for name in names:
-        if name not in _LOADED:
-            src, lib_path, flags = _paths(name)
-            infos[name] = dict(src=src, path=lib_path, flags=flags,
-                               built=False, seconds=0.0, ptxas="")
-    missing = [n for n, i in infos.items() if not os.path.isfile(i["path"])]
-    if missing:
-        nvcc = nvcc_path()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        builds = {}
-        for name in missing:
-            tmp = f"{infos[name]['path']}.{os.getpid()}.tmp"
-            cmd = [nvcc, *infos[name]["flags"], "-o", tmp,
-                   infos[name]["src"]]
-            builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE,
-                                             text=True),
-                            cmd, tmp, time.perf_counter())
-        failed = []
-        for name, (proc, cmd, tmp, t0) in builds.items():
-            out, err = proc.communicate()
-            info = infos[name]
-            info["seconds"] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n"
-                              f"{' '.join(cmd)}\n{out}\n{err}")
-                continue
-            os.replace(tmp, info["path"])
-            info["built"] = True
-            info["ptxas"] = "\n".join(
-                ln for ln in (out + err).splitlines()
-                if "ptxas" in ln or "spill" in ln)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    for name, info in infos.items():
-        _LOADED[name] = (ctypes.CDLL(info["path"]), info)
+    call, the build seconds (from the start of its nvcc to its library
+    file's last write) and the compiler's ``-Xptxas -v`` lines.  Builds
+    hold a lock, so that a thread may build libraries behind other work:
+    a call that needs a library being built waits for it; a call for
+    libraries already loaded does not wait."""
+    if all(name in _LOADED for name in names):
+        return {name: _LOADED[name] for name in names}
+    with _BUILD_LOCK:
+        infos = {}
+        for name in names:
+            if name not in _LOADED:
+                src, lib_path, flags = _paths(name)
+                infos[name] = dict(src=src, path=lib_path, flags=flags,
+                                   built=False, seconds=0.0, ptxas="")
+        missing = [n for n, i in infos.items()
+                   if not os.path.isfile(i["path"])]
+        if missing:
+            nvcc = nvcc_path()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            builds = {}
+            for name in missing:
+                tmp = f"{infos[name]['path']}.{os.getpid()}.tmp"
+                cmd = [nvcc, *infos[name]["flags"], "-o", tmp,
+                       infos[name]["src"]]
+                builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE,
+                                                 text=True),
+                                cmd, tmp, time.time())
+            failed = []
+            for name, (proc, cmd, tmp, started) in builds.items():
+                out, err = proc.communicate()
+                info = infos[name]
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{out}\n{err}")
+                    continue
+                info["seconds"] = os.path.getmtime(tmp) - started
+                os.replace(tmp, info["path"])
+                info["built"] = True
+                info["ptxas"] = "\n".join(
+                    ln for ln in (out + err).splitlines()
+                    if "ptxas" in ln or "spill" in ln)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        for name, info in infos.items():
+            _LOADED[name] = (ctypes.CDLL(info["path"]), info)
     return {name: _LOADED[name] for name in names}
 
 

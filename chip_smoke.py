@@ -13,17 +13,24 @@ mixtures (N2/O2 with Schmidt diffusion, hot five-species air frozen and
 reacting; the mixture forms of both sweep kernels), the other linear
 solvers and time integrators, FAS multigrid, and every boundary
 condition — on the generated two-block flat plate
-(aither_tpu_torch/cases.py) and checks them, and the remaining physics:
+(aither_tpu_torch/cases.py) and checks them, the remaining physics:
 WENO and WENO-Z at three ghost layers, AUSMPW+, centralFourth and a
 thermally perfect gas (the thermally perfect forms of both sweep
-kernels).  Phases, each printing its own lines:
+kernels), runs over ranks, and the last forms: the thermally perfect
+approximateRoe sweeps and species counts above 5 (seven and sixteen).
+Phases, each printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
- 2. build: the three kernels from csrc/ as seven libraries (the Rusanov,
-    approximateRoe and thermally perfect builds of both sweeps, and the
-    viscous kernel), one nvcc each, started together (time, ptxas report:
-    registers and spills of every instantiation);
+ 2. build: the three kernels from csrc/ as seven libraries
+    (BASE_LIBRARIES: the Rusanov, approximateRoe and thermally perfect
+    builds of both sweeps for 1-5 species, and the viscous kernel), one
+    nvcc each, started together (time, ptxas report: registers and spills
+    of every instantiation); then the eight libraries of phase 17
+    (LAST_LIBRARIES: the thermally perfect approximateRoe builds of both
+    sweeps, and the seven- and sixteen-species builds), started together
+    in a thread of lower priority that builds them behind phases 3-16,
+    their report printed when phase 17 waits for them;
  3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
     1.05M cells), identical inputs, times with CUDA events (a sweep pair:
@@ -33,8 +40,9 @@ kernels).  Phases, each printing its own lines:
     kernel, plain), SST 2003:
     - the scalar sweep pair without (variant a) and with (variant b) the
       lagged term, and the block sweep pair of the blusgs deck without
-      (variant c) and with (variant c+b) it: max relative difference per
-      equation within SWEEP_RTOL;
+      (variant c) and with (variant c+b) it (at case B; at case A on the
+      paths of phases 12 and 13): max relative difference per equation
+      within SWEEP_RTOL;
     - the viscous residual of every block on a seeded 1%-perturbed state:
       every output within |kernel - plain| <= VISC_ATOL max|plain| +
       VISC_RTOL |plain|;
@@ -60,7 +68,9 @@ kernels).  Phases, each printing its own lines:
     with lusgs; laminar and Wilcox with blusgs; N2/O2 SST with lusgs and
     the reacting five-species air with blusgs (REACTING_BLOCK_RTOL);
     WENO-Z, AUSM and centralFourth SST lusgs and thermally perfect hot
-    air SST lusgs and blusgs;
+    air SST lusgs and blusgs (and, at the start of phase 17, once their
+    libraries are built, thermally perfect hot air approximateRoe SST
+    lusgs and seven-species hydrogen-air SST blusgs);
  7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
@@ -72,12 +82,16 @@ kernels).  Phases, each printing its own lines:
     sweeps (5 equations inviscid, 5 equations viscous, Wilcox; scalar and
     block) and each new branch of the viscous residual (laminar, WALE,
     Wilcox; WALE also on the unperturbed field) against its plain version
-    as in phase 3, then Solver.run(NEW_ITERATIONS) checked as in phase 4
+    as in phase 3 (from this phase on, the sweep pair of a case-A deck on
+    block 0 alone, COMPARED_BLOCKS), then Solver.run(NEW_ITERATIONS)
+    checked as in phase 4
     (the viscous kernel launches iterations x blocks times on a viscous
     lusgs deck, never on blusgs or Euler).  Case B: Wilcox and LES with
-    lusgs, laminar and Wilcox with blusgs.  Case A: those again at
-    matrixSweeps 2 (every new form with the lagged term), Euler with both
-    solvers at matrixSweeps 1 and 2, laminar and SST-DES with lusgs.  The
+    lusgs, laminar and Wilcox with blusgs (their viscous kernel compared,
+    their sweep forms at case A only).  Case A: those again at
+    matrixSweeps 2 (every new form without and with the lagged term),
+    Euler with both solvers at matrixSweeps 1 and 2, laminar (its
+    viscous kernel; its sweep form is LES's) and SST-DES with lusgs.  The
     Euler decks start from a seeded 1%-perturbed state (the Euler plate
     is a uniform flow with roundoff-level residuals);
  9. multispecies (MIXTURE_DECKS), every solver built once, compared and
@@ -89,8 +103,8 @@ kernels).  Phases, each printing its own lines:
     each solver), against their plain versions; drives of every compared
     form, the reacting deck's with lusgs and blusgs among them; on case B
     N2/O2 SST lusgs at matrixSweeps 1 and frozen five-species air laminar
-    blusgs at matrixSweeps 2, each sweep form compared there (variant a;
-    variant c+b) and driven by Solver.run(MIXTURE_ITERATIONS).  A
+    blusgs at matrixSweeps 2, driven by Solver.run(MIXTURE_ITERATIONS)
+    (their forms compared at case A).  A
     mixture's viscous residual is the plain version (the fused kernel
     covers one species, as in the JAX package): no viscous kernel
     launch;
@@ -103,7 +117,7 @@ kernels).  Phases, each printing its own lines:
     Roe forms of the scalar sweep with and without the lagged term against
     their plain versions; its drive launches the Roe sweep and K2), SST
     dplur at matrixSweeps 4 (K2, no sweep launch) and SST bdf2 with dual
-    time (3 time steps of 3 nonlinear iterations); on case A the Roe forms
+    time (2 time steps of 3 nonlinear iterations); on case A the Roe forms
     of both sweeps for SST, laminar, Euler, Wilcox and the mixtures of 2-5
     species, each compared and driven, then explicitEuler (Euler), rk4
     (laminar: K2 on an explicit path), crankNicholson (Wilcox) and bdplur
@@ -164,7 +178,7 @@ kernels).  Phases, each printing its own lines:
     solver built once, compared and driven: case-B SST lusgs with WENO-Z
     (three ghost layers; the slice's main path): the (a) and (b) pairs and
     K2 on every block against their plain versions (recorded as the rows'
-    'g3'), then 4 steps with exactly 4 K1 and 2 K2 launches a step; WENO,
+    'g3'), then 3 steps with exactly 4 K1 and 2 K2 launches a step; WENO,
     AUSMPW+ (4 and 2) and centralFourth (4 and 0: the plain viscous
     residual, the JAX package's route) driven the same; the thermally
     perfect forms of both sweeps against their plain versions with their
@@ -190,7 +204,22 @@ kernels).  Phases, each printing its own lines:
     and K2 times, steps/s beside the one-rank run's (ranks time-sliced on
     one card: no speed-up is claimed), the bytes exchanged a step, the
     exchange's share of its run (timed apart: the device synchronised at
-    each swap) and its peak device memory.
+    each swap) and its peak device memory;
+17. the last forms (LAST_DECKS; the libraries of LAST_LIBRARIES, each
+    solver's form library checked to be one of them), every solver built
+    once, compared and driven: case-B hot one-species air thermally
+    perfect approximateRoe SST lusgs (the slice's main path: the
+    ``lusgs_sweep_roe_tp`` (a) pair against plain with its mean Ridder
+    iterations, then 4 steps with exactly 4 K1 and 0 K2 launches a step)
+    and frozen seven-species hydrogen-air SST lusgs (``lusgs_sweep_ns7``,
+    the (a) pair, 4 steps at 4 K1 a step); on case A, compared on block 0
+    (COMPARED_BLOCKS) and driven 2 steps: the thermally perfect
+    approximateRoe (b), (c) and (c)+(b) of hot air (the block decks at CFL
+    1: at the CFL ramp the plain block sweep gives NaN from the second
+    step on, on the CPU) and its (a) of N2/O2, the seven-species (b), (c),
+    (c)+(b), approximateRoe (a) and thermally perfect (a), and the
+    sixteen-species (every species of the fluid database and a tracer)
+    (a) and (c) (the block deck at CFL 1, for the same reason).
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -210,7 +239,9 @@ drive, and 'mg_levels', its comparisons on the coarse levels; a row of
 a form on a boundary path has 'bc_launches', its launches in each phase-13
 drive, and 'bc_compared', its comparisons there; the SST K1 (a) and K2
 rows have 'files_launches', their launches in each phase-14 run; the K1
-(d) row's times are the slower rank's, with each rank's in 'ranks'), and
+(d) row's times are the slower rank's, with each rank's in 'ranks'; a
+row compared on some blocks only has them in 'compared_blocks', and the
+library of a sweep row is named at the end of its name), and
 last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Case files go to ./smoke_run/ (git-ignored).
@@ -224,6 +255,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -240,9 +272,9 @@ MAIN_ITERATIONS = 12
 LAGGED_ITERATIONS = 6
 BLOCK_ITERATIONS = 6
 BLOCK_LAGGED_ITERATIONS = 5
-NEW_ITERATIONS = 4       # phase 8, every deck
-MG_ITERATIONS = 4        # phase 12, every deck
-MIXTURE_ITERATIONS = 4   # phase 9, every deck
+NEW_ITERATIONS = 2       # phase 8, every deck
+MG_ITERATIONS = 3        # phase 12, every deck
+MIXTURE_ITERATIONS = 2   # phase 9, every deck
 STEADY_FROM = 3          # iterations/s averaged from this iteration on
 KERNEL_REPS = 5          # timed kernel calls per window
 # the plane-per-launch sweep pairs (one launch per hyperplane) these
@@ -332,6 +364,12 @@ TIME_DECKS = {
     "tp_gas": ("implicitEuler", dict(thermodynamic_model="thermallyPerfect")),
     "tp_gas_cfl1": ("implicitEuler", dict(
         thermodynamic_model="thermallyPerfect", cfl=(1.0, 0.0, 1.0))),
+    "roe_tp": ("implicitEuler", dict(ROE, **TP_AIR)),
+    "roe_tp_cfl1": ("implicitEuler", dict(ROE, cfl=(1.0, 0.0, 1.0),
+                                          **TP_AIR)),
+    "roe_tp_gas": ("implicitEuler", dict(
+        ROE, thermodynamic_model="thermallyPerfect")),
+    "cfl1": ("implicitEuler", dict(cfl=(1.0, 0.0, 1.0))),
 }
 ROE_REPLACES = ("aither_tpu/solver/implicit.py:113 roe_offdiagonal (scan "
                 "path; no Pallas form)")
@@ -351,22 +389,24 @@ PHYSICS = {"euler": ("euler", "none", None),
            "air5": ("navierStokes", "none", "air5"),
            "air5_frozen": ("navierStokes", "none", "air5_frozen"),
            "air3_frozen": ("navierStokes", "none", "air3_frozen"),
-           "air4_frozen": ("navierStokes", "none", "air4_frozen")}
+           "air4_frozen": ("navierStokes", "none", "air4_frozen"),
+           "h2air7": ("rans", "sst2003", "h2air7_frozen"),
+           "db16": ("rans", "sst2003", "db16_frozen")}
 # phase 8: (case, physics, matrixSolver, matrixSweeps, sweep comparisons
 # (with the lagged term or not), viscous comparisons ("perturbed" /
 # "uniform" state)).  A solver's sweep comparisons do not depend on its
 # matrixSweeps; its drive does: with matrixSweeps 2 every launch of the
 # drive takes the lagged term.
 NEW_DECKS = (
-    ("case B", "wilcox", "lusgs", 1, (False,), ("perturbed",)),
-    ("case B", "les", "lusgs", 1, (False,), ("perturbed",)),
-    ("case B", "laminar", "blusgs", 1, (False,), ("perturbed",)),
-    ("case B", "wilcox", "blusgs", 1, (False,), ()),
+    ("case B", "wilcox", "lusgs", 1, (), ("perturbed",)),
+    ("case B", "les", "lusgs", 1, (), ("perturbed",)),
+    ("case B", "laminar", "blusgs", 1, (), ("perturbed",)),
+    ("case B", "wilcox", "blusgs", 1, (), ()),
     ("case A", "euler", "lusgs", 1, (False,), ()),
     ("case A", "euler", "lusgs", 2, (True,), ()),
     ("case A", "euler", "blusgs", 1, (False,), ()),
     ("case A", "euler", "blusgs", 2, (True,), ()),
-    ("case A", "laminar", "lusgs", 1, (False,), ("perturbed",)),
+    ("case A", "laminar", "lusgs", 1, (), ("perturbed",)),
     ("case A", "les", "lusgs", 2, (False, True), ("perturbed", "uniform")),
     ("case A", "wilcox", "lusgs", 2, (False, True), ("perturbed",)),
     ("case A", "laminar", "blusgs", 2, (False, True), ()),
@@ -391,8 +431,8 @@ MIXTURE_DECKS = (
     ("case A", "air3_frozen", "blusgs", 2, (True,)),
     ("case A", "air4_frozen", "lusgs", 2, (True,)),
     ("case A", "air4_frozen", "blusgs", 1, (False,)),
-    ("case B", "n2o2", "lusgs", 1, (False,)),
-    ("case B", "air5_frozen", "blusgs", 2, (True,)),
+    ("case B", "n2o2", "lusgs", 1, ()),
+    ("case B", "air5_frozen", "blusgs", 2, ()),
 )
 # phase 11: (case, physics, matrixSolver, matrixSweeps, deck tag of
 # TIME_DECKS, sweep comparisons, time steps driven).  Every compared form
@@ -400,29 +440,29 @@ MIXTURE_DECKS = (
 # matrixSweeps 2.  Frozen three- and four-species air give the Roe forms
 # the species counts 3 and 4.
 SOLVER_DECKS = (
-    ("case B", "sst", "lusgs", 1, "roe", (False, True), 4),
-    ("case B", "sst", "dplur", 4, "rusanov", (), 4),
-    ("case B", "sst", "lusgs", 1, "bdf2", (), 3),
-    ("case A", "sst", "lusgs", 2, "roe", (), 4),
-    ("case A", "sst", "blusgs", 1, "roe", (False,), 4),
-    ("case A", "sst", "blusgs", 2, "roe", (True,), 4),
-    ("case A", "laminar", "blusgs", 1, "roe", (False,), 4),
-    ("case A", "laminar", "blusgs", 2, "roe", (True,), 4),
-    ("case A", "laminar", "lusgs", 1, "roe", (False,), 4),
-    ("case A", "euler", "lusgs", 1, "roe", (False,), 4),
-    ("case A", "euler", "blusgs", 2, "roe", (True,), 4),
-    ("case A", "wilcox", "lusgs", 2, "roe", (True,), 4),
-    ("case A", "wilcox", "blusgs", 1, "roe", (False,), 4),
-    ("case A", "n2o2", "lusgs", 1, "roe", (False,), 4),
-    ("case A", "n2o2", "blusgs", 2, "roe", (True,), 4),
-    ("case A", "air5", "lusgs", 2, "roe_cfl1", (True,), 4),
-    ("case A", "air5", "blusgs", 1, "roe_cfl1", (False,), 4),
-    ("case A", "air3_frozen", "lusgs", 1, "roe", (False,), 4),
-    ("case A", "air4_frozen", "blusgs", 2, "roe_cfl1", (True,), 4),
-    ("case A", "euler", "lusgs", 1, "explicit", (), 4),
+    ("case B", "sst", "lusgs", 1, "roe", (False, True), 3),
+    ("case B", "sst", "dplur", 4, "rusanov", (), 3),
+    ("case B", "sst", "lusgs", 1, "bdf2", (), 2),
+    ("case A", "sst", "lusgs", 2, "roe", (), 3),
+    ("case A", "sst", "blusgs", 1, "roe", (False,), 3),
+    ("case A", "sst", "blusgs", 2, "roe", (True,), 3),
+    ("case A", "laminar", "blusgs", 1, "roe", (False,), 3),
+    ("case A", "laminar", "blusgs", 2, "roe", (True,), 3),
+    ("case A", "laminar", "lusgs", 1, "roe", (False,), 3),
+    ("case A", "euler", "lusgs", 1, "roe", (False,), 3),
+    ("case A", "euler", "blusgs", 2, "roe", (True,), 3),
+    ("case A", "wilcox", "lusgs", 2, "roe", (True,), 3),
+    ("case A", "wilcox", "blusgs", 1, "roe", (False,), 3),
+    ("case A", "n2o2", "lusgs", 1, "roe", (False,), 3),
+    ("case A", "n2o2", "blusgs", 2, "roe", (True,), 3),
+    ("case A", "air5", "lusgs", 2, "roe_cfl1", (True,), 3),
+    ("case A", "air5", "blusgs", 1, "roe_cfl1", (False,), 3),
+    ("case A", "air3_frozen", "lusgs", 1, "roe", (False,), 3),
+    ("case A", "air4_frozen", "blusgs", 2, "roe_cfl1", (True,), 3),
+    ("case A", "euler", "lusgs", 1, "explicit", (), 3),
     ("case A", "laminar", "lusgs", 1, "rk4", (), 2),
-    ("case A", "wilcox", "lusgs", 1, "cn", (), 4),
-    ("case A", "laminar", "bdplur", 1, "rusanov", (), 4),
+    ("case A", "wilcox", "lusgs", 1, "cn", (), 3),
+    ("case A", "laminar", "bdplur", 1, "rusanov", (), 3),
 )
 
 # phase 12: (case, physics, matrixSolver, matrixSweeps, deck tag of
@@ -469,7 +509,7 @@ BC_DECKS = (
     ("case A", "euler", "lusgs", "supersonic",
      {"lusgs_sweep": 4, "blusgs_sweep": 0, "viscous_march": 0}, True, False),
 )
-BC_ITERATIONS = 4        # phase 13, every deck
+BC_ITERATIONS = 3        # phase 13, every deck
 # phase 15: (case, physics, matrixSolver, matrixSweeps, deck tag of
 # TIME_DECKS, sweep comparisons, compare K2, steps driven).  The case-B
 # decks are the slice's paths; the case-A ones give every thermally
@@ -478,16 +518,16 @@ BC_ITERATIONS = 4        # phase 13, every deck
 # none on centralFourth and thermally perfect decks.  Reacting hot air
 # takes CFL 1, as its Roe decks do
 PHYSICS_DECKS = (
-    ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 4),
-    ("case B", "sst", "lusgs", 1, "weno", (), False, 4),
-    ("case B", "sst", "lusgs", 1, "ausm", (), False, 4),
-    ("case B", "sst", "lusgs", 1, "c4", (), False, 4),
-    ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 4),
-    ("case A", "sst", "lusgs", 2, "tp", (), False, 3),
-    ("case A", "sst", "blusgs", 1, "tp", (False, True), False, 3),
-    ("case A", "sst", "blusgs", 2, "tp", (), False, 3),
-    ("case A", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 3),
-    ("case A", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 3),
+    ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 3),
+    ("case B", "sst", "lusgs", 1, "weno", (), False, 3),
+    ("case B", "sst", "lusgs", 1, "ausm", (), False, 3),
+    ("case B", "sst", "lusgs", 1, "c4", (), False, 3),
+    ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 3),
+    ("case A", "sst", "lusgs", 2, "tp", (), False, 2),
+    ("case A", "sst", "blusgs", 1, "tp", (False, True), False, 2),
+    ("case A", "sst", "blusgs", 2, "tp", (), False, 2),
+    ("case A", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 2),
+    ("case A", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 2),
 )
 # the case label of phase 15's WENO-Z comparisons (three ghost layers)
 G3_CASE = "case B g3"
@@ -502,6 +542,47 @@ RANK_DECKS = (
      {"lusgs_sweep": 0, "blusgs_sweep": 6, "viscous_march": 0}),
 )
 RANK_ITERATIONS = 5
+# the blocks of the sweep comparisons of phases 8, 9, 11, 15 and 17 by case
+# (all where not named): a case-A pair on block 0 alone, whose plain sweeps
+# take half the time of both blocks' (the blocks of a sweep run
+# concurrently on the card, so a pair of one block takes about the time of
+# both blocks' pair: 8.95 against 9.25 ms for the thermally perfect Roe (b)
+# form, NVIDIA H100 80GB HBM3, 700 W, PERF.md section 6)
+COMPARED_BLOCKS = {"case A": (0,)}
+# phase 17, the last forms (the thermally perfect approximateRoe forms and
+# species counts above the base libraries' 5): (case, physics,
+# matrixSolver, matrixSweeps, deck tag of TIME_DECKS, sweep comparisons,
+# steps driven).  The case-B decks are the slice's paths (hot air
+# thermally perfect approximateRoe SST lusgs at the CPU parity test's CFL
+# ramp; frozen seven-species hydrogen-air SST lusgs); the case-A ones give
+# every new form its comparison and a driven path (the lagged forms by a
+# matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: no
+# K2 on thermally perfect and mixture decks
+LAST_DECKS = (
+    ("case B", "sst", "lusgs", 1, "roe_tp", (False,), 4),
+    ("case B", "h2air7", "lusgs", 1, "rusanov", (False,), 4),
+    ("case A", "sst", "lusgs", 2, "roe_tp", (True,), 2),
+    ("case A", "sst", "blusgs", 1, "roe_tp_cfl1", (False, True), 2),
+    ("case A", "sst", "blusgs", 2, "roe_tp_cfl1", (), 2),
+    ("case A", "n2o2", "lusgs", 1, "roe_tp_gas", (False,), 2),
+    ("case A", "h2air7", "lusgs", 2, "rusanov", (True,), 2),
+    ("case A", "h2air7", "blusgs", 1, "rusanov", (False, True), 2),
+    ("case A", "h2air7", "blusgs", 2, "rusanov", (), 2),
+    ("case A", "h2air7", "lusgs", 1, "roe", (False,), 2),
+    ("case A", "h2air7", "lusgs", 1, "tp_gas", (False,), 2),
+    ("case A", "db16", "lusgs", 1, "rusanov", (False,), 2),
+    ("case A", "db16", "blusgs", 1, "cfl1", (False,), 2),
+)
+# the libraries of the phase-17 forms (every form of LAST_DECKS and of
+# phase 6's two new references is held by one of them): started in phase
+# 2 after the seven base libraries, built while phases 3-16 run
+LAST_LIBRARIES = ("lusgs_sweep_roe_tp", "blusgs_sweep_roe_tp",
+                  "lusgs_sweep_ns7", "blusgs_sweep_ns7",
+                  "lusgs_sweep_roe_ns7", "lusgs_sweep_tp_ns7",
+                  "lusgs_sweep_ns16", "blusgs_sweep_ns16")
+BASE_LIBRARIES = ("lusgs_sweep", "blusgs_sweep", "lusgs_sweep_roe",
+                  "blusgs_sweep_roe", "lusgs_sweep_tp", "blusgs_sweep_tp",
+                  "viscous_march")
 # phase 14: the files run (case B, output and restart every 2 steps) and
 # its resumption from the step-2 restart
 FILES_ITERATIONS = 4
@@ -708,16 +789,20 @@ def sweep_errors(kern, plain):
 
 
 def compare_sweeps(torch, solver, system, label, card, with_extra,
-                   case="case B", lvl=0):
+                   case="case B", lvl=0, blocks=None):
     """The sweep pair on one case (at grid level ``lvl``) against its
     plain version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by).
     The plain pair takes seconds, so its checked run is its timed one; the
-    kernel pair is timed twice after it.  Printed beside it: the
+    kernel pair is timed twice after it.  ``blocks`` (indices) restricts
+    the pair to those blocks, whose sweeps then run as in the solver (the
+    others' du stays in the connection ghosts).  Printed beside it: the
     plane-per-launch pair's time (BEFORE_MS, text from PERF.md; level 0),
     the critical path and the time of a step of it."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver import implicit as imp
     prims, auxs, _, _, du0 = system
+    if blocks is not None:
+        du0 = {bi: du for bi, du in du0.items() if bi in blocks}
     block = bool(solver.cfg["block_matrix"])
     kernel = "blusgs_sweep" if block else "lusgs_sweep"
     form = ls.sweep_form(solver.phys, solver.cfg)
@@ -727,13 +812,13 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     variant = f"{variant}, {form_name(form)}"
     if lvl:
         variant = f"{variant}, level {lvl}"
-    plans = solver.mg_plans[lvl]
+    plans = {bi: p for bi, p in solver.mg_plans[lvl].items() if bi in du0}
     extras = None
     if with_extra:
         extras = {b.index: tuple(imp.offdiag_sum(
             solver.phys, solver.cfg, b, prims[b.index], du0[b.index], side,
             auxs[b.index]) for side in ("upper", "lower"))
-            for b in solver.mg_cases[lvl].blocks}
+            for b in solver.mg_cases[lvl].blocks if b.index in du0}
 
     def run_plain():
         return sweep_pair(solver, system, du0, extras, kernel=False, lvl=lvl)
@@ -761,13 +846,14 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     modes, iters, ridder = (), 0.0, ""
     if form[5]:
         modes = [len(v) for v in solver.phys.vib]
-    if form[5] and not block:
+    if form[5] and (form[4] or not block):
         # the Ridder iterations of this run's q + du, cell by cell (the
-        # scalar form's: the block form inverts no energy)
+        # scalar and the Roe forms': the block Rusanov form inverts no
+        # energy)
         iters = float(np.mean([ls.mean_ridder_iterations(
             solver.phys, prims[b.index][b.interior],
             du0[b.index][b.interior])
-            for b in solver.mg_cases[lvl].blocks]))
+            for b in solver.mg_cases[lvl].blocks if b.index in du0]))
         ridder = (f", Ridder iterations of q + du mean {iters:.3f} "
                   f"(modes {modes})")
     costs = [ls.sweep_cost(p, fwd, with_extra, block, form, diffusion,
@@ -1846,27 +1932,58 @@ def main():
               flush=True)
 
     # -- phase 2: build -------------------------------------------------------
+    def report_build(libs):
+        for name, (_, info) in libs.items():
+            print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
+                  f"built={info['built']} in {info['seconds']:.2f} s",
+                  flush=True)
+            for ln in ptxas_report(info["ptxas"]):
+                print(f"phase 2 ptxas {name}: {ln}", flush=True)
+                spill = re.search(r"(\d+) bytes spill stores", ln)
+                if name == "viscous_march" and (not spill
+                                                or int(spill.group(1))):
+                    fail(f"the viscous kernel spills: {ln}")
+                if spill and int(spill.group(1)):
+                    print(f"phase 2 ptxas {name}: spills: {ln}",
+                          flush=True)
+
     t0 = time.perf_counter()
-    libs = load_cuda_libraries(["lusgs_sweep", "blusgs_sweep",
-                                "lusgs_sweep_roe", "blusgs_sweep_roe",
-                                "lusgs_sweep_tp", "blusgs_sweep_tp",
-                                "viscous_march"])
+    libs = load_cuda_libraries(BASE_LIBRARIES)
     print(f"phase 2 build: {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)",
           flush=True)
-    for name, (_, info) in libs.items():
-        print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
-              f"built={info['built']} in {info['seconds']:.2f} s",
-              flush=True)
-        for ln in ptxas_report(info["ptxas"]):
-            print(f"phase 2 ptxas {name}: {ln}", flush=True)
-            spill = re.search(r"(\d+) bytes spill stores", ln)
-            if name == "viscous_march" and (not spill
-                                            or int(spill.group(1))):
-                fail(f"the viscous kernel spills: {ln}")
-            if spill and int(spill.group(1)):
-                print(f"phase 2 ptxas {name}: spills: {ln}", flush=True)
+    report_build(libs)
+    # the last forms' libraries build in a thread behind phases 3-16 (one
+    # nvcc each, in parallel); nothing before phase 17 loads one of them
+    last_build = {"started": time.perf_counter()}
+
+    def build_last():
+        # a lower priority for this thread and the nvcc it starts (on
+        # Linux the nice value is a thread's): built at the main thread's,
+        # they made phases 6 and 7 run 10-11% longer (PERF.md, section 6;
+        # NVIDIA H100 80GB HBM3, 700 W)
+        os.nice(10)
+        try:
+            last_build["libs"] = load_cuda_libraries(LAST_LIBRARIES)
+        except Exception as exc:    # re-raised by last_libraries
+            last_build["error"] = exc
+
+    last_thread = threading.Thread(target=build_last)
+    last_thread.start()
     done(2)
+
+    def last_libraries():
+        """wait for the builds of LAST_LIBRARIES and report them as phase
+        2's"""
+        t_wait = time.perf_counter()
+        last_thread.join()
+        if "error" in last_build:
+            fail(f"the last forms' libraries: {last_build['error']}")
+        print(f"phase 2 build: {len(last_build['libs'])} libraries of the "
+              f"last forms, started {t_wait - last_build['started']:.2f} s "
+              f"before, waited {time.perf_counter() - t_wait:.2f} s (one "
+              f"nvcc each, in parallel, behind phases 3-16)", flush=True)
+        report_build(last_build["libs"])
 
     def build(label, dims, solver_name, sweeps=1, physics="sst",
               tag="rusanov", layout=None):
@@ -1897,10 +2014,14 @@ def main():
     def record(key, case, result):
         results.setdefault(key, {})[case] = result
 
-    def compare_all(solver, label, case, extras, fields):
+    # (kernel, form, with the lagged term) of the forms compared on some
+    # blocks (COMPARED_BLOCKS) -> the blocks
+    compared_blocks = {}
+
+    def compare_all(solver, label, case, extras, fields, blocks=None):
         """this solver's sweep kernel (scalar or block) with and without
-        the lagged term as ``extras`` says, and the viscous kernel on the
-        ``fields`` named"""
+        the lagged term as ``extras`` says (on ``blocks``, indices, or
+        every block), and the viscous kernel on the ``fields`` named"""
         from aither_tpu_torch.kernels import lusgs_sweep as ls
         kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
                   else "lusgs_sweep")
@@ -1910,7 +2031,10 @@ def main():
             for with_extra in extras:
                 record((kernel, form, with_extra), case,
                        compare_sweeps(torch, solver, system, label, card,
-                                      with_extra, case))
+                                      with_extra, case, blocks=blocks))
+                if blocks is not None:
+                    compared_blocks[(kernel, form, with_extra)] = list(
+                        blocks)
         for field in fields:
             res = compare_viscous(torch, solver, label, card,
                                   perturbed=field == "perturbed", case=case)
@@ -1921,9 +2045,12 @@ def main():
     for case, dims in all_dims.items():
         label = f"phase 3 {case}"
         del solver
-        solver = build(label, dims, "blusgs")
-        compare_all(solver, label, case, (False, True), ())
-        del solver
+        if case == "case B":
+            # the block pair at case B only: at case A phase 13 compares
+            # (c) on the wall-law deck and phase 12 (c)+(b) at level 1
+            solver = build(label, dims, "blusgs")
+            compare_all(solver, label, case, (False, True), ())
+            del solver
         solver = build(label, dims, "lusgs")
         compare_all(solver, label, case, (False, True), ("perturbed",))
     done(3)
@@ -1991,26 +2118,31 @@ def main():
     # phase 13's decks 1-3: periodic span, LODI with its carry, wall law
     references += [("sst", "lusgs", 1, "rusanov", layout)
                    for layout in ("stagnation_periodic", "lodi", "wall_law")]
-    for physics, solver_name, sweeps, tag, layout in references:
-        hist = {dev: reference_history(TEST_DIMS, dev, solver_name, sweeps,
-                                       physics, tag, layout)
-                for dev in ("cuda", "cpu")}
-        # per equation, relative to that equation's largest L2
-        worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
-                       / np.abs(hist["cpu"]).max(axis=0)).max())
-        tol = (REACTING_BLOCK_RTOL if (physics, solver_name) == (
-            "air5", "blusgs") else REF_RTOL)
-        if not np.isfinite(hist["cuda"]).all():
-            fail(f"{physics}, {solver_name}, {tag}: non-finite L2 on cuda")
-        print(f"phase 6 reference: {TEST_DIMS} x 2 blocks, {physics}, "
-              f"{solver_name}, matrixSweeps {sweeps}, {tag}, "
-              f"{f'boundaries {layout}, ' if layout else ''}"
-              f"{REF_ITERATIONS} steps ({len(hist['cpu'])} nonlinear "
-              f"iterations), cuda vs cpu raw L2 max rel diff {worst:.3e} "
-              f"(tol {tol:.0e})", flush=True)
-        if not worst <= tol:
-            fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}, {tag}: "
-                 f"the cuda run disagrees with the cpu run")
+
+    def check_references(references, when=""):
+        for physics, solver_name, sweeps, tag, layout in references:
+            hist = {dev: reference_history(TEST_DIMS, dev, solver_name,
+                                           sweeps, physics, tag, layout)
+                    for dev in ("cuda", "cpu")}
+            # per equation, relative to that equation's largest L2
+            worst = float((np.abs(hist["cuda"] - hist["cpu"]).max(axis=0)
+                           / np.abs(hist["cpu"]).max(axis=0)).max())
+            tol = (REACTING_BLOCK_RTOL if (physics, solver_name) == (
+                "air5", "blusgs") else REF_RTOL)
+            if not np.isfinite(hist["cuda"]).all():
+                fail(f"{physics}, {solver_name}, {tag}: non-finite L2 on "
+                     f"cuda")
+            print(f"phase 6 reference{when}: {TEST_DIMS} x 2 blocks, "
+                  f"{physics}, {solver_name}, matrixSweeps {sweeps}, {tag}, "
+                  f"{f'boundaries {layout}, ' if layout else ''}"
+                  f"{REF_ITERATIONS} steps ({len(hist['cpu'])} nonlinear "
+                  f"iterations), cuda vs cpu raw L2 max rel diff "
+                  f"{worst:.3e} (tol {tol:.0e})", flush=True)
+            if not worst <= tol:
+                fail(f"{physics}, {solver_name}, matrixSweeps {sweeps}, "
+                     f"{tag}: the cuda run disagrees with the cpu run")
+
+    check_references(references)
     reference_files(torch)
     done(6)
 
@@ -2028,7 +2160,8 @@ def main():
     for case, physics, solver_name, sweeps, extras, fields in NEW_DECKS:
         label = f"phase 8 {case} {physics} {solver_name}"
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
-        compare_all(solver, label, case, extras, fields)
+        compare_all(solver, label, case, extras, fields,
+                    blocks=COMPARED_BLOCKS.get(case))
         drive_and_count(solver, NEW_ITERATIONS, sweeps, label, case)
         del solver
     done(8)
@@ -2037,7 +2170,8 @@ def main():
     for case, physics, solver_name, sweeps, extras in MIXTURE_DECKS:
         label = f"phase 9 {case} {physics} {solver_name}"
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
-        compare_all(solver, label, case, extras, ())
+        compare_all(solver, label, case, extras, (),
+                    blocks=COMPARED_BLOCKS.get(case))
         drive_and_count(solver, MIXTURE_ITERATIONS, sweeps, label, case)
         del solver
     done(9)
@@ -2057,7 +2191,8 @@ def main():
                  f"{sweeps} {tag}")
         solver = build(label, all_dims[case], solver_name, sweeps, physics,
                        tag)
-        compare_all(solver, label, case, extras, ())
+        compare_all(solver, label, case, extras, (),
+                    blocks=COMPARED_BLOCKS.get(case))
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     print(f"phase 11: viscous kernel launches of the drives {new_path_k2}",
@@ -2202,7 +2337,8 @@ def main():
         print(f"{label}: {solver.case.blocks[0].g} ghost layers",
               flush=True)
         compare_all(solver, label, where, extras,
-                    ("perturbed",) if visc else ())
+                    ("perturbed",) if visc else (),
+                    blocks=COMPARED_BLOCKS.get(case))
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(15)
@@ -2210,6 +2346,34 @@ def main():
     # -- phase 16: multi-rank runs on the card --------------------------------
     rank_rows = ranks_phase(torch, card, main_path)
     done(16)
+
+    # -- phase 17: the last forms, compared and driven ------------------------
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    last_libraries()
+    # phase 6's references of the last libraries (hot air thermally
+    # perfect approximateRoe SST lusgs, seven-species hydrogen-air SST
+    # blusgs), once their builds have ended
+    check_references([("sst", "lusgs", 1, "roe_tp", None),
+                      ("h2air7", "blusgs", 1, "rusanov", None)],
+                     " (the last libraries')")
+    for case, physics, solver_name, sweeps, tag, extras, steps in \
+            LAST_DECKS:
+        label = (f"phase 17 {case} {physics} {solver_name} matrixSweeps "
+                 f"{sweeps} {tag}")
+        solver = build(label, all_dims[case], solver_name, sweeps, physics,
+                       tag)
+        library = ls.form_library(solver.phys, solver.cfg)
+        if library not in LAST_LIBRARIES:
+            fail(f"{label}: its form's library {library} is not one of "
+                 f"LAST_LIBRARIES")
+        print(f"{label}: the sweep form "
+              f"{form_name(ls.sweep_form(solver.phys, solver.cfg))} of "
+              f"library {library}", flush=True)
+        compare_all(solver, label, case, extras, (),
+                    blocks=COMPARED_BLOCKS.get(case))
+        drive_and_count(solver, steps, sweeps, label, case)
+        del solver
+    done(17)
     check_no_jax_package()
 
     sources = {"lusgs_sweep": "aither_tpu_torch/csrc/lusgs_sweep.cu",
@@ -2234,6 +2398,10 @@ def main():
             replaces = (ROE_REPLACES if key[1][4] else TP_REPLACES
                         if key[1][5]
                         else "aither_tpu/solver/pallas_sweep.py:239")
+        if key[0] != "viscous_march":
+            ns, _, _, _, roe, tp = key[1]
+            library = ls.library_name(key[0] == "blusgs_sweep", roe, tp, ns)
+            name = f"{name}, library {library}"
         kernels.append({
             "name": name, "route": "cuda", "source": sources[key[0]],
             "replaces": replaces, "launches": launches[key][0],
@@ -2273,6 +2441,9 @@ def main():
                 where: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by"), r[:5]))
                 for where, r in bc_compared[key].items()}
+    for row, key in zip(kernels, results):
+        if key in compared_blocks and row["case"] == "case A":
+            row["compared_blocks"] = compared_blocks[key]
     for row, key in zip(kernels, results):
         if G3_CASE in results[key]:
             # phase 15's WENO-Z comparison at three ghost layers

@@ -30,8 +30,8 @@ Decks: every default of ``write_plate_case`` writes the deck and grid of
 before the boundary keywords byte for byte (their SHA-256); the command
 line runs the deck and the Mach-2 plate (the supersonic pair) on the
 CPU, for one, two and four processes; a deck with an unknown boundary
-type raises the JAX package's ValueError; the refusals of the boundaries
-are gone from ``unsupported.py``.
+type raises the JAX package's ValueError; no refusal is left in the
+port's sources.
 """
 
 import hashlib
@@ -279,12 +279,12 @@ def test_unknown_boundary_type_raises(tmp_path):
 
 
 def test_boundary_refusals_are_gone():
-    from aither_tpu_torch import unsupported
-    for item in ("wallLaw", "nonreflecting", "boundaryCondition"):
-        assert item not in unsupported.ITEMS
-    # the remaining physics (item 5) runs too since: what is left is the
-    # card's thermally perfect approximateRoe sweeps and the species count
-    for item in ("faceReconstruction", "viscousFaceReconstruction",
-                 "inviscidFlux", "thermallyPerfect"):
-        assert item not in unsupported.ITEMS
-    assert set(unsupported.ITEMS) == {"thermallyPerfectRoe", "species"}
+    """the boundaries, and every other deck setting of the JAX package,
+    run: the port has no refusal module left (its last two items, the
+    card's thermally perfect approximateRoe sweeps and species counts
+    above 5, have libraries of their own), and no raise in its sources is
+    a NotImplementedError or names a ROADMAP.md item"""
+    import importlib.util
+    from tests.torch_parity import port_refusals
+    assert importlib.util.find_spec("aither_tpu_torch.unsupported") is None
+    assert port_refusals() == []

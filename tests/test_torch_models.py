@@ -14,12 +14,17 @@ test_torch_physics), ``diag_mult`` / ``diag_mult_channels`` without a
 turbulence block, ``turb_src_jacobian`` (Wilcox, sstdes).
 
 Routing: ``check_supported`` admits each new deck and the remaining
-physics (WENO, AUSM); ``sweep_form`` still refuses what the sweep kernels
-are not built for, naming its ROADMAP item (the thermally perfect
-approximateRoe sweeps, species counts above 5); the wrappers launch nothing on CPU
-tensors and reject a meta tensor in every form; the generated deck's
-default text is what it was before the physics became fields.
+physics (WENO, AUSM); ``sweep_form`` gives every deck a form and
+``library_name`` its library (the thermally perfect approximateRoe
+sweeps ``*_roe_tp``, a species count above 5 ``*_ns<N>``), which
+``utils.build.library_source`` resolves into its source and defines; the
+bound of ``sweep_cost`` grows with the Roe and thermally perfect terms and
+with the species count; the wrappers launch nothing on CPU tensors and
+reject a meta tensor in every form; the generated deck's default text is
+what it was before the physics became fields.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -364,10 +369,13 @@ def test_check_supported_admits_the_remaining_physics(tmp_path, name, patch,
 
 
 def test_check_supported_refuses_the_thermally_perfect_roe_sweeps(tmp_path):
-    """a thermally perfect approximateRoe lusgs / blusgs deck passes the
-    deck check and the CPU solver builds (its plain sweep); the sweep form
-    the Solver asks for on the card is refused, naming ROADMAP item 5c;
-    dplur takes no sweep kernel"""
+    """named for the refusal it held until the thermally perfect
+    approximateRoe sweep forms were built; it now holds that no refusal is
+    left: a thermally perfect approximateRoe lusgs / blusgs deck passes
+    the deck check and
+    the CPU solver builds (its plain sweep); its sweep form is the Roe
+    form of the thermally perfect gas, held by the ``*_roe_tp`` library
+    of each solver; dplur takes no sweep kernel"""
     from aither_tpu_torch.io.deck import parse_deck
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver.driver import Solver, check_supported
@@ -380,32 +388,60 @@ def test_check_supported_refuses_the_thermally_perfect_roe_sweeps(tmp_path):
         ts = Solver(path, device="cpu", workdir=str(tmp_path))
         assert ts.sweeps == (solver_name != "dplur")
         if ts.sweeps:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md queue 1 item 5c"):
-                ls.sweep_form(ts.phys, ts.cfg)
+            assert ls.sweep_form(ts.phys, ts.cfg) == (1, 7, True, False,
+                                                      True, True)
+            assert ls.form_library(ts.phys, ts.cfg) == (
+                f"{solver_name}_sweep_roe_tp")
 
 
 @pytest.mark.cuda
-def test_solver_refuses_the_thermally_perfect_roe_deck_on_the_card(
-        tmp_path):
+def test_thermally_perfect_roe_deck_runs_on_the_card(tmp_path):
+    """the thermally perfect approximateRoe deck builds its library at
+    Solver construction and runs 2 steps there, each launching the
+    lusgs_sweep_roe_tp forms once per block and sweep"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver.driver import Solver
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     path = write_plate_case(str(tmp_path), 4, 3, 2,
                             inviscid_flux_jacobian="approximateRoe",
                             thermodynamic_model="thermallyPerfect")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 5c"):
-        Solver(path, device="cuda", workdir=str(tmp_path))
+    ts = Solver(path, device="cuda", workdir=str(tmp_path))
+    assert ls.form_library(ts.phys, ts.cfg) == "lusgs_sweep_roe_tp"
+    ls.LAUNCHES.reset()
+    ts.run(iterations=2)
+    assert ls.LAUNCHES.count == 2 * 2 * len(ts.case.blocks)
+    assert np.isfinite(ts.l2_history).all()
 
 
 def test_species_refusal_still_stands(physics):
-    """more species than the sweep kernels are built for: ROADMAP item 9"""
-    import dataclasses
+    """named for the refusal it held until each species count above the
+    base sweep libraries' had a library of its own; it now holds that no
+    refusal is left: 6, 7 and 16 species give their forms
+    and, in every build of both sweeps, a library ``*_ns<N>`` that
+    ``utils.build`` resolves into the source with -DSWEEP_NS=N"""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.utils import build
     _, tp, _, tc = physics["wilcox"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
+    for ns in (6, 7, 16):
+        _check_species_libraries(ls, build, tp, tc, ns)
+
+
+def _check_species_libraries(ls, build, tp, tc, ns):
+    import dataclasses
+    assert ls.sweep_form(dataclasses.replace(tp, ns=ns, neq=ns + 6), tc) == (
+        ns, ns + 6, True, True, False, False)
+    for block in (False, True):
+        for roe in (False, True):
+            for thermo in (False, True):
+                name = ls.library_name(block, roe, thermo, ns)
+                source = "blusgs_sweep" if block else "lusgs_sweep"
+                assert name == (source + ("_roe" if roe else "")
+                                + ("_tp" if thermo else "") + f"_ns{ns}")
+                assert build.library_source(name) == (source, (
+                    *(("-DSWEEP_ROE=1",) if roe else ()),
+                    *(("-DSWEEP_TP=1",) if thermo else ()),
+                    f"-DSWEEP_NS={ns}"))
 
 
 @pytest.mark.parametrize("patch", [("matrixSolver", "dplur"),
@@ -470,10 +506,10 @@ def test_cpu_launches_no_kernel_and_meta_is_refused(tmp_path, name,
 
 
 def test_wrappers_refuse_what_is_not_ported(physics):
-    """a 7-equation inviscid form, equation counts no species count has,
-    more species than the kernels are built for, and for the fused
-    viscous residual two species, centralFourth, a thermally perfect gas
-    and the block solver"""
+    """a 7-equation inviscid form and equation counts no species count
+    has (six species take a form: every count has a library), and for the
+    fused viscous residual two species, centralFourth, a thermally perfect
+    gas and the block solver"""
     import dataclasses
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.kernels import viscous_march as vm
@@ -486,8 +522,8 @@ def test_wrappers_refuse_what_is_not_ported(physics):
         ls.sweep_form(two, tc)
     assert ls.sweep_form(dataclasses.replace(two, neq=8), tc) == (
         2, 8, True, True, False, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc)
+    assert ls.sweep_form(dataclasses.replace(tp, ns=6, neq=12), tc) == (
+        6, 12, True, True, False, False)
     with pytest.raises(ValueError, match="viscous residual kernel"):
         vm._check_scope(dataclasses.replace(two, neq=8), tc)
     with pytest.raises(ValueError, match="viscous residual kernel"):
@@ -695,3 +731,118 @@ def test_sweep_cost_of_thermally_perfect_forms(tmp_path, block):
     else:
         # 10 more energy evaluations of 9 operations and 5 brackets of 19
         assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nfaces
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_sweep_cost_of_thermally_perfect_roe_forms(tmp_path, block):
+    """a thermally perfect approximateRoe form reads what the Roe form
+    reads (the cell's own state with the neighbours'); its operations per
+    neighbour are the mixture Roe path's (one species takes it) plus
+    ``tp_roe_extra_ops``, the same for the scalar and the block sweep, and
+    grow with the Ridder iterations of q + du (two energy evaluations of
+    4 + 5 operations and a bracket of 19 each, for one mode) and, when
+    viscous, with the neighbour's cp and cv"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 4, 3, 2)
+    plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
+    nfaces = int(plan.mask["lower"].sum())
+    roe = ls.SST_FORM[:4] + (True, False)
+    roe_tp = ls.SST_FORM[:4] + (True, True)
+    caloric = ls.sweep_cost(plan, True, False, block, roe)
+    costs = [ls.sweep_cost(plan, True, False, block, roe_tp, modes=(1,),
+                           ridder_iters=it) for it in (5.0, 10.0)]
+    assert costs[0][0] == costs[1][0] == caloric[0] > 0
+    assert caloric[1] < costs[0][1] < costs[1][1]
+    assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nfaces
+    per_cell = caloric[1] - ls.ROE_NEIGHBOUR_OPS_BY_FORM[(7, True, False)] \
+        * nfaces
+    per_nb = (ls.roe_mixture_neighbour_ops(roe_tp)
+              + ls.tp_roe_extra_ops(roe_tp, (1,), 5.0))
+    assert costs[0][1] == per_nb * nfaces + per_cell
+    inviscid = (1, 5, False, False, True, True)
+    assert (ls.tp_roe_extra_ops(roe_tp, (1,), 5.0)
+            - ls.tp_roe_extra_ops(inviscid, (1,), 5.0)) == 3 + 6
+
+
+@pytest.mark.parametrize("roe", [False, True])
+@pytest.mark.parametrize("block", [False, True])
+def test_sweep_cost_grows_with_the_species(tmp_path, block, roe):
+    """every species count has a bound: the bytes and the operations grow
+    from 5 to 7 to 16 species (the (ns + 4)^2 block inverse channels, N up
+    to 20, among the bytes), with the Rusanov and the Roe off-diagonal"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 4, 3, 2)
+    plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
+    ncell = int(plan.cells.numel())
+    costs = [ls.sweep_cost(plan, True, False, block,
+                           (ns, ns + 6, True, False, roe, False),
+                           diffusion=True) for ns in (5, 7, 16)]
+    for (b0, o0), (b1, o1) in zip(costs, costs[1:]):
+        assert 0 < b0 < b1 and 0 < o0 < o1
+    if block:
+        # the inverse channels of 16 species: 20 x 20 (+ 2 x 2) a cell
+        assert costs[2][0] - costs[1][0] >= 8 * (20 * 20 - 11 * 11) * ncell
+
+
+@pytest.mark.parametrize("ns", [1, 5, 6, 16])
+def test_library_names_resolve(ns):
+    """``utils.build.library_source`` resolves every library name into its
+    source and defines without nvcc: each build of both sweeps for ``ns``
+    species (no suffix up to the base libraries' 5), the viscous kernel
+    and the host k-d tree by their own names; an _ns<N> name of a count the
+    base libraries hold is refused"""
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.utils import build
+    for block in (False, True):
+        for roe in (False, True):
+            for thermo in (False, True):
+                name = ls.library_name(block, roe, thermo, ns)
+                source, defines = build.library_source(name)
+                assert source == ("blusgs_sweep" if block else "lusgs_sweep")
+                assert ("-DSWEEP_ROE=1" in defines) == roe
+                assert ("-DSWEEP_TP=1" in defines) == thermo
+                assert (f"-DSWEEP_NS={ns}" in defines) == (
+                    ns > ls.BASE_SPECIES)
+                assert len(defines) == roe + thermo + (ns > ls.BASE_SPECIES)
+                src, lib, flags = build._paths(name)
+                assert os.path.isfile(src)
+                assert os.path.basename(lib).startswith(f"lib{name}_")
+                assert flags[-len(defines):] == defines or not defines
+    for name in ("viscous_march", "kdtree"):
+        assert build.library_source(name) == (name, ())
+    with pytest.raises(ValueError, match="base build holds 1-5"):
+        build.library_source("lusgs_sweep_roe_ns5")
+
+
+def test_new_mixtures_and_the_tracer(tmp_path):
+    """the seven-species hydrogen-air and the sixteen-species decks:
+    mass fractions summing to 1, every species of the fluid database in
+    the latter and the N2 tracer, whose fluid file, written beside the
+    deck, loads as N2's properties under its own name; the CPU solver of
+    each builds with its species count and its form's library"""
+    import dataclasses
+    from aither_tpu_torch import cases
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.physics import fluid
+    from aither_tpu_torch.solver.driver import Solver
+    assert set(cases.DATABASE_SPECIES) == set(fluid._DATABASE)
+    for name, ns in (("h2air7_frozen", 7), ("db16_frozen", 16)):
+        mix = cases.MIXTURES[name]
+        assert len(mix["species"]) == len(mix["mass_fractions"]) == ns
+        assert abs(sum(mix["mass_fractions"]) - 1.0) < 1e-15
+        wd = tmp_path / name
+        path = write_plate_case(str(wd), 4, 3, 2, **mix)
+        here = os.getcwd()
+        os.chdir(wd)       # a fluid file is read from the working directory
+        try:
+            ts = Solver(path, device="cpu", workdir=str(wd))
+            tracer = fluid.load_fluid("N2t") if ns == 16 else None
+        finally:
+            os.chdir(here)
+        assert ts.phys.ns == ns
+        assert ls.form_library(ts.phys, ts.cfg) == f"lusgs_sweep_ns{ns}"
+        assert (wd / "N2t.dat").is_file() == (ns == 16)
+    n2 = fluid.load_fluid("N2")
+    assert dataclasses.replace(tracer, name="N2") == n2

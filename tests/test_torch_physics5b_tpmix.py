@@ -10,9 +10,11 @@ and L2 1e-10, matrix residual 1e-9):
   between the packages, tests/test_torch_reacting_blusgs.py: held at
   REACTING_RTOL), in tests/test_torch_physics5b_tpmix_air5.py (a file of
   its own, so that ``--dist loadfile`` can run it beside the other two);
-- hot one-species air with the approximateRoe off-diagonal and scalar
-  LU-SGS: on the CPU its plain sweep (the CUDA sweeps have no thermally
-  perfect Roe form: such a deck is refused on the card, ROADMAP item 5c).
+- the thermally perfect approximateRoe decks (on the card the
+  ``*_roe_tp`` sweep libraries): hot one-species air with scalar LU-SGS
+  here, and with block LU-SGS and N2/O2 with scalar LU-SGS in
+  tests/test_torch_physics5b_tpmix_roe.py (``ROE_DECKS``: a file of their
+  own, for the same reason).
 
 One JAX Solver compiles per deck, with ``quick_jax_compiles``.
 """
@@ -36,6 +38,11 @@ DECKS = {
     "n2o2_lusgs": (dict(cases.N2O2, **TP), 1e-10),
     "air_roe_lusgs": (dict(cases.TP_AIR,
                            inviscid_flux_jacobian="approximateRoe"), 1e-10),
+    "air_roe_blusgs": (dict(cases.TP_AIR, matrix_solver="blusgs",
+                            inviscid_flux_jacobian="approximateRoe"), 1e-10),
+    "n2o2_roe_lusgs": (dict(cases.N2O2,
+                            inviscid_flux_jacobian="approximateRoe", **TP),
+                       1e-10),
 }
 # tests/test_torch_physics5b_tpmix_air5.py
 AIR5_DECK = (dict(cases.AIR5, matrix_solver="blusgs",
@@ -43,7 +50,11 @@ AIR5_DECK = (dict(cases.AIR5, matrix_solver="blusgs",
                   cfl=(1.0, 0.0, 1.0), **TP), REACTING_RTOL)
 
 
-@pytest.mark.parametrize("name", list(DECKS))
+# the decks of tests/test_torch_physics5b_tpmix_roe.py
+ROE_DECKS = ("air_roe_blusgs", "n2o2_roe_lusgs")
+
+
+@pytest.mark.parametrize("name", [n for n in DECKS if n not in ROE_DECKS])
 def test_one_iteration(tmp_path, name):
     check_deck(tmp_path, *DECKS[name])
 

@@ -304,6 +304,52 @@ def test_tile_order_sweep_on_a_flat_block(tmp_path):
         assert torch.equal(got, want)
 
 
+def _gathered_statics(block, side):
+    """(statics, masks) of one sweep side gathered cell by cell, in
+    physical order: the plan's definition (``implicit.SweepPlan``) by
+    fancy indexing of the padded geometry"""
+    ni, nj, nk, g = block.ni, block.nj, block.nk, block.g
+    ii, jj, kk = (a.ravel() for a in np.meshgrid(
+        np.arange(ni), np.arange(nj), np.arange(nk), indexing="ij"))
+    pc = [ii + g, jj + g, kk + g]
+    off, fo = (-1, 0) if side == "lower" else (1, 1)
+    center = block.geom_host["center"]
+    masks = imp.neighbor_masks(block, side)
+    stat = np.zeros((len(ii), 3, len(imp.STATIC_CHANNELS)))
+    msk = np.zeros((len(ii), 3), dtype=bool)
+    for a, d in enumerate("ijk"):
+        nb, face = list(pc), list(pc)
+        nb[a] = nb[a] + off
+        face[a] = face[a] + fo
+        nvec = block.geom_host[f"n_{d}"][:, face[0], face[1], face[2]]
+        c2c = center[:, pc[0], pc[1], pc[2]] - center[:, nb[0], nb[1], nb[2]]
+        stat[:, a, 0:3] = nvec.T
+        stat[:, a, 3] = block.geom_host[f"mag_{d}"][face[0], face[1],
+                                                    face[2]]
+        stat[:, a, 4] = np.abs((c2c * nvec).sum(axis=0))
+        msk[:, a] = masks[d][ii, jj, kk]
+    return stat, msk
+
+
+@pytest.mark.parametrize("nproc,deck", [
+    (1, {}), (1, dict(face_reconstruction="wenoZ")), (4, {})])
+def test_plan_statics_are_the_gathered_ones(tmp_path, nproc, deck):
+    """every block's plan statics and masks, built from slices, equal the
+    cell-by-cell gathers bit for bit (two and three ghost layers; a
+    decomposition whose connection ghosts contribute)"""
+    from aither_tpu_torch.solver.driver import Solver
+    path = write_plate_case(str(tmp_path), 16, 8, 4, **deck)
+    s = Solver(path, device="cpu", workdir=str(tmp_path), nproc=nproc)
+    assert len(s.case.blocks) == max(nproc, 2)
+    for b in s.case.blocks:
+        for side in ("lower", "upper"):
+            stat, msk = _gathered_statics(b, side)
+            assert torch.equal(s.plans[b.index].static[side],
+                               torch.as_tensor(stat)), (b.index, side)
+            assert torch.equal(s.plans[b.index].mask[side],
+                               torch.as_tensor(msk)), (b.index, side)
+
+
 def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     """an edited csrc header renames (so rebuilds) the sweep libraries
     that include it, Rusanov, Roe and thermally perfect builds alike, and

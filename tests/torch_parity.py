@@ -449,3 +449,29 @@ def check_cycle_stages(js, ts, forced, tol=1e-10):
         for bi in g:
             err = rel_err(g[bi], w[bi])
             assert err < tol, (stage, lvl, bi, err)
+
+
+def port_refusals():
+    """[(module path, line, statement)] of every raise of
+    NotImplementedError, and of every raise whose text names ROADMAP.md,
+    in the port's package: an AST scan of its sources (as
+    tests/test_torch_host.py scans their imports)"""
+    import ast
+    import os
+    import aither_tpu_torch
+    root = os.path.dirname(aither_tpu_torch.__file__)
+    found = []
+    for dirpath, _, files in os.walk(root):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Raise) and node.exc is not None:
+                    text = ast.unparse(node)
+                    if "NotImplementedError" in text or "ROADMAP" in text:
+                        found.append((os.path.relpath(path, root),
+                                      node.lineno, text))
+    return found
