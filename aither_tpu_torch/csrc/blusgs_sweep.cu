@@ -730,7 +730,8 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // the calorically perfect forms); species is a HOST array of the
 // mixture's constants (launch_form; read when ns > 1 or tp).  stat and mask are
 // in physical cell order; sched is a HOST array {ntiles, ni, nj, nk, ti,
-// tj, tk, g}, tiles the device tile table and state
+// tj, tk, g, ctas} (ctas not read here), tiles the device tile table and
+// state
 // device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
 // null; mu, mut, f1, vgrad may be null when inviscid and inv_t without
 // turbulence equations.  Returns cudaGetLastError() after the launch (0

@@ -43,11 +43,15 @@
 // enthalpy, cv and cp are functions of T (thermo_tp.cuh, struct
 // Species's vibrational table): the neighbour's gamma and Prandtl number
 // from its T, the energy of q + du inverted by Ridder's method
-// (roe_offdiag.cuh update_prim_mix), which replaces the JAX package's
+// (roe_offdiag.cuh update_prim_mix_from), which replaces the JAX package's
 // scan sweep of such a deck (pallas_sweep.use_pallas turns its kernel
 // off there: aither_tpu/solver/implicit.py:89, 137 through
 // state.update_prim_with_cons and the thermally perfect Physics).  The
-// constant gamma and Prandtl number of Phys are not read.
+// constant gamma and Prandtl number of Phys are not read.  These forms
+// split the product (the section "The thermally perfect forms" below): a
+// pre-pass launch evaluates the old-state terms once per face, and a stage
+// of the wavefront inverts each updated state once, where the lanes of the
+// calorically perfect forms evaluate both per neighbour.
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -89,7 +93,9 @@
 // planes of a few hundred to a few thousand cells each, so what holds it
 // is the time of one step of the chain: a barrier, the flags between
 // tiles and one cell's serial FP64 work (q + du, the two fluxes, the
-// radii: several dependent divisions).  The plane-per-launch kernel took
+// radii: several dependent divisions; for a thermally perfect gas the new
+// flux, then the stage's Ridder inversion of the cell's q + du, about 20
+// dependent energy evaluations).  The plane-per-launch kernel took
 // ~20 us a step; the wavefront takes the launch out of it and splits the
 // cell's work over three lanes (PERF.md, section 6).  A Roe step does two
 // Roe fluxes per direction, about three times the Rusanov product's FP64
@@ -111,6 +117,13 @@
 #ifndef SWEEP_ROE
 #define SWEEP_ROE 0
 #endif
+// 1: the thermally perfect forms carry the step clocks' marks
+// (sweep_wavefront.cuh, namespace probe): only the build of the probe,
+// library <name>_probe, for utils/sweep_probe.py (they cost 1-3% of a
+// sweep pair, with or without clocks)
+#ifndef SWEEP_PROBE
+#define SWEEP_PROBE 0
+#endif
 
 namespace {
 
@@ -122,6 +135,8 @@ using flux::update_prim_mix;
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 // species counts of a build without SWEEP_NS: 1..BASE_NS
 constexpr int BASE_NS = 5;
+// threads of a pre-pass CTA (one per face)
+constexpr int PREPASS_THREADS = 128;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prandtl, prt, scaling;
@@ -129,8 +144,10 @@ struct Phys {
   double sigma_k1, sigma_k2;  // SST blend; Wilcox: sigma* in sigma_k1
 };
 
-// the forms of this translation unit: the thermally perfect gas
+// the forms of this translation unit: the thermally perfect gas, the
+// approximateRoe off-diagonal
 constexpr bool TP = SWEEP_TP != 0;
+constexpr bool ROE = SWEEP_ROE != 0;
 
 // per-species constants of a mixture (read when NS > 1, and for every NS
 // by the thermally perfect forms)
@@ -158,30 +175,46 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: equation stride of b
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
+#if SWEEP_TP
+  // the thermally perfect forms' work space (launch_tiles): the pre-pass
+  // writes pre and eold and the wavefront reads them (__ldg); qu is written
+  // by the pre-pass (ghost neighbours) and by the wavefront's stage
+  // (physical cells), which reads it through L2 (__ldcg)
+  double* pre;       // (face_values, 3 ncp): per face the old-state terms
+  double* eold;      // (ncp): q's specific total energy
+  double* qu;        // (NEQ, nc): q + du in primitive variables
+#endif
 };
 
-// scalar Rusanov off-diagonal product of one neighbour, added to acc
-// (aither_tpu implicit.offdiagonal_scalar).  mu, mut, f1 and dist are read
-// only by the forms that use them (the caller passes 0 otherwise).
+// values the thermally perfect pre-pass stores per face: Rusanov, the flow
+// rows of F(q).n, the face radius and (with turbulence equations) the
+// turbulence radius; Roe, the NEQ rows of F_roe(q | q_cell) and the viscous
+// radii
+template <int NS, int NEQ, bool VISCOUS>
+__host__ __device__ constexpr int face_values() {
+  constexpr int nturb = NEQ - NS - 4;
+  return ROE ? NEQ + (VISCOUS ? 1 + nturb / 2 : 0) : NS + 5 + nturb / 2;
+}
+
+// the old-state terms of a neighbour's scalar Rusanov product (aither_tpu
+// implicit.offdiagonal_scalar): F(q).n, the face spectral radius sr
+// (inviscid, plus the viscous one when VISCOUS) and the turbulence radius
+// sr_t (with turbulence equations).  mu, mut, f1 and dist are read only by
+// the forms that use them (the caller passes 0 otherwise).
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__device__ __forceinline__ void add_offdiagonal(
-    const Phys& ph, const Species<NS>& sp, const double q[NEQ],
-    const double dq[NEQ], double n0, double n1, double n2, double mag,
-    double dist, double mu, double mut, double f1, double acc[NEQ]) {
+__device__ __forceinline__ void rusanov_old_terms(
+    const Phys& ph, const Species<NS>& sp, const double q[NEQ], double n0,
+    double n1, double n2, double mag, double dist, double mu, double mut,
+    double f1, double fq[NEQ], double& sr, double& sr_t) {
   constexpr int T0 = NS + 4;   // first turbulence equation
-  double qu[NEQ], fu[NEQ], fq[NEQ];
   double rho, vn, gamma, prandtl;
   if constexpr (NS == 1 && !TP) {
-    update_prim<NEQ>(ph, q, dq, qu);
-    physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
     physical_flux<NEQ>(ph, q, n0, n1, n2, fq);
     rho = q[0];
     vn = q[1] * n0 + q[2] * n1 + q[3] * n2;
     gamma = ph.gamma;
     prandtl = ph.prandtl;
   } else {
-    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qu);
-    physical_flux_mix<NS, NEQ>(sp, qu, n0, n1, n2, fu);
     physical_flux_mix<NS, NEQ>(sp, q, n0, n1, n2, fq);
     rho = 0.0;
     double cpm = 0.0, cvm = 0.0;
@@ -205,18 +238,15 @@ __device__ __forceinline__ void add_offdiagonal(
     prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
   }
   const double a = sqrt(gamma * q[NS + 3] / rho);
-  double sr = 0.5 * mag * (fabs(vn) + a);
+  sr = 0.5 * mag * (fabs(vn) + a);
   if constexpr (VISCOUS) {
     const double max_term = fmax(4.0 / (3.0 * rho), gamma / rho);
     sr = sr + mag / dist * max_term *
                   (ph.scaling * (mu / prandtl + mut / ph.prt));
   }
-  const double sgn = FORWARD ? 1.0 : -1.0;
-#pragma unroll
-  for (int e = 0; e < T0; ++e)
-    acc[e] += 0.5 * mag * (fu[e] - fq[e]) + sgn * (sr * dq[e]);
+  sr_t = 0.0;
   if constexpr (NEQ == T0 + 2) {
-    double sr_t = 0.5 * mag * fabs(FORWARD ? vn + fabs(vn) : vn - fabs(vn));
+    sr_t = 0.5 * mag * fabs(FORWARD ? vn + fabs(vn) : vn - fabs(vn));
     if constexpr (VISCOUS) {
       // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
       const double sk = WILCOX ? ph.sigma_k1
@@ -224,9 +254,47 @@ __device__ __forceinline__ void add_offdiagonal(
       const double mutx = WILCOX ? rho * q[T0] / q[T0 + 1] : mut;
       sr_t = sr_t + ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
     }
-#pragma unroll
-    for (int e = T0; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
   }
+}
+
+// The rows of the scalar Rusanov product from the new flux fu = F(q +
+// du).n and the old-state terms: the flow rows 0.5 |A| (fu - fq) +- sr du
+// (fq: F(q).n's flow rows), the turbulence rows +- sr_t du (their flux
+// change zeroed), added to acc.
+template <int NS, int NEQ, bool FORWARD>
+__device__ __forceinline__ void add_rusanov_rows(const double fu[NEQ],
+                                                 const double fq[],
+                                                 double mag, double sr,
+                                                 double sr_t,
+                                                 const double dq[NEQ],
+                                                 double acc[NEQ]) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
+  const double sgn = FORWARD ? 1.0 : -1.0;
+#pragma unroll
+  for (int e = 0; e < T0; ++e)
+    acc[e] += 0.5 * mag * (fu[e] - fq[e]) + sgn * (sr * dq[e]);
+#pragma unroll
+  for (int e = T0; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
+}
+
+// scalar Rusanov off-diagonal product of one neighbour, added to acc
+// (aither_tpu implicit.offdiagonal_scalar), the calorically perfect forms
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__device__ __forceinline__ void add_offdiagonal(
+    const Phys& ph, const Species<NS>& sp, const double q[NEQ],
+    const double dq[NEQ], double n0, double n1, double n2, double mag,
+    double dist, double mu, double mut, double f1, double acc[NEQ]) {
+  double qu[NEQ], fu[NEQ], fq[NEQ], sr, sr_t;
+  if constexpr (NS == 1 && !TP) {
+    update_prim<NEQ>(ph, q, dq, qu);
+    physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
+  } else {
+    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qu);
+    physical_flux_mix<NS, NEQ>(sp, qu, n0, n1, n2, fu);
+  }
+  rusanov_old_terms<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+      ph, sp, q, n0, n1, n2, mag, dist, mu, mut, f1, fq, sr, sr_t);
+  add_rusanov_rows<NS, NEQ, FORWARD>(fu, fq, mag, sr, sr_t, dq, acc);
 }
 
 // stride[d] of a direction known only at run time (no local-memory index)
@@ -234,19 +302,34 @@ __device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
   return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
 }
 
+// the viscous fields of neighbour nb and the face's centre distance, read
+// by the forms that use them (0 otherwise)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
+__device__ __forceinline__ void viscous_fields(const Fields& fl, int64_t nb,
+                                               const double* st, double& mu,
+                                               double& mut, double& f1,
+                                               double& dist) {
+  mu = mut = f1 = dist = 0.0;
+  if constexpr (VISCOUS) {
+    mu = fl.mu[nb];
+    mut = fl.mut[nb];
+    dist = st[4];
+    if constexpr (NEQ == NS + 6 && !WILCOX) f1 = fl.f1[nb];
+  }
+}
+
 // Direction d's off-diagonal product of one cell, added to x: one step of
 // the plane kernel's direction loop, Rusanov or (ROE) the Roe flux change
 // (roe_offdiag.cuh), which also reads the cell's own state.  c and pc are
 // the cell's padded and physical flat indices.  du is read through L2
 // (__ldcg): other SMs write it during the launch.  A masked face adds
-// nothing.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+// nothing.  The calorically perfect forms.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void direction_product(const Fields& fl,
                                                   const Phys& ph,
                                                   const Species<NS>& sp,
                                                   int64_t c, int64_t pc,
                                                   int d, double x[NEQ]) {
-  constexpr int T0 = NS + 4;   // first turbulence equation
   if (!fl.mask[3 * pc + d]) return;
   const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
   const double* st = fl.stat + (3 * pc + d) * NSTAT;
@@ -256,13 +339,8 @@ __device__ __forceinline__ void direction_product(const Fields& fl,
     q[e] = fl.prim[e * fl.nc + nb];
     dq[e] = __ldcg(fl.du + e * fl.nc + nb);
   }
-  double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
-  if constexpr (VISCOUS) {
-    mu = fl.mu[nb];
-    mut = fl.mut[nb];
-    dist = st[4];
-    if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
-  }
+  double mu, mut, f1, dist;
+  viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, nb, st, mu, mut, f1, dist);
   if constexpr (ROE) {
     double qd[NEQ];
 #pragma unroll
@@ -302,7 +380,7 @@ __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
 }
 
 // Prefetch into L2 what lane d reads for one cell but du.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
                                               int64_t pc, int d) {
   constexpr int T0 = NS + 4;
@@ -333,8 +411,268 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
 }
 
+#if SWEEP_TP
+// ---------------------------------------------------------------------------
+// The thermally perfect forms.  Nothing of the old state changes during a
+// sweep, so a pre-pass (one thread per face, fully parallel) evaluates once
+// what the product needs of it: per unmasked face of the sweep side the
+// old flux F(q_nb).n (Rusanov) or F_roe(q_nb | q_cell) (Roe) and the
+// radii, per physical cell its old energy, and per ghost neighbour (its du
+// swapped before the launch) q + du.  The wavefront's lanes then evaluate
+// only the new flux of each neighbour's q + du, which a stage after finish
+// inverts once per cell: a group of thermo::SPEC_LANES threads per cell of
+// the plane, its energy by Ridder's method (temperature_from_energy_spec),
+// written to qu before the tile publishes the plane; the CTAs are
+// persistent (sweep_wavefront.cuh launch_lanes).  The product is the
+// calorically perfect kernel's arithmetic on the stored operands (up to FMA
+// contraction).
+
+// one face 3 pc + d of the pre-pass (head of this section)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__device__ __forceinline__ void prepass_face(const Fields& fl, const Phys& ph,
+                                             const Species<NS>& sp,
+                                             const wavefront::Schedule& sc,
+                                             int64_t f) {
+  constexpr int T0 = NS + 4;
+  const int64_t pc = f / 3;
+  const int d = static_cast<int>(f - 3 * pc);
+  const int nj = sc.n[1], nk = sc.n[2];
+  const int k = static_cast<int>(pc % nk);
+  const int j = static_cast<int>(pc / nk % nj);
+  const int i = static_cast<int>(pc / nk / nj);
+  const int64_t c = fl.base + i * fl.stride[0] + j * fl.stride[1] +
+                    k * fl.stride[2];
+  double q[NEQ];
+  if (d == 0) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) q[e] = fl.prim[e * fl.nc + c];
+    fl.eold[pc] = flux::old_energy<NS, NEQ>(sp, q);
+  }
+  if (!fl.mask[f]) return;
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + f * NSTAT;
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) q[e] = fl.prim[e * fl.nc + nb];
+  double mu, mut, f1, dist;
+  viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, nb, st, mu, mut, f1, dist);
+  const int64_t P = 3 * fl.ncp;   // the stride of a face value
+  double* out = fl.pre + f;
+  if constexpr (ROE) {
+    double qd[NEQ], fo[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
+    flux::roe_flux<NS, NEQ>(ph, sp, q, qd, st[0], st[1], st[2], fo);
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) out[e * P] = fo[e];
+    if constexpr (VISCOUS) {
+      double sr, sr_t;
+      flux::roe_viscous_radii<NS, NEQ, WILCOX>(ph, sp, q, st[3], dist, mu,
+                                               mut, f1, sr, sr_t);
+      out[NEQ * P] = sr;
+      if constexpr (NEQ == T0 + 2) out[(NEQ + 1) * P] = sr_t;
+    }
+  } else {
+    double fq[NEQ], sr, sr_t;
+    rusanov_old_terms<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        ph, sp, q, st[0], st[1], st[2], st[3], dist, mu, mut, f1, fq, sr,
+        sr_t);
+#pragma unroll
+    for (int e = 0; e < T0; ++e) out[e * P] = fq[e];
+    out[T0 * P] = sr;
+    if constexpr (NEQ == T0 + 2) out[(T0 + 1) * P] = sr_t;
+  }
+  // a ghost neighbour's q + du: no stage of this launch writes it
+  const int at = d == 0 ? i : d == 1 ? j : k;
+  const int nd = d == 0 ? sc.n[0] : d == 1 ? nj : nk;
+  if (FORWARD ? at == 0 : at == nd - 1) {
+    double dq[NEQ], qn[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * fl.nc + nb];
+    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qn);
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + nb] = qn[e];
+  }
+}
+
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__global__ void __launch_bounds__(PREPASS_THREADS)
+    prepass(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
+  if (sc.clocks && threadIdx.x == 0) probe::stamp(sc.clocks, 2);
+  const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (f < 3 * fl.ncp)
+    prepass_face<NS, NEQ, VISCOUS, WILCOX, FORWARD>(fl, ph, sp, sc, f);
+  if (sc.clocks) {
+    __syncthreads();
+    if (threadIdx.x == 0) probe::stamp(sc.clocks, 3);
+  }
+}
+
+// the operands lane d's finish reads for one cell, loaded before its
+// product so that their latency hides behind it: per row e = d + 3 r the
+// right-hand side, the lagged term or (backward, without it) du's input,
+// and the inverse
+template <int NEQ>
+struct FinishRows {
+  static constexpr int R = (NEQ + wavefront::LANES - 1) / wavefront::LANES;
+  double b[R], x[R], inv[R];
+};
+
+template <int NS, int NEQ, bool FORWARD>
+__device__ __forceinline__ void load_finish(const Fields& fl, int64_t c,
+                                            int64_t pc, int d,
+                                            FinishRows<NEQ>& fr) {
+  constexpr int T0 = NS + 4;
+  const double inv_f = fl.inv_f[pc];
+  double inv_t = 0.0;
+  if constexpr (NEQ == T0 + 2) inv_t = fl.inv_t[pc];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
+    const int r = e / wavefront::LANES;
+    fr.inv[r] = e < T0 ? inv_f : inv_t;
+    fr.b[r] = fl.b[e * fl.ncp + pc];
+    if (fl.extra)
+      fr.x[r] = fl.extra[e * fl.ncp + pc];
+    else if (!FORWARD)
+      fr.x[r] = __ldcg(fl.du + e * fl.nc + c);
+  }
+}
+
+// finish_rows on the loaded operands (the same arithmetic)
+template <int NS, int NEQ, bool FORWARD>
+__device__ __forceinline__ void finish_loaded(const Fields& fl, int64_t c,
+                                              int d, const double acc[NEQ],
+                                              const FinishRows<NEQ>& fr) {
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
+    const int r = e / wavefront::LANES;
+    const double b = fr.b[r], inv = fr.inv[r];
+    double* x = fl.du + e * fl.nc + c;
+    if (FORWARD)
+      *x = (fl.extra ? (b + acc[e]) - fr.x[r] : b + acc[e]) * inv;
+    else if (fl.extra)
+      *x = (b + fr.x[r] - acc[e]) * inv;
+    else
+      *x = fr.x[r] - acc[e] * inv;
+  }
+}
+
+// Direction d's product from the stored terms (head of this section):
+// the neighbour's q + du (qu) and du through L2, the new flux F(qu).n, or
+// the Roe flux with the cell's own state, against the pre-pass's old flux,
+// plus the stored radii times du.  A masked face adds nothing.
+template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
+__device__ __forceinline__ void stored_product(const Fields& fl,
+                                               const Phys& ph,
+                                               const Species<NS>& sp,
+                                               int64_t c, int64_t pc, int d,
+                                               double x[NEQ]) {
+  constexpr int T0 = NS + 4;
+  constexpr int NV = face_values<NS, NEQ, VISCOUS>();
+  // every load is issued before the mask is known: a masked face's
+  // operands are read (the work space and the padded fields hold the
+  // face's cells) but not used
+  const int64_t f = 3 * pc + d;
+  const bool unmasked = fl.mask[f];
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + f * NSTAT;
+  const int64_t P = 3 * fl.ncp;
+  double old[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) old[v] = __ldg(fl.pre + f + v * P);
+  double qn[NEQ], dq[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    qn[e] = __ldcg(fl.qu + e * fl.nc + nb);
+    dq[e] = __ldcg(fl.du + e * fl.nc + nb);
+  }
+  const double mag = st[3];
+  if (!unmasked) return;
+  if constexpr (ROE) {
+    double qd[NEQ], df[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
+    if (FORWARD)
+      flux::roe_flux<NS, NEQ>(ph, sp, qn, qd, st[0], st[1], st[2], df);
+    else
+      flux::roe_flux<NS, NEQ>(ph, sp, qd, qn, st[0], st[1], st[2], df);
+    if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) df[e] = mag * (df[e] - old[e]);
+    double sr = 0.0, sr_t = 0.0;
+    if constexpr (VISCOUS) sr = old[NEQ];
+    if constexpr (NEQ == T0 + 2) sr_t = old[NV - 1];
+    flux::add_roe_rows<NS, NEQ, VISCOUS, FORWARD>(df, sr, sr_t, dq, x);
+  } else {
+    double fu[NEQ];
+    physical_flux_mix<NS, NEQ>(sp, qn, st[0], st[1], st[2], fu);
+    if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
+    add_rusanov_rows<NS, NEQ, FORWARD>(fu, old, mag, old[T0],
+                                       NEQ == T0 + 2 ? old[NV - 1] : 0.0, dq,
+                                       x);
+  }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
+}
+
+// the stage: cell c's q + du, inverted once by the thermo::SPEC_LANES
+// lanes of a group (this lane r, the group's mask), into qu
+template <int NS, int NEQ>
+__device__ __forceinline__ void invert_cell(const Fields& fl, const Phys& ph,
+                                            const Species<NS>& sp, int64_t c,
+                                            int64_t pc, int r,
+                                            unsigned group) {
+  double q[NEQ], dq[NEQ], qn[NEQ];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    q[e] = fl.prim[e * fl.nc + c];
+    dq[e] = __ldcg(fl.du + e * fl.nc + c);
+  }
+  const double e_old = __ldg(fl.eold + pc);
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::STAGE);
+  flux::update_prim_mix_from<NS, NEQ, true>(ph, sp, q, dq, e_old, qn, r,
+                                            group);
+  if (r == 0) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + c] = qn[e];
+  }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::STAGE + 1);
+}
+
+// Prefetch into L2 what lane d reads for one cell but du and qu, and for
+// lane 0 what the stage reads of the cell.
+template <int NS, int NEQ, bool VISCOUS>
+__device__ __forceinline__ void prefetch_stored(const Fields& fl, int64_t c,
+                                                int64_t pc, int d) {
+  constexpr int T0 = NS + 4;
+  constexpr int NV = face_values<NS, NEQ, VISCOUS>();
+  using wavefront::prefetch_l2;
+  const int64_t f = 3 * pc + d;
+  const int64_t P = 3 * fl.ncp;
+  prefetch_l2(fl.mask + f);
+  prefetch_l2(fl.stat + f * NSTAT);
+  prefetch_l2(fl.stat + f * NSTAT + NSTAT - 1);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) prefetch_l2(fl.pre + f + v * P);
+  if (ROE || d == 0) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
+  }
+  if (d == 0) prefetch_l2(fl.eold + pc);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    if (e % wavefront::LANES != d) continue;
+    prefetch_l2(fl.b + e * fl.ncp + pc);
+    if (fl.extra) prefetch_l2(fl.extra + e * fl.ncp + pc);
+  }
+  prefetch_l2(fl.inv_f + pc);
+  if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
+}
+#endif  // SWEEP_TP
+
 // one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
   const int nj = sc.n[1], nk = sc.n[2];
@@ -344,34 +682,74 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   auto physical = [&](int i, int j, int k) {
     return (static_cast<int64_t>(i) * nj + j) * nk + k;
   };
+#if SWEEP_TP
+  FinishRows<NEQ> fr;
+  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, thermo::SPEC_LANES>(
+      sc,
+      [&](int i, int j, int k, int d) {
+        prefetch_stored<NS, NEQ, VISCOUS>(fl, padded(i, j, k),
+                                          physical(i, j, k), d);
+      },
+      [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
+        const int64_t c = padded(i, j, k), pc = physical(i, j, k);
+        load_finish<NS, NEQ, FORWARD>(fl, c, pc, d, fr);
+        stored_product<NS, NEQ, VISCOUS, FORWARD>(fl, ph, sp, c, pc, d, x[0]);
+      },
+      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
+        finish_loaded<NS, NEQ, FORWARD>(fl, padded(i, j, k), d, acc, fr);
+      },
+      [&](int i, int j, int k, int r, unsigned group) {
+        invert_cell<NS, NEQ>(fl, ph, sp, padded(i, j, k), physical(i, j, k),
+                             r, group);
+      });
+#else
   wavefront::walk<FORWARD, NEQ, 1>(
       sc,
       [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
             fl, padded(i, j, k), physical(i, j, k), d);
       },
       [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
       },
       [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
         finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
                                       physical(i, j, k), d, acc);
       });
+#endif
 }
 
-// the off-diagonal of this translation unit's forms
-constexpr bool ROE = SWEEP_ROE != 0;
-
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-int launch_tiles(int forward, const Fields& fl, const Phys& ph,
+int launch_tiles(int forward, Fields fl, const Phys& ph,
                  const Species<NS>& sp, const wavefront::Schedule& sc,
-                 cudaStream_t st) {
+                 cudaStream_t st, double* work) {
+#if SWEEP_TP
+  if (!work) return static_cast<int>(cudaErrorInvalidValue);
+  fl.pre = work;
+  fl.eold = work + face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp;
+  fl.qu = fl.eold + fl.ncp;
+  const int err =
+      forward
+          ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
+                                    3 * fl.ncp, PREPASS_THREADS, st, fl, ph,
+                                    sp, sc)
+          : wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, false>,
+                                    3 * fl.ncp, PREPASS_THREADS, st, fl, ph,
+                                    sp, sc);
+  if (err != 0) return err;
+#else
+  if (work) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  // the thermally perfect forms' stage: thermo::SPEC_LANES threads a cell
+  constexpr int lanes = TP ? thermo::SPEC_LANES : 0;
   if (forward)
-    return wavefront::launch(
-        sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true, ROE>, sc, st, fl, ph, sp);
-  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false, ROE>,
-                           sc, st, fl, ph, sp);
+    return wavefront::launch_lanes(
+        lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st, fl, ph,
+        sp);
+  return wavefront::launch_lanes(
+      lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st, fl, ph,
+      sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -380,7 +758,8 @@ int launch_tiles(int forward, const Fields& fl, const Phys& ph,
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const Phys& ph, const double* species,
-                const wavefront::Schedule& sc, cudaStream_t st) {
+                const wavefront::Schedule& sc, cudaStream_t st,
+                double* work) {
   constexpr int N = NS + 4;
   Species<NS> sp;
   for (int s = 0; s < NS; ++s) {
@@ -394,21 +773,26 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
     return static_cast<int>(cudaErrorInvalidValue);
 #endif
   if (neq == N && !viscous && !wilcox)
-    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st,
+                                             work);
   if (neq == N && viscous && !wilcox)
-    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st,
+                                            work);
   if (neq == N + 2 && viscous && !wilcox)
-    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st,
+                                                work);
   if (neq == N + 2 && viscous && wilcox)
-    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st,
+                                               work);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// One whole sweep of one block: a cudaMemsetAsync of the schedule's state
-// and one tile-wavefront launch on `stream`.  ns is 1..BASE_NS, or
-// SWEEP_NS in a build for that count, and neq is
+// One whole sweep of one block: a cudaMemsetAsync of the schedule's state,
+// for the thermally perfect forms the pre-pass, and one tile-wavefront
+// launch, all on `stream`.  ns is 1..BASE_NS, or SWEEP_NS in a build for
+// that count, and neq is
 // ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
 // turbulence equations only with viscous); roe is 1 for the approximateRoe
@@ -419,12 +803,20 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // array of the mixture's R_s, cv_s, cp_s and hf_s, ns each (read when ns
 // > 1 or tp), then for tp the vibrational table (launch_form).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
 // cell order.  sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk,
-// g}; tiles the device tile table (ntiles, 6) and state
+// g, ctas} (ctas: the persistent CTAs of a thermally perfect form's
+// wavefront); tiles the device tile table (ntiles, 6) and state
 // device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
 // null (variant (a)); mu, mut, f1 may be null when inviscid and inv_t
-// without turbulence equations.  Returns cudaGetLastError() after the
-// launch (0 when it was accepted), or cudaErrorInvalidValue for a form
-// that does not exist or that another library holds.
+// without turbulence equations.  work is the thermally perfect forms'
+// device work space (null for the other forms): per face of the sweep
+// side face_values doubles (3 ncp faces), then ncp old energies, then
+// NEQ x nc updated states (kernels/lusgs_sweep.py work_doubles); clocks
+// null, or for a thermally perfect form in the probe's build (SWEEP_PROBE)
+// the device array of the step clocks (sweep_wavefront.cuh, namespace
+// probe).  Returns
+// cudaGetLastError() after the launches (0 when they were accepted), or
+// cudaErrorInvalidValue for a form that does not exist or that another
+// library holds.
 extern "C" int lusgs_sweep_f64(
     int forward, int ns, int neq, int viscous, int wilcox, int roe, int tp,
     const double* prim,
@@ -435,8 +827,10 @@ extern "C" int lusgs_sweep_f64(
     long long stride_k, const int* sched, const int* tiles, int* state,
     double R, double cv, double cp, double hf, double gamma, double prandtl,
     double prt, double scaling, double tmin_k, double tmin_w,
-    double sigma_k1, double sigma_k2, const double* species, void* stream) {
-  if ((roe != 0) != ROE || (tp != 0) != TP)
+    double sigma_k1, double sigma_k2, const double* species, void* stream,
+    double* work, unsigned long long* clocks) {
+  if ((roe != 0) != ROE || (tp != 0) != TP ||
+      (clocks && !(TP && SWEEP_PROBE)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim, du,   mu,   mut, f1, b,   extra,
@@ -444,31 +838,32 @@ extern "C" int lusgs_sweep_f64(
             {stride_i, stride_j, stride_k}};
   Phys ph{R, cv, cp, hf, gamma, prandtl, prt, scaling,
           tmin_k, tmin_w, sigma_k1, sigma_k2};
-  const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
+  const wavefront::Schedule sc =
+      wavefront::make_schedule(sched, tiles, state, clocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #ifdef SWEEP_NS
   static_assert(SWEEP_NS > BASE_NS, "a SWEEP_NS build is of a count above "
                                     "the base build's");
   if (ns == SWEEP_NS)
     return launch_form<SWEEP_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, sc, st);
+                                 species, sc, st, work);
 #else
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 2:
       return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 3:
       return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case BASE_NS:
       return launch_form<BASE_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                  species, sc, st);
+                                  species, sc, st, work);
   }
 #endif
   return static_cast<int>(cudaErrorInvalidValue);

@@ -168,13 +168,11 @@ __device__ __forceinline__ void physical_flux_mix(const SP& sp,
   for (int e = NS + 4; e < NEQ; ++e) f[e] = rvn * q[e];
 }
 
-// q + du of a mixture in conserved variables, the species renormalised,
-// back to primitives (aither_tpu state.update_prim_with_cons)
-template <int NS, int NEQ, class PH, class SP>
-__device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
-                                                const double q[NEQ],
-                                                const double dq[NEQ],
-                                                double out[NEQ]) {
+// the specific total energy of a mixture's state q: sum_s mf_s e_s(T) +
+// |v|^2 / 2 (q + du's old energy, update_prim_mix)
+template <int NS, int NEQ, class SP>
+__device__ __forceinline__ double old_energy(const SP& sp,
+                                             const double q[NEQ]) {
   const double u = q[NS], v = q[NS + 1], w = q[NS + 2], p = q[NS + 3];
   double rho = 0.0;
 #pragma unroll
@@ -189,7 +187,22 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
     e += (sp.hf[s] + sp.cv[s] * t) * (q[s] / rho);
 #endif
   }
-  e += 0.5 * (u * u + v * v + w * w);
+  return e + 0.5 * (u * u + v * v + w * w);
+}
+
+// q + du of a mixture in conserved variables, the species renormalised,
+// back to primitives (aither_tpu state.update_prim_with_cons), with q's
+// specific total energy e (old_energy) given.  SPEC (a thermally perfect
+// build): the energy is inverted by the lanes of a group together
+// (thermo::temperature_from_energy_spec; this lane of the group's mask)
+template <int NS, int NEQ, bool SPEC = false, class PH, class SP>
+__device__ __forceinline__ void update_prim_mix_from(
+    const PH& ph, const SP& sp, const double q[NEQ], const double dq[NEQ],
+    double e, double out[NEQ], int lane = 0, unsigned group = 0) {
+  const double u = q[NS], v = q[NS + 1], w = q[NS + 2];
+  double rho = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) rho += q[s];
   double c[NS];
   double r = 0.0;
 #pragma unroll
@@ -219,7 +232,11 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
   double mfu[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) mfu[s] = out[s] / r2;
-  const double tu = thermo::temperature_from_energy<NS>(sp, se, mfu);
+  double tu;
+  if constexpr (SPEC)
+    tu = thermo::temperature_from_energy_spec<NS>(sp, se, mfu, lane, group);
+  else
+    tu = thermo::temperature_from_energy<NS>(sp, se, mfu);
 #else
   double hf_mix = 0.0, cv_mix = 0.0;
 #pragma unroll
@@ -239,6 +256,15 @@ __device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
     out[NS + 4] = k < ph.tmin_k ? ph.tmin_k : k;
     out[NS + 5] = om < ph.tmin_w ? ph.tmin_w : om;
   }
+}
+
+template <int NS, int NEQ, class PH, class SP>
+__device__ __forceinline__ void update_prim_mix(const PH& ph, const SP& sp,
+                                                const double q[NEQ],
+                                                const double dq[NEQ],
+                                                double out[NEQ]) {
+  update_prim_mix_from<NS, NEQ>(ph, sp, q, dq, old_energy<NS, NEQ>(sp, q),
+                                out);
 }
 
 // one species or a mixture: q + du, F(q).n (one species takes the
@@ -404,6 +430,74 @@ __device__ __forceinline__ void roe_flux(const PH& ph, const SP& sp,
   for (int e = 0; e < NEQ; ++e) f[e] = 0.5 * (fl[e] + fr[e] - f[e]);
 }
 
+// The viscous-only face radii of the Roe product (head of this file) of a
+// neighbour with state q: the flow one (mu/Pr + mut/Prt) and, with
+// turbulence equations, the turbulence one (mu + sigma_k mut); the
+// neighbour state's gamma and Prandtl number from its T in a thermally
+// perfect build
+template <int NS, int NEQ, bool WILCOX, class PH, class SP>
+__device__ __forceinline__ void roe_viscous_radii(
+    const PH& ph, const SP& sp, const double q[NEQ], double mag, double dist,
+    double mu, double mut, double f1, double& sr, double& sr_t) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
+  double rho, gamma, prandtl;
+  if constexpr (NS == 1 && !SWEEP_TP) {
+    rho = q[0];
+    gamma = ph.gamma;
+    prandtl = ph.prandtl;
+  } else {
+    rho = 0.0;
+    double cpm = 0.0, cvm = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) rho += q[s];
+#if SWEEP_TP
+    double mf[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) mf[s] = q[s] / rho;
+    thermo::cp_cv<NS>(sp, mf, q[NS + 3] / species_sum<NS>(sp.R, q), cpm,
+                      cvm);
+#else
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      cpm += sp.cp[s] * (q[s] / rho);
+      cvm += sp.cv[s] * (q[s] / rho);
+    }
+#endif
+    gamma = cpm / cvm;
+    prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
+  }
+  const double max_term = fmax(4.0 / (3.0 * rho), gamma / rho);
+  sr = mag / dist * max_term * (ph.scaling * (mu / prandtl + mut / ph.prt));
+  sr_t = 0.0;
+  if constexpr (NEQ == T0 + 2) {
+    // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
+    const double sk = WILCOX ? ph.sigma_k1
+                             : f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
+    const double mutx = WILCOX ? rho * q[T0] / q[T0 + 1] : mut;
+    sr_t = ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
+  }
+}
+
+// The Roe product's rows from its flux change df = mag (F_new - F_old) and
+// the viscous radii, added to acc.  FORWARD: the lower neighbour (positive)
+template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
+__device__ __forceinline__ void add_roe_rows(const double df[NEQ], double sr,
+                                             double sr_t,
+                                             const double dq[NEQ],
+                                             double acc[NEQ]) {
+  constexpr int T0 = NS + 4;   // first turbulence equation
+  if constexpr (!VISCOUS) {
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) acc[e] += df[e];
+  } else {
+    const double sgn = FORWARD ? 1.0 : -1.0;
+#pragma unroll
+    for (int e = 0; e < T0; ++e) acc[e] += df[e] + sgn * (sr * dq[e]);
+#pragma unroll
+    for (int e = T0; e < NEQ; ++e) acc[e] += df[e] + sgn * (sr_t * dq[e]);
+  }
+}
+
 // approximateRoe off-diagonal product of one neighbour (state q, update
 // dq) across a face (n, mag) of the cell with state qd, added to acc (head
 // of this file).  FORWARD: the lower neighbour (positive).  mu, mut, f1
@@ -414,7 +508,6 @@ __device__ __forceinline__ void add_roe_offdiagonal(
     const PH& ph, const SP& sp, const double q[NEQ], const double dq[NEQ],
     const double qd[NEQ], double n0, double n1, double n2, double mag,
     double dist, double mu, double mut, double f1, double acc[NEQ]) {
-  constexpr int T0 = NS + 4;   // first turbulence equation
   double df[NEQ];
   {
     double qu[NEQ];
@@ -430,53 +523,11 @@ __device__ __forceinline__ void add_roe_offdiagonal(
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) df[e] = mag * (df[e] - fo[e]);
   }
-  if constexpr (!VISCOUS) {
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) acc[e] += df[e];
-  } else {
-    // the viscous-only face radii of the neighbour state
-    double rho, gamma, prandtl;
-    if constexpr (NS == 1 && !SWEEP_TP) {
-      rho = q[0];
-      gamma = ph.gamma;
-      prandtl = ph.prandtl;
-    } else {
-      rho = 0.0;
-      double cpm = 0.0, cvm = 0.0;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) rho += q[s];
-#if SWEEP_TP
-      double mf[NS];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) mf[s] = q[s] / rho;
-      thermo::cp_cv<NS>(sp, mf, q[NS + 3] / species_sum<NS>(sp.R, q), cpm,
-                        cvm);
-#else
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        cpm += sp.cp[s] * (q[s] / rho);
-        cvm += sp.cv[s] * (q[s] / rho);
-      }
-#endif
-      gamma = cpm / cvm;
-      prandtl = 4.0 * gamma / (9.0 * gamma - 5.0);
-    }
-    const double max_term = fmax(4.0 / (3.0 * rho), gamma / rho);
-    const double sr = mag / dist * max_term *
-                      (ph.scaling * (mu / prandtl + mut / ph.prt));
-    const double sgn = FORWARD ? 1.0 : -1.0;
-#pragma unroll
-    for (int e = 0; e < T0; ++e) acc[e] += df[e] + sgn * (sr * dq[e]);
-    if constexpr (NEQ == T0 + 2) {
-      // Wilcox: sigma* and the unlimited eddy viscosity of the neighbour
-      const double sk = WILCOX ? ph.sigma_k1
-                               : f1 * ph.sigma_k1 + (1.0 - f1) * ph.sigma_k2;
-      const double mutx = WILCOX ? rho * q[T0] / q[T0 + 1] : mut;
-      const double sr_t = ph.scaling * (mag / dist) / rho * (mu + sk * mutx);
-#pragma unroll
-      for (int e = T0; e < NEQ; ++e) acc[e] += df[e] + sgn * (sr_t * dq[e]);
-    }
-  }
+  double sr = 0.0, sr_t = 0.0;
+  if constexpr (VISCOUS)
+    roe_viscous_radii<NS, NEQ, WILCOX>(ph, sp, q, mag, dist, mu, mut, f1, sr,
+                                       sr_t);
+  add_roe_rows<NS, NEQ, VISCOUS, FORWARD>(df, sr, sr_t, dq, acc);
 }
 
 }  // namespace flux

@@ -38,20 +38,109 @@
 // makes it (tile planes) x (planes per tile) and was slower on the H100:
 // PERF.md, section 6.)
 //
-// Coherence: du is written by other SMs during the launch, so the cell
-// code reads it through L2 (__ldcg), never through L1, __ldg or a
-// const __restrict__ pointer.  A tile's progress is published by the
-// control thread (lane 31 of warp 0, which has no column) after the
-// barrier that ends the plane: __threadfence(), then st.release.gpu (the
-// pattern of cooperative groups' grid barrier); a waiting tile's control
-// thread polls with ld.acquire.gpu and fences before the barrier that
-// starts the plane.  Ghost du was swapped before the launch and needs no
-// flag.  The ticket and the flags are zeroed by a cudaMemsetAsync on the
-// launch's stream before each launch.
+// Coherence: du (and the thermally perfect stage's q + du) is written by other
+// SMs during the launch, so the cell code reads it through L2 (__ldcg), never
+// through L1, __ldg or a const __restrict__ pointer.  A tile's progress is
+// published by the control thread (lane 31 of warp 0, which has no column)
+// after the barrier that ends the plane: __threadfence(), then st.release.gpu
+// (the pattern of cooperative groups' grid barrier); a waiting tile's control
+// thread polls with ld.acquire.gpu and fences before the barrier that starts
+// the plane.  Ghost du was swapped before the launch and needs no flag.  The
+// ticket and the flags are zeroed by a cudaMemsetAsync on the launch's stream
+// before each launch.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+// Step clocks of a sweep (kernels/lusgs_sweep.py clock_breakdown): a walk
+// instantiated with PROBE, launched with Schedule::clocks set, has thread 0
+// (lane 0 of column 0) read clock64() at the marks of each plane on which
+// its column has a cell, and add the cycles since its previous mark to the
+// mark's slot; slot BARRIER takes the cycles from a plane's last mark to
+// the next plane's start (without a stage, the barrier and the flags).  The slots' meaning
+// between the start and the exchange is the kernel's (mark()).  At the end
+// thread 0 stores the slots and its count of such planes in row `ticket`
+// (after the HEADER), and the control thread folds the launch's first
+// start and last end (%globaltimer, ns) into clocks[0] (min) and clocks[1]
+// (max); a pre-pass launch (lusgs_sweep.cu) folds its own into clocks[2]
+// and clocks[3].
+// Without clocks a PROBE walk only tests a flag in shared memory per mark,
+// which still costs 1-3% of a thermally perfect sweep pair on the H100:
+// only the probe's builds instantiate it (lusgs_sweep.cu SWEEP_PROBE).
+namespace probe {
+constexpr int SLOTS = 11;
+// slots: BARRIER; ADDENDS + 0..2, the kernel's marks inside addends();
+// the exchange and finish; the stage's barrier; STAGE + 0..1, the
+// kernel's marks inside stage(); the barrier after the stage (PUBLISH)
+// and the control thread's publication and wait with the barrier after
+// them (FLAGS)
+constexpr int BARRIER = 0, ADDENDS = 1, EXCHANGE = 4, FINISH = 5,
+              STAGE_BARRIER = 6, STAGE = 7, PUBLISH = 9, FLAGS = 10;
+constexpr int HEADER = 4;         // [0, 1] wavefront, [2, 3] pre-pass
+constexpr int ROW = SLOTS + 1;    // the slots, then the planes counted
+__shared__ unsigned long long acc[SLOTS];
+__shared__ unsigned long long last;
+__shared__ int enabled, planes, counting;
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// fold this CTA's start or end into clocks[slot] (min at an even slot)
+__device__ __forceinline__ void stamp(unsigned long long* clocks, int slot) {
+  const unsigned long long t = globaltimer();
+  if (slot % 2 == 0)
+    atomicMin(clocks + slot, t);
+  else
+    atomicMax(clocks + slot, t);
+}
+
+// the control thread, before the walk's first barrier
+__device__ __forceinline__ void begin(unsigned long long* clocks) {
+  enabled = clocks != nullptr;
+  planes = 0;
+  counting = 0;
+  for (int k = 0; k < SLOTS; ++k) acc[k] = 0;
+  if (clocks) stamp(clocks, 0);
+}
+
+// add the cycles since thread 0's previous mark to slot k
+__device__ __forceinline__ void mark(int k) {
+  if (enabled && threadIdx.x == 0) {
+    const unsigned long long now = clock64();
+    if (counting) acc[k] += now - last;
+    last = now;
+  }
+}
+
+// thread 0 at the start of a plane (on: its column has a cell there)
+__device__ __forceinline__ void plane(bool on) {
+  if (enabled && threadIdx.x == 0) {
+    const unsigned long long now = clock64();
+    if (counting) acc[BARRIER] += now - last;
+    last = now;
+    counting = on;
+    planes += on;
+  }
+}
+
+__device__ __forceinline__ void end(unsigned long long* clocks, int row,
+                                    bool ctrl) {
+  if (!clocks) return;
+  if (threadIdx.x == 0) {
+    unsigned long long* out = clocks + HEADER + ROW * row;
+    for (int k = 0; k < SLOTS; ++k) out[k] = acc[k];
+    out[SLOTS] = planes;
+  }
+  if (ctrl) stamp(clocks, 1);
+}
+}  // namespace probe
 
 namespace wavefront {
 
@@ -76,9 +165,13 @@ struct Schedule {
   const int* __restrict__ tiles;  // (ntiles, TILE_COLUMNS), topological
   int* state;                     // [0] ticket, [1 + id] planes done
   int ntiles;
+  int ctas;      // CTAs of a launch with a stage (persistent), at most ntiles
   int n[3];      // block extents ni, nj, nk
   int t[3];      // tile extents (the last tile of an axis may be shorter)
   int tg[3];     // tiles per axis
+  // the step clocks (namespace probe), or null: read only by a walk
+  // with PROBE
+  unsigned long long* clocks;
 };
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -111,132 +204,217 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 // NADD-1 of x[a][e] in that order from 0.0, and lane d calls
 // finish(i, j, k, d, acc).  (i, j, k) are physical cell indices.  Every
 // lane of a warp with a cell on the plane takes part in the exchange.
-template <bool FORWARD, int NEQ, int NADD, class Prefetch, class Addends,
-          class Finish>
+// With a stage (the thermally perfect scalar sweep), a barrier follows
+// finish, and each group of STAGE_LANES threads (aligned lanes of a warp)
+// calls stage(i, j, k, r, group) for the cell of its tile column on the
+// plane (r the thread's lane in the group, group the group's lane mask);
+// then a barrier, and the control thread publishes the plane, which so
+// covers what the stage writes, before it waits for the predecessors' next
+// plane.  Without (NoStage: every other build) the walk is as it was.
+struct NoStage {};
+
+template <bool FORWARD, int NEQ, int NADD, bool PROBE = false,
+          int STAGE_LANES = 1, class Prefetch, class Addends, class Finish,
+          class Stage = NoStage>
 __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
-                                     Addends addends, Finish finish) {
+                                     Addends addends, Finish finish,
+                                     Stage stage = Stage()) {
   __shared__ int ticket;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const bool ctrl = tid == 31;
-  if (ctrl) ticket = atomicAdd(sc.state, 1);
-  __syncthreads();
-  const int row = FORWARD ? ticket : sc.ntiles - 1 - ticket;
-  const int* tl = sc.tiles + TILE_COLUMNS * row;
-  const int o[3] = {tl[0], tl[1], tl[2]};
-  const int e[3] = {tl[3], tl[4], tl[5]};
-  const int nq = e[0] + e[1] + e[2] - 2;
-
-  // this lane's column (b, c) and direction d
-  const int col = (tid >> 5) * COLUMNS_PER_WARP + lane / LANES;
-  const int d = lane % LANES;
-  const bool valid = lane < LANES * COLUMNS_PER_WARP && col < e[1] * e[2];
-  const int b = valid ? col / e[2] : 0;
-  const int c = valid ? col - b * e[2] : 0;
-  // sweep-local plane of the column's first cell
-  const int bc = FORWARD ? b + c : (e[1] - 1 - b) + (e[2] - 1 - c);
-  const int base = lane / LANES * LANES;  // lane of direction 0
-
-  // the control thread's view of the up-to-three predecessor tiles
-  int id = 0, pred[3] = {-1, -1, -1}, ext[3] = {0, 0, 0},
-      pnq[3] = {0, 0, 0}, seen[3] = {0, 0, 0};
-  if (ctrl) {
-    int tc[3];
-    for (int a = 0; a < 3; ++a) tc[a] = o[a] / sc.t[a];
-    id = (tc[0] * sc.tg[1] + tc[1]) * sc.tg[2] + tc[2];
-    for (int a = 0; a < 3; ++a) {
-      const int pc = tc[a] + (FORWARD ? -1 : 1);
-      if (pc < 0 || pc >= sc.tg[a]) continue;
-      int p[3] = {tc[0], tc[1], tc[2]};
-      p[a] = pc;
-      pred[a] = (p[0] * sc.tg[1] + p[1]) * sc.tg[2] + p[2];
-      ext[a] = min(sc.t[a], sc.n[a] - pc * sc.t[a]);
-      pnq[a] = nq - e[a] + ext[a];
+  // with a stage the CTAs are persistent: each takes tiles until the
+  // tickets run out (launch_lanes); without, a CTA walks one tile
+  constexpr bool staged = !std::is_same<Stage, NoStage>::value;
+  for (;;) {
+    if (ctrl) {
+      ticket = atomicAdd(sc.state, 1);
+      if constexpr (PROBE) probe::begin(sc.clocks);
     }
-  }
-  // control thread: wait until plane q of this tile may run
-  auto wait_for = [&](int q) {
-    bool waited = false;
-    for (int a = 0; a < 3; ++a) {
-      if (pred[a] < 0) continue;
-      const int need = min(q + ext[a], pnq[a]);
-      for (int polls = 0; seen[a] < need; ++polls) {
-        if (polls == MAX_POLLS) __trap();
-        seen[a] = load_acquire(sc.state + 1 + pred[a]);
-        waited = true;
-      }
-    }
-    if (waited) __threadfence();
-  };
-  auto publish = [&](int planes) {
-    __threadfence();
-    store_release(sc.state + 1 + id, planes);
-  };
-
-  // physical i of the column's cell at sweep-local i `as`
-  auto cell_i = [&](int as) { return o[0] + (FORWARD ? as : e[0] - 1 - as); };
-  if (valid && bc == 0) prefetch(cell_i(0), o[1] + b, o[2] + c, d);
-  if (ctrl) wait_for(0);
-  __syncthreads();
-  for (int q = 0; q < nq; ++q) {
-    if (ctrl && q > 0) publish(q);
-    const int as = q - bc;  // sweep-local i of the column's cell
-    if (valid && as + 1 >= 0 && as + 1 < e[0])
-      prefetch(cell_i(as + 1), o[1] + b, o[2] + c, d);
-    const bool on = valid && as >= 0 && as < e[0];
-    if (__any_sync(FULL, on)) {
-      const int i = on ? cell_i(as) : o[0];
-      double x[NADD][NEQ];
-#pragma unroll
-      for (int a = 0; a < NADD; ++a)
-#pragma unroll
-        for (int k = 0; k < NEQ; ++k) x[a][k] = 0.0;
-      if (on) addends(i, o[1] + b, o[2] + c, d, x);
-      double acc[NEQ];
-#pragma unroll
-      for (int k = 0; k < NEQ; ++k) {
-        double sum = 0.0;
-#pragma unroll
-        for (int l = 0; l < LANES; ++l)
-#pragma unroll
-          for (int a = 0; a < NADD; ++a)
-            sum += __shfl_sync(FULL, x[a][k], base + l);
-        acc[k] = sum;
-      }
-      if (on) finish(i, o[1] + b, o[2] + c, d, acc);
-    }
-    if (ctrl && q + 1 < nq) wait_for(q + 1);
     __syncthreads();
+    if (staged && ticket >= sc.ntiles) break;
+    const int row = FORWARD ? ticket : sc.ntiles - 1 - ticket;
+    const int* tl = sc.tiles + TILE_COLUMNS * row;
+    const int o[3] = {tl[0], tl[1], tl[2]};
+    const int e[3] = {tl[3], tl[4], tl[5]};
+    const int nq = e[0] + e[1] + e[2] - 2;
+
+    // this lane's column (b, c) and direction d
+    const int col = (tid >> 5) * COLUMNS_PER_WARP + lane / LANES;
+    const int d = lane % LANES;
+    const bool valid = lane < LANES * COLUMNS_PER_WARP && col < e[1] * e[2];
+    const int b = valid ? col / e[2] : 0;
+    const int c = valid ? col - b * e[2] : 0;
+    // sweep-local plane of the column's first cell
+    const int bc = FORWARD ? b + c : (e[1] - 1 - b) + (e[2] - 1 - c);
+    const int base = lane / LANES * LANES;  // lane of direction 0
+
+    // the control thread's view of the up-to-three predecessor tiles
+    int id = 0, pred[3] = {-1, -1, -1}, ext[3] = {0, 0, 0},
+        pnq[3] = {0, 0, 0}, seen[3] = {0, 0, 0};
+    if (ctrl) {
+      int tc[3];
+      for (int a = 0; a < 3; ++a) tc[a] = o[a] / sc.t[a];
+      id = (tc[0] * sc.tg[1] + tc[1]) * sc.tg[2] + tc[2];
+      for (int a = 0; a < 3; ++a) {
+        const int pc = tc[a] + (FORWARD ? -1 : 1);
+        if (pc < 0 || pc >= sc.tg[a]) continue;
+        int p[3] = {tc[0], tc[1], tc[2]};
+        p[a] = pc;
+        pred[a] = (p[0] * sc.tg[1] + p[1]) * sc.tg[2] + p[2];
+        ext[a] = min(sc.t[a], sc.n[a] - pc * sc.t[a]);
+        pnq[a] = nq - e[a] + ext[a];
+      }
+    }
+    // control thread: wait until plane q of this tile may run
+    auto wait_for = [&](int q) {
+      bool waited = false;
+      for (int a = 0; a < 3; ++a) {
+        if (pred[a] < 0) continue;
+        const int need = min(q + ext[a], pnq[a]);
+        for (int polls = 0; seen[a] < need; ++polls) {
+          if (polls == MAX_POLLS) __trap();
+          seen[a] = load_acquire(sc.state + 1 + pred[a]);
+          waited = true;
+        }
+      }
+      if (waited) __threadfence();
+    };
+    auto publish = [&](int planes) {
+      __threadfence();
+      store_release(sc.state + 1 + id, planes);
+    };
+
+    // physical i of the column's cell at sweep-local i `as`
+    auto cell_i = [&](int as) { return o[0] + (FORWARD ? as : e[0] - 1 - as); };
+    if (valid && bc == 0) prefetch(cell_i(0), o[1] + b, o[2] + c, d);
+    if (ctrl) wait_for(0);
+    __syncthreads();
+    for (int q = 0; q < nq; ++q) {
+      if (!staged && ctrl && q > 0) publish(q);
+      const int as = q - bc;  // sweep-local i of the column's cell
+      if (valid && as + 1 >= 0 && as + 1 < e[0])
+        prefetch(cell_i(as + 1), o[1] + b, o[2] + c, d);
+      const bool on = valid && as >= 0 && as < e[0];
+      if constexpr (PROBE) probe::plane(on);
+      if (__any_sync(FULL, on)) {
+        const int i = on ? cell_i(as) : o[0];
+        double x[NADD][NEQ];
+#pragma unroll
+        for (int a = 0; a < NADD; ++a)
+#pragma unroll
+          for (int k = 0; k < NEQ; ++k) x[a][k] = 0.0;
+        if (on) addends(i, o[1] + b, o[2] + c, d, x);
+        double acc[NEQ];
+#pragma unroll
+        for (int k = 0; k < NEQ; ++k) {
+          double sum = 0.0;
+#pragma unroll
+          for (int l = 0; l < LANES; ++l)
+#pragma unroll
+            for (int a = 0; a < NADD; ++a)
+              sum += __shfl_sync(FULL, x[a][k], base + l);
+          acc[k] = sum;
+        }
+        if constexpr (PROBE) probe::mark(probe::EXCHANGE);
+        if (on) finish(i, o[1] + b, o[2] + c, d, acc);
+        if constexpr (PROBE) probe::mark(probe::FINISH);
+      }
+      if constexpr (staged) {
+        // the group of STAGE_LANES threads g takes the cells of columns g,
+        // g + groups, ... of the plane, once finish has written all their
+        // rows
+        __syncthreads();
+        if constexpr (PROBE) probe::mark(probe::STAGE_BARRIER);
+        const int r = tid % STAGE_LANES;
+        const unsigned group = ((1u << STAGE_LANES) - 1u) << (lane - r);
+        for (int col = tid / STAGE_LANES; col < e[1] * e[2];
+             col += blockDim.x / STAGE_LANES) {
+          const int sb = col / e[2], scol = col - sb * e[2];
+          const int sas =
+              q - (FORWARD ? sb + scol : (e[1] - 1 - sb) + (e[2] - 1 - scol));
+          if (sas >= 0 && sas < e[0])
+            stage(cell_i(sas), o[1] + sb, o[2] + scol, r, group);
+        }
+        // publish the plane as soon as the stage has written it, before the
+        // wait for the predecessors' next plane
+        __syncthreads();
+        if constexpr (PROBE) probe::mark(probe::PUBLISH);
+        if (ctrl) {
+          publish(q + 1);
+          if (q + 1 < nq) wait_for(q + 1);
+        }
+      } else {
+        if (ctrl && q + 1 < nq) wait_for(q + 1);
+      }
+      __syncthreads();
+      if constexpr (PROBE && staged) probe::mark(probe::FLAGS);
+    }
+    if (!staged && ctrl) publish(nq);
+    if constexpr (PROBE) probe::end(sc.clocks, ticket, ctrl);
+    if constexpr (!staged) break;
+    __syncthreads();   // every thread has read this tile's ticket
   }
-  if (ctrl) publish(nq);
 }
 
 // the launch of one sweep of one block: zero the ticket and the flags on
 // `st`, then one CTA per tile, three lanes for each of a whole tile's
-// columns, ten columns to a warp.  Returns cudaGetLastError() after the
-// launch (0 when it was accepted).
+// columns, ten columns to a warp; with a stage of stage_lanes threads a
+// cell (walk's STAGE_LANES), enough warps for all the columns' cells at
+// once, up to THREADS, and the schedule's ctas persistent CTAs (the
+// tickets are taken in topological order and every waiting CTA holds one,
+// so the tiles a CTA waits for are done or held by running CTAs: no
+// deadlock however few CTAs run), so that the blocks of a sweep, launched
+// on streams of their own, run side by side where one launch of a CTA a
+// tile would fill the card before the next block's launch starts.
+// Returns cudaGetLastError() after the launch (0 when it was accepted).
 template <class Kernel, class... Args>
-int launch(Kernel kernel, const Schedule& sc, cudaStream_t st,
-           Args... args) {
+int launch_lanes(int stage_lanes, Kernel kernel, const Schedule& sc,
+                 cudaStream_t st, Args... args) {
   cudaError_t err = cudaMemsetAsync(sc.state, 0,
                                     sizeof(int) * (1 + sc.ntiles), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int columns = sc.t[1] * sc.t[2];
   if (columns > MAX_TILE_COLUMNS) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads =
-      32 * ((columns + COLUMNS_PER_WARP - 1) / COLUMNS_PER_WARP);
-  kernel<<<sc.ntiles, threads, 0, st>>>(args..., sc);
+  int threads = 32 * ((columns + COLUMNS_PER_WARP - 1) / COLUMNS_PER_WARP);
+  int ctas = sc.ntiles;
+  if (stage_lanes > 0) {
+    threads = max(threads, min(THREADS, 32 * ((stage_lanes * columns + 31) /
+                                              32)));
+    ctas = sc.ctas;
+  }
+  kernel<<<ctas, threads, 0, st>>>(args..., sc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Kernel, class... Args>
+int launch(Kernel kernel, const Schedule& sc, cudaStream_t st,
+           Args... args) {
+  return launch_lanes(0, kernel, sc, st, args...);
+}
+
+// a fully parallel launch of `threads`-thread CTAs over n items (one per
+// thread) on `st`.  Returns cudaGetLastError() after the launch.
+template <class Kernel, class... Args>
+int launch_cells(Kernel kernel, int64_t n, int threads, cudaStream_t st,
+                 Args... args) {
+  const int64_t ctas = (n + threads - 1) / threads;
+  kernel<<<static_cast<unsigned>(ctas), threads, 0, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the schedule from the wrapper's HOST array sched = {ntiles, ni, nj, nk,
-// ti, tj, tk, g} and the device tile table and state (1 + ntiles ints)
+// ti, tj, tk, g, ctas} and the device tile table and state (1 + ntiles
+// ints)
 inline Schedule make_schedule(const int* sched, const int* tiles,
-                              int* state) {
+                              int* state,
+                              unsigned long long* clocks = nullptr) {
   Schedule sc;
   sc.tiles = tiles;
   sc.state = state;
+  sc.clocks = clocks;
   sc.ntiles = sched[0];
+  sc.ctas = min(max(sched[8], 1), sched[0]);
   for (int a = 0; a < 3; ++a) {
     sc.n[a] = sched[1 + a];
     sc.t[a] = sched[4 + a];

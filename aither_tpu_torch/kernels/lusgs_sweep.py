@@ -34,10 +34,15 @@ lacks the diagonal cell's state) and are built as libraries of their own
 gas (``thermodynamicModel: thermallyPerfect``) takes the thermally
 perfect forms of either off-diagonal, libraries ``*_tp`` and ``*_roe_tp``
 (``csrc/thermo_tp.cuh``): each species' energy, enthalpy, cv and cp are
-functions of T, the energy of q + du is inverted by Ridder's method per
-neighbour, and the Roe state's enthalpy and speed of sound are those of
-its T.  They replace the JAX package's scan sweep of such a deck (its
-``use_pallas`` turns the Pallas kernel off there).  The plain
+functions of T, the energy of q + du is inverted by Ridder's method, and
+the Roe state's enthalpy and speed of sound are those of its T.  The
+scalar ones split the product: a pre-pass launch evaluates the old-state
+terms once per face into a work space (``work_doubles``), and a stage of
+the wavefront inverts each updated state once, on four lanes that
+evaluate Ridder's next points together (the block ones evaluate the
+product per neighbour, as the calorically perfect forms do).  They
+replace the JAX package's scan sweep of such a deck (its ``use_pallas``
+turns the Pallas kernel off there).  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -214,9 +219,20 @@ def _library(name: str):
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
         fn.argtypes = ([i] * 7 + [p] * 11 + [ll] * 5 + [p] * 3 + [dbl] * 12
-                       + [p, p])
+                       + [p] * 4)
         fn.restype = ctypes.c_int
     return fn
+
+
+def work_doubles(form, plan) -> int:
+    """doubles of the work space a thermally perfect scalar sweep of
+    ``form`` (``sweep_form``) takes on ``plan``'s block (csrc/lusgs_sweep.cu
+    launch_tiles): per face of the sweep side its ``face_values``, per
+    physical cell its old energy, per padded cell its updated state"""
+    NI, NJ, NK = plan.padded
+    ni, nj, nk = plan.dims
+    ncp = ni * nj * nk
+    return face_values(form) * 3 * ncp + ncp + form[1] * NI * NJ * NK
 
 
 def _block_library(name: str):
@@ -319,7 +335,10 @@ def _check_operands(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t,
 
 
 def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
-                  forward: bool, extra=None):
+                  forward: bool, extra=None, clocks=None, library=None):
+    """one kernel sweep of one block on the launch's stream, through
+    ``library`` (``clock_breakdown``: the probe's build of the form's
+    library) or else the form's library (``library_name``)"""
     _check_operands(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, extra)
     ns, neq, viscous, wilcox, roe, tp = sweep_form(phys, cfg)
     blk = bool(cfg.get("block_matrix"))
@@ -335,7 +354,8 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     pr = 4.0 * g / (9.0 * g - 5.0)
     species = species_constants(phys, cfg, blk)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
-    sched = np.asarray([len(plan.tiles), ni, nj, nk, *plan.tile, plan.g],
+    sched = np.asarray([len(plan.tiles), ni, nj, nk, *plan.tile, plan.g,
+                        imp.wavefront_ctas(plan.dims, plan.tile)],
                        dtype=np.int32)
     # the mask is bool: one byte, 0 or 1, as the kernels' uint8
     geometry = (plan.static[side].data_ptr(), plan.mask[side].data_ptr(),
@@ -356,7 +376,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             WILCOX["sigma"]) if wilcox else
            (SST["sigma_k1"], SST["sigma_k2"], SST["sigma_w1"],
             SST["sigma_w2"]))
-    library = library_name(blk, roe, tp, ns)
+    library = library or library_name(blk, roe, tp, ns)
     if blk:
         name = "blusgs_sweep_f64"
         err = _block_library(library)(
@@ -370,11 +390,17 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
+        # the thermally perfect forms' pre-pass terms and updated states,
+        # on the launch's stream: the allocator reuses the block only for
+        # work queued after it there
+        work = (torch.empty(work_doubles(form[1:], plan),
+                            dtype=torch.float64, device=du.device)
+                if tp else None)
         err = _library(library)(
             *form, *fields, b.data_ptr(), ptr(extra),
             inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
             phys.turb_prandtl(), phys.nondim_scaling, *phys.turb_min(),
-            *sig[:2], species.ctypes.data, stream)
+            *sig[:2], species.ctypes.data, stream, ptr(work), ptr(clocks))
         counter = LAUNCHES
     if err != 0:
         raise RuntimeError(f"{name} of {library}: CUDA error {err} at "
@@ -382,6 +408,50 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     STATE_RESETS.count += 1
     counter.count += 1
     return du
+
+
+# the step clocks of the thermally perfect scalar forms (namespace probe of
+# csrc/sweep_wavefront.cuh): slot names, the header and a row's length
+CLOCK_SLOTS = ("to the plane's start", "q + du read and the new flux",
+               "the product's rows", "(no mark)", "exchange of addends",
+               "finish", "stage barrier", "stage: its operands",
+               "stage: q + du inverted once", "barrier after the stage",
+               "flags: publish, wait and barrier")
+CLOCK_HEADER, CLOCK_ROW = 4, len(CLOCK_SLOTS) + 1
+
+
+def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
+                    forward: bool, extra=None) -> dict:
+    """One kernel sweep of a thermally perfect scalar form through the
+    probe's build of its library (``<library>_probe``, built at first use:
+    only it carries the marks) with its step clocks (namespace probe of
+    csrc/sweep_wavefront.cuh): per slot the SM cycles that thread 0 of a
+    CTA spent there, summed over the CTAs and divided by the planes on
+    which its column had a cell; the planes counted; the launch's span by
+    %globaltimer (ns), the wavefront's and, where the form has one, the
+    pre-pass's.  Updates du in place, as the sweep does.  Not counted in
+    ``LAUNCHES``: the measurement calls the kernel outside the solver."""
+    if not sweep_form(phys, cfg)[5] or cfg.get("block_matrix"):
+        raise ValueError("the step clocks are the thermally perfect scalar "
+                         "forms'")
+    big = torch.iinfo(torch.int64).max
+    clocks = torch.zeros(CLOCK_HEADER + CLOCK_ROW * len(plan.tiles),
+                         dtype=torch.int64, device=du.device)
+    clocks[0] = clocks[2] = big
+    saved = LAUNCHES.count, STATE_RESETS.count
+    _kernel_sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward,
+                  extra, clocks, f"{form_library(phys, cfg)}_probe")
+    LAUNCHES.count, STATE_RESETS.count = saved
+    c = clocks.cpu().numpy()
+    rows = c[CLOCK_HEADER:].reshape(-1, CLOCK_ROW)
+    planes = int(rows[:, -1].sum())
+    out = {name: float(rows[:, k].sum()) / max(planes, 1)
+           for k, name in enumerate(CLOCK_SLOTS)}
+    out["planes counted"] = planes
+    out["wavefront ns"] = int(c[1] - c[0])
+    if c[2] != big:
+        out["pre-pass ns"] = int(c[3] - c[2])
+    return out
 
 
 # FP64 operations counted from the kernels (each add, subtract, multiply,
@@ -461,28 +531,44 @@ def mixture_neighbour_ops(form, block: bool, diffusion: bool) -> int:
     return ops + ((12 + TURB_OPS[wilcox]) if turb else 0)
 
 
-def tp_extra_ops(form, modes, ridder_iters: float, block: bool,
-                 diffusion: bool) -> float:
+def state_ops(form) -> int:
+    """FP64 operations of q + du of a mixture's state (both off-diagonals'
+    mixture paths, csrc/roe_offdiag.cuh update_prim_mix): the species
+    renormalisation and the mixture energy 23 ns + 30, 4 per turbulence
+    equation"""
+    ns, neq = form[:2]
+    return 23 * ns + 30 + 4 * (neq - ns - 4)
+
+
+def tp_extra_ops(form, modes, block: bool, diffusion: bool) -> float:
     """FP64 operations per contributing neighbour that a thermally perfect
     form (csrc/thermo_tp.cuh) adds to ``mixture_neighbour_ops`` (every
     species count takes the mixture path there); ``modes`` the species'
-    vibrational mode counts, ``ridder_iters`` the mean Ridder iterations
-    of this run's states (``mean_ridder_iterations``).  Per species and T:
-    its energy or enthalpy adds 2 + 5 per mode to the calorically perfect
-    one (each mode theta / T, exp, - 1, a division and the sum), its cv
-    and cp 3 + 6 per mode (2 T, theta / 2 T, sinh, the quotient, its
-    square and the sum).  Scalar: the energy of q and the enthalpies of
-    the two fluxes, cp and cv of the neighbour, and Ridder's inversion in
-    place of the closed form (4 ns + 2): 2 + 2 iterations energy
-    evaluations, each sum_s (4 + 5 m_s) (+ 2 ns for a mixture), 19 for
-    each iteration's bracket and ns for the mass fractions.  Block (no
-    q + du): cp and cv, the energy and, with diffusion, the species
-    enthalpies."""
+    vibrational mode counts.  Per species and T: its energy or enthalpy
+    adds 2 + 5 per mode to the calorically perfect one (each mode theta /
+    T, exp, - 1, a division and the sum), its cv and cp 3 + 6 per mode (2
+    T, theta / 2 T, sinh, the quotient, its square and the sum).  Scalar:
+    the enthalpies of the new and the old flux and the neighbour's cp and
+    cv (the old energy and the inversion of q + du are the updated
+    state's, ``tp_state_ops``).  Block (no q + du): cp and cv, the energy
+    and, with diffusion, the species enthalpies."""
     e_extra = sum(2 + 5 * m for m in modes)
     cpcv = sum(3 + 6 * m for m in modes)
     if block:
         return cpcv + e_extra + (e_extra if diffusion else 0)
-    return 3 * e_extra + cpcv + _ridder_ops(form[0], modes, ridder_iters)
+    return 2 * e_extra + cpcv
+
+
+def tp_state_ops(form, modes, ridder_iters: float) -> float:
+    """FP64 operations that a thermally perfect gas adds to q + du of one
+    state (``state_ops``): its old energy, 2 + 5 m_s per species, and
+    Ridder's inversion in place of the closed form (``_ridder_ops``);
+    ``ridder_iters`` the mean Ridder iterations of this run's states
+    (``mean_ridder_iterations``).  The redesigned scalar forms take it once
+    per updated state, the block Roe form once per contributing
+    neighbour."""
+    return (sum(2 + 5 * m for m in modes)
+            + _ridder_ops(form[0], modes, ridder_iters))
 
 
 def _ridder_ops(ns: int, modes, ridder_iters: float) -> float:
@@ -490,28 +576,38 @@ def _ridder_ops(ns: int, modes, ridder_iters: float) -> float:
     closed form it replaces (4 ns + 2): 2 + 2 iterations energy
     evaluations, each sum_s (4 + 5 m_s) (+ 2 ns for a mixture), 19 for
     each iteration's bracket and ns for the mass fractions
-    (``tp_extra_ops``)"""
+    (``tp_state_ops``)"""
     evaluation = sum(4 + 5 * m for m in modes) + (2 * ns if ns > 1 else 0)
     return ((2 + 2 * ridder_iters) * evaluation + 19 * ridder_iters + ns
             - (4 * ns + 2))
 
 
-def tp_roe_extra_ops(form, modes, ridder_iters: float) -> float:
+def tp_roe_extra_ops(form, modes) -> float:
     """FP64 operations per contributing neighbour that a thermally
     perfect approximateRoe form (csrc/roe_offdiag.cuh with SWEEP_TP, the
     same for the scalar and the block sweep) adds to
     ``roe_mixture_neighbour_ops`` (one species takes the mixture path
-    there too), counted as ``tp_extra_ops`` counts its own: in q + du the
-    energy of q (2 + 5 m_s per species) and Ridder's inversion in place of
-    the closed form (``_ridder_ops``); in each of the two Roe fluxes the
-    Roe state's enthalpy and its cp and cv at its T and the enthalpies of
-    the two physical fluxes, 3 (2 + 5 m_s) + (3 + 6 m_s) per species;
-    viscous, the neighbour state's cp and cv for its gamma and Prandtl
-    number, 3 + 6 m_s per species."""
+    there too), counted as ``tp_extra_ops`` counts its own: in each of the
+    two Roe fluxes the Roe state's enthalpy and its cp and cv at its T and
+    the enthalpies of the two physical fluxes, 3 (2 + 5 m_s) + (3 + 6 m_s)
+    per species; viscous, the neighbour state's cp and cv for its gamma
+    and Prandtl number, 3 + 6 m_s per species (q + du: ``tp_state_ops``)."""
     e_extra = sum(2 + 5 * m for m in modes)
     cpcv = sum(3 + 6 * m for m in modes)
-    return (e_extra + _ridder_ops(form[0], modes, ridder_iters)
-            + 2 * (3 * e_extra + cpcv) + (cpcv if form[2] else 0))
+    return 2 * (3 * e_extra + cpcv) + (cpcv if form[2] else 0)
+
+
+def face_values(form) -> int:
+    """values per face that the thermally perfect scalar forms' pre-pass
+    stores (csrc/lusgs_sweep.cu face_values): Rusanov the ns + 4 flow rows
+    of the old flux, the face radius and, with turbulence equations, the
+    turbulence radius; approximateRoe the neq rows of the old Roe flux and,
+    viscous, its one or two viscous radii"""
+    ns, neq, viscous, _, roe = form[:5]
+    nturb = neq - ns - 4
+    if roe:
+        return neq + ((1 + nturb // 2) if viscous else 0)
+    return ns + 5 + nturb // 2
 
 
 def mean_ridder_iterations(phys: Physics, prim, du) -> float:
@@ -572,7 +668,11 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     backward form), extra and the masks; the face statics of
     the unmasked faces (the centre distance only when viscous).
     Operations: the kernel's per contributing neighbour and per cell
-    (+neq with extra)."""
+    (+neq with extra).  The thermally perfect scalar forms invert q + du
+    once per updated state, the distinct neighbours read, not once per
+    face (``state_ops``, ``tp_state_ops``).  The bytes are the function's
+    inputs and output only: the traffic of the terms the redesigned forms
+    store for themselves is ``prepass_bytes``, outside the bound."""
     ns, neq, viscous, wilcox, roe, tp = form
     N = ns + 4
     turb = neq == N + 2
@@ -596,12 +696,11 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
               + per_cell_in * ncell
               + nstat * nfaces
               + neq * ncell)
-    nbytes = 8 * values + mask.numel()
     if roe:
         per_nb = (ROE_NEIGHBOUR_OPS_BY_FORM[(neq, viscous, wilcox)]
                   if ns == 1 and not tp else roe_mixture_neighbour_ops(form))
         if tp:
-            per_nb += tp_roe_extra_ops(form, modes, ridder_iters)
+            per_nb += tp_roe_extra_ops(form, modes)
     elif ns == 1 and not tp:
         key = (neq, viscous, wilcox)
         per_nb = (BLOCK_NEIGHBOUR_OPS_BY_FORM if block
@@ -609,11 +708,33 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     else:
         per_nb = mixture_neighbour_ops(form, block, diffusion)
         if tp:
-            per_nb += tp_extra_ops(form, modes, ridder_iters, block,
-                                   diffusion)
+            per_nb += tp_extra_ops(form, modes, block, diffusion)
     per_cell = 2 * N * N + N + (8 if turb else 0) if block else 2 * neq
     ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
+    if tp and roe and block:
+        # the block Roe form inverts q + du per contributing neighbour
+        ops += tp_state_ops(form, modes, ridder_iters) * nfaces
+    elif tp and not block:
+        # the redesigned scalar forms: once per updated state
+        ops += ((state_ops(form) + tp_state_ops(form, modes, ridder_iters))
+                * nread - state_ops(form) * nfaces)
+    nbytes = 8 * values + mask.numel()
     return nbytes, ops
+
+
+def prepass_bytes(plan, forward: bool, form) -> int:
+    """bytes that a thermally perfect scalar sweep's own work space moves
+    beyond ``sweep_cost``'s (0 for the other forms): per unmasked face of
+    the sweep side its pre-pass terms (``face_values``), per cell its old
+    energy, per updated state (the distinct neighbours read) q + du, each
+    written once and read once.  A cost of the design, not of the
+    function, so no part of the bound."""
+    if not form[5]:
+        return 0
+    mask = plan.mask["lower" if forward else "upper"]
+    nread, _ = neighbour_reads(plan, forward)
+    return 8 * 2 * (face_values(form) * int(mask.sum())
+                    + int(plan.cells.numel()) + form[1] * nread)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ kernels) live in ``aither_tpu_torch/kernels/lusgs_sweep.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -522,6 +523,23 @@ def sweep_tile(dims) -> tuple:
     the block is one cell thick in k (among the fastest of the shapes
     tried on an H100: PERF.md, section 6)"""
     return (32, 40, 1) if dims[2] == 1 else (32, 4, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def wavefront_ctas(dims, tile) -> int:
+    """persistent CTAs of a thermally perfect scalar sweep's wavefront
+    (``csrc/sweep_wavefront.cuh`` launch_lanes): 1.25 x the most tiles
+    that share a hyperplane of the forward sweep (a tile spans the planes from
+    its origin's i + j + k through its last cell's), at most the tiles.
+    The tiles a sweep works on at once keep a CTA each, and the blocks of
+    a sweep, each launched with so many, run side by side."""
+    table = tile_table(dims, tile)
+    first = table[:, :3].sum(axis=1)
+    last = first + table[:, 3:].sum(axis=1) - 3
+    span = np.zeros(int(last.max()) + 2, dtype=np.int64)
+    np.add.at(span, first, 1)
+    np.add.at(span, last + 1, -1)
+    return int(min(len(table), -(-5 * int(np.cumsum(span).max()) // 4)))
 
 
 def tile_table(dims, tile) -> np.ndarray:

@@ -12,7 +12,9 @@ the approximateRoe (``-DSWEEP_ROE=1``) and thermally perfect
 base build's ``SWEEP_BASE_NS`` (``-DSWEEP_NS=N``: that count alone, built
 when a deck first needs it), each its own translation unit, so that the
 Rusanov forms of 1-5 species build as they did and all of them build in
-parallel.  Usage::
+parallel; ``<name>_probe`` is a thermally perfect scalar sweep with its
+step clocks' marks (``-DSWEEP_PROBE=1``, for ``utils/sweep_probe.py``).
+Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
     info["seconds"], info["ptxas"]      # build time, -Xptxas -v report
@@ -45,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # csrc/lusgs_sweep.cu and csrc/blusgs_sweep.cu)
 SWEEP_BASE_NS = 5
 _SWEEP_LIBRARY = re.compile(
-    r"(lusgs_sweep|blusgs_sweep)(_roe)?(_tp)?(?:_ns([1-9][0-9]*))?")
+    r"(lusgs_sweep|blusgs_sweep)(_roe)?(_tp)?(?:_ns([1-9][0-9]*))?"
+    r"(_probe)?")
 
 # the flags of the JAX package's native/Makefile, for the host sources
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++14", "-fPIC", "-fopenmp",
@@ -86,12 +89,14 @@ def library_source(name: str):
     library ``name``: a sweep library ``<source>[_roe][_tp][_ns<N>]`` is
     its source with ``-DSWEEP_ROE=1``, ``-DSWEEP_TP=1`` and
     ``-DSWEEP_NS=N`` for its suffixes (N above ``SWEEP_BASE_NS``: the
-    base build holds 1 to SWEEP_BASE_NS species); any other name is its
-    own source without defines"""
+    base build holds 1 to SWEEP_BASE_NS species), and a thermally perfect
+    scalar one ``..._probe`` with the step clocks' marks
+    (``-DSWEEP_PROBE=1``, for ``utils/sweep_probe.py``); any other name is
+    its own source without defines"""
     m = _SWEEP_LIBRARY.fullmatch(name)
     if m is None:
         return name, ()
-    source, roe, tp, ns = m.groups()
+    source, roe, tp, ns, probe = m.groups()
     defines = (("-DSWEEP_ROE=1",) if roe else ()) + (
         ("-DSWEEP_TP=1",) if tp else ())
     if ns is not None:
@@ -100,6 +105,11 @@ def library_source(name: str):
                              f"{SWEEP_BASE_NS} species; an _ns<N> library "
                              f"is of a count above it")
         defines += (f"-DSWEEP_NS={int(ns)}",)
+    if probe:
+        if source != "lusgs_sweep" or not tp:
+            raise ValueError(f"{name}: only the thermally perfect scalar "
+                             f"sweeps carry the step clocks' marks")
+        defines += ("-DSWEEP_PROBE=1",)
     return source, defines
 
 

@@ -221,6 +221,20 @@ Phases, each printing its own lines:
     sixteen-species (every species of the fluid database and a tracer)
     (a) and (c) (the block deck at CFL 1, for the same reason).
 
+Every comparison of a thermally perfect scalar form (phases 15 and 17:
+the forms redesigned with a pre-pass of the old-state terms and q + du
+inverted once per cell) also prints its pair and per-step time beside the
+earlier design's (TP_BEFORE_MS, text from PERF.md) and the traffic of its
+own work space, outside the bound; its row holds them in 'redesign'.  The
+parts of such a step by the kernel's step clocks come from
+aither_tpu_torch/utils/sweep_probe.py, through builds of the probe's own
+(the marks cost 1-3% of a pair, so the libraries here carry none).  A
+thermally perfect scalar mixture form whose deck compares
+only variant (a) (N2/O2 in phase 15; N2/O2 approximateRoe and seven
+species in phase 17) is held against its plain version in variant (b)
+too, on the same solver; no driven path takes those, so they are no rows
+of the kernels line.
+
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
 tile, segment, CTAs, dynamic shared memory, CTAs per SM and registers;
@@ -287,6 +301,17 @@ BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
              ("case A", "lusgs_sweep", True): "10.79",
              ("case A", "blusgs_sweep", False): "9.62",
              ("case A", "blusgs_sweep", True): "10.06"}
+# the thermally perfect scalar sweep pairs of the earlier design (every
+# neighbour's q + du inverted on its direction's lane, the old-state terms
+# on the plane chain), ms, by (case, form, lagged term, compared blocks):
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W
+TP_BEFORE_MS = {
+    ("case B", (1, 7, True, False, False, True), False, None): "19.30",
+    ("case B", (1, 7, True, False, False, True), True, None): "19.35",
+    ("case B", (1, 7, True, False, True, True), False, None): "26.14",
+    ("case A", (1, 7, True, False, True, True), True, (0,)): "8.96",
+    ("case A", (2, 8, True, False, True, True), False, (0,)): "16.69",
+    ("case A", (7, 13, True, False, False, True), False, (0,)): "40.56"}
 # the fused viscous residual's first design (one thread per cell, each face
 # evaluated by both its cells), ms for both blocks: PERF.md section 6, NVIDIA
 # H100 80GB HBM3, 700 W (PRs 2 and 4)
@@ -864,15 +889,31 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     steps = 2 * max(p.nplanes for p in plans.values())
     before = (BEFORE_MS.get((case, kernel, with_extra))
               if form == ls.SST_FORM and lvl == 0 else None)
+    where = "all blocks" if blocks is None else f"blocks {list(blocks)}"
     print(f"{label}: sweep variant {variant}, forward+backward "
-          f"pair over all blocks: kernel {kernel_ms:.4f} ms "
+          f"pair over {where}: kernel {kernel_ms:.4f} ms "
           f"[{t[0]:.4f}, {t[1]:.4f}] (one launch per plane, PERF.md: "
           f"{before + ' ms' if before else 'not measured'}), critical path "
           f"{steps} planes, "
           f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}){ridder} "
           f"({card})", flush=True)
-    return max_abs, kernel_ms, plain_ms, bound, by
+    if not (form[5] and not block and lvl == 0):
+        return max_abs, kernel_ms, plain_ms, bound, by
+    # a redesigned thermally perfect scalar form: the traffic of the terms
+    # it stores for itself, not the function's, so outside the bound
+    own = sum(ls.prepass_bytes(p, fwd, form)
+              for p in plans.values() for fwd in (True, False))
+    old = TP_BEFORE_MS.get((case, form, with_extra,
+                            None if blocks is None else tuple(blocks)))
+    print(f"{label}: sweep variant {variant}, the redesign: pair "
+          f"{kernel_ms:.4f} ms, {1e3 * kernel_ms / steps:.3f} us per step "
+          f"(earlier design, PERF.md: "
+          f"{old + ' ms' if old else 'not measured'}); the work space's own "
+          f"traffic {own / 1e6:.1f} MB, {bound_ms(own, 0)[0]:.4f} ms at the "
+          f"memory rate, not in the bound ({card})", flush=True)
+    return max_abs, kernel_ms, plain_ms, bound, by, dict(
+        before_ms=old, work_space_bytes=own)
 
 
 # ---------------------------------------------------------------------------
@@ -1879,8 +1920,8 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             entry, spills = m.group(1), ""
-            k = re.search(r"(sweep_tiles|viscous_tiles)I((?:L[ib]\d+E)+)E",
-                          entry)
+            k = re.search(r"(sweep_tiles|viscous_tiles|prepass)I"
+                          r"((?:L[ib]\d+E)+)E", entry)
             if k:
                 args = re.findall(r"L[ib](\d+)E", k.group(2))
                 entry = f"{k.group(1)}<{', '.join(args)}>"
@@ -2040,6 +2081,21 @@ def main():
                                   perturbed=field == "perturbed", case=case)
             if field == "perturbed":
                 record(("viscous_march", solver.phys.turb_model), case, res)
+
+    def compare_lagged_only(solver, label, case, extras):
+        """the lagged variant (b) of a thermally perfect scalar mixture
+        form whose deck compares only (a): held against its plain version
+        as well (compare_sweeps fails the run if it disagrees), but no
+        row of the kernels line, since no driven path launches it"""
+        from aither_tpu_torch.kernels import lusgs_sweep as ls
+        form = ls.sweep_form(solver.phys, solver.cfg)
+        if (not form[5] or form[0] == 1 or solver.cfg["block_matrix"]
+                or True in extras):
+            return
+        print(f"{label}: variant (b) of this form, held against its plain "
+              f"version only (no driven path takes it)", flush=True)
+        compare_sweeps(torch, solver, linear_system(solver), label, card,
+                       True, case, blocks=COMPARED_BLOCKS.get(case))
 
     solver = None
     for case, dims in all_dims.items():
@@ -2339,6 +2395,7 @@ def main():
         compare_all(solver, label, where, extras,
                     ("perturbed",) if visc else (),
                     blocks=COMPARED_BLOCKS.get(case))
+        compare_lagged_only(solver, label, case, extras)
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(15)
@@ -2371,6 +2428,7 @@ def main():
               f"library {library}", flush=True)
         compare_all(solver, label, case, extras, (),
                     blocks=COMPARED_BLOCKS.get(case))
+        compare_lagged_only(solver, label, case, extras)
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(17)
@@ -2409,6 +2467,10 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "case": case,
             "launches_case": launches[key][1]})
+        if key[0] != "viscous_march" and len(by_case[case]) > 5:
+            # a redesigned thermally perfect scalar form: its time before
+            # the redesign and its work space's traffic
+            kernels[-1]["redesign"] = by_case[case][5]
         if key[0] == "viscous_march":
             # the first window after the plain run, and the kernel inside
             # Solver.run (all blocks, per iteration) with its case

@@ -705,64 +705,95 @@ def test_euler_deck_has_slip_walls_and_no_wall_state(tmp_path):
 
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_of_thermally_perfect_forms(tmp_path, block):
-    """a thermally perfect form reads what its calorically perfect form
-    reads; its operations per neighbour are the mixture path's (every
-    species count takes it) plus ``tp_extra_ops``: the scalar form's grow
-    with the Ridder iterations (two energy evaluations each), the block
-    form's do not (it inverts no energy)"""
+    """a thermally perfect form's operations per neighbour are the mixture
+    path's (every species count takes it) plus ``tp_extra_ops``.  The
+    block form reads what its calorically perfect form reads and its
+    operations do not grow with the Ridder iterations (it inverts no
+    energy).  The scalar form (redesigned: a pre-pass of the old-state
+    terms, q + du inverted once per updated state) inverts q + du once per
+    distinct neighbour read, its operations growing with the iterations
+    (two energy evaluations each) per such state; its bytes are the
+    function's, as the block form's, and the pre-pass's own traffic (per
+    face its ``face_values``, per cell the old energy, per updated state
+    q + du, each written once and read once) is ``prepass_bytes``, outside
+    the bound"""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver.driver import Solver
     path = write_plate_case(str(tmp_path), 4, 3, 2)
     plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
     nfaces = int(plan.mask["lower"].sum())
     ncell = int(plan.cells.numel())
+    nread, _ = ls.neighbour_reads(plan, True)
     tp = ls.SST_FORM[:5] + (True,)
     caloric = ls.sweep_cost(plan, True, False, block)
     costs = [ls.sweep_cost(plan, True, False, block, tp, modes=(1,),
                            ridder_iters=it) for it in (5.0, 10.0)]
-    assert costs[0][0] == costs[1][0] == caloric[0]
     per_cell = 2 * 5 * 5 + 5 + 8 if block else 2 * 7
-    for (_, ops), it in zip(costs, (5.0, 10.0)):
-        per_nb = (ls.mixture_neighbour_ops(tp, block, False)
-                  + ls.tp_extra_ops(tp, (1,), it, block, False))
-        assert ops == per_nb * nfaces + per_cell * ncell
+    per_nb = (ls.mixture_neighbour_ops(tp, block, False)
+              + ls.tp_extra_ops(tp, (1,), block, False))
     if block:
+        assert costs[0][0] == costs[1][0] == caloric[0]
+        for _, ops in costs:
+            assert ops == per_nb * nfaces + per_cell * ncell
         assert costs[0][1] == costs[1][1]
     else:
+        assert costs[0][0] == costs[1][0] == caloric[0]
+        assert ls.prepass_bytes(plan, True, tp) == 8 * 2 * (
+            ls.face_values(tp) * nfaces + ncell + 7 * nread)
+        for (_, ops), it in zip(costs, (5.0, 10.0)):
+            per_state = ls.state_ops(tp) + ls.tp_state_ops(tp, (1,), it)
+            assert ops == ((per_nb - ls.state_ops(tp)) * nfaces
+                           + per_state * nread + per_cell * ncell)
         # 10 more energy evaluations of 9 operations and 5 brackets of 19
-        assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nfaces
+        assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nread
 
 
 @pytest.mark.parametrize("block", [False, True])
 def test_sweep_cost_of_thermally_perfect_roe_forms(tmp_path, block):
-    """a thermally perfect approximateRoe form reads what the Roe form
-    reads (the cell's own state with the neighbours'); its operations per
-    neighbour are the mixture Roe path's (one species takes it) plus
-    ``tp_roe_extra_ops``, the same for the scalar and the block sweep, and
-    grow with the Ridder iterations of q + du (two energy evaluations of
-    4 + 5 operations and a bracket of 19 each, for one mode) and, when
-    viscous, with the neighbour's cp and cv"""
+    """a thermally perfect approximateRoe form's operations per neighbour
+    are the mixture Roe path's (one species takes it) plus
+    ``tp_roe_extra_ops``, the same for the scalar and the block sweep,
+    which grow, when viscous, with the neighbour's cp and cv; q + du and
+    its inversion (two energy evaluations of 4 + 5 operations and a
+    bracket of 19 each Ridder iteration, for one mode) once per
+    contributing neighbour in the block sweep, which reads what the Roe
+    form reads (the cell's own state with the neighbours'), and once per
+    distinct neighbour read in the redesigned scalar sweep, whose
+    pre-pass's traffic stays outside the bound
+    (``test_sweep_cost_of_thermally_perfect_forms``)"""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver.driver import Solver
     path = write_plate_case(str(tmp_path), 4, 3, 2)
     plan = Solver(path, device="cpu", workdir=str(tmp_path)).plans[0]
     nfaces = int(plan.mask["lower"].sum())
+    ncell = int(plan.cells.numel())
+    nread, _ = ls.neighbour_reads(plan, True)
     roe = ls.SST_FORM[:4] + (True, False)
     roe_tp = ls.SST_FORM[:4] + (True, True)
     caloric = ls.sweep_cost(plan, True, False, block, roe)
     costs = [ls.sweep_cost(plan, True, False, block, roe_tp, modes=(1,),
                            ridder_iters=it) for it in (5.0, 10.0)]
-    assert costs[0][0] == costs[1][0] == caloric[0] > 0
     assert caloric[1] < costs[0][1] < costs[1][1]
-    assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nfaces
+    states = nfaces if block else nread
+    assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * states
     per_cell = caloric[1] - ls.ROE_NEIGHBOUR_OPS_BY_FORM[(7, True, False)] \
         * nfaces
     per_nb = (ls.roe_mixture_neighbour_ops(roe_tp)
-              + ls.tp_roe_extra_ops(roe_tp, (1,), 5.0))
-    assert costs[0][1] == per_nb * nfaces + per_cell
+              + ls.tp_roe_extra_ops(roe_tp, (1,)))
+    per_state = ls.tp_state_ops(roe_tp, (1,), 5.0)
+    if block:
+        assert costs[0][0] == costs[1][0] == caloric[0] > 0
+        assert costs[0][1] == (per_nb + per_state) * nfaces + per_cell
+    else:
+        assert costs[0][0] == costs[1][0] == caloric[0]
+        assert ls.prepass_bytes(plan, True, roe_tp) == 8 * 2 * (
+            ls.face_values(roe_tp) * nfaces + ncell + 7 * nread)
+        assert costs[0][1] == ((per_nb - ls.state_ops(roe_tp)) * nfaces
+                               + (ls.state_ops(roe_tp) + per_state) * nread
+                               + per_cell)
     inviscid = (1, 5, False, False, True, True)
-    assert (ls.tp_roe_extra_ops(roe_tp, (1,), 5.0)
-            - ls.tp_roe_extra_ops(inviscid, (1,), 5.0)) == 3 + 6
+    assert (ls.tp_roe_extra_ops(roe_tp, (1,))
+            - ls.tp_roe_extra_ops(inviscid, (1,))) == 3 + 6
 
 
 @pytest.mark.parametrize("roe", [False, True])
