@@ -50,9 +50,13 @@ and three species, frozen burned hydrogen-air in seven and a frozen
 mixture of every species of the fluid database and a tracer (16), which
 give the sweep kernels' base libraries every count they hold and two
 counts of libraries of their own.  A species of ``TRACERS`` is another
-species' properties under a name of its own: its fluid file is written
-beside the deck (``<out_dir>/<name>.dat``) and read from the working
-directory, as ``load_fluid`` reads any species file.
+species' properties under a name of its own, with vibrational modes added
+to its own: its fluid file is written beside the deck
+(``<out_dir>/<name>.dat``) and read from the working directory, as
+``load_fluid`` reads any species file.  ``n2o2_ch4x`` is N2/O2 with 4% of
+the tracer ``CH4x``, methane's nine modes and two more: a species of
+eleven modes, more than any of the fluid database, for a thermally
+perfect deck.
 
 Usage::
 
@@ -191,8 +195,9 @@ MIXTURES = {"n2o2": N2O2, "air5": AIR5,
 MIXTURES["h2air7_frozen"] = dict(
     AIR5, chemistry=None, species=("H2", "O2", "H2O", "OH", "H", "O", "N2"),
     mass_fractions=(0.001, 0.112, 0.126, 0.004, 0.0005, 0.0015, 0.755))
-# a tracer: N2's properties under its own name (module docstring)
-TRACERS = {"N2t": "N2"}
+# the tracers (module docstring): name -> (the species whose properties it
+# takes, vibrational temperatures in K added to that species' own)
+TRACERS = {"N2t": ("N2", ()), "CH4x": ("CH4", (950.0, 3800.0))}
 # the species of the fluid database (physics/fluid.py)
 DATABASE_SPECIES = ("air", "Ar", "CH4", "CO", "CO2", "H", "H2", "H2O", "He",
                     "N", "N2", "NO", "O", "O2", "OH")
@@ -201,8 +206,11 @@ DATABASE_SPECIES = ("air", "Ar", "CH4", "CO", "CO2", "H", "H2", "H2O", "He",
 # names, a test of the kernels' widest forms rather than a physical gas
 MIXTURES["db16_frozen"] = dict(
     AIR5, chemistry=None, wall_temperature=1000.0,
-    species=DATABASE_SPECIES + tuple(TRACERS),
+    species=DATABASE_SPECIES + ("N2t",),
     mass_fractions=(0.0625,) * 16)
+# N2/O2 with a species of eleven vibrational modes (module docstring)
+MIXTURES["n2o2_ch4x"] = dict(N2O2, species=("N2", "O2", "CH4x"),
+                             mass_fractions=(0.74, 0.22, 0.04))
 # hot one-species air for a thermally perfect deck (write_plate_case
 # keywords): about 4,000 K at 101300 Pa, a wall at 3,500 K.  Air's
 # vibrational temperature is 3,056 K (physics/fluid.py), so the
@@ -212,11 +220,12 @@ TP_AIR = dict(density=0.0882, wall_temperature=3500.0,
               thermodynamic_model="thermallyPerfect")
 
 
-def species_file_text(name: str) -> str:
+def species_file_text(name: str, modes=()) -> str:
     """the fluid file (``<species>.dat``, the format ``load_fluid``
-    reads) of species ``name``'s properties"""
+    reads) of species ``name``'s properties, with the vibrational
+    temperatures ``modes`` (K) after its own"""
     f = load_fluid(name)
-    vib = ", ".join(repr(t) for t in f.vib_temps)
+    vib = ", ".join(repr(t) for t in (*f.vib_temps, *modes))
     return (f"n: {f.n!r}\nmolarMass: {1000.0 * f.molar_mass!r}\n"
             f"vibrationalTemperature: [{vib}]\n"
             f"heatOfFormation: {f.heat_of_formation!r}\n"
@@ -251,7 +260,7 @@ def stagnation_state(density: float, velocity: float, species=None,
     """(p0 in Pa, T0 in K) of the plate's freestream (101300 Pa,
     ``density``, ``velocity`` along x) for the calorically perfect gas of
     the deck: air, or the mixture of ``species``"""
-    fluids = [load_fluid(TRACERS.get(name, name))
+    fluids = [load_fluid(TRACERS[name][0] if name in TRACERS else name)
               for name in species or ("air",)]
     mfs = mass_fractions or (1.0,)
     r = sum(m * f.gas_constant for f, m in zip(fluids, mfs))
@@ -418,7 +427,7 @@ def write_plate_case(out_dir: str, ni: int, nj: int, nk: int,
     os.makedirs(out_dir, exist_ok=True)
     for tracer in set(species or ()) & set(TRACERS):
         with open(os.path.join(out_dir, f"{tracer}.dat"), "w") as f:
-            f.write(species_file_text(TRACERS[tracer]))
+            f.write(species_file_text(*TRACERS[tracer]))
     if chemistry is not None:
         with open(os.path.join(out_dir, f"{chemistry}.mch"), "w") as f:
             f.write(MECHANISMS[chemistry])

@@ -8,7 +8,7 @@
 // mixture of any count NS (flow blocks of N = NS + 4; a build holds NS =
 // 1..BASE_NS, or with -DSWEEP_NS=N one count N > BASE_NS, the library
 // <name>_ns<N>), in the forms the models need, each a compile-time
-// instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>:
+// instantiation of one sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD>:
 //   N equations inviscid (Euler): the Rusanov rows only; mu, mut, f1,
 //     vgrad and the centre distance are not read;
 //   N equations viscous (laminar, LES): Rusanov -+ the thin-shear-layer
@@ -35,7 +35,12 @@
 // the JAX package's scan path of aither_tpu/solver/implicit.py:113
 // roe_offdiagonal with block_matrix set (no Pallas form there).  A build
 // holds the Rusanov forms (library blusgs_sweep) or, with -DSWEEP_ROE=1,
-// the Roe forms (library blusgs_sweep_roe).
+// the Roe forms (library blusgs_sweep_roe).  The Roe forms split the
+// product as the scalar sweep's do: a pre-pass launch stores the old Roe
+// flux and the radii once per face (roe_offdiag.cuh store_roe_old_terms,
+// the scalar sweep's face values), the wavefront's lanes evaluate only the
+// new flux of q + du against them, and the wavefront runs on persistent
+// CTAs.
 // A build with -DSWEEP_TP=1 (library blusgs_sweep_tp) holds the thermally
 // perfect forms of the Rusanov and TSL rows, and with -DSWEEP_ROE=1 as
 // well (blusgs_sweep_roe_tp) those of the Roe flux change: every species
@@ -44,7 +49,9 @@
 // (thermo_tp.cuh): the neighbour's gamma, energy and cp (the turbulent
 // conductivity) from its T, and the diffusion's species enthalpies.  It
 // replaces the JAX package's scan sweep of such a deck (pallas_sweep.
-// use_pallas turns its kernel off there).  Phys's gamma is not read.
+// use_pallas turns its kernel off there).  Phys's gamma is not read.  The
+// thermally perfect Roe forms take the pre-pass too; their lanes invert
+// each neighbour's q + du by Ridder's method (no stage).
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -93,11 +100,13 @@
 // scalar sweep it is held instead by the chain of ni+nj+nk-2 dependent
 // planes per block and sweep: the time of one step is a barrier, the
 // flags between tiles and one cell's serial FP64 work, split over three
-// lanes.  A Roe step does two Roe fluxes per direction in place of the
-// block rows.  Past about 8 species the per-thread rows (NS + 6 doubles
-// each) and the N x N inverse product (N up to 20 at 16 species) spill to
-// local memory; the species table passes by value, under the classic 4 KB
-// of kernel parameters up to 16 species of the thermally perfect form.
+// lanes.  A Roe step does q + du and the new Roe flux per direction in
+// place of the block rows (the old flux stored by the pre-pass).  Past
+// about 8 species the per-thread rows (NS + 6 doubles each) and the N x N
+// inverse product (N up to 20 at 16 species) spill to local memory; the
+// species constants pass by value, under the classic 4 KB of kernel
+// parameters at 16 species with a thermally perfect gas's table of up to
+// 256 vibrational modes (thermo_tp.cuh).
 
 #include <cuda_runtime.h>
 
@@ -133,7 +142,12 @@ struct PhysRoe : Phys {
   double prandtl, tmin_k, tmin_w;
 };
 
-template <bool ROE>
+// the off-diagonal of this translation unit's forms; the Roe forms split
+// the product with a pre-pass and run on persistent CTAs (the walk and its
+// launch both read PERSISTENT)
+constexpr bool ROE = SWEEP_ROE != 0;
+constexpr bool PERSISTENT = ROE;
+
 using KernelPhys = std::conditional_t<ROE, PhysRoe, Phys>;
 
 // per-species constants of a mixture (read when NS > 1): gas constant,
@@ -169,6 +183,10 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: channel stride of b, extra, inv_f, inv_t
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
+  // the Roe forms' work space (launch_tiles): per face of the sweep side
+  // its flux::roe_face_values, written by the pre-pass and read by the
+  // wavefront (__ldg); null for the other forms
+  double* pre;
 };
 
 // block off-diagonal product of the neighbour nb across one face, added to
@@ -496,23 +514,17 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
   }
 }
 
-// stride[d] of a direction known only at run time (no local-memory index)
-__device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
-  return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
-}
+using wavefront::stride_of;
 
 // Direction d's block off-diagonal product of one cell: its Rusanov and
 // turbulence rows added to x, its thin-shear-layer (and species diffusion)
 // rows to x_t, the two addends of each row in the plane kernel's running
-// sum; or (ROE) the Roe flux change (roe_offdiag.cuh) added to x, which
-// also reads the cell's own state (x_t keeps its +0.0).  c and pc are the
-// cell's padded and physical flat indices.  du is read through L2
-// (__ldcg): other SMs write it during the launch.  A masked face adds
-// nothing.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+// sum.  c and pc are the cell's padded and physical flat indices.  du is
+// read through L2 (__ldcg): other SMs write it during the launch.  A
+// masked face adds nothing.  The Rusanov forms.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void direction_product(
-    const Fields& fl, const KernelPhys<ROE>& ph, const Mixture<NS>& sp,
-    int64_t c,
+    const Fields& fl, const Phys& ph, const Mixture<NS>& sp, int64_t c,
     int64_t pc, int d, double x[NEQ], double x_t[NEQ]) {
   if (!fl.mask[3 * pc + d]) return;
   const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
@@ -520,30 +532,72 @@ __device__ __forceinline__ void direction_product(
   double dq[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) dq[e] = __ldcg(fl.du + e * fl.nc + nb);
-  if constexpr (ROE) {
-    constexpr int T0 = NS + 4;   // first turbulence equation
-    double q[NEQ], qd[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) {
-      q[e] = fl.prim[e * fl.nc + nb];
-      qd[e] = fl.prim[e * fl.nc + c];
-    }
-    double mu = 0.0, mut = 0.0, f1 = 0.0, dist = 0.0;
-    if constexpr (VISCOUS) {
-      mu = fl.mu[nb];
-      mut = fl.mut[nb];
-      dist = st[4];
-      if constexpr (NEQ == T0 + 2 && !WILCOX) f1 = fl.f1[nb];
-    }
-    flux::add_roe_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, sp, q, dq, qd, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
-  } else if constexpr (NS == 1 && !TP)
+  if constexpr (NS == 1 && !TP)
     add_block_offdiagonal<NEQ, VISCOUS, WILCOX, FORWARD>(ph, fl, nb, st, dq,
                                                          x, x_t);
   else
     add_block_offdiagonal_mix<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
         ph, sp, fl, nb, st, dq, x, x_t);
 }
+
+#if SWEEP_ROE
+// ---------------------------------------------------------------------------
+// The Roe forms' split (head of this file): a pre-pass, one thread per face
+// of the sweep side, stores the old Roe flux F_roe(q_nb | q_cell) and the
+// radii of every unmasked face (flux::store_roe_old_terms, the scalar
+// sweep's face function); the wavefront's lanes evaluate q + du of the
+// neighbour and its new Roe flux against them (flux::add_roe_change).
+
+// one face 3 pc + d of the pre-pass
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__global__ void __launch_bounds__(wavefront::PREPASS_THREADS)
+    prepass(Fields fl, PhysRoe ph, Mixture<NS> sp, wavefront::Schedule sc) {
+  const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (f >= 3 * fl.ncp || !fl.mask[f]) return;
+  const wavefront::FaceOperands<NEQ> op =
+      wavefront::face_operands<NSTAT, NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+          fl, wavefront::face_of(sc, f), f);
+  flux::store_roe_old_terms<NS, NEQ, VISCOUS, WILCOX>(
+      ph, sp, op.q, op.qd, op.st[0], op.st[1], op.st[2], op.st[3], op.dist,
+      op.mu, op.mut, op.f1, fl.pre + f, 3 * fl.ncp);
+}
+
+// Direction d's Roe product of one cell from the stored terms, added to x
+// (x_t keeps its +0.0): the neighbour's q + du, its new Roe flux with the
+// cell's own state, against the pre-pass's old flux, plus the stored radii
+// times du.  Every load is issued before the mask is known (a masked
+// face's operands are read but not used).
+template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
+__device__ __forceinline__ void stored_product(const Fields& fl,
+                                               const PhysRoe& ph,
+                                               const Mixture<NS>& sp,
+                                               int64_t c, int64_t pc, int d,
+                                               double x[NEQ]) {
+  constexpr int NV = flux::roe_face_values<NS, NEQ, VISCOUS>();
+  const int64_t f = 3 * pc + d;
+  const bool unmasked = fl.mask[f];
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+  const double* st = fl.stat + f * NSTAT;
+  const int64_t P = 3 * fl.ncp;
+  double old[NV], q[NEQ], dq[NEQ];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) old[v] = __ldg(fl.pre + f + v * P);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    q[e] = fl.prim[e * fl.nc + nb];
+    dq[e] = __ldcg(fl.du + e * fl.nc + nb);
+  }
+  if (!unmasked) return;
+  double qn[NEQ], qd[NEQ], fn[NEQ];
+  flux::update_state<NS, NEQ>(ph, sp, q, dq, qn);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
+  flux::roe_new_flux<NS, NEQ, FORWARD>(ph, sp, qn, qd, st[0], st[1], st[2],
+                                       fn);
+  flux::add_roe_change<NS, NEQ, VISCOUS, FORWARD>(fn, old, st[3], dq, x);
+}
+#endif  // SWEEP_ROE
 
 // Lane d's rows (i % 3 == d) of one cell's update from the sum acc of its
 // three off-diagonal products: the right-hand side, then the rows of the
@@ -592,8 +646,10 @@ __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
   }
 }
 
-// Prefetch into L2 what lane d reads for one cell but du.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+// Prefetch into L2 what lane d reads for one cell but du: for a Roe form
+// its stored face values in place of the viscous fields and the velocity
+// gradient.
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
                                               int64_t pc, int d) {
   constexpr int N = NS + 4;
@@ -608,15 +664,16 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   if constexpr (ROE) {
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
-  }
-  if constexpr (VISCOUS) {
+    constexpr int NV = flux::roe_face_values<NS, NEQ, VISCOUS>();
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      prefetch_l2(fl.pre + 3 * pc + d + v * 3 * fl.ncp);
+  } else if constexpr (VISCOUS) {
     prefetch_l2(fl.mu + nb);
     prefetch_l2(fl.mut + nb);
     if constexpr (NEQ == N + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
-    if constexpr (!ROE) {
 #pragma unroll
-      for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
-    }
+    for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
   }
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
@@ -636,10 +693,11 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   }
 }
 
-// one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, bool ROE>
+// one whole sweep of one block: one CTA per tile, or for the Roe forms
+// persistent CTAs (sweep_wavefront.cuh)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
-    sweep_tiles(Fields fl, KernelPhys<ROE> ph, Mixture<NS> sp,
+    sweep_tiles(Fields fl, KernelPhys ph, Mixture<NS> sp,
                 wavefront::Schedule sc) {
   const int nj = sc.n[1], nk = sc.n[2];
   auto padded = [&](int i, int j, int k) {
@@ -648,15 +706,20 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   auto physical = [&](int i, int j, int k) {
     return (static_cast<int64_t>(i) * nj + j) * nk + k;
   };
-  wavefront::walk<FORWARD, NEQ, 2>(
+  wavefront::walk<FORWARD, NEQ, 2, false, 1, PERSISTENT>(
       sc,
       [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
+        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
             fl, padded(i, j, k), physical(i, j, k), d);
       },
       [&](int i, int j, int k, int d, double (&x)[2][NEQ]) {
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE>(
+#if SWEEP_ROE
+        stored_product<NS, NEQ, VISCOUS, FORWARD>(
+            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
+#else
+        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0], x[1]);
+#endif
       },
       [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
         finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
@@ -664,30 +727,47 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
       });
 }
 
-// the off-diagonal of this translation unit's forms
-constexpr bool ROE = SWEEP_ROE != 0;
-
+// a Roe form's pre-pass (its work space, of 3 ncp faces of
+// flux::roe_face_values each) and its persistent wavefront; one CTA a tile
+// for the other forms (work null)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-int launch_tiles(int forward, const Fields& fl, const PhysRoe& ph_all,
+int launch_tiles(int forward, Fields fl, const PhysRoe& ph_all,
                  const Mixture<NS>& sp, const wavefront::Schedule& sc,
-                 cudaStream_t st) {
-  const KernelPhys<ROE>& ph = ph_all;
+                 cudaStream_t st, double* work) {
+  const KernelPhys& ph = ph_all;
+  if ((work != nullptr) != ROE)
+    return static_cast<int>(cudaErrorInvalidValue);
+#if SWEEP_ROE
+  fl.pre = work;
+  const int err =
+      forward
+          ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
+                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
+                                    st, fl, ph, sp, sc)
+          : wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, false>,
+                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
+                                    st, fl, ph, sp, sc);
+  if (err != 0) return err;
+#endif
   if (forward)
-    return wavefront::launch(
-        sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true, ROE>, sc, st, fl, ph, sp);
-  return wavefront::launch(sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false, ROE>,
-                           sc, st, fl, ph, sp);
+    return wavefront::launch_lanes(
+        0, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st,
+        fl, ph, sp);
+  return wavefront::launch_lanes(
+      0, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st,
+      fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
 // hf_s, cond_c1_s, cond_s_s and the molar masses (NS each), then the
 // Schmidt number, the turbulent Schmidt number and the diffusion flag,
-// then for the thermally perfect forms the vibrational table (the mode
-// counts, NS, then MAX_MODES temperatures per species)
+// then for the thermally perfect forms the species' mode counts (NS) and
+// their temperatures (thermo::read_vib)
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const PhysRoe& ph, const double* species,
-                const wavefront::Schedule& sc, cudaStream_t st) {
+                const wavefront::Schedule& sc, cudaStream_t st,
+                double* work) {
   constexpr int N = NS + 4;
   Mixture<NS> sp;
   for (int s = 0; s < NS; ++s) {
@@ -706,21 +786,29 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
   if (!thermo::read_vib<NS>(species + 7 * NS + 3, sp.vib))
     return static_cast<int>(cudaErrorInvalidValue);
 #endif
+  static_assert(sizeof(Fields) + sizeof(KernelPhys) + sizeof(Mixture<NS>) +
+                        sizeof(wavefront::Schedule) <= 4096,
+                "the kernels' parameters exceed 4 KB");
   if (neq == N && !viscous && !wilcox)
-    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st,
+                                             work);
   if (neq == N && viscous && !wilcox)
-    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N, true, false>(forward, fl, ph, sp, sc, st,
+                                            work);
   if (neq == N + 2 && viscous && !wilcox)
-    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N + 2, true, false>(forward, fl, ph, sp, sc, st,
+                                                work);
   if (neq == N + 2 && viscous && wilcox)
-    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st);
+    return launch_tiles<NS, N + 2, true, true>(forward, fl, ph, sp, sc, st,
+                                               work);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // One whole block sweep of one block: a cudaMemsetAsync of the schedule's
-// state and one tile-wavefront launch on `stream`.  ns is 1..BASE_NS, or
+// state, for the Roe forms the pre-pass, and one tile-wavefront launch, all
+// on `stream`.  ns is 1..BASE_NS, or
 // SWEEP_NS in a build for that count, and neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
 // head of this file); roe is 1 for the approximateRoe forms, which only
 // the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
@@ -728,13 +816,15 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // only the library built with SWEEP_TP holds.  R, cv, cp, hf, gamma,
 // prandtl, cond_c1 and cond_s are the one species' (read when ns is 1 by
 // the calorically perfect forms); species is a HOST array of the
-// mixture's constants (launch_form; read when ns > 1 or tp).  stat and mask are
-// in physical cell order; sched is a HOST array {ntiles, ni, nj, nk, ti,
-// tj, tk, g, ctas} (ctas not read here), tiles the device tile table and
-// state
-// device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
-// null; mu, mut, f1, vgrad may be null when inviscid and inv_t without
-// turbulence equations.  Returns cudaGetLastError() after the launch (0
+// mixture's constants (launch_form; read when ns > 1 or tp).  stat and
+// mask are in physical cell order; sched is a HOST array {ntiles, ni, nj,
+// nk, ti, tj, tk, g, ctas} (ctas: the persistent CTAs of a Roe form's
+// wavefront), tiles the device tile table and state device scratch of 1 +
+// ntiles ints (sweep_wavefront.cuh).  extra may be null; mu, mut, f1,
+// vgrad may be null when inviscid and inv_t without turbulence equations.
+// work is the Roe forms' device work space (null for the other forms): per
+// face of the sweep side flux::roe_face_values doubles, 3 ncp faces
+// (kernels/lusgs_sweep.py work_doubles).  Returns cudaGetLastError() after the launch (0
 // when it was accepted), or cudaErrorInvalidValue for a form that does not
 // exist or that another library holds.
 extern "C" int blusgs_sweep_f64(
@@ -749,13 +839,13 @@ extern "C" int blusgs_sweep_f64(
     double prandtl, double prt, double scaling, double tmin_k, double tmin_w,
     double t_ref, double cond_c1, double cond_s, double k_nondim,
     double sigma_k1, double sigma_k2, double sigma_w1, double sigma_w2,
-    const double* species, void* stream) {
+    const double* species, void* stream, double* work) {
   if ((roe != 0) != ROE || (tp != 0) != TP)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,
             inv_f, inv_t, stat,  mask, nc,   ncp,   base,
-            {stride_i, stride_j, stride_k}};
+            {stride_i, stride_j, stride_k}, nullptr};
   PhysRoe ph{{R, cv, cp, hf, gamma, prt, scaling, t_ref, cond_c1, cond_s,
               k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2},
              prandtl, tmin_k, tmin_w};
@@ -766,24 +856,24 @@ extern "C" int blusgs_sweep_f64(
                                     "the base build's");
   if (ns == SWEEP_NS)
     return launch_form<SWEEP_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                 species, sc, st);
+                                 species, sc, st, work);
 #else
   switch (ns) {
     case 1:
       return launch_form<1>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 2:
       return launch_form<2>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 3:
       return launch_form<3>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case 4:
       return launch_form<4>(forward, neq, viscous, wilcox, fl, ph, species,
-                            sc, st);
+                            sc, st, work);
     case BASE_NS:
       return launch_form<BASE_NS>(forward, neq, viscous, wilcox, fl, ph,
-                                  species, sc, st);
+                                  species, sc, st, work);
   }
 #endif
   return static_cast<int>(cudaErrorInvalidValue);

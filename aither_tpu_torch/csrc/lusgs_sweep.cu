@@ -8,7 +8,7 @@
 // with -DSWEEP_NS=N one count N > BASE_NS: the library <name>_ns<N>, built
 // when a deck first needs it), in the forms the models need, each a
 // compile-time instantiation of one
-// sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD, ROE> with NEQ = NS + 4
+// sweep_tiles<NS, NEQ, VISCOUS, WILCOX, FORWARD> with NEQ = NS + 4
 // (+ 2 turbulence equations, the first at NS + 4):
 //   NS + 4 equations inviscid (Euler): spectral radius 0.5|A|(|v.n| + a)
 //     only; mu, mut, f1 and the centre distance are not read;
@@ -33,7 +33,12 @@
 // scan path of aither_tpu/solver/implicit.py:113 roe_offdiagonal (no
 // Pallas form there).  A build holds the Rusanov forms (this file as it
 // is, library lusgs_sweep) or, with -DSWEEP_ROE=1, the Roe forms (library
-// lusgs_sweep_roe): two translation units, built in parallel.
+// lusgs_sweep_roe): two translation units, built in parallel.  The Roe
+// forms split the product: a pre-pass launch stores the old Roe flux and
+// the radii once per face (roe_offdiag.cuh store_roe_old_terms), the
+// wavefront's lanes evaluate only the new flux of q + du (closed form for
+// a calorically perfect gas) against them, and the wavefront runs on
+// persistent CTAs (the section "The pre-pass forms" below).
 //
 // A build with -DSWEEP_TP=1 (library lusgs_sweep_tp) holds the thermally
 // perfect forms (thermodynamicModel: thermallyPerfect) of the Rusanov
@@ -48,10 +53,10 @@
 // off there: aither_tpu/solver/implicit.py:89, 137 through
 // state.update_prim_with_cons and the thermally perfect Physics).  The
 // constant gamma and Prandtl number of Phys are not read.  These forms
-// split the product (the section "The thermally perfect forms" below): a
+// split the product too (the section "The pre-pass forms" below): a
 // pre-pass launch evaluates the old-state terms once per face, and a stage
 // of the wavefront inverts each updated state once, where the lanes of the
-// calorically perfect forms evaluate both per neighbour.
+// calorically perfect Rusanov forms evaluate both per neighbour.
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -93,17 +98,17 @@
 // planes of a few hundred to a few thousand cells each, so what holds it
 // is the time of one step of the chain: a barrier, the flags between
 // tiles and one cell's serial FP64 work (q + du, the two fluxes, the
-// radii: several dependent divisions; for a thermally perfect gas the new
-// flux, then the stage's Ridder inversion of the cell's q + du, about 20
-// dependent energy evaluations).  The plane-per-launch kernel took
+// radii: several dependent divisions; for the Roe forms q + du and the new
+// Roe flux, the old one stored by the pre-pass; for a thermally perfect gas
+// the new flux, then the stage's Ridder inversion of the cell's q + du,
+// about 20 dependent energy evaluations).  The plane-per-launch kernel took
 // ~20 us a step; the wavefront takes the launch out of it and splits the
-// cell's work over three lanes (PERF.md, section 6).  A Roe step does two
-// Roe fluxes per direction, about three times the Rusanov product's FP64
-// chain.  From about 8 species on the per-thread arrays (q, du, the
-// fluxes: NS + 6 doubles each) spill to local memory; the species table
-// passes by value, under the classic 4 KB of kernel parameters up to 16
-// species of the thermally perfect form (utils/build.py resolves a
-// library's name into this source and its defines).
+// cell's work over three lanes (PERF.md, section 6).  From about 8 species
+// on the per-thread arrays (q, du, the fluxes: NS + 6 doubles each) spill
+// to local memory; the species constants pass by value, under the classic
+// 4 KB of kernel parameters at 16 species with a thermally perfect gas's
+// table of up to 256 vibrational modes (thermo_tp.cuh; utils/build.py
+// resolves a library's name into this source and its defines).
 
 #include <cuda_runtime.h>
 
@@ -117,10 +122,10 @@
 #ifndef SWEEP_ROE
 #define SWEEP_ROE 0
 #endif
-// 1: the thermally perfect forms carry the step clocks' marks
-// (sweep_wavefront.cuh, namespace probe): only the build of the probe,
-// library <name>_probe, for utils/sweep_probe.py (they cost 1-3% of a
-// sweep pair, with or without clocks)
+// 1: the pre-pass forms (thermally perfect or approximateRoe) carry the
+// step clocks' marks (sweep_wavefront.cuh, namespace probe): only the
+// build of the probe, library <name>_probe, for utils/sweep_probe.py (they
+// cost 1-3% of a sweep pair, with or without clocks)
 #ifndef SWEEP_PROBE
 #define SWEEP_PROBE 0
 #endif
@@ -135,8 +140,6 @@ using flux::update_prim_mix;
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 // species counts of a build without SWEEP_NS: 1..BASE_NS
 constexpr int BASE_NS = 5;
-// threads of a pre-pass CTA (one per face)
-constexpr int PREPASS_THREADS = 128;
 
 struct Phys {
   double R, cv, cp, hf, gamma, prandtl, prt, scaling;
@@ -148,6 +151,10 @@ struct Phys {
 // approximateRoe off-diagonal
 constexpr bool TP = SWEEP_TP != 0;
 constexpr bool ROE = SWEEP_ROE != 0;
+// the forms that split the product with a pre-pass, and run on persistent
+// CTAs (the walk and its launch both read this)
+constexpr bool SPLIT = TP || ROE;
+constexpr bool PERSISTENT = SPLIT;
 
 // per-species constants of a mixture (read when NS > 1, and for every NS
 // by the thermally perfect forms)
@@ -175,25 +182,28 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: equation stride of b
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
-#if SWEEP_TP
-  // the thermally perfect forms' work space (launch_tiles): the pre-pass
-  // writes pre and eold and the wavefront reads them (__ldg); qu is written
-  // by the pre-pass (ghost neighbours) and by the wavefront's stage
-  // (physical cells), which reads it through L2 (__ldcg)
+#if SWEEP_TP || SWEEP_ROE
+  // the pre-pass forms' work space (launch_tiles): the pre-pass writes pre
+  // (and eold) and the wavefront reads them (__ldg); a thermally perfect
+  // form's qu is written by the pre-pass (ghost neighbours) and by the
+  // wavefront's stage (physical cells), which reads it through L2 (__ldcg)
   double* pre;       // (face_values, 3 ncp): per face the old-state terms
+#endif
+#if SWEEP_TP
   double* eold;      // (ncp): q's specific total energy
   double* qu;        // (NEQ, nc): q + du in primitive variables
 #endif
 };
 
-// values the thermally perfect pre-pass stores per face: Rusanov, the flow
-// rows of F(q).n, the face radius and (with turbulence equations) the
-// turbulence radius; Roe, the NEQ rows of F_roe(q | q_cell) and the viscous
-// radii
+// values the pre-pass stores per face: Rusanov (thermally perfect), the
+// flow rows of F(q).n, the face radius and (with turbulence equations) the
+// turbulence radius; Roe, the NEQ rows of F_roe(q | q_cell) and the
+// viscous radii (flux::roe_face_values)
 template <int NS, int NEQ, bool VISCOUS>
 __host__ __device__ constexpr int face_values() {
   constexpr int nturb = NEQ - NS - 4;
-  return ROE ? NEQ + (VISCOUS ? 1 + nturb / 2 : 0) : NS + 5 + nturb / 2;
+  return ROE ? flux::roe_face_values<NS, NEQ, VISCOUS>()
+             : NS + 5 + nturb / 2;
 }
 
 // the old-state terms of a neighbour's scalar Rusanov product (aither_tpu
@@ -297,33 +307,14 @@ __device__ __forceinline__ void add_offdiagonal(
   add_rusanov_rows<NS, NEQ, FORWARD>(fu, fq, mag, sr, sr_t, dq, acc);
 }
 
-// stride[d] of a direction known only at run time (no local-memory index)
-__device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
-  return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
-}
-
-// the viscous fields of neighbour nb and the face's centre distance, read
-// by the forms that use them (0 otherwise)
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
-__device__ __forceinline__ void viscous_fields(const Fields& fl, int64_t nb,
-                                               const double* st, double& mu,
-                                               double& mut, double& f1,
-                                               double& dist) {
-  mu = mut = f1 = dist = 0.0;
-  if constexpr (VISCOUS) {
-    mu = fl.mu[nb];
-    mut = fl.mut[nb];
-    dist = st[4];
-    if constexpr (NEQ == NS + 6 && !WILCOX) f1 = fl.f1[nb];
-  }
-}
+using wavefront::stride_of;
+using wavefront::viscous_fields;
 
 // Direction d's off-diagonal product of one cell, added to x: one step of
-// the plane kernel's direction loop, Rusanov or (ROE) the Roe flux change
-// (roe_offdiag.cuh), which also reads the cell's own state.  c and pc are
-// the cell's padded and physical flat indices.  du is read through L2
-// (__ldcg): other SMs write it during the launch.  A masked face adds
-// nothing.  The calorically perfect forms.
+// the plane kernel's direction loop, Rusanov.  c and pc are the cell's
+// padded and physical flat indices.  du is read through L2 (__ldcg): other
+// SMs write it during the launch.  A masked face adds nothing.  The
+// calorically perfect Rusanov forms.
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void direction_product(const Fields& fl,
                                                   const Phys& ph,
@@ -341,16 +332,8 @@ __device__ __forceinline__ void direction_product(const Fields& fl,
   }
   double mu, mut, f1, dist;
   viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, nb, st, mu, mut, f1, dist);
-  if constexpr (ROE) {
-    double qd[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
-    flux::add_roe_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, sp, q, dq, qd, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
-  } else {
-    add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
-  }
+  add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+      ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
 }
 
 // Lane d's rows (e % 3 == d) of one cell's update from the sum acc of its
@@ -392,10 +375,6 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   prefetch_l2(st + NSTAT - 1);
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
-  if constexpr (ROE) {
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
-  }
   if constexpr (VISCOUS) {
     prefetch_l2(fl.mu + nb);
     prefetch_l2(fl.mut + nb);
@@ -411,21 +390,23 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
 }
 
-#if SWEEP_TP
+#if SWEEP_TP || SWEEP_ROE
 // ---------------------------------------------------------------------------
-// The thermally perfect forms.  Nothing of the old state changes during a
-// sweep, so a pre-pass (one thread per face, fully parallel) evaluates once
-// what the product needs of it: per unmasked face of the sweep side the
-// old flux F(q_nb).n (Rusanov) or F_roe(q_nb | q_cell) (Roe) and the
-// radii, per physical cell its old energy, and per ghost neighbour (its du
-// swapped before the launch) q + du.  The wavefront's lanes then evaluate
-// only the new flux of each neighbour's q + du, which a stage after finish
-// inverts once per cell: a group of thermo::SPEC_LANES threads per cell of
-// the plane, its energy by Ridder's method (temperature_from_energy_spec),
-// written to qu before the tile publishes the plane; the CTAs are
-// persistent (sweep_wavefront.cuh launch_lanes).  The product is the
-// calorically perfect kernel's arithmetic on the stored operands (up to FMA
-// contraction).
+// The pre-pass forms: the thermally perfect and the approximateRoe ones.
+// Nothing of the old state changes during a sweep, so a pre-pass (one
+// thread per face, fully parallel) evaluates once what the product needs
+// of it: per unmasked face of the sweep side the old flux F(q_nb).n
+// (Rusanov) or F_roe(q_nb | q_cell) (Roe) and the radii, and for a
+// thermally perfect gas per physical cell its old energy and per ghost
+// neighbour (its du swapped before the launch) q + du.  The wavefront's
+// lanes then evaluate only the new flux of each neighbour's q + du: a
+// calorically perfect lane forms q + du itself (closed form), a thermally
+// perfect one reads it, since a stage after finish inverts each cell's q
+// + du once: a group of thermo::SPEC_LANES threads per cell of the plane,
+// its energy by Ridder's method (temperature_from_energy_spec), written to
+// qu before the tile publishes the plane.  The CTAs are persistent
+// (sweep_wavefront.cuh launch_lanes).  The product is the one-lane
+// kernel's arithmetic on the stored operands (up to FMA contraction).
 
 // one face 3 pc + d of the pre-pass (head of this section)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
@@ -433,69 +414,56 @@ __device__ __forceinline__ void prepass_face(const Fields& fl, const Phys& ph,
                                              const Species<NS>& sp,
                                              const wavefront::Schedule& sc,
                                              int64_t f) {
-  constexpr int T0 = NS + 4;
-  const int64_t pc = f / 3;
-  const int d = static_cast<int>(f - 3 * pc);
-  const int nj = sc.n[1], nk = sc.n[2];
-  const int k = static_cast<int>(pc % nk);
-  const int j = static_cast<int>(pc / nk % nj);
-  const int i = static_cast<int>(pc / nk / nj);
-  const int64_t c = fl.base + i * fl.stride[0] + j * fl.stride[1] +
-                    k * fl.stride[2];
-  double q[NEQ];
-  if (d == 0) {
+  const wavefront::Face fc = wavefront::face_of(sc, f);
+#if SWEEP_TP
+  if (fc.d == 0) {
+    const int64_t c = wavefront::padded_of(fl, fc);
+    double q[NEQ];
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) q[e] = fl.prim[e * fl.nc + c];
-    fl.eold[pc] = flux::old_energy<NS, NEQ>(sp, q);
+    fl.eold[fc.pc] = flux::old_energy<NS, NEQ>(sp, q);
   }
+#endif
   if (!fl.mask[f]) return;
-  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
-  const double* st = fl.stat + f * NSTAT;
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) q[e] = fl.prim[e * fl.nc + nb];
-  double mu, mut, f1, dist;
-  viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, nb, st, mu, mut, f1, dist);
+  const wavefront::FaceOperands<NEQ> op =
+      wavefront::face_operands<NSTAT, NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+          fl, fc, f);
+  const double* st = op.st;
   const int64_t P = 3 * fl.ncp;   // the stride of a face value
   double* out = fl.pre + f;
   if constexpr (ROE) {
-    double qd[NEQ], fo[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
-    flux::roe_flux<NS, NEQ>(ph, sp, q, qd, st[0], st[1], st[2], fo);
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) out[e * P] = fo[e];
-    if constexpr (VISCOUS) {
-      double sr, sr_t;
-      flux::roe_viscous_radii<NS, NEQ, WILCOX>(ph, sp, q, st[3], dist, mu,
-                                               mut, f1, sr, sr_t);
-      out[NEQ * P] = sr;
-      if constexpr (NEQ == T0 + 2) out[(NEQ + 1) * P] = sr_t;
-    }
+    flux::store_roe_old_terms<NS, NEQ, VISCOUS, WILCOX>(
+        ph, sp, op.q, op.qd, st[0], st[1], st[2], st[3], op.dist, op.mu,
+        op.mut, op.f1, out, P);
   } else {
+    constexpr int T0 = NS + 4;
     double fq[NEQ], sr, sr_t;
     rusanov_old_terms<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-        ph, sp, q, st[0], st[1], st[2], st[3], dist, mu, mut, f1, fq, sr,
-        sr_t);
+        ph, sp, op.q, st[0], st[1], st[2], st[3], op.dist, op.mu, op.mut,
+        op.f1, fq, sr, sr_t);
 #pragma unroll
     for (int e = 0; e < T0; ++e) out[e * P] = fq[e];
     out[T0 * P] = sr;
     if constexpr (NEQ == T0 + 2) out[(T0 + 1) * P] = sr_t;
   }
+#if SWEEP_TP
   // a ghost neighbour's q + du: no stage of this launch writes it
-  const int at = d == 0 ? i : d == 1 ? j : k;
-  const int nd = d == 0 ? sc.n[0] : d == 1 ? nj : nk;
+  const int d = fc.d;
+  const int at = d == 0 ? fc.at[0] : d == 1 ? fc.at[1] : fc.at[2];
+  const int nd = d == 0 ? sc.n[0] : d == 1 ? sc.n[1] : sc.n[2];
   if (FORWARD ? at == 0 : at == nd - 1) {
     double dq[NEQ], qn[NEQ];
 #pragma unroll
-    for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * fl.nc + nb];
-    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qn);
+    for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * fl.nc + op.nb];
+    update_prim_mix<NS, NEQ>(ph, sp, op.q, dq, qn);
 #pragma unroll
-    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + nb] = qn[e];
+    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + op.nb] = qn[e];
   }
+#endif
 }
 
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__global__ void __launch_bounds__(PREPASS_THREADS)
+__global__ void __launch_bounds__(wavefront::PREPASS_THREADS)
     prepass(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
   if (sc.clocks && threadIdx.x == 0) probe::stamp(sc.clocks, 2);
   const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -560,7 +528,8 @@ __device__ __forceinline__ void finish_loaded(const Fields& fl, int64_t c,
 }
 
 // Direction d's product from the stored terms (head of this section):
-// the neighbour's q + du (qu) and du through L2, the new flux F(qu).n, or
+// the neighbour's du through L2 and its q + du (a thermally perfect form's
+// qu, through L2; else formed from its state), the new flux F(qu).n, or
 // the Roe flux with the cell's own state, against the pre-pass's old flux,
 // plus the stored radii times du.  A masked face adds nothing.
 template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
@@ -569,7 +538,6 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
                                                const Species<NS>& sp,
                                                int64_t c, int64_t pc, int d,
                                                double x[NEQ]) {
-  constexpr int T0 = NS + 4;
   constexpr int NV = face_values<NS, NEQ, VISCOUS>();
   // every load is issued before the mask is known: a masked face's
   // operands are read (the work space and the padded fields hold the
@@ -585,7 +553,11 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   double qn[NEQ], dq[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
+#if SWEEP_TP
     qn[e] = __ldcg(fl.qu + e * fl.nc + nb);
+#else
+    qn[e] = fl.prim[e * fl.nc + nb];
+#endif
     dq[e] = __ldcg(fl.du + e * fl.nc + nb);
   }
   const double mag = st[3];
@@ -594,18 +566,19 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
     double qd[NEQ], df[NEQ];
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
-    if (FORWARD)
-      flux::roe_flux<NS, NEQ>(ph, sp, qn, qd, st[0], st[1], st[2], df);
-    else
-      flux::roe_flux<NS, NEQ>(ph, sp, qd, qn, st[0], st[1], st[2], df);
-    if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
+    if constexpr (!TP) {
+      // the calorically perfect q + du, closed form
+      double q[NEQ];
 #pragma unroll
-    for (int e = 0; e < NEQ; ++e) df[e] = mag * (df[e] - old[e]);
-    double sr = 0.0, sr_t = 0.0;
-    if constexpr (VISCOUS) sr = old[NEQ];
-    if constexpr (NEQ == T0 + 2) sr_t = old[NV - 1];
-    flux::add_roe_rows<NS, NEQ, VISCOUS, FORWARD>(df, sr, sr_t, dq, x);
+      for (int e = 0; e < NEQ; ++e) q[e] = qn[e];
+      flux::update_state<NS, NEQ>(ph, sp, q, dq, qn);
+    }
+    flux::roe_new_flux<NS, NEQ, FORWARD>(ph, sp, qn, qd, st[0], st[1],
+                                         st[2], df);
+    if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
+    flux::add_roe_change<NS, NEQ, VISCOUS, FORWARD>(df, old, mag, dq, x);
   } else {
+    constexpr int T0 = NS + 4;
     double fu[NEQ];
     physical_flux_mix<NS, NEQ>(sp, qn, st[0], st[1], st[2], fu);
     if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
@@ -616,6 +589,7 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
 }
 
+#if SWEEP_TP
 // the stage: cell c's q + du, inverted once by the thermo::SPEC_LANES
 // lanes of a group (this lane r, the group's mask), into qu
 template <int NS, int NEQ>
@@ -639,10 +613,12 @@ __device__ __forceinline__ void invert_cell(const Fields& fl, const Phys& ph,
   }
   if constexpr (SWEEP_PROBE != 0) probe::mark(probe::STAGE + 1);
 }
+#endif  // SWEEP_TP
 
-// Prefetch into L2 what lane d reads for one cell but du and qu, and for
-// lane 0 what the stage reads of the cell.
-template <int NS, int NEQ, bool VISCOUS>
+// Prefetch into L2 what lane d reads for one cell but du and qu: for a
+// calorically perfect form the neighbour's state, and for lane 0 of a
+// thermally perfect one what the stage reads of the cell.
+template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
 __device__ __forceinline__ void prefetch_stored(const Fields& fl, int64_t c,
                                                 int64_t pc, int d) {
   constexpr int T0 = NS + 4;
@@ -655,11 +631,17 @@ __device__ __forceinline__ void prefetch_stored(const Fields& fl, int64_t c,
   prefetch_l2(fl.stat + f * NSTAT + NSTAT - 1);
 #pragma unroll
   for (int v = 0; v < NV; ++v) prefetch_l2(fl.pre + f + v * P);
-  if (ROE || d == 0) {
+  if (ROE || (TP && d == 0)) {
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
   }
+#if SWEEP_TP
   if (d == 0) prefetch_l2(fl.eold + pc);
+#else
+  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+#endif
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
     if (e % wavefront::LANES != d) continue;
@@ -669,9 +651,10 @@ __device__ __forceinline__ void prefetch_stored(const Fields& fl, int64_t c,
   prefetch_l2(fl.inv_f + pc);
   if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
 }
-#endif  // SWEEP_TP
+#endif  // SWEEP_TP || SWEEP_ROE
 
-// one whole sweep of one block: one CTA per tile (sweep_wavefront.cuh)
+// one whole sweep of one block: one CTA per tile, or for the pre-pass forms
+// persistent CTAs (sweep_wavefront.cuh)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
@@ -682,28 +665,42 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   auto physical = [&](int i, int j, int k) {
     return (static_cast<int64_t>(i) * nj + j) * nk + k;
   };
-#if SWEEP_TP
+#if SWEEP_TP || SWEEP_ROE
+  // finish's operands loaded before the product hold 2 x 3 x ceil(NEQ / 3)
+  // registers through it: a calorically perfect Roe form of more than 9
+  // equations has none to spare, and loads them in finish (finish_rows)
+  constexpr bool early = TP || NEQ <= 9;
   FinishRows<NEQ> fr;
-  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, thermo::SPEC_LANES>(
-      sc,
-      [&](int i, int j, int k, int d) {
-        prefetch_stored<NS, NEQ, VISCOUS>(fl, padded(i, j, k),
-                                          physical(i, j, k), d);
-      },
-      [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
-        const int64_t c = padded(i, j, k), pc = physical(i, j, k);
-        load_finish<NS, NEQ, FORWARD>(fl, c, pc, d, fr);
-        stored_product<NS, NEQ, VISCOUS, FORWARD>(fl, ph, sp, c, pc, d, x[0]);
-      },
-      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
-        finish_loaded<NS, NEQ, FORWARD>(fl, padded(i, j, k), d, acc, fr);
-      },
+  auto prefetch = [&](int i, int j, int k, int d) {
+    prefetch_stored<NS, NEQ, VISCOUS, FORWARD>(fl, padded(i, j, k),
+                                               physical(i, j, k), d);
+  };
+  auto addends = [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
+    const int64_t c = padded(i, j, k), pc = physical(i, j, k);
+    if constexpr (early) load_finish<NS, NEQ, FORWARD>(fl, c, pc, d, fr);
+    stored_product<NS, NEQ, VISCOUS, FORWARD>(fl, ph, sp, c, pc, d, x[0]);
+  };
+  auto finish = [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
+    if constexpr (early)
+      finish_loaded<NS, NEQ, FORWARD>(fl, padded(i, j, k), d, acc, fr);
+    else
+      finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k), physical(i, j, k),
+                                    d, acc);
+  };
+#endif
+#if SWEEP_TP
+  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, thermo::SPEC_LANES,
+                  PERSISTENT>(
+      sc, prefetch, addends, finish,
       [&](int i, int j, int k, int r, unsigned group) {
         invert_cell<NS, NEQ>(fl, ph, sp, padded(i, j, k), physical(i, j, k),
                              r, group);
       });
+#elif SWEEP_ROE
+  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, 1, PERSISTENT>(
+      sc, prefetch, addends, finish);
 #else
-  wavefront::walk<FORWARD, NEQ, 1>(
+  wavefront::walk<FORWARD, NEQ, 1, false, 1, PERSISTENT>(
       sc,
       [&](int i, int j, int k, int d) {
         prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
@@ -724,19 +721,21 @@ template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
 int launch_tiles(int forward, Fields fl, const Phys& ph,
                  const Species<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st, double* work) {
-#if SWEEP_TP
+#if SWEEP_TP || SWEEP_ROE
   if (!work) return static_cast<int>(cudaErrorInvalidValue);
   fl.pre = work;
+#if SWEEP_TP
   fl.eold = work + face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp;
   fl.qu = fl.eold + fl.ncp;
+#endif
   const int err =
       forward
           ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
-                                    3 * fl.ncp, PREPASS_THREADS, st, fl, ph,
-                                    sp, sc)
+                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
+                                    st, fl, ph, sp, sc)
           : wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, false>,
-                                    3 * fl.ncp, PREPASS_THREADS, st, fl, ph,
-                                    sp, sc);
+                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
+                                    st, fl, ph, sp, sc);
   if (err != 0) return err;
 #else
   if (work) return static_cast<int>(cudaErrorInvalidValue);
@@ -745,16 +744,16 @@ int launch_tiles(int forward, Fields fl, const Phys& ph,
   constexpr int lanes = TP ? thermo::SPEC_LANES : 0;
   if (forward)
     return wavefront::launch_lanes(
-        lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st, fl, ph,
-        sp);
+        lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc,
+        st, fl, ph, sp);
   return wavefront::launch_lanes(
-      lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st, fl, ph,
-      sp);
+      lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
+      st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
-// hf_s (NS each) and, for the thermally perfect forms, the vibrational
-// table: the mode counts (NS), then MAX_MODES temperatures per species
+// hf_s (NS each) and, for the thermally perfect forms, the species' mode
+// counts (NS) and their temperatures (thermo::read_vib)
 template <int NS>
 int launch_form(int forward, int neq, int viscous, int wilcox,
                 const Fields& fl, const Phys& ph, const double* species,
@@ -772,6 +771,9 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
   if (!thermo::read_vib<NS>(species + 4 * NS, sp.vib))
     return static_cast<int>(cudaErrorInvalidValue);
 #endif
+  static_assert(sizeof(Fields) + sizeof(Phys) + sizeof(Species<NS>) +
+                        sizeof(wavefront::Schedule) <= 4096,
+                "the kernels' parameters exceed 4 KB");
   if (neq == N && !viscous && !wilcox)
     return launch_tiles<NS, N, false, false>(forward, fl, ph, sp, sc, st,
                                              work);
@@ -790,8 +792,8 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole sweep of one block: a cudaMemsetAsync of the schedule's state,
-// for the thermally perfect forms the pre-pass, and one tile-wavefront
-// launch, all on `stream`.  ns is 1..BASE_NS, or SWEEP_NS in a build for
+// for the pre-pass forms (thermally perfect or approximateRoe) the
+// pre-pass, and one tile-wavefront launch, all on `stream`.  ns is 1..BASE_NS, or SWEEP_NS in a build for
 // that count, and neq is
 // ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
@@ -801,19 +803,20 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // holds.  R, cv, cp, hf, gamma and prandtl are the one species' (read
 // when ns is 1 by the calorically perfect forms); species is a HOST
 // array of the mixture's R_s, cv_s, cp_s and hf_s, ns each (read when ns
-// > 1 or tp), then for tp the vibrational table (launch_form).  stat (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical
-// cell order.  sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk,
-// g, ctas} (ctas: the persistent CTAs of a thermally perfect form's
-// wavefront); tiles the device tile table (ntiles, 6) and state
-// device scratch of 1 + ntiles ints (sweep_wavefront.cuh).  extra may be
-// null (variant (a)); mu, mut, f1 may be null when inviscid and inv_t
-// without turbulence equations.  work is the thermally perfect forms'
-// device work space (null for the other forms): per face of the sweep
-// side face_values doubles (3 ncp faces), then ncp old energies, then
-// NEQ x nc updated states (kernels/lusgs_sweep.py work_doubles); clocks
-// null, or for a thermally perfect form in the probe's build (SWEEP_PROBE)
-// the device array of the step clocks (sweep_wavefront.cuh, namespace
-// probe).  Returns
+// > 1 or tp), then for tp the species' mode counts and their vibrational
+// temperatures (launch_form).  stat
+// (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical cell order.
+// sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk, g, ctas} (ctas:
+// the persistent CTAs of a pre-pass form's wavefront); tiles the device
+// tile table (ntiles, 6) and state device scratch of 1 + ntiles ints
+// (sweep_wavefront.cuh).  extra may be null (variant (a)); mu, mut, f1
+// may be null when inviscid and inv_t without turbulence equations.  work
+// is the pre-pass forms' device work space (null for the other forms):
+// per face of the sweep side face_values doubles (3 ncp faces), then for
+// tp ncp old energies and NEQ x nc updated states (kernels/lusgs_sweep.py
+// work_doubles); clocks null, or for a pre-pass form in the probe's build
+// (SWEEP_PROBE) the device array of the step clocks (sweep_wavefront.cuh,
+// namespace probe).  Returns
 // cudaGetLastError() after the launches (0 when they were accepted), or
 // cudaErrorInvalidValue for a form that does not exist or that another
 // library holds.
@@ -830,7 +833,7 @@ extern "C" int lusgs_sweep_f64(
     double sigma_k1, double sigma_k2, const double* species, void* stream,
     double* work, unsigned long long* clocks) {
   if ((roe != 0) != ROE || (tp != 0) != TP ||
-      (clocks && !(TP && SWEEP_PROBE)))
+      (clocks && !(SPLIT && SWEEP_PROBE)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim, du,   mu,   mut, f1, b,   extra,

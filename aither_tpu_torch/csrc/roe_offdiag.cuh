@@ -27,17 +27,23 @@
 // Rusanov's).  The block solver takes the same vector; its block inverse
 // is unchanged.
 //
-// The old and the new flux are evaluated one after the other into one
-// array each, the updated state dying before the old flux starts, and the
-// dissipation of each flux is accumulated wave by wave into its rows in
-// the order of the plain version (aither_tpu_torch/solver/flux.py
+// The old flux and the radii are the old states' alone, unchanged during a
+// sweep, so every Roe form of both sweeps splits the product: a pre-pass
+// launch, a thread per face, stores them once per face of the sweep side
+// (store_roe_old_terms, roe_face_values per face), and the wavefront's
+// lanes evaluate only the new flux of q + du and combine it with them
+// (add_roe_change): mag (new - old), then the rows, in the plain version's
+// order.  Each flux accumulates its dissipation wave by wave into its rows
+// in the order of the plain version (aither_tpu_torch/solver/flux.py
 // roe_flux), so that kernel and plain differ by FMA contraction only.
 //
 // What bounds it: per neighbour two Roe fluxes (each a Roe average, a
 // square root for the ratio and one for the sound speed, two entropy
 // fixes, two physical fluxes) on top of q + du, about three times the
-// Rusanov product's FP64 work, on the same chain of dependent planes;
-// the bytes add the cell's own state (kernels/lusgs_sweep.py sweep_cost).
+// Rusanov product's FP64 work; the bytes add the cell's own state
+// (kernels/lusgs_sweep.py sweep_cost).  What holds a sweep is its chain
+// of dependent planes, on which the split leaves one Roe flux and q + du
+// per neighbour (the pre-pass runs fully parallel before it).
 //
 // PH is the kernel's struct of one-species constants (R, cv, cp, hf,
 // gamma, prandtl, prt, scaling, tmin_k, tmin_w, sigma_k1, sigma_k2), SP
@@ -59,6 +65,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "thermo_tp.cuh"
 
@@ -498,36 +506,67 @@ __device__ __forceinline__ void add_roe_rows(const double df[NEQ], double sr,
   }
 }
 
-// approximateRoe off-diagonal product of one neighbour (state q, update
-// dq) across a face (n, mag) of the cell with state qd, added to acc (head
-// of this file).  FORWARD: the lower neighbour (positive).  mu, mut, f1
-// and dist are read only by the forms that use them (0 otherwise).
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD, class PH,
-          class SP>
-__device__ __forceinline__ void add_roe_offdiagonal(
-    const PH& ph, const SP& sp, const double q[NEQ], const double dq[NEQ],
-    const double qd[NEQ], double n0, double n1, double n2, double mag,
-    double dist, double mu, double mut, double f1, double acc[NEQ]) {
-  double df[NEQ];
-  {
-    double qu[NEQ];
-    update_state<NS, NEQ>(ph, sp, q, dq, qu);
-    if (FORWARD)
-      roe_flux<NS, NEQ>(ph, sp, qu, qd, n0, n1, n2, df);
-    else
-      roe_flux<NS, NEQ>(ph, sp, qd, qu, n0, n1, n2, df);
-  }
-  {
-    double fo[NEQ];
-    roe_flux<NS, NEQ>(ph, sp, q, qd, n0, n1, n2, fo);
+// values per face that the Roe forms' pre-pass stores: the NEQ rows of
+// F_roe(q_nb | q_cell) and, viscous, the flow radius and (with turbulence
+// equations) the turbulence one (kernels/lusgs_sweep.py face_values)
+template <int NS, int NEQ, bool VISCOUS>
+__host__ __device__ constexpr int roe_face_values() {
+  return NEQ + (VISCOUS ? (NEQ == NS + 6 ? 2 : 1) : 0);
+}
+
+// The pre-pass of one face: the old Roe flux F_roe(q | qd) of the
+// neighbour state q across the face (n, mag) of the cell with state qd,
+// and the neighbour's viscous radii (VISCOUS), to out[v * P] for value v
+// (roe_face_values).  mu, mut, f1 and dist are read only by the forms that
+// use them (0 otherwise).
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, class PH, class SP>
+__device__ __forceinline__ void store_roe_old_terms(
+    const PH& ph, const SP& sp, const double q[NEQ], const double qd[NEQ],
+    double n0, double n1, double n2, double mag, double dist, double mu,
+    double mut, double f1, double* out, int64_t P) {
+  double fo[NEQ];
+  roe_flux<NS, NEQ>(ph, sp, q, qd, n0, n1, n2, fo);
 #pragma unroll
-    for (int e = 0; e < NEQ; ++e) df[e] = mag * (df[e] - fo[e]);
-  }
-  double sr = 0.0, sr_t = 0.0;
-  if constexpr (VISCOUS)
+  for (int e = 0; e < NEQ; ++e) out[e * P] = fo[e];
+  if constexpr (VISCOUS) {
+    double sr, sr_t;
     roe_viscous_radii<NS, NEQ, WILCOX>(ph, sp, q, mag, dist, mu, mut, f1, sr,
                                        sr_t);
-  add_roe_rows<NS, NEQ, VISCOUS, FORWARD>(df, sr, sr_t, dq, acc);
+    out[NEQ * P] = sr;
+    if constexpr (NEQ == NS + 6) out[(NEQ + 1) * P] = sr_t;
+  }
+}
+
+// The new Roe flux of a neighbour's updated state qn (in primitives)
+// against the cell's qd: F_roe(qn | qd) for the lower neighbour (FORWARD),
+// F_roe(qd | qn) for the upper one (head of this file)
+template <int NS, int NEQ, bool FORWARD, class PH, class SP>
+__device__ __forceinline__ void roe_new_flux(const PH& ph, const SP& sp,
+                                             const double qn[NEQ],
+                                             const double qd[NEQ], double n0,
+                                             double n1, double n2,
+                                             double f[NEQ]) {
+  if (FORWARD)
+    roe_flux<NS, NEQ>(ph, sp, qn, qd, n0, n1, n2, f);
+  else
+    roe_flux<NS, NEQ>(ph, sp, qd, qn, n0, n1, n2, f);
+}
+
+// The approximateRoe product of one neighbour (update dq) from its new
+// flux fn (roe_new_flux; overwritten) and its stored old terms old
+// (store_roe_old_terms): mag (fn - old) and the radii rows, added to acc.
+template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
+__device__ __forceinline__ void add_roe_change(double fn[NEQ],
+                                               const double old[],
+                                               double mag,
+                                               const double dq[NEQ],
+                                               double acc[NEQ]) {
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) fn[e] = mag * (fn[e] - old[e]);
+  double sr = 0.0, sr_t = 0.0;
+  if constexpr (VISCOUS) sr = old[NEQ];
+  if constexpr (VISCOUS && NEQ == NS + 6) sr_t = old[NEQ + 1];
+  add_roe_rows<NS, NEQ, VISCOUS, FORWARD>(fn, sr, sr_t, dq, acc);
 }
 
 }  // namespace flux

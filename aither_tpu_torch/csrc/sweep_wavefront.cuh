@@ -4,7 +4,8 @@
 // plane kernel of earlier versions took one launch per plane.
 //
 // The block is cut into tiles, boxes of ti x tj x tk cells (ragged at the
-// upper ends).  Each CTA takes one tile from an atomic ticket, in the
+// upper ends).  Each CTA takes one tile (persistent CTAs, walk's
+// PERSISTENT: one tile after another) from an atomic ticket, in the
 // order of a host-built table of tiles sorted by the hyperplane of their
 // origin (a topological order: a tile's lower neighbour tiles come before
 // it), never by blockIdx.  Every tile a CTA waits for then belongs to a
@@ -165,7 +166,7 @@ struct Schedule {
   const int* __restrict__ tiles;  // (ntiles, TILE_COLUMNS), topological
   int* state;                     // [0] ticket, [1 + id] planes done
   int ntiles;
-  int ctas;      // CTAs of a launch with a stage (persistent), at most ntiles
+  int ctas;      // CTAs of a persistent launch, at most ntiles
   int n[3];      // block extents ni, nj, nk
   int t[3];      // tile extents (the last tile of an axis may be shorter)
   int tg[3];     // tiles per axis
@@ -210,12 +211,17 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 // plane (r the thread's lane in the group, group the group's lane mask);
 // then a barrier, and the control thread publishes the plane, which so
 // covers what the stage writes, before it waits for the predecessors' next
-// plane.  Without (NoStage: every other build) the walk is as it was.
+// plane.  Without (NoStage: every other build) a plane is published when
+// the next one starts.  With PERSISTENT, which a stage needs (the
+// pre-pass forms of both sweeps), each CTA takes tiles until the tickets
+// run out; without, a CTA walks one tile.  The launch (launch_lanes) must
+// take the same choice: each sweep source names it once (its PERSISTENT)
+// and passes it to both.
 struct NoStage {};
 
 template <bool FORWARD, int NEQ, int NADD, bool PROBE = false,
-          int STAGE_LANES = 1, class Prefetch, class Addends, class Finish,
-          class Stage = NoStage>
+          int STAGE_LANES = 1, bool PERSISTENT = false, class Prefetch,
+          class Addends, class Finish, class Stage = NoStage>
 __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
                                      Addends addends, Finish finish,
                                      Stage stage = Stage()) {
@@ -223,16 +229,15 @@ __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const bool ctrl = tid == 31;
-  // with a stage the CTAs are persistent: each takes tiles until the
-  // tickets run out (launch_lanes); without, a CTA walks one tile
   constexpr bool staged = !std::is_same<Stage, NoStage>::value;
+  static_assert(PERSISTENT || !staged, "a stage runs on persistent CTAs");
   for (;;) {
     if (ctrl) {
       ticket = atomicAdd(sc.state, 1);
       if constexpr (PROBE) probe::begin(sc.clocks);
     }
     __syncthreads();
-    if (staged && ticket >= sc.ntiles) break;
+    if (PERSISTENT && ticket >= sc.ntiles) break;
     const int row = FORWARD ? ticket : sc.ntiles - 1 - ticket;
     const int* tl = sc.tiles + TILE_COLUMNS * row;
     const int o[3] = {tl[0], tl[1], tl[2]};
@@ -352,7 +357,7 @@ __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
     }
     if (!staged && ctrl) publish(nq);
     if constexpr (PROBE) probe::end(sc.clocks, ticket, ctrl);
-    if constexpr (!staged) break;
+    if constexpr (!PERSISTENT) break;
     __syncthreads();   // every thread has read this tile's ticket
   }
 }
@@ -361,36 +366,114 @@ __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
 // `st`, then one CTA per tile, three lanes for each of a whole tile's
 // columns, ten columns to a warp; with a stage of stage_lanes threads a
 // cell (walk's STAGE_LANES), enough warps for all the columns' cells at
-// once, up to THREADS, and the schedule's ctas persistent CTAs (the
-// tickets are taken in topological order and every waiting CTA holds one,
-// so the tiles a CTA waits for are done or held by running CTAs: no
-// deadlock however few CTAs run), so that the blocks of a sweep, launched
-// on streams of their own, run side by side where one launch of a CTA a
-// tile would fill the card before the next block's launch starts.
+// once, up to THREADS.  persistent (the walk's PERSISTENT): the
+// schedule's ctas persistent CTAs instead (the tickets are taken in
+// topological order and every waiting CTA holds one, so the tiles a CTA
+// waits for are done or held by running CTAs: no deadlock however few
+// CTAs run), so that the blocks of a sweep, launched on streams of their
+// own, run side by side where one launch of a CTA a tile would fill the
+// card before the next block's launch starts.
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
 template <class Kernel, class... Args>
-int launch_lanes(int stage_lanes, Kernel kernel, const Schedule& sc,
-                 cudaStream_t st, Args... args) {
+int launch_lanes(int stage_lanes, bool persistent, Kernel kernel,
+                 const Schedule& sc, cudaStream_t st, Args... args) {
   cudaError_t err = cudaMemsetAsync(sc.state, 0,
                                     sizeof(int) * (1 + sc.ntiles), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int columns = sc.t[1] * sc.t[2];
   if (columns > MAX_TILE_COLUMNS) return static_cast<int>(cudaErrorInvalidValue);
   int threads = 32 * ((columns + COLUMNS_PER_WARP - 1) / COLUMNS_PER_WARP);
-  int ctas = sc.ntiles;
-  if (stage_lanes > 0) {
+  if (stage_lanes > 0)
     threads = max(threads, min(THREADS, 32 * ((stage_lanes * columns + 31) /
                                               32)));
-    ctas = sc.ctas;
-  }
+  const int ctas = persistent ? sc.ctas : sc.ntiles;
   kernel<<<ctas, threads, 0, st>>>(args..., sc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Kernel, class... Args>
-int launch(Kernel kernel, const Schedule& sc, cudaStream_t st,
-           Args... args) {
-  return launch_lanes(0, kernel, sc, st, args...);
+// face f = 3 pc + d of a sweep side, as a pre-pass launch (launch_cells,
+// a thread a face) takes them: its physical cell pc (physical order
+// (i, j, k), extents sc.n), the cell's indices at and the direction d
+struct Face {
+  int64_t pc;
+  int d;
+  int at[3];   // i, j, k
+};
+
+__device__ __forceinline__ Face face_of(const Schedule& sc, int64_t f) {
+  Face fc;
+  fc.pc = f / 3;
+  fc.d = static_cast<int>(f - 3 * fc.pc);
+  fc.at[2] = static_cast<int>(fc.pc % sc.n[2]);
+  fc.at[1] = static_cast<int>(fc.pc / sc.n[2] % sc.n[1]);
+  fc.at[0] = static_cast<int>(fc.pc / sc.n[2] / sc.n[1]);
+  return fc;
+}
+
+// threads of a pre-pass CTA (launch_cells, one per face)
+constexpr int PREPASS_THREADS = 128;
+
+// stride[d] of a direction known only at run time (no local-memory index)
+template <class Fields>
+__device__ __forceinline__ int64_t stride_of(const Fields& fl, int d) {
+  return d == 0 ? fl.stride[0] : d == 1 ? fl.stride[1] : fl.stride[2];
+}
+
+// the viscous fields of neighbour nb and the centre distance of the face
+// whose stats are st, read by the forms that use them (0 otherwise)
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, class Fields>
+__device__ __forceinline__ void viscous_fields(const Fields& fl, int64_t nb,
+                                               const double* st, double& mu,
+                                               double& mut, double& f1,
+                                               double& dist) {
+  mu = mut = f1 = dist = 0.0;
+  if constexpr (VISCOUS) {
+    mu = fl.mu[nb];
+    mut = fl.mut[nb];
+    dist = st[4];
+    if constexpr (NEQ == NS + 6 && !WILCOX) f1 = fl.f1[nb];
+  }
+}
+
+// What both sweeps' pre-passes read of face f = 3 pc + d (fc =
+// face_of(sc, f)) through the members their Fields share (prim, mu, mut,
+// f1, stat, nc, base, stride): the cell's padded index c and its
+// neighbour's nb across the face (the lower one FORWARD), the face's
+// NSTAT stats st (nx, ny, nz, mag, dist), the neighbour's state q and the
+// cell's qd, and viscous_fields.  A form that does not use a load (qd but
+// for Roe) leaves it to the compiler to drop.
+template <int NEQ>
+struct FaceOperands {
+  int64_t c, nb;
+  const double* st;
+  double q[NEQ], qd[NEQ];
+  double mu, mut, f1, dist;
+};
+
+template <class Fields>
+__device__ __forceinline__ int64_t padded_of(const Fields& fl,
+                                             const Face& fc) {
+  return fl.base + fc.at[0] * fl.stride[0] + fc.at[1] * fl.stride[1] +
+         fc.at[2] * fl.stride[2];
+}
+
+template <int NSTAT, int NS, int NEQ, bool VISCOUS, bool WILCOX,
+          bool FORWARD, class Fields>
+__device__ __forceinline__ FaceOperands<NEQ> face_operands(const Fields& fl,
+                                                          const Face& fc,
+                                                          int64_t f) {
+  FaceOperands<NEQ> op;
+  op.c = padded_of(fl, fc);
+  op.nb = FORWARD ? op.c - stride_of(fl, fc.d) : op.c + stride_of(fl, fc.d);
+  op.st = fl.stat + f * NSTAT;
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    op.q[e] = fl.prim[e * fl.nc + op.nb];
+    op.qd[e] = fl.prim[e * fl.nc + op.c];
+  }
+  viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, op.nb, op.st, op.mu, op.mut,
+                                           op.f1, op.dist);
+  return op;
 }
 
 // a fully parallel launch of `threads`-thread CTAs over n items (one per

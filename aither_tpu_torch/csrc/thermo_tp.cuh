@@ -16,8 +16,12 @@
 // constants and the modes summed from 0 in the fluid table's order.
 //
 // The species table SP has R[NS], cv[NS], cp[NS], hf[NS] and the
-// vibrational temperatures (nondimensional) in a padded table with
-// counts, nvib[NS] and theta[NS][MAX_MODES].
+// vibrational table vib: every species' vibrational temperatures
+// (nondimensional) one after another, species s's modes m = first[s] ..
+// first[s + 1] - 1, so that a species may have any number of modes (a
+// fluid file lists any count; the loops' bound is a run-time one) and a
+// deck up to VIB_MODES in all.  The table passes by value in the kernel's
+// parameters, read through the constant cache.
 //
 // The temperature inversion is the plain version's loop: the bracket
 // [RIDDER_LO, RIDDER_HI], at most RIDDER_ITERS iterations, each with two
@@ -34,28 +38,37 @@
 
 namespace thermo {
 
-constexpr int MAX_MODES = 9;   // CH4 has 9 (physics/fluid.py)
 constexpr double RIDDER_LO = 1.0e-8, RIDDER_HI = 1.0e4, RIDDER_TOL = 1.0e-8;
 constexpr int RIDDER_ITERS = 64;
 
-// the padded vibrational table of NS species
+// modes the table holds, all species of a deck together: 2 KB, which
+// keeps a sweep's kernel parameters within their 4 KB at 16 species (the
+// sweeps' static_assert; the fluid database's 15 species have 24 modes;
+// kernels/lusgs_sweep.py VIB_MODES refuses a deck of more)
+constexpr int VIB_MODES = 256;
+
+// the vibrational table of NS species (head of this file)
 template <int NS>
 struct Vib {
-  int nvib[NS];
-  double theta[NS][MAX_MODES];
+  int first[NS + 1];
+  double theta[VIB_MODES];
 };
 
-// fill vib from a host array: the mode counts (NS), then MAX_MODES
-// temperatures per species; false if a count is out of range
+// fill vib from a host array of the NS mode counts followed by every
+// mode, species after species; false if a count is not a whole number or
+// the modes are more than VIB_MODES
 template <int NS>
 inline bool read_vib(const double* src, Vib<NS>& vib) {
+  vib.first[0] = 0;
   for (int s = 0; s < NS; ++s) {
     const double c = src[s];
-    if (!(c >= 0.0 && c <= MAX_MODES)) return false;
-    vib.nvib[s] = static_cast<int>(c);
-    for (int m = 0; m < MAX_MODES; ++m)
-      vib.theta[s][m] = src[NS + s * MAX_MODES + m];
+    if (!(c >= 0.0 && c <= VIB_MODES) || c != static_cast<int>(c))
+      return false;
+    vib.first[s + 1] = vib.first[s] + static_cast<int>(c);
   }
+  if (vib.first[NS] > VIB_MODES) return false;
+  for (int m = 0; m < VIB_MODES; ++m)
+    vib.theta[m] = m < vib.first[NS] ? src[NS + m] : 0.0;
   return true;
 }
 
@@ -67,8 +80,8 @@ __device__ __forceinline__ double sign_of(double x) {
 template <class SP>
 __device__ __forceinline__ double vib_energy(const SP& sp, int s, double t) {
   double acc = 0.0;
-  for (int m = 0; m < sp.vib.nvib[s]; ++m) {
-    const double th = sp.vib.theta[s][m];
+  for (int m = sp.vib.first[s]; m < sp.vib.first[s + 1]; ++m) {
+    const double th = sp.vib.theta[m];
     acc = acc + th / (exp(th / t) - 1.0);
   }
   return acc;
@@ -78,8 +91,8 @@ __device__ __forceinline__ double vib_energy(const SP& sp, int s, double t) {
 template <class SP>
 __device__ __forceinline__ double vib_cpcv(const SP& sp, int s, double t) {
   double acc = 0.0;
-  for (int m = 0; m < sp.vib.nvib[s]; ++m) {
-    const double tv = sp.vib.theta[s][m] / (2.0 * t);
+  for (int m = sp.vib.first[s]; m < sp.vib.first[s + 1]; ++m) {
+    const double tv = sp.vib.theta[m] / (2.0 * t);
     const double r = tv / sinh(tv);
     acc = acc + r * r;
   }

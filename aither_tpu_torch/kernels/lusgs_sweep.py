@@ -35,14 +35,20 @@ gas (``thermodynamicModel: thermallyPerfect``) takes the thermally
 perfect forms of either off-diagonal, libraries ``*_tp`` and ``*_roe_tp``
 (``csrc/thermo_tp.cuh``): each species' energy, enthalpy, cv and cp are
 functions of T, the energy of q + du is inverted by Ridder's method, and
-the Roe state's enthalpy and speed of sound are those of its T.  The
-scalar ones split the product: a pre-pass launch evaluates the old-state
-terms once per face into a work space (``work_doubles``), and a stage of
-the wavefront inverts each updated state once, on four lanes that
-evaluate Ridder's next points together (the block ones evaluate the
-product per neighbour, as the calorically perfect forms do).  They
-replace the JAX package's scan sweep of such a deck (its ``use_pallas``
-turns the Pallas kernel off there).  The plain
+the Roe state's enthalpy and speed of sound are those of its T; a
+species may have any number of vibrational modes, a deck up to
+``VIB_MODES`` in all (the table passes by value in the kernels'
+parameters).  The thermally perfect
+scalar forms and every approximateRoe form of both sweeps split the
+product: a pre-pass launch evaluates the old-state terms (the old Roe
+flux and the radii, or the old flux and radii of Rusanov) once per face
+into a work space (``work_doubles``) and the wavefront runs on persistent
+CTAs; the thermally perfect scalar ones also invert each updated state
+once, in a stage of the wavefront on four lanes that evaluate Ridder's
+next points together (the block Rusanov forms evaluate the product per
+neighbour, as the calorically perfect Rusanov forms do).  The thermally
+perfect forms replace the JAX package's scan sweep of such a deck (its
+``use_pallas`` turns the Pallas kernel off there).  The plain
 version has the semantics of the JAX package's
 ``lusgs_forward_group`` / ``lusgs_backward_group``, walked in physical
 layout through the hyperplane cell lists of ``SweepPlan``
@@ -70,9 +76,10 @@ from ..utils.build import SWEEP_BASE_NS
 # species counts of each source's base library (BASE_NS of both sources);
 # a count above it takes a library of its own
 BASE_SPECIES = SWEEP_BASE_NS
-# vibrational modes per species of the thermally perfect forms
-# (thermo_tp.cuh MAX_MODES; CH4 has 9)
-MAX_MODES = 9
+# vibrational modes of a thermally perfect deck, all species together,
+# that the kernels' table holds (csrc/thermo_tp.cuh VIB_MODES: the 4 KB of
+# kernel parameters bound it; the fluid database's species have 24)
+VIB_MODES = 256
 
 
 class LaunchCounter:
@@ -224,15 +231,28 @@ def _library(name: str):
     return fn
 
 
-def work_doubles(form, plan) -> int:
-    """doubles of the work space a thermally perfect scalar sweep of
-    ``form`` (``sweep_form``) takes on ``plan``'s block (csrc/lusgs_sweep.cu
-    launch_tiles): per face of the sweep side its ``face_values``, per
-    physical cell its old energy, per padded cell its updated state"""
+def prepass_form(form, block: bool = False) -> bool:
+    """whether the kernel of ``form`` (``sweep_form``) splits its product
+    with a pre-pass: every approximateRoe form of both sweeps and the
+    thermally perfect scalar ones"""
+    return bool(form[4] or (form[5] and not block))
+
+
+def work_doubles(form, plan, block: bool = False) -> int:
+    """doubles of the work space a sweep of ``form`` (``sweep_form``)
+    takes on ``plan``'s block (``launch_tiles`` of csrc/lusgs_sweep.cu and
+    csrc/blusgs_sweep.cu): for a pre-pass form per face of the sweep side
+    its ``face_values``, and for a thermally perfect scalar one also per
+    physical cell its old energy and per padded cell its updated state; 0
+    for the other forms"""
+    if not prepass_form(form, block):
+        return 0
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
     ncp = ni * nj * nk
-    return face_values(form) * 3 * ncp + ncp + form[1] * NI * NJ * NK
+    if form[5] and not block:
+        return face_values(form) * 3 * ncp + ncp + form[1] * NI * NJ * NK
+    return face_values(form) * 3 * ncp
 
 
 def _block_library(name: str):
@@ -243,7 +263,7 @@ def _block_library(name: str):
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
         fn.argtypes = ([i] * 7 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 18
-                       + [p, p])
+                       + [p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
@@ -261,10 +281,10 @@ def _check(t, name, shape, device):
 def sweep_form(phys: Physics, cfg):
     """(ns, neq, viscous, wilcox, roe, tp) of the kernel instantiation
     this physics and off-diagonal (roe: approximateRoe) take, tp for a
-    thermally perfect gas; every species count has one (``library_name``).
-    A form no model has (turbulence equations without viscosity) and a
-    species with more than ``MAX_MODES`` vibrational modes in a thermally
-    perfect gas raise ValueError."""
+    thermally perfect gas; every species count has one (``library_name``)
+    and a species any count of vibrational modes.  A form no model has
+    (turbulence equations without viscosity) and a thermally perfect deck
+    of more than ``VIB_MODES`` modes in all raise ValueError."""
     viscous = bool(cfg.get("viscous", False))
     ns, neq = phys.ns, phys.neq
     roe = cfg.get("inv_flux_jac", "rusanov") == "approximateRoe"
@@ -274,9 +294,9 @@ def sweep_form(phys: Physics, cfg):
         raise ValueError("the CUDA sweeps cover ns + 4 equations (inviscid "
                          "or viscous) or ns + 6 (viscous RANS) only, got "
                          f"ns={ns} neq={neq} viscous={viscous}")
-    if tp and max(len(v) for v in phys.vib) > MAX_MODES:
+    if tp and sum(len(v) for v in phys.vib) > VIB_MODES:
         raise ValueError("the thermally perfect CUDA sweeps take at most "
-                         f"{MAX_MODES} vibrational modes a species, got "
+                         f"{VIB_MODES} vibrational modes in all, got "
                          f"{[len(v) for v in phys.vib]}")
     return (ns, neq, viscous, phys.turb_model == "kOmegaWilcox2006", roe,
             tp)
@@ -286,10 +306,9 @@ def species_constants(phys: Physics, cfg, block: bool) -> np.ndarray:
     """the kernels' host array of the species constants: R_s, cv_s, cp_s,
     hf_s and, for the block sweep, the Sutherland conductivity
     coefficients, the molar masses, the Schmidt numbers and whether the
-    species diffuse, then for a thermally perfect gas the vibrational
-    table: each species' mode count, then per species ``MAX_MODES``
-    nondimensional vibrational temperatures padded with 0 (the
-    ``launch_form`` of each source)"""
+    species diffuse, then for a thermally perfect gas each species' count
+    of vibrational modes and every mode's nondimensional temperature,
+    species after species (the ``launch_form`` of each source)"""
     vals = [*phys.R, *phys.cv_s, *phys.cp_s, *phys.hf]
     if block:
         vals += [*phys.cond_c1, *phys.cond_s, *phys.molar_mass,
@@ -297,8 +316,7 @@ def species_constants(phys: Physics, cfg, block: bool) -> np.ndarray:
                  float(cfg.get("diffusion", "none") != "none")]
     if phys.thermally_perfect:
         vals += [float(len(v)) for v in phys.vib]
-        for v in phys.vib:
-            vals += [*v, *([0.0] * (MAX_MODES - len(v)))]
+        vals += [float(t) for v in phys.vib for t in v]
     return np.asarray(vals, dtype=np.float64)
 
 
@@ -354,6 +372,13 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     pr = 4.0 * g / (9.0 * g - 5.0)
     species = species_constants(phys, cfg, blk)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
+    # the pre-pass forms' work space (the face terms, and the thermally
+    # perfect scalar forms' old energies and updated states), on the
+    # launch's stream: the allocator reuses the block only for work queued
+    # after it there
+    nwork = work_doubles((ns, neq, viscous, wilcox, roe, tp), plan, blk)
+    work = (torch.empty(nwork, dtype=torch.float64, device=du.device)
+            if nwork else None)
     sched = np.asarray([len(plan.tiles), ni, nj, nk, *plan.tile, plan.g,
                         imp.wavefront_ctas(plan.dims, plan.tile)],
                        dtype=np.int32)
@@ -386,16 +411,10 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             *geometry, R, cv, cp, hf, g, pr, phys.turb_prandtl(),
             phys.nondim_scaling, *phys.turb_min(), phys.t_ref,
             phys.cond_c1[0], phys.cond_s[0], phys.k_nondim, *sig,
-            species.ctypes.data, stream)
+            species.ctypes.data, stream, ptr(work))
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
-        # the thermally perfect forms' pre-pass terms and updated states,
-        # on the launch's stream: the allocator reuses the block only for
-        # work queued after it there
-        work = (torch.empty(work_doubles(form[1:], plan),
-                            dtype=torch.float64, device=du.device)
-                if tp else None)
         err = _library(library)(
             *form, *fields, b.data_ptr(), ptr(extra),
             inv_f.data_ptr(), ptr(inv_t), *geometry, R, cv, cp, hf, g, pr,
@@ -410,8 +429,11 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     return du
 
 
-# the step clocks of the thermally perfect scalar forms (namespace probe of
-# csrc/sweep_wavefront.cuh): slot names, the header and a row's length
+# the step clocks of the pre-pass scalar forms (namespace probe of
+# csrc/sweep_wavefront.cuh): slot names, the header and a row's length.
+# A calorically perfect Roe form's lanes form q + du before its new flux
+# (its second slot), and it has no stage: its barrier, publication and
+# wait are the first slot's
 CLOCK_SLOTS = ("to the plane's start", "q + du read and the new flux",
                "the product's rows", "(no mark)", "exchange of addends",
                "finish", "stage barrier", "stage: its operands",
@@ -422,8 +444,8 @@ CLOCK_HEADER, CLOCK_ROW = 4, len(CLOCK_SLOTS) + 1
 
 def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                     forward: bool, extra=None) -> dict:
-    """One kernel sweep of a thermally perfect scalar form through the
-    probe's build of its library (``<library>_probe``, built at first use:
+    """One kernel sweep of a pre-pass scalar form (thermally perfect or
+    approximateRoe, ``prepass_form``) through the probe's build of its library (``<library>_probe``, built at first use:
     only it carries the marks) with its step clocks (namespace probe of
     csrc/sweep_wavefront.cuh): per slot the SM cycles that thread 0 of a
     CTA spent there, summed over the CTAs and divided by the planes on
@@ -431,9 +453,8 @@ def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     %globaltimer (ns), the wavefront's and, where the form has one, the
     pre-pass's.  Updates du in place, as the sweep does.  Not counted in
     ``LAUNCHES``: the measurement calls the kernel outside the solver."""
-    if not sweep_form(phys, cfg)[5] or cfg.get("block_matrix"):
-        raise ValueError("the step clocks are the thermally perfect scalar "
-                         "forms'")
+    if cfg.get("block_matrix") or not prepass_form(sweep_form(phys, cfg)):
+        raise ValueError("the step clocks are the pre-pass scalar forms'")
     big = torch.iinfo(torch.int64).max
     clocks = torch.zeros(CLOCK_HEADER + CLOCK_ROW * len(plan.tiles),
                          dtype=torch.int64, device=du.device)
@@ -472,8 +493,9 @@ NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 142, (5, True, False): 154,
 # N x N (+ 2x2) inverse product take 2 N^2 + N (+ 8).
 BLOCK_NEIGHBOUR_OPS_BY_FORM = {(5, False, False): 155, (5, True, False): 280,
                                (7, True, False): 312, (7, True, True): 306}
-# csrc/roe_offdiag.cuh add_roe_offdiagonal, the same for both kernels:
-# update_prim 47 (39 with 5 equations), two roe_flux 542 (446), each the
+# csrc/roe_offdiag.cuh, the same for both kernels: the lanes' update_prim
+# 47 (39 with 5 equations), two roe_flux 542 (446: the old one in the
+# pre-pass, store_roe_old_terms, the new one on the lanes), each the
 # Roe average, its enthalpy and speed of sound and the state differences
 # 51, the waves' dissipation rows 139 (101), two physical fluxes 60 (56)
 # and the combine 21 (15); the flux change 14 (10), and the rows into
@@ -598,11 +620,12 @@ def tp_roe_extra_ops(form, modes) -> float:
 
 
 def face_values(form) -> int:
-    """values per face that the thermally perfect scalar forms' pre-pass
-    stores (csrc/lusgs_sweep.cu face_values): Rusanov the ns + 4 flow rows
-    of the old flux, the face radius and, with turbulence equations, the
-    turbulence radius; approximateRoe the neq rows of the old Roe flux and,
-    viscous, its one or two viscous radii"""
+    """values per face that a pre-pass stores (csrc/lusgs_sweep.cu
+    face_values, csrc/roe_offdiag.cuh roe_face_values): thermally perfect
+    Rusanov the ns + 4 flow rows of the old flux, the face radius and,
+    with turbulence equations, the turbulence radius; approximateRoe (both
+    sweeps) the neq rows of the old Roe flux and, viscous, its one or two
+    viscous radii"""
     ns, neq, viscous, _, roe = form[:5]
     nturb = neq - ns - 4
     if roe:
@@ -722,19 +745,22 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     return nbytes, ops
 
 
-def prepass_bytes(plan, forward: bool, form) -> int:
-    """bytes that a thermally perfect scalar sweep's own work space moves
-    beyond ``sweep_cost``'s (0 for the other forms): per unmasked face of
-    the sweep side its pre-pass terms (``face_values``), per cell its old
-    energy, per updated state (the distinct neighbours read) q + du, each
-    written once and read once.  A cost of the design, not of the
-    function, so no part of the bound."""
-    if not form[5]:
+def prepass_bytes(plan, forward: bool, form, block: bool = False) -> int:
+    """bytes that a pre-pass sweep's own work space (``work_doubles``)
+    moves beyond ``sweep_cost``'s (0 for the other forms): per unmasked
+    face of the sweep side its pre-pass terms (``face_values``), and for a
+    thermally perfect scalar form per cell its old energy and per updated
+    state (the distinct neighbours read) q + du, each written once and
+    read once.  A cost of the design, not of the function, so no part of
+    the bound."""
+    if not prepass_form(form, block):
         return 0
     mask = plan.mask["lower" if forward else "upper"]
-    nread, _ = neighbour_reads(plan, forward)
-    return 8 * 2 * (face_values(form) * int(mask.sum())
-                    + int(plan.cells.numel()) + form[1] * nread)
+    values = face_values(form) * int(mask.sum())
+    if form[5] and not block:
+        nread, _ = neighbour_reads(plan, forward)
+        values += int(plan.cells.numel()) + form[1] * nread
+    return 8 * 2 * values
 
 
 # ---------------------------------------------------------------------------

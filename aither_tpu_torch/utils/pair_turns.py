@@ -1,0 +1,110 @@
+"""Sweep kernel pairs of some decks in this checkout and another, in turns,
+on one GPU.
+
+    python3 aither_tpu_torch/utils/pair_turns.py --against DIR DECK [DECK ...]
+
+A DECK is ``case:physics:solver:tag``: case ``A`` (2 x 96x120x1, block 0
+alone, as ``chip_smoke.py`` compares it) or ``B`` (2 x 256x64x32, both
+blocks), and the physics, matrix solver and deck tag of ``chip_smoke.py``
+(``PHYSICS``, ``TIME_DECKS``), e.g. ``B:sst:lusgs:roe``.  For each checkout,
+in the order DIR, this, this, DIR (DIR another checkout, e.g. the parent's
+unpacked under a git-ignored directory), a process of its own imports that
+checkout's package and ``chip_smoke.py``, builds each deck's Solver on the
+card, takes its first linear system (``chip_smoke.linear_system``) and
+times its variant (a) or (c) pair as ``Solver.run`` launches it: one
+untimed pair, then three windows of ``chip_smoke.KERNEL_REPS`` pairs (CUDA
+events).  It prints one JSON line per checkout and deck (the windows, their
+mean and the mean over the critical path's steps), then one per deck with
+both checkouts' means and their ratio.  Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DIMS = {"A": (96, 120, 1), "B": (256, 64, 32)}
+
+
+def worker(tree: str, tag: str, decks) -> None:
+    """run in a process whose sys.path starts at ``tree``: one JSON line a
+    deck"""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from aither_tpu_torch.kernels import lusgs_sweep as ls
+    assert ls.__file__.startswith(os.path.abspath(tree)), ls.__file__
+    for deck in decks:
+        case, physics, solver_name, deck_tag = deck.split(":")
+        wd = os.path.join(REPO, "smoke_run",
+                          f"pair_turns_{tag}_{deck.replace(':', '_')}")
+        s = cs.make_solver(wd, DIMS[case], "cuda", solver_name, 1, physics,
+                           deck_tag)
+        prims, auxs, inv_diag, bs, du0 = cs.linear_system(s)
+        if case == "A":
+            du0 = {0: du0[0]}
+        system = (prims, auxs, inv_diag, bs, du0)
+
+        def pair():
+            return cs.sweep_pair(s, system, du0, None)
+
+        pair()
+        windows = [cs.timed_ms(torch, pair, cs.KERNEL_REPS)
+                   for _ in range(3)]
+        ms = float(np.mean(windows))
+        steps = 2 * max(s.plans[bi].nplanes for bi in du0)
+        print(json.dumps(dict(
+            tag=tag, deck=deck, library=ls.form_library(s.phys, s.cfg),
+            card=cs.card_line(), windows_ms=windows, ms=ms,
+            us_per_step=1e3 * ms / steps)), flush=True)
+        del s, system, prims, auxs, inv_diag, bs, du0
+        torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", required=True, metavar="DIR",
+                    help="the other checkout's root")
+    ap.add_argument("decks", nargs="+", metavar="DECK")
+    ap.add_argument("--worker", nargs=2, metavar=("TREE", "TAG"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(*args.worker, args.decks)
+        return 0
+    other = os.path.abspath(args.against)
+    means = {}
+    for n, (tree, name) in enumerate(((other, "against"), (REPO, "this"),
+                                      (REPO, "this"), (other, "against"))):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--against", other,
+             "--worker", tree, f"{name}{n}", *args.decks],
+            capture_output=True, text=True, cwd=tree,
+            env=dict(os.environ, PYTHONPATH=tree))
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            return proc.returncode
+        for ln in proc.stdout.splitlines():
+            d = json.loads(ln)
+            means.setdefault(d["deck"], {}).setdefault(name, []).append(
+                d["ms"])
+    for deck, m in means.items():
+        a = sum(m["against"]) / len(m["against"])
+        t = sum(m["this"]) / len(m["this"])
+        print(json.dumps(dict(deck=deck, against_ms=a, this_ms=t,
+                              this_over_against=t / a)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    # run as a file: import the checkout's package and chip_smoke.py (the
+    # worker's checkout, else this one), never this directory's modules
+    sys.path[0] = (os.path.abspath(sys.argv[sys.argv.index("--worker") + 1])
+                   if "--worker" in sys.argv else REPO)
+    sys.exit(main())

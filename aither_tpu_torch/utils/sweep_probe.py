@@ -1,5 +1,6 @@
-"""The thermally perfect scalar sweeps (csrc/lusgs_sweep.cu built with
--DSWEEP_TP=1) on one GPU: pair times and the step's parts by SM clocks.
+"""The pre-pass scalar sweeps (csrc/lusgs_sweep.cu built with
+-DSWEEP_TP=1 or -DSWEEP_ROE=1) on one GPU: pair times and the step's
+parts by SM clocks.
 
     python3 aither_tpu_torch/utils/sweep_probe.py [--forms NAME ...]
                                                  [--check] [--marks]
@@ -7,8 +8,9 @@
 
 For each form (FORMS: the hot-air thermally perfect SST lusgs deck and its
 approximateRoe twin at case B, 2 x 256x64x32 cells, both blocks; the
-seven-species hydrogen-air thermally perfect deck at case A, 2 x 96x120x1,
-block 0 alone, as ``chip_smoke.py`` compares it) it builds the generated
+calorically perfect SST approximateRoe deck at case B; the seven-species
+hydrogen-air thermally perfect deck at case A, 2 x 96x120x1, block 0
+alone, as ``chip_smoke.py`` compares it) it builds the generated
 plate's Solver on the card, takes its first linear system
 (``chip_smoke.linear_system``), times the variant (a) forward+backward
 pair as ``Solver.run`` launches it (CUDA events: one untimed pair, then
@@ -24,9 +26,11 @@ to its plain version (``chip_smoke.SWEEP_RTOL``).  With ``--marks`` the
 pair is also timed block after block through the probe's build and
 through the form's own library, which has no marks, in turns (with,
 without, without, with), so that the cost of the marks reads as the
-difference.  One JSON line per library (its ptxas report) and per form;
-the same lines, with the libraries' whole -Xptxas -v output, to ``--out``
-(default ``smoke_run/sweep_probe.jsonl``).  Needs a card.
+difference.  The earlier design's pair, in another checkout, is timed
+against this one's by ``utils/pair_turns.py``.  One JSON line per library
+(its ptxas report) and per form; the same lines, with the libraries'
+whole -Xptxas -v output, to ``--out`` (default
+``smoke_run/sweep_probe.jsonl``).  Needs a card.
 """
 
 from __future__ import annotations
@@ -39,10 +43,14 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-# name -> (case dims, physics and deck tag of chip_smoke, compared blocks)
-FORMS = {"tp": ((256, 64, 32), "sst", "tp", None),
-         "roe_tp": ((256, 64, 32), "sst", "roe_tp", None),
-         "tp_ns7": ((96, 120, 1), "h2air7", "tp_gas", (0,))}
+# name -> (case dims, physics and deck tag of chip_smoke, compared blocks,
+# the form's library)
+FORMS = {"tp": ((256, 64, 32), "sst", "tp", None, "lusgs_sweep_tp"),
+         "roe_tp": ((256, 64, 32), "sst", "roe_tp", None,
+                    "lusgs_sweep_roe_tp"),
+         "roe": ((256, 64, 32), "sst", "roe", None, "lusgs_sweep_roe"),
+         "tp_ns7": ((96, 120, 1), "h2air7", "tp_gas", (0,),
+                    "lusgs_sweep_tp_ns7")}
 
 
 def marks_cost(solver, system, du0) -> dict:
@@ -80,20 +88,46 @@ def marks_cost(solver, system, du0) -> dict:
     return out
 
 
-def probe(name: str, check: bool, marks: bool = False) -> dict:
+def form_system(name: str):
+    """(solver, its linear system with du0 on the form's compared blocks)
+    of form ``name`` (FORMS), in ``smoke_run/sweep_probe_<name>``"""
+    import chip_smoke as cs
+    dims, physics, deck, blocks, _ = FORMS[name]
+    wd = os.path.join(REPO, "smoke_run", f"sweep_probe_{name}")
+    solver = cs.make_solver(wd, dims, "cuda", "lusgs", 1, physics, deck)
+    prims, auxs, inv_diag, bs, du0 = cs.linear_system(solver)
+    if blocks is not None:
+        du0 = {bi: du for bi, du in du0.items() if bi in blocks}
+    return solver, (prims, auxs, inv_diag, bs, du0)
+
+
+def pair_ms(solver, system) -> dict:
+    """the variant (a) pair of the system's blocks as ``Solver.run``
+    launches it: one untimed pair, then two windows of
+    ``chip_smoke.KERNEL_REPS`` pairs; with the critical path's steps"""
     import numpy as np
     import torch
     import chip_smoke as cs
+    du0 = system[4]
+
+    def pair():
+        return cs.sweep_pair(solver, system, du0, None)
+
+    pair()
+    windows = [cs.timed_ms(torch, pair, cs.KERNEL_REPS) for _ in range(2)]
+    steps = 2 * max(solver.plans[bi].nplanes for bi in du0)
+    ms = float(np.mean(windows))
+    return dict(windows_ms=windows, pair_ms=ms, steps=steps,
+                us_per_step=1e3 * ms / steps)
+
+
+def probe(name: str, check: bool, marks: bool = False) -> dict:
+    import numpy as np
+    import chip_smoke as cs
     from aither_tpu_torch.kernels import lusgs_sweep as ls
-    dims, physics, tag, blocks = FORMS[name]
-    wd = os.path.join(REPO, "smoke_run", f"sweep_probe_{name}")
-    solver = cs.make_solver(wd, dims, "cuda", "lusgs", 1, physics, tag)
+    solver, system = form_system(name)
     phys, cfg = solver.phys, solver.cfg
-    system = cs.linear_system(solver)
     prims, auxs, inv_diag, bs, du0 = system
-    if blocks is not None:
-        du0 = {bi: du for bi, du in du0.items() if bi in blocks}
-    system = (prims, auxs, inv_diag, bs, du0)
     out = dict(form=name, library=ls.form_library(phys, cfg),
                card=cs.card_line())
     if check:
@@ -103,15 +137,7 @@ def probe(name: str, check: bool, marks: bool = False) -> dict:
         out.update(max_abs_err=max_abs, max_rel=float(rel.max()),
                    within_rtol=bool(rel.max() <= cs.SWEEP_RTOL))
 
-    def pair():
-        return cs.sweep_pair(solver, system, du0, None)
-
-    pair()
-    windows = [cs.timed_ms(torch, pair, cs.KERNEL_REPS) for _ in range(2)]
-    steps = 2 * max(solver.plans[bi].nplanes for bi in du0)
-    ms = float(np.mean(windows))
-    out.update(windows_ms=windows, pair_ms=ms, steps=steps,
-               us_per_step=1e3 * ms / steps)
+    out.update(pair_ms(solver, system))
     parts = []
     for forward in (True, False):
         for bi, du in du0.items():
@@ -149,7 +175,6 @@ def main():
                                                   "sweep_probe.jsonl"),
                     help="the whole record, JSON lines")
     args = ap.parse_args()
-    sys.path.insert(0, REPO)
     import torch
     if not torch.cuda.is_available():
         print("sweep_probe: needs a card", flush=True)
@@ -157,8 +182,7 @@ def main():
     import chip_smoke as cs
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.utils.build import load_cuda_libraries
-    names = {ls.library_name(False, "roe" in f, True, 7 if "ns7" in f else 1)
-             for f in args.forms}
+    names = {FORMS[f][4] for f in args.forms}
     # the forms' own libraries and the probe's builds, all at once
     libs = load_cuda_libraries(sorted(names | {f"{n}_probe"
                                                for n in names}))
@@ -182,4 +206,7 @@ def main():
 
 
 if __name__ == "__main__":
+    # run as a file: import the checkout's package and chip_smoke.py,
+    # never this directory's modules
+    sys.path[0] = REPO
     sys.exit(main())

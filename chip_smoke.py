@@ -22,15 +22,18 @@ Phases, each printing its own lines:
 
  1. device facts: the card's name and power limit, torch and CUDA
     versions, nvcc; exits non-zero without CUDA;
- 2. build: the three kernels from csrc/ as seven libraries
-    (BASE_LIBRARIES: the Rusanov, approximateRoe and thermally perfect
-    builds of both sweeps for 1-5 species, and the viscous kernel), one
-    nvcc each, started together (time, ptxas report: registers and spills
-    of every instantiation); then the eight libraries of phase 17
+ 2. build: the three kernels from csrc/ as sixteen libraries, one nvcc
+    each, started together in three groups (time, ptxas report: registers
+    and spills of every instantiation): FIRST_LIBRARIES (the Rusanov
+    builds of both sweeps for 1-5 species and the viscous kernel), waited
+    for here; then, in a thread of lower priority that builds them behind
+    the phases, DEFERRED_LIBRARIES (the approximateRoe and thermally
+    perfect builds of both sweeps for 1-5 species), their report printed
+    when phase 11 waits for them, and the nine libraries of phase 17
     (LAST_LIBRARIES: the thermally perfect approximateRoe builds of both
-    sweeps, and the seven- and sixteen-species builds), started together
-    in a thread of lower priority that builds them behind phases 3-16,
-    their report printed when phase 17 waits for them;
+    sweeps, the seven- and sixteen-species builds and the seven-species
+    thermally perfect approximateRoe one), their report printed when
+    phase 17 waits for them;
  3. kernels against their plain PyTorch versions at the main paths'
     shapes, on case A (2 x 96x120x1, 23k cells) and case B (2 x 256x64x32,
     1.05M cells), identical inputs, times with CUDA events (a sweep pair:
@@ -67,10 +70,11 @@ Phases, each printing its own lines:
     and blusgs at matrixSweeps 1 and 2; Euler, laminar, LES and Wilcox
     with lusgs; laminar and Wilcox with blusgs; N2/O2 SST with lusgs and
     the reacting five-species air with blusgs (REACTING_BLOCK_RTOL);
-    WENO-Z, AUSM and centralFourth SST lusgs and thermally perfect hot
-    air SST lusgs and blusgs (and, at the start of phase 17, once their
-    libraries are built, thermally perfect hot air approximateRoe SST
-    lusgs and seven-species hydrogen-air SST blusgs);
+    WENO-Z, AUSM and centralFourth SST lusgs (and, once their libraries
+    are built, at the start of phase 11 SST approximateRoe and thermally
+    perfect hot air SST, each with lusgs and blusgs, and at the start of
+    phase 17 thermally perfect hot air approximateRoe SST lusgs and
+    seven-species hydrogen-air SST blusgs);
  7. the blusgs path: Solver(case B with matrixSolver blusgs).run(
     BLOCK_ITERATIONS) at matrixSweeps 1 (variant c), then
     BLOCK_LAGGED_ITERATIONS at matrixSweeps 2 (variant c+b), checked as in
@@ -82,8 +86,10 @@ Phases, each printing its own lines:
     sweeps (5 equations inviscid, 5 equations viscous, Wilcox; scalar and
     block) and each new branch of the viscous residual (laminar, WALE,
     Wilcox; WALE also on the unperturbed field) against its plain version
-    as in phase 3 (from this phase on, the sweep pair of a case-A deck on
-    block 0 alone, COMPARED_BLOCKS), then Solver.run(NEW_ITERATIONS)
+    as in phase 3 (from this phase on, the sweep pair of a case-A or
+    case-S deck on block 0 alone, COMPARED_BLOCKS, and a case-B pair run
+    on both blocks but held against the plain version on block 0,
+    PLAIN_BLOCKS), then Solver.run(NEW_ITERATIONS)
     checked as in phase 4
     (the viscous kernel launches iterations x blocks times on a viscous
     lusgs deck, never on blusgs or Euler).  Case B: Wilcox and LES with
@@ -95,7 +101,7 @@ Phases, each printing its own lines:
     Euler decks start from a seeded 1%-perturbed state (the Euler plate
     is a uniform flow with roundoff-level residuals);
  9. multispecies (MIXTURE_DECKS), every solver built once, compared and
-    driven as in phase 8: on case A the scalar and block sweeps of N2/O2
+    driven as in phase 8: on case S the scalar and block sweeps of N2/O2
     SST with Schmidt diffusion (2 species) and of reacting five-species
     air (laminar, Schmidt; 5 species), each without and with the lagged
     term, of the inviscid N2/O2 deck, and of frozen three- and
@@ -104,7 +110,7 @@ Phases, each printing its own lines:
     form, the reacting deck's with lusgs and blusgs among them; on case B
     N2/O2 SST lusgs at matrixSweeps 1 and frozen five-species air laminar
     blusgs at matrixSweeps 2, driven by Solver.run(MIXTURE_ITERATIONS)
-    (their forms compared at case A).  A
+    (their forms compared at case S).  A
     mixture's viscous residual is the plain version (the fused kernel
     covers one species, as in the JAX package): no viscous kernel
     launch;
@@ -121,8 +127,9 @@ Phases, each printing its own lines:
     of both sweeps for SST, laminar, Euler, Wilcox and the mixtures of 2-5
     species, each compared and driven, then explicitEuler (Euler), rk4
     (laminar: K2 on an explicit path), crankNicholson (Wilcox) and bdplur
-    (laminar), each driven.  Phase 6 also holds SST approximateRoe lusgs,
-    SST dplur, laminar rk4 and SST bdf2 cuda against cpu;
+    (laminar), each driven.  Phase 6 holds SST dplur, laminar rk4 and SST
+    bdf2 cuda against cpu, and the start of this phase SST approximateRoe
+    lusgs and blusgs;
 12. multigrid (MG_DECKS), every solver built once, compared and driven:
     case B SST lusgs with a 3-level W cycle (the host time to build the
     levels and the cells of each printed; on each coarse level its own
@@ -183,9 +190,9 @@ Phases, each printing its own lines:
     residual, the JAX package's route) driven the same; the thermally
     perfect forms of both sweeps against their plain versions with their
     mean Ridder iterations (case-B hot air SST lusgs (a) and (b), driven
-    with 4 K1 and 0 K2 launches a step; case-A hot air SST blusgs (c)
+    with 4 K1 and 0 K2 launches a step; case-S hot air SST blusgs (c)
     and (c)+(b), N2/O2 SST lusgs (a) and reacting five-species air
-    blusgs (c) at CFL 1), each form driven on case A;
+    blusgs (c) at CFL 1), each form driven on case S;
 16. multi-rank runs on the card (ranks_phase, RANK_DECKS): each deck run
     on one rank (the reference) and then over its ranks, processes of
     this script (``--rank-worker``, rank_worker) that share the card and
@@ -212,28 +219,37 @@ Phases, each printing its own lines:
     ``lusgs_sweep_roe_tp`` (a) pair against plain with its mean Ridder
     iterations, then 4 steps with exactly 4 K1 and 0 K2 launches a step)
     and frozen seven-species hydrogen-air SST lusgs (``lusgs_sweep_ns7``,
-    the (a) pair, 4 steps at 4 K1 a step); on case A, compared on block 0
-    (COMPARED_BLOCKS) and driven 2 steps: the thermally perfect
+    the (a) pair, 4 steps at 4 K1 a step); on case S (SMALL_DIMS, 2 x
+    48x60x1), compared on block 0 (COMPARED_BLOCKS) and driven 2 steps:
+    the thermally perfect
     approximateRoe (b), (c) and (c)+(b) of hot air (the block decks at CFL
     1: at the CFL ramp the plain block sweep gives NaN from the second
     step on, on the CPU) and its (a) of N2/O2, the seven-species (b), (c),
     (c)+(b), approximateRoe (a) and thermally perfect (a), and the
     sixteen-species (every species of the fluid database and a tracer)
-    (a) and (c) (the block deck at CFL 1, for the same reason).
+    (a) and (c) (the block deck at CFL 1, for the same reason), the
+    thermally perfect (a) and (c) of N2/O2 with the tracer
+    CH4x, a species of eleven vibrational modes (cases.MIXTURES
+    "n2o2_ch4x"), the thermally perfect and thermally perfect
+    approximateRoe (a) of frozen five-species air and the thermally
+    perfect approximateRoe (a) of seven species (``_roe_tp_ns7``), the
+    five- and seven-species decks at CFL 1.
 
-Every comparison of a thermally perfect scalar form (phases 15 and 17:
-the forms redesigned with a pre-pass of the old-state terms and q + du
-inverted once per cell) also prints its pair and per-step time beside the
-earlier design's (TP_BEFORE_MS, text from PERF.md) and the traffic of its
-own work space, outside the bound; its row holds them in 'redesign'.  The
-parts of such a step by the kernel's step clocks come from
-aither_tpu_torch/utils/sweep_probe.py, through builds of the probe's own
-(the marks cost 1-3% of a pair, so the libraries here carry none).  A
-thermally perfect scalar mixture form whose deck compares
-only variant (a) (N2/O2 in phase 15; N2/O2 approximateRoe and seven
-species in phase 17) is held against its plain version in variant (b)
-too, on the same solver; no driven path takes those, so they are no rows
-of the kernels line.
+Every comparison of a pre-pass form (phases 11, 15 and 17: the
+approximateRoe forms of both sweeps and the thermally perfect scalar
+forms, which store the old-state terms once per face in a pre-pass and
+run on persistent CTAs; the thermally perfect scalar ones also invert
+q + du once per cell) also prints its pair and per-step time beside the
+earlier design's (REDESIGN_BEFORE_MS, text from PERF.md) and the traffic
+of its own work space, outside the bound; its row holds the traffic, not
+the earlier time, in 'redesign'.  The parts of a scalar form's step by
+the kernel's step clocks come from aither_tpu_torch/utils/sweep_probe.py,
+through builds of the probe's own (the marks cost 1-3% of a pair, so the
+libraries here carry none).  A thermally perfect scalar mixture form
+whose deck compares only variant (a) (N2/O2 in phase 15; N2/O2
+approximateRoe and seven species in phase 17) is held against its plain
+version in variant (b) too, on the same solver; no driven path takes
+those, so they are no rows of the kernels line.
 
 The viscous kernel's lines (phases 3, 8, 10) print its time beside the
 first design's (VISC_BEFORE_MS, text from PERF.md) and each block's launch:
@@ -244,7 +260,9 @@ after every phase.
 
 Then, on lines of their own: the card's name and power limit, the kernels
 JSON object (one row per kernel form; its times from case B where the form
-ran there, else case A, named in the row as 'case'; 'launches_case' is the
+ran there, else case A, else case S, named in the row as 'case';
+'plain_blocks', where the plain version held only those blocks of it;
+'launches_case' is the
 case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
 inside Solver.run per iteration, with 'path_case'; a row of a form on
@@ -301,17 +319,54 @@ BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
              ("case A", "lusgs_sweep", True): "10.79",
              ("case A", "blusgs_sweep", False): "9.62",
              ("case A", "blusgs_sweep", True): "10.06"}
-# the thermally perfect scalar sweep pairs of the earlier design (every
-# neighbour's q + du inverted on its direction's lane, the old-state terms
-# on the plane chain), ms, by (case, form, lagged term, compared blocks):
-# PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W
-TP_BEFORE_MS = {
-    ("case B", (1, 7, True, False, False, True), False, None): "19.30",
-    ("case B", (1, 7, True, False, False, True), True, None): "19.35",
-    ("case B", (1, 7, True, False, True, True), False, None): "26.14",
-    ("case A", (1, 7, True, False, True, True), True, (0,)): "8.96",
-    ("case A", (2, 8, True, False, True, True), False, (0,)): "16.69",
-    ("case A", (7, 13, True, False, False, True), False, (0,)): "40.56"}
+# the pre-pass forms' sweep pairs of the earlier design (the old-state
+# terms on the plane chain: both Roe fluxes per neighbour, or every
+# neighbour's q + du inverted on its direction's lane), ms, by (case,
+# kernel, form, lagged term), case A on block 0 (COMPARED_BLOCKS): PERF.md
+# section 6 (the thermally perfect scalar forms' design with a Ridder
+# inversion per neighbour, the approximateRoe forms' with both fluxes on
+# the plane chain), NVIDIA H100 80GB HBM3, 700 W
+REDESIGN_BEFORE_MS = {
+    ("case B", "lusgs_sweep", (1, 7, True, False, False, True), False):
+        "19.30",
+    ("case B", "lusgs_sweep", (1, 7, True, False, False, True), True):
+        "19.35",
+    ("case B", "lusgs_sweep", (1, 7, True, False, True, True), False):
+        "26.14",
+    ("case B", "lusgs_sweep", (1, 7, True, False, True, False), False):
+        "10.706",
+    ("case B", "lusgs_sweep", (1, 7, True, False, True, False), True):
+        "10.379",
+    ("case A", "blusgs_sweep", (1, 7, True, False, True, False), False):
+        "3.597",
+    ("case A", "blusgs_sweep", (1, 7, True, False, True, False), True):
+        "3.674",
+    ("case A", "blusgs_sweep", (1, 5, True, False, True, False), False):
+        "3.110",
+    ("case A", "blusgs_sweep", (1, 5, True, False, True, False), True):
+        "3.152",
+    ("case A", "lusgs_sweep", (1, 5, True, False, True, False), False):
+        "2.873",
+    ("case A", "lusgs_sweep", (1, 5, False, False, True, False), False):
+        "2.521",
+    ("case A", "blusgs_sweep", (1, 5, False, False, True, False), True):
+        "2.763",
+    ("case A", "lusgs_sweep", (1, 7, True, True, True, False), True):
+        "3.232",
+    ("case A", "blusgs_sweep", (1, 7, True, True, True, False), False):
+        "3.620",
+    ("case A", "lusgs_sweep", (2, 8, True, False, True, False), False):
+        "3.909",
+    ("case A", "blusgs_sweep", (2, 8, True, False, True, False), True):
+        "4.420",
+    ("case A", "lusgs_sweep", (5, 9, True, False, True, False), True):
+        "4.741",
+    ("case A", "blusgs_sweep", (5, 9, True, False, True, False), False):
+        "5.425",
+    ("case A", "lusgs_sweep", (3, 7, True, False, True, False), False):
+        "3.909",
+    ("case A", "blusgs_sweep", (4, 8, True, False, True, False), True):
+        "4.875"}
 # the fused viscous residual's first design (one thread per cell, each face
 # evaluated by both its cells), ms for both blocks: PERF.md section 6, NVIDIA
 # H100 80GB HBM3, 700 W (PRs 2 and 4)
@@ -394,6 +449,8 @@ TIME_DECKS = {
                                           **TP_AIR)),
     "roe_tp_gas": ("implicitEuler", dict(
         ROE, thermodynamic_model="thermallyPerfect")),
+    "roe_tp_gas_cfl1": ("implicitEuler", dict(
+        ROE, thermodynamic_model="thermallyPerfect", cfl=(1.0, 0.0, 1.0))),
     "cfl1": ("implicitEuler", dict(cfl=(1.0, 0.0, 1.0))),
 }
 ROE_REPLACES = ("aither_tpu/solver/implicit.py:113 roe_offdiagonal (scan "
@@ -416,7 +473,8 @@ PHYSICS = {"euler": ("euler", "none", None),
            "air3_frozen": ("navierStokes", "none", "air3_frozen"),
            "air4_frozen": ("navierStokes", "none", "air4_frozen"),
            "h2air7": ("rans", "sst2003", "h2air7_frozen"),
-           "db16": ("rans", "sst2003", "db16_frozen")}
+           "db16": ("rans", "sst2003", "db16_frozen"),
+           "n2o2_ch4x": ("rans", "sst2003", "n2o2_ch4x")}
 # phase 8: (case, physics, matrixSolver, matrixSweeps, sweep comparisons
 # (with the lagged term or not), viscous comparisons ("perturbed" /
 # "uniform" state)).  A solver's sweep comparisons do not depend on its
@@ -440,22 +498,23 @@ NEW_DECKS = (
 )
 # phase 9: (case, physics, matrixSolver, matrixSweeps, sweep comparisons).
 # Every compared form is driven: the lagged forms by a matrixSweeps 2
-# deck, the others by a matrixSweeps 1 deck.  The three- and four-species
+# deck, the others by a matrixSweeps 1 deck (at case S: a plain block pair
+# of five species takes 8 s on block 0 at case A).  The three- and four-species
 # decks check the kernels' NS = 3 and 4 instantiations, each solver one
 # form with and one without the lagged term.
 MIXTURE_DECKS = (
-    ("case A", "n2o2", "lusgs", 2, (False, True)),
-    ("case A", "n2o2", "blusgs", 1, (False, True)),
-    ("case A", "n2o2", "blusgs", 2, ()),
-    ("case A", "air5", "lusgs", 1, (False, True)),
-    ("case A", "air5", "lusgs", 2, ()),
-    ("case A", "air5", "blusgs", 1, (False, True)),
-    ("case A", "n2o2_euler", "lusgs", 1, (False,)),
-    ("case A", "n2o2_euler", "blusgs", 1, (False,)),
-    ("case A", "air3_frozen", "lusgs", 1, (False,)),
-    ("case A", "air3_frozen", "blusgs", 2, (True,)),
-    ("case A", "air4_frozen", "lusgs", 2, (True,)),
-    ("case A", "air4_frozen", "blusgs", 1, (False,)),
+    ("case S", "n2o2", "lusgs", 2, (False, True)),
+    ("case S", "n2o2", "blusgs", 1, (False, True)),
+    ("case S", "n2o2", "blusgs", 2, ()),
+    ("case S", "air5", "lusgs", 1, (False, True)),
+    ("case S", "air5", "lusgs", 2, ()),
+    ("case S", "air5", "blusgs", 1, (False, True)),
+    ("case S", "n2o2_euler", "lusgs", 1, (False,)),
+    ("case S", "n2o2_euler", "blusgs", 1, (False,)),
+    ("case S", "air3_frozen", "lusgs", 1, (False,)),
+    ("case S", "air3_frozen", "blusgs", 2, (True,)),
+    ("case S", "air4_frozen", "lusgs", 2, (True,)),
+    ("case S", "air4_frozen", "blusgs", 1, (False,)),
     ("case B", "n2o2", "lusgs", 1, ()),
     ("case B", "air5_frozen", "blusgs", 2, ()),
 )
@@ -537,7 +596,7 @@ BC_DECKS = (
 BC_ITERATIONS = 3        # phase 13, every deck
 # phase 15: (case, physics, matrixSolver, matrixSweeps, deck tag of
 # TIME_DECKS, sweep comparisons, compare K2, steps driven).  The case-B
-# decks are the slice's paths; the case-A ones give every thermally
+# decks are the slice's paths; the case-S ones give every thermally
 # perfect form its comparison and a driven path (the lagged forms by a
 # matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: K2
 # none on centralFourth and thermally perfect decks.  Reacting hot air
@@ -548,11 +607,11 @@ PHYSICS_DECKS = (
     ("case B", "sst", "lusgs", 1, "ausm", (), False, 3),
     ("case B", "sst", "lusgs", 1, "c4", (), False, 3),
     ("case B", "sst", "lusgs", 1, "tp", (False, True), False, 3),
-    ("case A", "sst", "lusgs", 2, "tp", (), False, 2),
-    ("case A", "sst", "blusgs", 1, "tp", (False, True), False, 2),
-    ("case A", "sst", "blusgs", 2, "tp", (), False, 2),
-    ("case A", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 2),
-    ("case A", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 2),
+    ("case S", "sst", "lusgs", 2, "tp", (), False, 2),
+    ("case S", "sst", "blusgs", 1, "tp", (False, True), False, 2),
+    ("case S", "sst", "blusgs", 2, "tp", (), False, 2),
+    ("case S", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 2),
+    ("case S", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 2),
 )
 # the case label of phase 15's WENO-Z comparisons (three ghost layers)
 G3_CASE = "case B g3"
@@ -567,47 +626,78 @@ RANK_DECKS = (
      {"lusgs_sweep": 0, "blusgs_sweep": 6, "viscous_march": 0}),
 )
 RANK_ITERATIONS = 5
+# the thermally perfect scalar mixture decks (physics, deck tag) of phases
+# 15 and 17 whose variant (b), which no driven path takes, is held against
+# its plain version on the (a) deck's solver
+LAGGED_ONLY = (("n2o2", "tp_gas"), ("n2o2", "roe_tp_gas"),
+               ("h2air7", "tp_gas"))
 # the blocks of the sweep comparisons of phases 8, 9, 11, 15 and 17 by case
 # (all where not named): a case-A pair on block 0 alone, whose plain sweeps
 # take half the time of both blocks' (the blocks of a sweep run
 # concurrently on the card, so a pair of one block takes about the time of
 # both blocks' pair: 8.95 against 9.25 ms for the thermally perfect Roe (b)
 # form, NVIDIA H100 80GB HBM3, 700 W, PERF.md section 6)
-COMPARED_BLOCKS = {"case A": (0,)}
+COMPARED_BLOCKS = {"case A": (0,), "case S": (0,)}
+# the blocks whose kernel pair the plain version holds in the comparisons
+# of phases 8-17 by case (the kernel pair runs and is timed on every
+# block of COMPARED_BLOCKS, as the solver launches it): at case B block 0
+# alone, whose plain pair takes half the time of both blocks' (a
+# thermally perfect one 14-16 s); phase 3's main-path pairs hold every
+# block
+PLAIN_BLOCKS = {"case B": (0,)}
+# case S, the plate of phases 9, 15 and 17's comparisons and drives of the
+# forms off the slices' main paths, 2 x 48x60x1 (a quarter of case A's
+# cells, half its planes): a plain pair of a thermally perfect form of 3-7
+# species costs seconds on block 0
+SMALL_DIMS = (48, 60, 1)
 # phase 17, the last forms (the thermally perfect approximateRoe forms and
 # species counts above the base libraries' 5): (case, physics,
 # matrixSolver, matrixSweeps, deck tag of TIME_DECKS, sweep comparisons,
 # steps driven).  The case-B decks are the slice's paths (hot air
 # thermally perfect approximateRoe SST lusgs at the CPU parity test's CFL
-# ramp; frozen seven-species hydrogen-air SST lusgs); the case-A ones give
+# ramp; frozen seven-species hydrogen-air SST lusgs); the case-S ones give
 # every new form its comparison and a driven path (the lagged forms by a
 # matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: no
 # K2 on thermally perfect and mixture decks
 LAST_DECKS = (
     ("case B", "sst", "lusgs", 1, "roe_tp", (False,), 4),
     ("case B", "h2air7", "lusgs", 1, "rusanov", (False,), 4),
-    ("case A", "sst", "lusgs", 2, "roe_tp", (True,), 2),
-    ("case A", "sst", "blusgs", 1, "roe_tp_cfl1", (False, True), 2),
-    ("case A", "sst", "blusgs", 2, "roe_tp_cfl1", (), 2),
-    ("case A", "n2o2", "lusgs", 1, "roe_tp_gas", (False,), 2),
-    ("case A", "h2air7", "lusgs", 2, "rusanov", (True,), 2),
-    ("case A", "h2air7", "blusgs", 1, "rusanov", (False, True), 2),
-    ("case A", "h2air7", "blusgs", 2, "rusanov", (), 2),
-    ("case A", "h2air7", "lusgs", 1, "roe", (False,), 2),
-    ("case A", "h2air7", "lusgs", 1, "tp_gas", (False,), 2),
-    ("case A", "db16", "lusgs", 1, "rusanov", (False,), 2),
-    ("case A", "db16", "blusgs", 1, "cfl1", (False,), 2),
+    ("case S", "sst", "lusgs", 2, "roe_tp", (True,), 2),
+    ("case S", "sst", "blusgs", 1, "roe_tp_cfl1", (False, True), 2),
+    ("case S", "sst", "blusgs", 2, "roe_tp_cfl1", (), 2),
+    ("case S", "n2o2", "lusgs", 1, "roe_tp_gas", (False,), 2),
+    ("case S", "h2air7", "lusgs", 2, "rusanov", (True,), 2),
+    ("case S", "h2air7", "blusgs", 1, "rusanov", (False, True), 2),
+    ("case S", "h2air7", "blusgs", 2, "rusanov", (), 2),
+    ("case S", "h2air7", "lusgs", 1, "roe", (False,), 2),
+    ("case S", "h2air7", "lusgs", 1, "tp_gas", (False,), 2),
+    ("case S", "db16", "lusgs", 1, "rusanov", (False,), 2),
+    ("case S", "db16", "blusgs", 1, "cfl1", (False,), 2),
+    ("case S", "n2o2_ch4x", "lusgs", 1, "tp_gas", (False,), 2),
+    ("case S", "n2o2_ch4x", "blusgs", 1, "tp_gas", (False,), 2),
+    ("case S", "air5_frozen", "lusgs", 1, "tp_gas_cfl1", (False,), 2),
+    ("case S", "air5_frozen", "lusgs", 1, "roe_tp_gas_cfl1", (False,), 2),
+    ("case S", "h2air7", "lusgs", 1, "roe_tp_gas_cfl1", (False,), 2),
 )
 # the libraries of the phase-17 forms (every form of LAST_DECKS and of
-# phase 6's two new references is held by one of them): started in phase
-# 2 after the seven base libraries, built while phases 3-16 run
+# phase 6's two new references is held by one of them or by a base
+# library): started in phase 2 after the base libraries, built while
+# phases 3-16 run
 LAST_LIBRARIES = ("lusgs_sweep_roe_tp", "blusgs_sweep_roe_tp",
                   "lusgs_sweep_ns7", "blusgs_sweep_ns7",
                   "lusgs_sweep_roe_ns7", "lusgs_sweep_tp_ns7",
-                  "lusgs_sweep_ns16", "blusgs_sweep_ns16")
-BASE_LIBRARIES = ("lusgs_sweep", "blusgs_sweep", "lusgs_sweep_roe",
-                  "blusgs_sweep_roe", "lusgs_sweep_tp", "blusgs_sweep_tp",
-                  "viscous_march")
+                  "lusgs_sweep_roe_tp_ns7", "lusgs_sweep_ns16",
+                  "blusgs_sweep_ns16")
+# the base libraries (1-5 species): phase 2 waits for the first three
+# (FIRST_LIBRARIES: the Rusanov builds of both sweeps and the viscous
+# kernel, all that phases 3-10 launch); the approximateRoe and thermally
+# perfect builds (DEFERRED_LIBRARIES: lusgs_sweep_tp alone takes 111 s)
+# build behind phases 3-10, before LAST_LIBRARIES, and phase 11 waits for
+# them
+FIRST_LIBRARIES = ("lusgs_sweep", "blusgs_sweep", "viscous_march")
+DEFERRED_LIBRARIES = ("lusgs_sweep_roe", "blusgs_sweep_roe",
+                      "lusgs_sweep_tp", "blusgs_sweep_tp")
+BASE_LIBRARIES = FIRST_LIBRARIES + DEFERRED_LIBRARIES
 # phase 14: the files run (case B, output and restart every 2 steps) and
 # its resumption from the step-2 restart
 FILES_ITERATIONS = 4
@@ -814,13 +904,17 @@ def sweep_errors(kern, plain):
 
 
 def compare_sweeps(torch, solver, system, label, card, with_extra,
-                   case="case B", lvl=0, blocks=None):
+                   case="case B", lvl=0, blocks=None, plain_blocks=None):
     """The sweep pair on one case (at grid level ``lvl``) against its
     plain version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by).
     The plain pair takes seconds, so its checked run is its timed one; the
     kernel pair is timed twice after it.  ``blocks`` (indices) restricts
     the pair to those blocks, whose sweeps then run as in the solver (the
-    others' du stays in the connection ghosts).  Printed beside it: the
+    others' du stays in the connection ghosts); ``plain_blocks`` restricts
+    the plain pair alone: the kernel pair runs and is timed on every block
+    of ``blocks`` and must be finite on each, and is held against the
+    plain version on those (a block's sweeps read no other block's du, so
+    its result does not depend on the others').  Printed beside it: the
     plane-per-launch pair's time (BEFORE_MS, text from PERF.md; level 0),
     the critical path and the time of a step of it."""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
@@ -828,6 +922,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     prims, auxs, _, _, du0 = system
     if blocks is not None:
         du0 = {bi: du for bi, du in du0.items() if bi in blocks}
+    held = du0 if plain_blocks is None else {
+        bi: du for bi, du in du0.items() if bi in plain_blocks}
     block = bool(solver.cfg["block_matrix"])
     kernel = "blusgs_sweep" if block else "lusgs_sweep"
     form = ls.sweep_form(solver.phys, solver.cfg)
@@ -846,7 +942,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
             for b in solver.mg_cases[lvl].blocks if b.index in du0}
 
     def run_plain():
-        return sweep_pair(solver, system, du0, extras, kernel=False, lvl=lvl)
+        return sweep_pair(solver, system, held, extras, kernel=False,
+                          lvl=lvl)
 
     def run_kernel():
         return sweep_pair(solver, system, du0, extras, lvl=lvl)
@@ -854,7 +951,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     kern = run_kernel()
     plain, plain_ms = timed_once(torch, run_plain)
     errors = sweep_errors(kern, plain)
-    if errors is None:
+    if errors is None or not all(bool(torch.isfinite(k).all())
+                                 for k in kern.values()):
         fail(f"{label}: sweep kernel variant {variant} gave non-finite "
              f"values")
     max_abs, rel = errors
@@ -890,6 +988,8 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     before = (BEFORE_MS.get((case, kernel, with_extra))
               if form == ls.SST_FORM and lvl == 0 else None)
     where = "all blocks" if blocks is None else f"blocks {list(blocks)}"
+    if plain_blocks is not None:
+        where = f"{where} (plain on blocks {list(held)})"
     print(f"{label}: sweep variant {variant}, forward+backward "
           f"pair over {where}: kernel {kernel_ms:.4f} ms "
           f"[{t[0]:.4f}, {t[1]:.4f}] (one launch per plane, PERF.md: "
@@ -898,14 +998,13 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
           f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}){ridder} "
           f"({card})", flush=True)
-    if not (form[5] and not block and lvl == 0):
+    if not (ls.prepass_form(form, block) and lvl == 0):
         return max_abs, kernel_ms, plain_ms, bound, by
-    # a redesigned thermally perfect scalar form: the traffic of the terms
-    # it stores for itself, not the function's, so outside the bound
-    own = sum(ls.prepass_bytes(p, fwd, form)
+    # a pre-pass form: the traffic of the terms it stores for itself, not
+    # the function's, so outside the bound
+    own = sum(ls.prepass_bytes(p, fwd, form, block)
               for p in plans.values() for fwd in (True, False))
-    old = TP_BEFORE_MS.get((case, form, with_extra,
-                            None if blocks is None else tuple(blocks)))
+    old = REDESIGN_BEFORE_MS.get((case, kernel, form, with_extra))
     print(f"{label}: sweep variant {variant}, the redesign: pair "
           f"{kernel_ms:.4f} ms, {1e3 * kernel_ms / steps:.3f} us per step "
           f"(earlier design, PERF.md: "
@@ -913,7 +1012,7 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
           f"traffic {own / 1e6:.1f} MB, {bound_ms(own, 0)[0]:.4f} ms at the "
           f"memory rate, not in the bound ({card})", flush=True)
     return max_abs, kernel_ms, plain_ms, bound, by, dict(
-        before_ms=old, work_space_bytes=own)
+        work_space_bytes=own)
 
 
 # ---------------------------------------------------------------------------
@@ -1989,42 +2088,48 @@ def main():
                           flush=True)
 
     t0 = time.perf_counter()
-    libs = load_cuda_libraries(BASE_LIBRARIES)
+    libs = load_cuda_libraries(FIRST_LIBRARIES)
     print(f"phase 2 build: {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)",
           flush=True)
     report_build(libs)
-    # the last forms' libraries build in a thread behind phases 3-16 (one
-    # nvcc each, in parallel); nothing before phase 17 loads one of them
-    last_build = {"started": time.perf_counter()}
+    # the other libraries build in a thread behind the phases, in two
+    # groups, each one nvcc a library, in parallel: DEFERRED_LIBRARIES
+    # (nothing before phase 11 loads one), then LAST_LIBRARIES (nothing
+    # before phase 17)
+    groups = {"deferred": DEFERRED_LIBRARIES, "last": LAST_LIBRARIES}
+    builds = {name: {"ended": threading.Event()} for name in groups}
+    started = time.perf_counter()
 
-    def build_last():
+    def build_behind():
         # a lower priority for this thread and the nvcc it starts (on
         # Linux the nice value is a thread's): built at the main thread's,
         # they made phases 6 and 7 run 10-11% longer (PERF.md, section 6;
         # NVIDIA H100 80GB HBM3, 700 W)
         os.nice(10)
-        try:
-            last_build["libs"] = load_cuda_libraries(LAST_LIBRARIES)
-        except Exception as exc:    # re-raised by last_libraries
-            last_build["error"] = exc
+        for name, names in groups.items():
+            try:
+                builds[name]["libs"] = load_cuda_libraries(names)
+            except Exception as exc:    # re-raised by built_behind
+                builds[name]["error"] = exc
+            builds[name]["ended"].set()
 
-    last_thread = threading.Thread(target=build_last)
-    last_thread.start()
+    behind = threading.Thread(target=build_behind)
+    behind.start()
     done(2)
 
-    def last_libraries():
-        """wait for the builds of LAST_LIBRARIES and report them as phase
-        2's"""
+    def built_behind(name, phases):
+        """wait for the builds of the group ``name`` and report them as
+        phase 2's"""
         t_wait = time.perf_counter()
-        last_thread.join()
-        if "error" in last_build:
-            fail(f"the last forms' libraries: {last_build['error']}")
-        print(f"phase 2 build: {len(last_build['libs'])} libraries of the "
-              f"last forms, started {t_wait - last_build['started']:.2f} s "
-              f"before, waited {time.perf_counter() - t_wait:.2f} s (one "
-              f"nvcc each, in parallel, behind phases 3-16)", flush=True)
-        report_build(last_build["libs"])
+        builds[name]["ended"].wait()
+        if "error" in builds[name]:
+            fail(f"the {name} libraries: {builds[name]['error']}")
+        print(f"phase 2 build: {len(builds[name]['libs'])} {name} "
+              f"libraries, started {t_wait - started:.2f} s before, waited "
+              f"{time.perf_counter() - t_wait:.2f} s (one nvcc each, in "
+              f"parallel, behind phases {phases})", flush=True)
+        report_build(builds[name]["libs"])
 
     def build(label, dims, solver_name, sweeps=1, physics="sst",
               tag="rusanov", layout=None):
@@ -2048,7 +2153,8 @@ def main():
 
     # -- phase 3: kernels vs plain at main-path shapes ------------------------
     shutil.rmtree(RUN_DIR, ignore_errors=True)
-    all_dims = {"case A": SMOKE_2D_DIMS, "case B": SMOKE_3D_DIMS}
+    all_dims = {"case A": SMOKE_2D_DIMS, "case B": SMOKE_3D_DIMS,
+                "case S": SMALL_DIMS}
     # (kernel, form, with the lagged term) -> {case: comparison result}
     results = {}
 
@@ -2059,10 +2165,17 @@ def main():
     # blocks (COMPARED_BLOCKS) -> the blocks
     compared_blocks = {}
 
-    def compare_all(solver, label, case, extras, fields, blocks=None):
+    # (kernel, form, with the lagged term, case) of the forms whose plain
+    # version held some blocks alone (PLAIN_BLOCKS) -> the blocks
+    plain_held = {}
+
+    def compare_all(solver, label, case, extras, fields, blocks=None,
+                    plain_blocks=None):
         """this solver's sweep kernel (scalar or block) with and without
         the lagged term as ``extras`` says (on ``blocks``, indices, or
-        every block), and the viscous kernel on the ``fields`` named"""
+        every block; held against the plain version on ``plain_blocks``,
+        or on all of those), and the viscous kernel on the ``fields``
+        named"""
         from aither_tpu_torch.kernels import lusgs_sweep as ls
         kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
                   else "lusgs_sweep")
@@ -2072,7 +2185,11 @@ def main():
             for with_extra in extras:
                 record((kernel, form, with_extra), case,
                        compare_sweeps(torch, solver, system, label, card,
-                                      with_extra, case, blocks=blocks))
+                                      with_extra, case, blocks=blocks,
+                                      plain_blocks=plain_blocks))
+                if plain_blocks is not None:
+                    plain_held[(kernel, form, with_extra, case)] = list(
+                        plain_blocks)
                 if blocks is not None:
                     compared_blocks[(kernel, form, with_extra)] = list(
                         blocks)
@@ -2082,23 +2199,23 @@ def main():
             if field == "perturbed":
                 record(("viscous_march", solver.phys.turb_model), case, res)
 
-    def compare_lagged_only(solver, label, case, extras):
+    def compare_lagged_only(solver, label, case, physics, tag):
         """the lagged variant (b) of a thermally perfect scalar mixture
-        form whose deck compares only (a): held against its plain version
-        as well (compare_sweeps fails the run if it disagrees), but no
-        row of the kernels line, since no driven path launches it"""
-        from aither_tpu_torch.kernels import lusgs_sweep as ls
-        form = ls.sweep_form(solver.phys, solver.cfg)
-        if (not form[5] or form[0] == 1 or solver.cfg["block_matrix"]
-                or True in extras):
+        form whose deck (LAGGED_ONLY) compares only (a): held against its
+        plain version as well (compare_sweeps fails the run if it
+        disagrees), but no row of the kernels line, since no driven path
+        launches it"""
+        if (physics, tag) not in LAGGED_ONLY:
             return
         print(f"{label}: variant (b) of this form, held against its plain "
               f"version only (no driven path takes it)", flush=True)
         compare_sweeps(torch, solver, linear_system(solver), label, card,
-                       True, case, blocks=COMPARED_BLOCKS.get(case))
+                       True, case, blocks=COMPARED_BLOCKS.get(case),
+                       plain_blocks=PLAIN_BLOCKS.get(case))
 
     solver = None
-    for case, dims in all_dims.items():
+    for case in ("case A", "case B"):
+        dims = all_dims[case]
         label = f"phase 3 {case}"
         del solver
         if case == "case B":
@@ -2163,13 +2280,11 @@ def main():
                    for physics in ("laminar", "wilcox")]
     references += [("n2o2", "lusgs", 1, "rusanov"),
                    ("air5", "blusgs", 1, "rusanov")]
-    references += [("sst", "lusgs", 1, "roe"), ("sst", "dplur", 4, "rusanov"),
+    references += [("sst", "dplur", 4, "rusanov"),
                    ("laminar", "lusgs", 1, "rk4"), ("sst", "lusgs", 1, "bdf2")]
     references += [("sst", "lusgs", 1, "mg3W"), ("sst", "blusgs", 1, "mg2V")]
-    # phase 15's: WENO-Z, AUSM, centralFourth, thermally perfect hot air
-    references += [("sst", "lusgs", 1, tag)
-                   for tag in ("wenoZ", "ausm", "c4", "tp")]
-    references += [("sst", "blusgs", 1, "tp")]
+    # phase 15's: WENO-Z, AUSM, centralFourth
+    references += [("sst", "lusgs", 1, tag) for tag in ("wenoZ", "ausm", "c4")]
     references = [r + (None,) for r in references]
     # phase 13's decks 1-3: periodic span, LODI with its carry, wall law
     references += [("sst", "lusgs", 1, "rusanov", layout)
@@ -2217,7 +2332,8 @@ def main():
         label = f"phase 8 {case} {physics} {solver_name}"
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
         compare_all(solver, label, case, extras, fields,
-                    blocks=COMPARED_BLOCKS.get(case))
+                    blocks=COMPARED_BLOCKS.get(case),
+                    plain_blocks=PLAIN_BLOCKS.get(case))
         drive_and_count(solver, NEW_ITERATIONS, sweeps, label, case)
         del solver
     done(8)
@@ -2227,7 +2343,8 @@ def main():
         label = f"phase 9 {case} {physics} {solver_name}"
         solver = build(label, all_dims[case], solver_name, sweeps, physics)
         compare_all(solver, label, case, extras, (),
-                    blocks=COMPARED_BLOCKS.get(case))
+                    blocks=COMPARED_BLOCKS.get(case),
+                    plain_blocks=PLAIN_BLOCKS.get(case))
         drive_and_count(solver, MIXTURE_ITERATIONS, sweeps, label, case)
         del solver
     done(9)
@@ -2241,6 +2358,13 @@ def main():
     done(10)
 
     # -- phase 11: the other linear solvers and time integrators -------------
+    built_behind("deferred", "3-10")
+    # phase 6's references of the deferred libraries: SST approximateRoe
+    # lusgs and blusgs (phase 11's), thermally perfect hot air SST lusgs
+    # and blusgs (phase 15's)
+    check_references([("sst", name, 1, tag, None)
+                      for tag in ("roe", "tp") for name in ("lusgs", "blusgs")],
+                     " (the deferred libraries')")
     for case, physics, solver_name, sweeps, tag, extras, steps in \
             SOLVER_DECKS:
         label = (f"phase 11 {case} {physics} {solver_name} matrixSweeps "
@@ -2248,7 +2372,8 @@ def main():
         solver = build(label, all_dims[case], solver_name, sweeps, physics,
                        tag)
         compare_all(solver, label, case, extras, (),
-                    blocks=COMPARED_BLOCKS.get(case))
+                    blocks=COMPARED_BLOCKS.get(case),
+                    plain_blocks=PLAIN_BLOCKS.get(case))
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     print(f"phase 11: viscous kernel launches of the drives {new_path_k2}",
@@ -2394,8 +2519,9 @@ def main():
               flush=True)
         compare_all(solver, label, where, extras,
                     ("perturbed",) if visc else (),
-                    blocks=COMPARED_BLOCKS.get(case))
-        compare_lagged_only(solver, label, case, extras)
+                    blocks=COMPARED_BLOCKS.get(case),
+                    plain_blocks=PLAIN_BLOCKS.get(case))
+        compare_lagged_only(solver, label, case, physics, tag)
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(15)
@@ -2406,7 +2532,7 @@ def main():
 
     # -- phase 17: the last forms, compared and driven ------------------------
     from aither_tpu_torch.kernels import lusgs_sweep as ls
-    last_libraries()
+    built_behind("last", "3-16")
     # phase 6's references of the last libraries (hot air thermally
     # perfect approximateRoe SST lusgs, seven-species hydrogen-air SST
     # blusgs), once their builds have ended
@@ -2420,15 +2546,16 @@ def main():
         solver = build(label, all_dims[case], solver_name, sweeps, physics,
                        tag)
         library = ls.form_library(solver.phys, solver.cfg)
-        if library not in LAST_LIBRARIES:
+        if library not in LAST_LIBRARIES + BASE_LIBRARIES:
             fail(f"{label}: its form's library {library} is not one of "
-                 f"LAST_LIBRARIES")
+                 f"LAST_LIBRARIES or BASE_LIBRARIES")
         print(f"{label}: the sweep form "
               f"{form_name(ls.sweep_form(solver.phys, solver.cfg))} of "
               f"library {library}", flush=True)
         compare_all(solver, label, case, extras, (),
-                    blocks=COMPARED_BLOCKS.get(case))
-        compare_lagged_only(solver, label, case, extras)
+                    blocks=COMPARED_BLOCKS.get(case),
+                    plain_blocks=PLAIN_BLOCKS.get(case))
+        compare_lagged_only(solver, label, case, physics, tag)
         drive_and_count(solver, steps, sweeps, label, case)
         del solver
     done(17)
@@ -2441,8 +2568,9 @@ def main():
     for key, by_case in results.items():
         if key not in launches:
             fail(f"{key} was compared but no driven path launched it")
-        case = "case B" if "case B" in by_case else "case A"
-        if case not in by_case:
+        case = next((c for c in ("case B", "case A", "case S")
+                     if c in by_case), None)
+        if case is None:
             fail(f"{key}: compared only at {sorted(by_case)}")
         _, ms, plain_ms, bound, by = by_case[case][:5]
         if key[0] == "viscous_march":
@@ -2468,8 +2596,8 @@ def main():
             "library_ms": None, "case": case,
             "launches_case": launches[key][1]})
         if key[0] != "viscous_march" and len(by_case[case]) > 5:
-            # a redesigned thermally perfect scalar form: its time before
-            # the redesign and its work space's traffic
+            # a pre-pass form: its work space's traffic, from this run's
+            # plans (the earlier design's time is only in the printed line)
             kernels[-1]["redesign"] = by_case[case][5]
         if key[0] == "viscous_march":
             # the first window after the plain run, and the kernel inside
@@ -2504,8 +2632,10 @@ def main():
                                  "bound_by"), r[:5]))
                 for where, r in bc_compared[key].items()}
     for row, key in zip(kernels, results):
-        if key in compared_blocks and row["case"] == "case A":
+        if key in compared_blocks and row["case"] in COMPARED_BLOCKS:
             row["compared_blocks"] = compared_blocks[key]
+        if key + (row["case"],) in plain_held:
+            row["plain_blocks"] = plain_held[key + (row["case"],)]
     for row, key in zip(kernels, results):
         if G3_CASE in results[key]:
             # phase 15's WENO-Z comparison at three ghost layers

@@ -281,7 +281,9 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
     """the redesigned scalar forms invert q + du once per updated state
     (the block's distinct neighbours: every cell but the last of the
     sweep) and their bound moves the function's bytes, their pre-pass's
-    terms counted apart (``prepass_bytes``); the block Roe form keeps one
+    terms counted apart (``prepass_bytes``; the calorically perfect Roe
+    form's pre-pass stores its face terms alone,
+    ``test_torch_sweep_split_roe.py``); the block Roe form keeps one
     inversion per face and adds no bytes (at case A)"""
     plan = box_plan(*dims)
     ncell = int(plan.cells.numel())
@@ -306,7 +308,8 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
         assert costs[0][0] == caloric[0]
         assert ls.prepass_bytes(plan, forward, form) == 8 * 2 * (
             nv * nfaces + ncell + 7 * nread)
-        assert ls.prepass_bytes(plan, forward, form[:5] + (False,)) == 0
+        assert ls.prepass_bytes(plan, forward, form[:5] + (False,)) == (
+            8 * 2 * nv * nfaces if roe else 0)
         # per face the fluxes' thermodynamics, per state q + du
         per_nb = ((ls.roe_mixture_neighbour_ops(form)
                    + ls.tp_roe_extra_ops(form, (1,))) if roe
@@ -342,11 +345,13 @@ def test_wavefront_ctas_cover_the_tiles_of_a_plane(dims):
     assert most <= ctas <= len(table)
 
 
-@pytest.mark.parametrize("name", ["lusgs_sweep_tp", "lusgs_sweep_roe_tp_ns7"])
+@pytest.mark.parametrize("name", ["lusgs_sweep_tp", "lusgs_sweep_roe_tp_ns7",
+                                  "lusgs_sweep_roe"])
 def test_probe_builds_resolve(name):
-    """a thermally perfect scalar sweep's build with the step clocks'
-    marks (``utils/sweep_probe.py``, ``lusgs_sweep.clock_breakdown``) is
-    its own build with ``-DSWEEP_PROBE=1``; no other library has marks"""
+    """a pre-pass scalar sweep's (thermally perfect or approximateRoe)
+    build with the step clocks' marks (``utils/sweep_probe.py``,
+    ``lusgs_sweep.clock_breakdown``) is its own build with
+    ``-DSWEEP_PROBE=1``; no other library has marks"""
     from aither_tpu_torch.utils import build
     source, defines = build.library_source(name)
     assert "-DSWEEP_PROBE=1" not in defines
