@@ -47,11 +47,19 @@
 // count takes add_block_offdiagonal_mix (one species with mass fraction
 // 1), with each species' energy, enthalpy, cv and cp functions of T
 // (thermo_tp.cuh): the neighbour's gamma, energy and cp (the turbulent
-// conductivity) from its T, and the diffusion's species enthalpies.  It
-// replaces the JAX package's scan sweep of such a deck (pallas_sweep.
-// use_pallas turns its kernel off there).  Phys's gamma is not read.  The
-// thermally perfect Roe forms take the pre-pass too; their lanes invert
-// each neighbour's q + du by Ridder's method (no stage).
+// conductivity) from its T, its conductivity, and the diffusion's species
+// enthalpies.  It replaces the JAX package's scan sweep of such a deck
+// (pallas_sweep.use_pallas turns its kernel off there).  Phys's gamma is
+// not read.  The thermally perfect forms split the product too: the
+// Rusanov ones' pre-pass evaluates those old-state terms once per padded
+// cell (store_cell_terms; each cell is the neighbour of three faces), and
+// their lanes read them; the Roe ones' pre-pass adds, to the Roe forms'
+// face terms, each cell's old energy and each ghost neighbour's q + du,
+// and a stage of the wavefront inverts each updated state once on
+// thermo::SPEC_LANES lanes, whose q + du the lanes read (tp_state.cuh,
+// shared with the scalar sweep's thermally perfect forms).  Their
+// finish loads its operands before its first store where registers allow
+// (finish_rows, LOADS_FIRST).
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -101,7 +109,9 @@
 // planes per block and sweep: the time of one step is a barrier, the
 // flags between tiles and one cell's serial FP64 work, split over three
 // lanes.  A Roe step does q + du and the new Roe flux per direction in
-// place of the block rows (the old flux stored by the pre-pass).  Past
+// place of the block rows (the old flux stored by the pre-pass); a
+// thermally perfect Roe step the new Roe flux of the stored q + du, then
+// the stage's inversion of the plane's updated states.  Past
 // about 8 species the per-thread rows (NS + 6 doubles each) and the N x N
 // inverse product (N up to 20 at 16 species) spill to local memory; the
 // species constants pass by value, under the classic 4 KB of kernel
@@ -115,11 +125,18 @@
 
 #include "roe_offdiag.cuh"
 #include "sweep_wavefront.cuh"
+#include "tp_state.cuh"
 
 // 1: this translation unit holds the approximateRoe forms (the library
 // blusgs_sweep_roe, utils/build.py VARIANTS), 0: the Rusanov forms
 #ifndef SWEEP_ROE
 #define SWEEP_ROE 0
+#endif
+// 1: the pre-pass forms (thermally perfect or approximateRoe) carry the
+// step clocks' marks (sweep_wavefront.cuh, namespace probe): only the
+// build of the probe, library <name>_probe, for utils/sweep_probe.py
+#ifndef SWEEP_PROBE
+#define SWEEP_PROBE 0
 #endif
 
 namespace {
@@ -142,11 +159,16 @@ struct PhysRoe : Phys {
   double prandtl, tmin_k, tmin_w;
 };
 
-// the off-diagonal of this translation unit's forms; the Roe forms split
-// the product with a pre-pass and run on persistent CTAs (the walk and its
-// launch both read PERSISTENT)
+// the forms of this translation unit: the approximateRoe off-diagonal,
+// the thermally perfect gas.  The Roe and the thermally perfect forms
+// split the product with a pre-pass and run on persistent CTAs (the walk
+// and its launch both read PERSISTENT); the thermally perfect Roe forms
+// also invert each updated state once, in a stage of the wavefront
 constexpr bool ROE = SWEEP_ROE != 0;
-constexpr bool PERSISTENT = ROE;
+constexpr bool TP = SWEEP_TP != 0;
+constexpr bool SPLIT = ROE || TP;
+constexpr bool PERSISTENT = SPLIT;
+constexpr bool STAGED = ROE && TP;
 
 using KernelPhys = std::conditional_t<ROE, PhysRoe, Phys>;
 
@@ -162,9 +184,6 @@ struct Mixture {
   thermo::Vib<NS> vib;   // the thermally perfect forms' modes
 #endif
 };
-
-// the forms of this translation unit: the thermally perfect gas
-constexpr bool TP = SWEEP_TP != 0;
 
 struct Fields {
   const double* __restrict__ prim;
@@ -183,10 +202,20 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: channel stride of b, extra, inv_f, inv_t
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
-  // the Roe forms' work space (launch_tiles): per face of the sweep side
-  // its flux::roe_face_values, written by the pre-pass and read by the
-  // wavefront (__ldg); null for the other forms
+  // the pre-pass forms' work space (launch_tiles), written by the
+  // pre-pass and read by the wavefront (__ldg); null for the other forms.
+  // Roe: per face of the sweep side its flux::roe_face_values (3 ncp
+  // faces); thermally perfect Rusanov: per padded cell its old-state
+  // terms (CELL_*, nc cells)
   double* pre;
+#if SWEEP_TP
+  // the thermally perfect Roe forms' updated states (tp_state.cuh
+  // tp_state_space): per physical cell its old energy (written by the
+  // pre-pass), per padded cell q + du (the pre-pass writes the ghosts',
+  // the stage the physical cells', read through L2, __ldcg)
+  double* eold;      // (ncp)
+  double* qu;        // (NEQ, nc)
+#endif
 };
 
 // block off-diagonal product of the neighbour nb across one face, added to
@@ -325,6 +354,41 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   }
 }
 
+// the mixture's conductivity (Sutherland per species, mixed over the mole
+// fractions x_s as 0.5 (sum x_s k_s + 1 / sum x_s / k_s)) at T = t, times
+// the nondimensional scaling, of mass fractions mf
+template <int NS>
+__device__ __forceinline__ double mixture_conductivity(const Phys& ph,
+                                                       const Mixture<NS>& sp,
+                                                       const double mf[NS],
+                                                       double t) {
+  const double td = t * ph.t_ref;
+  const double td15 = pow(td, 1.5);
+  double xs = 0.0;
+#pragma unroll
+  for (int q = 0; q < NS; ++q) xs += mf[q] / sp.mm[q];
+  double weighted = 0.0, harmonic = 0.0;
+#pragma unroll
+  for (int q = 0; q < NS; ++q) {
+    const double kq = sp.cond_c1[q] * td15 / (td + sp.cond_s[q]) /
+                      ph.k_nondim;
+    const double x = (mf[q] / sp.mm[q]) / xs;
+    weighted += x * kq;
+    harmonic += x / kq;
+  }
+  return ph.scaling * (0.5 * (weighted + 1.0 / harmonic));
+}
+
+// The old-state terms per padded cell that a thermally perfect Rusanov
+// form's pre-pass stores (Fields::pre, channel stride nc) and its lanes
+// read in place of evaluating them per face: the mixture's gamma = cp(T) /
+// cv(T) and energy sum_s mf_s e_s(T); viscous, its conductivity and its
+// cp(T) (read with turbulence equations) and each species' enthalpy
+// h_s(T) (read with Schmidt diffusion), each written only where it is read
+// (kernels/lusgs_sweep.py cell_values)
+constexpr int CELL_GAMMA = 0, CELL_ENERGY = 1, CELL_K = 2, CELL_CP = 3,
+              CELL_H = 4;
+
 // block off-diagonal product of the neighbour nb across one face, added to
 // acc, for a mixture of NS species (aither_tpu
 // implicit.offdiagonal_block_channels).  The rows of the one-species form
@@ -350,12 +414,16 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
   const double w = fl.prim[(NS + 2) * nc + nb];
   const double p = fl.prim[(NS + 3) * nc + nb];
   const double t = p / rr;
-  double cpm = 0.0, cvm = 0.0, em = 0.0;
+  double cpm = 0.0, cvm = 0.0, em = 0.0, gamma, k_tp = 0.0;
 #pragma unroll
   for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
   if constexpr (TP) {
-    thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
-    em = thermo::energy<NS>(sp, mf, t);
+    // the pre-pass's terms of the neighbour state (CELL_*)
+    const double* tv = fl.pre + nb;
+    gamma = __ldg(tv + CELL_GAMMA * nc);
+    em = __ldg(tv + CELL_ENERGY * nc);
+    if constexpr (VISCOUS) k_tp = __ldg(tv + CELL_K * nc);
+    if constexpr (NEQ == N + 2) cpm = __ldg(tv + CELL_CP * nc);
   } else {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -363,19 +431,20 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
       cvm += sp.cv[s] * mf[s];
       em += (sp.hf[s] + sp.cv[s] * t) * mf[s];
     }
+    gamma = cpm / cvm;
   }
   double S = 0.0;  // the species columns' common factor
 #pragma unroll
   for (int s = 0; s < NS; ++s) S += dq[s];
   const double n0 = st[0], n1 = st[1], n2 = st[2], mag = st[3];
 
-  const double gamma = cpm / cvm;
   const double vn = u * n0 + v * n1 + w * n2;
   const double vmag2 = u * u + v * v + w * w;
   const double gm1 = gamma - 1.0;
   const double sgn = FORWARD ? 1.0 : -1.0;
   const double dm0 = dq[NS], dm1 = dq[NS + 1], dm2 = dq[NS + 2];
   const double de = dq[NS + 3];
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
 
   // Rusanov block: 0.5|A| dF/dU rows +- spectral radius
   {
@@ -408,6 +477,7 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
                          (a1 * n2 - gm1 * w * vn) * dm2 + gamma * vn * de) +
                    sgn * spec * de;
   }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
 
   // thin-shear-layer block, subtracted forward and added backward
   double mu = 0.0, mut = 0.0, dist = 0.0;
@@ -421,21 +491,11 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
     const double s = FORWARD ? -1.0 : 1.0;
     const double fac = FORWARD ? -1.0 : 1.0;
     // the mixture's conductivity over the mole fractions
-    const double td = t * ph.t_ref;
-    const double td15 = pow(td, 1.5);
-    double xs = 0.0;
-#pragma unroll
-    for (int q = 0; q < NS; ++q) xs += mf[q] / sp.mm[q];
-    double weighted = 0.0, harmonic = 0.0;
-#pragma unroll
-    for (int q = 0; q < NS; ++q) {
-      const double kq = sp.cond_c1[q] * td15 / (td + sp.cond_s[q]) /
-                        ph.k_nondim;
-      const double x = (mf[q] / sp.mm[q]) / xs;
-      weighted += x * kq;
-      harmonic += x / kq;
-    }
-    const double k = ph.scaling * (0.5 * (weighted + 1.0 / harmonic));
+    double k;
+    if constexpr (TP)
+      k = k_tp;
+    else
+      k = mixture_conductivity<NS>(ph, sp, mf, t);
     // the turbulent conductivity only with turbulence equations
     const double kt = NEQ == N + 2 ? mut_s * cpm / ph.prt : 0.0;
     const double* g = fl.vgrad + nb;
@@ -474,11 +534,11 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
 #pragma unroll
       for (int q = 0; q < NS; ++q) {
         acc_t[q] += scale * (dc * (dq[q] - mf[q] * S));
-#if SWEEP_TP
-        const double hq = thermo::species_enthalpy(sp, q, t);
-#else
-        const double hq = sp.hf[q] + sp.cp[q] * t;
-#endif
+        double hq;
+        if constexpr (TP)
+          hq = __ldg(fl.pre + (CELL_H + q) * nc + nb);
+        else
+          hq = sp.hf[q] + sp.cp[q] * t;
         e_species += dc * (1.0 - mf[q]) * (hq + 0.5 * vmag2) * dq[q];
       }
     }
@@ -512,6 +572,7 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
       acc[N + 1] += tdiag * dq[N + 1];
     }
   }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 2);
 }
 
 using wavefront::stride_of;
@@ -540,34 +601,103 @@ __device__ __forceinline__ void direction_product(
         ph, sp, fl, nb, st, dq, x, x_t);
 }
 
-#if SWEEP_ROE
+#if SWEEP_ROE || SWEEP_TP
 // ---------------------------------------------------------------------------
-// The Roe forms' split (head of this file): a pre-pass, one thread per face
-// of the sweep side, stores the old Roe flux F_roe(q_nb | q_cell) and the
-// radii of every unmasked face (flux::store_roe_old_terms, the scalar
-// sweep's face function); the wavefront's lanes evaluate q + du of the
-// neighbour and its new Roe flux against them (flux::add_roe_change).
+// The pre-pass forms (head of this file): nothing of the old state changes
+// during a sweep, so a pre-pass launch, one thread per face 3 pc + d of
+// the sweep side (fully parallel), evaluates once what the lanes read of
+// it.  Roe: per unmasked face the old Roe flux F_roe(q_nb | q_cell) and
+// the radii (flux::store_roe_old_terms, the scalar sweep's face
+// function); thermally perfect, per physical cell its old energy and per
+// ghost neighbour of an unmasked face its q + du (tp_state.cuh, the
+// scalar sweep's).  Thermally perfect Rusanov: per physical cell (the
+// thread of its face d = 0) and per ghost neighbour of an unmasked face
+// the state's terms (store_cell_terms).
 
-// one face 3 pc + d of the pre-pass
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__global__ void __launch_bounds__(wavefront::PREPASS_THREADS)
-    prepass(Fields fl, PhysRoe ph, Mixture<NS> sp, wavefront::Schedule sc) {
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (f >= 3 * fl.ncp || !fl.mask[f]) return;
-  const wavefront::FaceOperands<NEQ> op =
-      wavefront::face_operands<NSTAT, NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-          fl, wavefront::face_of(sc, f), f);
-  flux::store_roe_old_terms<NS, NEQ, VISCOUS, WILCOX>(
-      ph, sp, op.q, op.qd, op.st[0], op.st[1], op.st[2], op.st[3], op.dist,
-      op.mu, op.mut, op.f1, fl.pre + f, 3 * fl.ncp);
+// the old-state terms of padded cell c of a thermally perfect Rusanov form
+// (CELL_*), with add_block_offdiagonal_mix's arithmetic of the state
+template <int NS, int NEQ, bool VISCOUS>
+__device__ __forceinline__ void store_cell_terms(const Fields& fl,
+                                                 const Phys& ph,
+                                                 const Mixture<NS>& sp,
+                                                 int64_t c) {
+  const int64_t nc = fl.nc;
+  double mf[NS];
+  double rho = 0.0, rr = 0.0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    mf[s] = fl.prim[s * nc + c];
+    rho += mf[s];
+    rr += sp.R[s] * mf[s];
+  }
+  const double t = fl.prim[(NS + 3) * nc + c] / rr;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
+  double cpm, cvm;
+  thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
+  double* out = fl.pre + c;
+  out[CELL_GAMMA * nc] = cpm / cvm;
+  out[CELL_ENERGY * nc] = thermo::energy<NS>(sp, mf, t);
+  if constexpr (VISCOUS) {
+    out[CELL_K * nc] = mixture_conductivity<NS>(ph, sp, mf, t);
+    if constexpr (NEQ == NS + 6) out[CELL_CP * nc] = cpm;
+    if (sp.diffusion) {
+#pragma unroll
+      for (int q = 0; q < NS; ++q)
+        out[(CELL_H + q) * nc] = thermo::species_enthalpy(sp, q, t);
+    }
+  }
 }
 
+template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
+__global__ void __launch_bounds__(wavefront::PREPASS_THREADS)
+    prepass(Fields fl, KernelPhys ph, Mixture<NS> sp,
+            wavefront::Schedule sc) {
+  if (sc.clocks && threadIdx.x == 0) probe::stamp(sc.clocks, 2);
+  const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (f < 3 * fl.ncp) {
+    const wavefront::Face fc = wavefront::face_of(sc, f);
+#if SWEEP_ROE
+#if SWEEP_TP
+    tp_state::store_old_energy<NS, NEQ>(fl, sp, fc);
+#endif
+    if (fl.mask[f]) {
+      const wavefront::FaceOperands<NEQ> op =
+          wavefront::face_operands<NSTAT, NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+              fl, fc, f);
+      flux::store_roe_old_terms<NS, NEQ, VISCOUS, WILCOX>(
+          ph, sp, op.q, op.qd, op.st[0], op.st[1], op.st[2], op.st[3],
+          op.dist, op.mu, op.mut, op.f1, fl.pre + f, 3 * fl.ncp);
+#if SWEEP_TP
+      tp_state::store_ghost_update<NS, NEQ, FORWARD>(fl, ph, sp, sc, fc,
+                                                      op);
+#endif
+    }
+#else
+    const int64_t c = wavefront::padded_of(fl, fc);
+    if (fc.d == 0) store_cell_terms<NS, NEQ, VISCOUS>(fl, ph, sp, c);
+    if (fl.mask[f] && wavefront::ghost_neighbour<FORWARD>(sc, fc))
+      store_cell_terms<NS, NEQ, VISCOUS>(
+          fl, ph, sp,
+          FORWARD ? c - stride_of(fl, fc.d) : c + stride_of(fl, fc.d));
+#endif
+  }
+  if (sc.clocks) {
+    __syncthreads();
+    if (threadIdx.x == 0) probe::stamp(sc.clocks, 3);
+  }
+}
+#endif  // SWEEP_ROE || SWEEP_TP
+
+#if SWEEP_ROE
 // Direction d's Roe product of one cell from the stored terms, added to x
-// (x_t keeps its +0.0): the neighbour's q + du, its new Roe flux with the
-// cell's own state, against the pre-pass's old flux, plus the stored radii
-// times du.  Every load is issued before the mask is known (a masked
-// face's operands are read but not used).
+// (x_t keeps its +0.0): the neighbour's q + du (a thermally perfect form
+// reads it from qu, the stage's or the pre-pass's, through L2; else formed
+// from its state), its new Roe flux with the cell's own state, against
+// the pre-pass's old flux, plus the stored radii times du.  Every load is
+// issued before the mask is known (a masked face's operands are read but
+// not used).
 template <int NS, int NEQ, bool VISCOUS, bool FORWARD>
 __device__ __forceinline__ void stored_product(const Fields& fl,
                                                const PhysRoe& ph,
@@ -580,75 +710,130 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
   const double* st = fl.stat + f * NSTAT;
   const int64_t P = 3 * fl.ncp;
-  double old[NV], q[NEQ], dq[NEQ];
+  double old[NV], qn[NEQ], dq[NEQ];
 #pragma unroll
   for (int v = 0; v < NV; ++v) old[v] = __ldg(fl.pre + f + v * P);
+#if SWEEP_TP
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    qn[e] = __ldcg(fl.qu + e * fl.nc + nb);
+    dq[e] = __ldcg(fl.du + e * fl.nc + nb);
+  }
+  if (!unmasked) return;
+#else
+  double q[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
     q[e] = fl.prim[e * fl.nc + nb];
     dq[e] = __ldcg(fl.du + e * fl.nc + nb);
   }
   if (!unmasked) return;
-  double qn[NEQ], qd[NEQ], fn[NEQ];
   flux::update_state<NS, NEQ>(ph, sp, q, dq, qn);
+#endif
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
+  double qd[NEQ], fn[NEQ];
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
   flux::roe_new_flux<NS, NEQ, FORWARD>(ph, sp, qn, qd, st[0], st[1], st[2],
                                        fn);
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
   flux::add_roe_change<NS, NEQ, VISCOUS, FORWARD>(fn, old, st[3], dq, x);
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 2);
 }
 #endif  // SWEEP_ROE
 
 // Lane d's rows (i % 3 == d) of one cell's update from the sum acc of its
 // three off-diagonal products: the right-hand side, then the rows of the
-// inverse product (the plane kernel's update of du).
-template <int NS, int NEQ, bool FORWARD>
+// inverse product (the plane kernel's update of du).  b, extra, inv_f and
+// inv_t do not change during the launch (__ldg).  A row's store of du may
+// alias the next row's operands as far as the compiler knows, so each row
+// loads after the row before it is stored: one L2 round trip a row.
+// LOADS_FIRST loads every row's operands before the first store, one round
+// trip in all, for about 2 N ceil(N / 3) more registers through finish:
+// the thermally perfect forms of up to LOADS_FIRST_NS species.  The
+// thermally perfect Roe forms of three to five species have none to spare
+// (with the loads first ptxas spilled 8-88 B at 255 registers on sm_90a),
+// nor has a species count above the base build's.
+constexpr int LOADS_FIRST_NS = ROE ? 2 : BASE_NS;
+
+template <int NS, int NEQ, bool FORWARD, bool LOADS_FIRST>
 __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
                                             int64_t pc, int d,
                                             const double acc[NEQ]) {
   constexpr int N = NS + 4;
   constexpr int L = wavefront::LANES;
+  constexpr int R = (N + L - 1) / L;   // lane d's flow rows i = d + L k
+  constexpr bool TURB = NEQ == N + 2;
+  const bool plain_backward = !FORWARD && fl.extra == nullptr;
+  double bv[NEQ], ev[NEQ], inv[R][N], xin[R + 2], it[4];
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    bv[e] = plain_backward ? 0.0 : __ldg(fl.b + e * fl.ncp + pc);
+    ev[e] = fl.extra ? __ldg(fl.extra + e * fl.ncp + pc) : 0.0;
+  }
+  // flow row k's inverse row (and du, plain backward); the turbulence
+  // block's rows of this lane
+  auto load_row = [&](int k) {
+    const int i = d + L * k;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      inv[k][j] = __ldg(fl.inv_f + (N * i + j) * fl.ncp + pc);
+    if (plain_backward) xin[k] = __ldcg(fl.du + i * fl.nc + c);
+  };
+  auto load_turbulence = [&]() {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if ((N + t) % L != d) continue;
+      it[2 * t] = __ldg(fl.inv_t + 2 * t * fl.ncp + pc);
+      it[2 * t + 1] = __ldg(fl.inv_t + (2 * t + 1) * fl.ncp + pc);
+      if (plain_backward) xin[R + t] = __ldcg(fl.du + (N + t) * fl.nc + c);
+    }
+  };
+  if constexpr (LOADS_FIRST) {
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (d + L * k < N) load_row(k);
+    if constexpr (TURB) load_turbulence();
+  }
   // right-hand side the inverse applies to (acc holds the neighbour sum)
   double r[NEQ];
-  const bool plain_backward = !FORWARD && fl.extra == nullptr;
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
     r[e] = acc[e];
     if (plain_backward) continue;
-    const double b = fl.b[e * fl.ncp + pc];
     if (FORWARD)
-      r[e] = fl.extra ? (b + r[e]) - fl.extra[e * fl.ncp + pc] : b + r[e];
+      r[e] = fl.extra ? (bv[e] + r[e]) - ev[e] : bv[e] + r[e];
     else
-      r[e] = (b + fl.extra[e * fl.ncp + pc]) - r[e];
+      r[e] = (bv[e] + ev[e]) - r[e];
   }
   // D^-1 r: the N x N flow block row by row, then the 2x2 turbulence block
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i % L != d) continue;
+  for (int k = 0; k < R; ++k) {
+    const int i = d + L * k;
+    if (i >= N) continue;
+    if constexpr (!LOADS_FIRST) load_row(k);
     double y = 0.0;
 #pragma unroll
-    for (int j = 0; j < N; ++j) y += fl.inv_f[(N * i + j) * fl.ncp + pc] * r[j];
-    double* x = fl.du + i * fl.nc + c;
-    *x = plain_backward ? __ldcg(x) - y : y;
+    for (int j = 0; j < N; ++j) y += inv[k][j] * r[j];
+    fl.du[i * fl.nc + c] = plain_backward ? xin[k] - y : y;
   }
-  if constexpr (NEQ == N + 2) {
-    const double* it = fl.inv_t + pc;
-    if (N % L == d) {
-      const double y5 = it[0] * r[N] + it[fl.ncp] * r[N + 1];
-      double* x5 = fl.du + N * fl.nc + c;
-      *x5 = plain_backward ? __ldcg(x5) - y5 : y5;
-    }
-    if ((N + 1) % L == d) {
-      const double y6 = it[2 * fl.ncp] * r[N] + it[3 * fl.ncp] * r[N + 1];
-      double* x6 = fl.du + (N + 1) * fl.nc + c;
-      *x6 = plain_backward ? __ldcg(x6) - y6 : y6;
+  if constexpr (TURB) {
+    if constexpr (!LOADS_FIRST) load_turbulence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if ((N + t) % L != d) continue;
+      const double y = it[2 * t] * r[N] + it[2 * t + 1] * r[N + 1];
+      fl.du[(N + t) * fl.nc + c] = plain_backward ? xin[R + t] - y : y;
     }
   }
 }
 
 // Prefetch into L2 what lane d reads for one cell but du: for a Roe form
 // its stored face values in place of the viscous fields and the velocity
-// gradient.
+// gradient, and the cell's own state (for a thermally perfect one, what
+// the stage reads, in place of the neighbour's state: its q + du is
+// written during the launch); for a thermally perfect Rusanov form the
+// neighbour's stored terms too.
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
                                               int64_t pc, int d) {
@@ -659,8 +844,10 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   prefetch_l2(fl.mask + 3 * pc + d);
   prefetch_l2(st);
   prefetch_l2(st + NSTAT - 1);
+  if constexpr (!STAGED) {
 #pragma unroll
-  for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+    for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
+  }
   if constexpr (ROE) {
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + c);
@@ -668,12 +855,21 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 #pragma unroll
     for (int v = 0; v < NV; ++v)
       prefetch_l2(fl.pre + 3 * pc + d + v * 3 * fl.ncp);
+#if SWEEP_TP
+    if (d == 0) prefetch_l2(fl.eold + pc);
+#endif
   } else if constexpr (VISCOUS) {
     prefetch_l2(fl.mu + nb);
     prefetch_l2(fl.mut + nb);
     if constexpr (NEQ == N + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
 #pragma unroll
     for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
+  }
+  if constexpr (TP && !ROE) {
+    prefetch_l2(fl.pre + CELL_GAMMA * fl.nc + nb);
+    prefetch_l2(fl.pre + CELL_ENERGY * fl.nc + nb);
+    if constexpr (VISCOUS) prefetch_l2(fl.pre + CELL_K * fl.nc + nb);
+    if constexpr (NEQ == N + 2) prefetch_l2(fl.pre + CELL_CP * fl.nc + nb);
   }
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
@@ -693,8 +889,9 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   }
 }
 
-// one whole sweep of one block: one CTA per tile, or for the Roe forms
-// persistent CTAs (sweep_wavefront.cuh)
+// one whole sweep of one block: one CTA per tile, or for the pre-pass
+// forms persistent CTAs, with the thermally perfect Roe forms' stage
+// (sweep_wavefront.cuh)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, KernelPhys ph, Mixture<NS> sp,
@@ -706,39 +903,56 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   auto physical = [&](int i, int j, int k) {
     return (static_cast<int64_t>(i) * nj + j) * nk + k;
   };
-  wavefront::walk<FORWARD, NEQ, 2, false, 1, PERSISTENT>(
-      sc,
-      [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-            fl, padded(i, j, k), physical(i, j, k), d);
-      },
-      [&](int i, int j, int k, int d, double (&x)[2][NEQ]) {
+  auto prefetch = [&](int i, int j, int k, int d) {
+    prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(fl, padded(i, j, k),
+                                                     physical(i, j, k), d);
+  };
+  auto addends = [&](int i, int j, int k, int d, double (&x)[2][NEQ]) {
 #if SWEEP_ROE
-        stored_product<NS, NEQ, VISCOUS, FORWARD>(
-            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
+    stored_product<NS, NEQ, VISCOUS, FORWARD>(fl, ph, sp, padded(i, j, k),
+                                              physical(i, j, k), d, x[0]);
 #else
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0], x[1]);
+    direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
+        fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0], x[1]);
 #endif
-      },
-      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
-        finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
-                                      physical(i, j, k), d, acc);
+  };
+  auto finish = [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
+    finish_rows<NS, NEQ, FORWARD, TP && NS <= LOADS_FIRST_NS>(
+        fl, padded(i, j, k), physical(i, j, k), d, acc);
+  };
+#if SWEEP_ROE && SWEEP_TP
+  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0, thermo::SPEC_LANES,
+                  PERSISTENT>(
+      sc, prefetch, addends, finish,
+      [&](int i, int j, int k, int r, unsigned group) {
+        tp_state::invert_cell<NS, NEQ, SWEEP_PROBE != 0>(
+            fl, ph, sp, padded(i, j, k), physical(i, j, k), r, group);
       });
+#else
+  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0, 1, PERSISTENT>(
+      sc, prefetch, addends, finish);
+#endif
 }
 
-// a Roe form's pre-pass (its work space, of 3 ncp faces of
-// flux::roe_face_values each) and its persistent wavefront; one CTA a tile
-// for the other forms (work null)
+// a pre-pass form's pre-pass and its persistent wavefront, a thermally
+// perfect Roe form's with its stage (the work space: a Roe form's 3 ncp
+// faces of flux::roe_face_values each, then for a thermally perfect one
+// its old energies and updated states, tp_state.cuh tp_state_space; a
+// thermally perfect Rusanov form's nc cells of the CELL_* terms); one CTA
+// a tile for the other forms (work null)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
 int launch_tiles(int forward, Fields fl, const PhysRoe& ph_all,
                  const Mixture<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st, double* work) {
   const KernelPhys& ph = ph_all;
-  if ((work != nullptr) != ROE)
+  if ((work != nullptr) != SPLIT)
     return static_cast<int>(cudaErrorInvalidValue);
-#if SWEEP_ROE
+#if SWEEP_ROE || SWEEP_TP
   fl.pre = work;
+#if SWEEP_ROE && SWEEP_TP
+  tp_state::tp_state_space(
+      fl, work + flux::roe_face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp);
+#endif
   const int err =
       forward
           ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
@@ -749,13 +963,16 @@ int launch_tiles(int forward, Fields fl, const PhysRoe& ph_all,
                                     st, fl, ph, sp, sc);
   if (err != 0) return err;
 #endif
+  // the thermally perfect Roe forms' stage: thermo::SPEC_LANES threads a
+  // cell
+  constexpr int lanes = STAGED ? thermo::SPEC_LANES : 0;
   if (forward)
     return wavefront::launch_lanes(
-        0, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st,
-        fl, ph, sp);
+        lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc,
+        st, fl, ph, sp);
   return wavefront::launch_lanes(
-      0, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st,
-      fl, ph, sp);
+      lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
+      st, fl, ph, sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -807,8 +1024,8 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole block sweep of one block: a cudaMemsetAsync of the schedule's
-// state, for the Roe forms the pre-pass, and one tile-wavefront launch, all
-// on `stream`.  ns is 1..BASE_NS, or
+// state, for the pre-pass forms (approximateRoe or thermally perfect) the
+// pre-pass, and one tile-wavefront launch, all on `stream`.  ns is 1..BASE_NS, or
 // SWEEP_NS in a build for that count, and neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
 // head of this file); roe is 1 for the approximateRoe forms, which only
 // the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
@@ -818,15 +1035,17 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // the calorically perfect forms); species is a HOST array of the
 // mixture's constants (launch_form; read when ns > 1 or tp).  stat and
 // mask are in physical cell order; sched is a HOST array {ntiles, ni, nj,
-// nk, ti, tj, tk, g, ctas} (ctas: the persistent CTAs of a Roe form's
-// wavefront), tiles the device tile table and state device scratch of 1 +
+// nk, ti, tj, tk, g, ctas} (ctas: the persistent CTAs of a pre-pass
+// form's wavefront), tiles the device tile table and state device scratch of 1 +
 // ntiles ints (sweep_wavefront.cuh).  extra may be null; mu, mut, f1,
 // vgrad may be null when inviscid and inv_t without turbulence equations.
-// work is the Roe forms' device work space (null for the other forms): per
-// face of the sweep side flux::roe_face_values doubles, 3 ncp faces
-// (kernels/lusgs_sweep.py work_doubles).  Returns cudaGetLastError() after the launch (0
-// when it was accepted), or cudaErrorInvalidValue for a form that does not
-// exist or that another library holds.
+// work is the pre-pass forms' device work space (null for the other
+// forms, launch_tiles; kernels/lusgs_sweep.py work_doubles); clocks null,
+// or for a pre-pass form in the probe's build (SWEEP_PROBE) the device
+// array of the step clocks (sweep_wavefront.cuh, namespace probe).
+// Returns cudaGetLastError() after the launches (0 when they were
+// accepted), or cudaErrorInvalidValue for a form that does not exist or
+// that another library holds.
 extern "C" int blusgs_sweep_f64(
     int forward, int ns, int neq, int viscous, int wilcox, int roe, int tp,
     const double* prim,
@@ -839,8 +1058,10 @@ extern "C" int blusgs_sweep_f64(
     double prandtl, double prt, double scaling, double tmin_k, double tmin_w,
     double t_ref, double cond_c1, double cond_s, double k_nondim,
     double sigma_k1, double sigma_k2, double sigma_w1, double sigma_w2,
-    const double* species, void* stream, double* work) {
-  if ((roe != 0) != ROE || (tp != 0) != TP)
+    const double* species, void* stream, double* work,
+    unsigned long long* clocks) {
+  if ((roe != 0) != ROE || (tp != 0) != TP ||
+      (clocks && !((ROE || TP) && SWEEP_PROBE)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,
@@ -849,7 +1070,8 @@ extern "C" int blusgs_sweep_f64(
   PhysRoe ph{{R, cv, cp, hf, gamma, prt, scaling, t_ref, cond_c1, cond_s,
               k_nondim, sigma_k1, sigma_k2, sigma_w1, sigma_w2},
              prandtl, tmin_k, tmin_w};
-  const wavefront::Schedule sc = wavefront::make_schedule(sched, tiles, state);
+  const wavefront::Schedule sc =
+      wavefront::make_schedule(sched, tiles, state, clocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #ifdef SWEEP_NS
   static_assert(SWEEP_NS > BASE_NS, "a SWEEP_NS build is of a count above "

@@ -116,6 +116,7 @@
 
 #include "roe_offdiag.cuh"
 #include "sweep_wavefront.cuh"
+#include "tp_state.cuh"
 
 // 1: this translation unit holds the approximateRoe forms (the library
 // lusgs_sweep_roe, utils/build.py VARIANTS), 0: the Rusanov forms
@@ -404,7 +405,9 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 // perfect one reads it, since a stage after finish inverts each cell's q
 // + du once: a group of thermo::SPEC_LANES threads per cell of the plane,
 // its energy by Ridder's method (temperature_from_energy_spec), written to
-// qu before the tile publishes the plane.  The CTAs are persistent
+// qu before the tile publishes the plane (tp_state.cuh: the old energies,
+// the ghosts' q + du and the stage, shared with the block sweep's
+// thermally perfect approximateRoe forms).  The CTAs are persistent
 // (sweep_wavefront.cuh launch_lanes).  The product is the one-lane
 // kernel's arithmetic on the stored operands (up to FMA contraction).
 
@@ -416,13 +419,7 @@ __device__ __forceinline__ void prepass_face(const Fields& fl, const Phys& ph,
                                              int64_t f) {
   const wavefront::Face fc = wavefront::face_of(sc, f);
 #if SWEEP_TP
-  if (fc.d == 0) {
-    const int64_t c = wavefront::padded_of(fl, fc);
-    double q[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) q[e] = fl.prim[e * fl.nc + c];
-    fl.eold[fc.pc] = flux::old_energy<NS, NEQ>(sp, q);
-  }
+  tp_state::store_old_energy<NS, NEQ>(fl, sp, fc);
 #endif
   if (!fl.mask[f]) return;
   const wavefront::FaceOperands<NEQ> op =
@@ -447,18 +444,7 @@ __device__ __forceinline__ void prepass_face(const Fields& fl, const Phys& ph,
     if constexpr (NEQ == T0 + 2) out[(T0 + 1) * P] = sr_t;
   }
 #if SWEEP_TP
-  // a ghost neighbour's q + du: no stage of this launch writes it
-  const int d = fc.d;
-  const int at = d == 0 ? fc.at[0] : d == 1 ? fc.at[1] : fc.at[2];
-  const int nd = d == 0 ? sc.n[0] : d == 1 ? sc.n[1] : sc.n[2];
-  if (FORWARD ? at == 0 : at == nd - 1) {
-    double dq[NEQ], qn[NEQ];
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) dq[e] = fl.du[e * fl.nc + op.nb];
-    update_prim_mix<NS, NEQ>(ph, sp, op.q, dq, qn);
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + op.nb] = qn[e];
-  }
+  tp_state::store_ghost_update<NS, NEQ, FORWARD>(fl, ph, sp, sc, fc, op);
 #endif
 }
 
@@ -589,32 +575,6 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
 }
 
-#if SWEEP_TP
-// the stage: cell c's q + du, inverted once by the thermo::SPEC_LANES
-// lanes of a group (this lane r, the group's mask), into qu
-template <int NS, int NEQ>
-__device__ __forceinline__ void invert_cell(const Fields& fl, const Phys& ph,
-                                            const Species<NS>& sp, int64_t c,
-                                            int64_t pc, int r,
-                                            unsigned group) {
-  double q[NEQ], dq[NEQ], qn[NEQ];
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) {
-    q[e] = fl.prim[e * fl.nc + c];
-    dq[e] = __ldcg(fl.du + e * fl.nc + c);
-  }
-  const double e_old = __ldg(fl.eold + pc);
-  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::STAGE);
-  flux::update_prim_mix_from<NS, NEQ, true>(ph, sp, q, dq, e_old, qn, r,
-                                            group);
-  if (r == 0) {
-#pragma unroll
-    for (int e = 0; e < NEQ; ++e) fl.qu[e * fl.nc + c] = qn[e];
-  }
-  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::STAGE + 1);
-}
-#endif  // SWEEP_TP
-
 // Prefetch into L2 what lane d reads for one cell but du and qu: for a
 // calorically perfect form the neighbour's state, and for lane 0 of a
 // thermally perfect one what the stage reads of the cell.
@@ -693,8 +653,8 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
                   PERSISTENT>(
       sc, prefetch, addends, finish,
       [&](int i, int j, int k, int r, unsigned group) {
-        invert_cell<NS, NEQ>(fl, ph, sp, padded(i, j, k), physical(i, j, k),
-                             r, group);
+        tp_state::invert_cell<NS, NEQ, SWEEP_PROBE != 0>(
+            fl, ph, sp, padded(i, j, k), physical(i, j, k), r, group);
       });
 #elif SWEEP_ROE
   wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, 1, PERSISTENT>(
@@ -725,8 +685,8 @@ int launch_tiles(int forward, Fields fl, const Phys& ph,
   if (!work) return static_cast<int>(cudaErrorInvalidValue);
   fl.pre = work;
 #if SWEEP_TP
-  fl.eold = work + face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp;
-  fl.qu = fl.eold + fl.ncp;
+  tp_state::tp_state_space(fl, work + face_values<NS, NEQ, VISCOUS>() * 3 *
+                                          fl.ncp);
 #endif
   const int err =
       forward

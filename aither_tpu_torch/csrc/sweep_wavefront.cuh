@@ -476,6 +476,17 @@ __device__ __forceinline__ FaceOperands<NEQ> face_operands(const Fields& fl,
   return op;
 }
 
+// whether the neighbour of face fc across the sweep side (the lower one
+// FORWARD) is a ghost cell: the face is on the block's boundary
+template <bool FORWARD>
+__device__ __forceinline__ bool ghost_neighbour(const Schedule& sc,
+                                                const Face& fc) {
+  const int d = fc.d;
+  const int at = d == 0 ? fc.at[0] : d == 1 ? fc.at[1] : fc.at[2];
+  const int nd = d == 0 ? sc.n[0] : d == 1 ? sc.n[1] : sc.n[2];
+  return FORWARD ? at == 0 : at == nd - 1;
+}
+
 // a fully parallel launch of `threads`-thread CTAs over n items (one per
 // thread) on `st`.  Returns cudaGetLastError() after the launch.
 template <class Kernel, class... Args>

@@ -38,15 +38,16 @@ functions of T, the energy of q + du is inverted by Ridder's method, and
 the Roe state's enthalpy and speed of sound are those of its T; a
 species may have any number of vibrational modes, a deck up to
 ``VIB_MODES`` in all (the table passes by value in the kernels'
-parameters).  The thermally perfect
-scalar forms and every approximateRoe form of both sweeps split the
-product: a pre-pass launch evaluates the old-state terms (the old Roe
-flux and the radii, or the old flux and radii of Rusanov) once per face
-into a work space (``work_doubles``) and the wavefront runs on persistent
-CTAs; the thermally perfect scalar ones also invert each updated state
+parameters).  Every thermally perfect and every approximateRoe form of
+both sweeps splits the product (``prepass_form``): a pre-pass launch
+evaluates the old-state terms (the old Roe flux and the radii, or the old
+flux and radii of Rusanov, once per face; the block Rusanov rows' gamma,
+energy, conductivity, cp and species enthalpies of a thermally perfect
+gas once per cell) into a work space (``work_doubles``) and the wavefront
+runs on persistent CTAs; the thermally perfect scalar forms and the block
+thermally perfect approximateRoe ones also invert each updated state
 once, in a stage of the wavefront on four lanes that evaluate Ridder's
-next points together (the block Rusanov forms evaluate the product per
-neighbour, as the calorically perfect Rusanov forms do).  The thermally
+next points together (``staged_form``).  The thermally
 perfect forms replace the JAX package's scan sweep of such a deck (its
 ``use_pallas`` turns the Pallas kernel off there).  The plain
 version has the semantics of the JAX package's
@@ -231,26 +232,39 @@ def _library(name: str):
     return fn
 
 
-def prepass_form(form, block: bool = False) -> bool:
+def prepass_form(form) -> bool:
     """whether the kernel of ``form`` (``sweep_form``) splits its product
-    with a pre-pass: every approximateRoe form of both sweeps and the
-    thermally perfect scalar ones"""
-    return bool(form[4] or (form[5] and not block))
+    with a pre-pass and runs on persistent CTAs: every approximateRoe and
+    every thermally perfect form, of the scalar sweep and of the block
+    sweep alike"""
+    return bool(form[4] or form[5])
+
+
+def staged_form(form, block: bool = False) -> bool:
+    """whether the kernel of ``form`` inverts each updated state q + du
+    once, in a stage of its wavefront (and keeps per cell its old energy
+    and per padded cell q + du in its work space): the thermally perfect
+    scalar forms and the block sweep's thermally perfect approximateRoe
+    ones (the block Rusanov rows are linear in du: no q + du)"""
+    return bool(form[5] and (form[4] or not block))
 
 
 def work_doubles(form, plan, block: bool = False) -> int:
     """doubles of the work space a sweep of ``form`` (``sweep_form``)
     takes on ``plan``'s block (``launch_tiles`` of csrc/lusgs_sweep.cu and
-    csrc/blusgs_sweep.cu): for a pre-pass form per face of the sweep side
-    its ``face_values``, and for a thermally perfect scalar one also per
-    physical cell its old energy and per padded cell its updated state; 0
-    for the other forms"""
-    if not prepass_form(form, block):
+    csrc/blusgs_sweep.cu): for a block thermally perfect Rusanov form per
+    padded cell its ``cell_values``; for the other pre-pass forms per face
+    of the sweep side its ``face_values``, and for a staged one
+    (``staged_form``) also per physical cell its old energy and per
+    padded cell its updated state; 0 for the other forms"""
+    if not prepass_form(form):
         return 0
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
     ncp = ni * nj * nk
-    if form[5] and not block:
+    if block and form[5] and not form[4]:
+        return cell_values(form) * NI * NJ * NK
+    if staged_form(form, block):
         return face_values(form) * 3 * ncp + ncp + form[1] * NI * NJ * NK
     return face_values(form) * 3 * ncp
 
@@ -263,7 +277,7 @@ def _block_library(name: str):
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
         fn.argtypes = ([i] * 7 + [p] * 12 + [ll] * 5 + [p] * 3 + [dbl] * 18
-                       + [p] * 3)
+                       + [p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -411,7 +425,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
             *geometry, R, cv, cp, hf, g, pr, phys.turb_prandtl(),
             phys.nondim_scaling, *phys.turb_min(), phys.t_ref,
             phys.cond_c1[0], phys.cond_s[0], phys.k_nondim, *sig,
-            species.ctypes.data, stream, ptr(work))
+            species.ctypes.data, stream, ptr(work), ptr(clocks))
         counter = BLOCK_LAUNCHES
     else:
         name = "lusgs_sweep_f64"
@@ -429,7 +443,7 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     return du
 
 
-# the step clocks of the pre-pass scalar forms (namespace probe of
+# the step clocks of the pre-pass forms (namespace probe of
 # csrc/sweep_wavefront.cuh): slot names, the header and a row's length.
 # A calorically perfect Roe form's lanes form q + du before its new flux
 # (its second slot), and it has no stage: its barrier, publication and
@@ -439,35 +453,52 @@ CLOCK_SLOTS = ("to the plane's start", "q + du read and the new flux",
                "finish", "stage barrier", "stage: its operands",
                "stage: q + du inverted once", "barrier after the stage",
                "flags: publish, wait and barrier")
+# the block sweep's marks in a lane's product (csrc/blusgs_sweep.cu):
+# Roe, the neighbour's q + du (read, or inverted by the lane), its new
+# Roe flux and the rows; Rusanov, the neighbour's state and its
+# thermodynamics, the Rusanov rows and the thin-shear-layer and
+# turbulence rows
+BLOCK_CLOCK_SLOTS = (
+    CLOCK_SLOTS[:1] + ("operands and q + du, or the state's thermodynamics",
+                       "the new Roe flux, or the Rusanov rows",
+                       "the Roe rows, or the TSL and turbulence rows")
+    + CLOCK_SLOTS[4:])
 CLOCK_HEADER, CLOCK_ROW = 4, len(CLOCK_SLOTS) + 1
 
 
 def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                     forward: bool, extra=None) -> dict:
-    """One kernel sweep of a pre-pass scalar form (thermally perfect or
-    approximateRoe, ``prepass_form``) through the probe's build of its library (``<library>_probe``, built at first use:
-    only it carries the marks) with its step clocks (namespace probe of
-    csrc/sweep_wavefront.cuh): per slot the SM cycles that thread 0 of a
-    CTA spent there, summed over the CTAs and divided by the planes on
-    which its column had a cell; the planes counted; the launch's span by
-    %globaltimer (ns), the wavefront's and, where the form has one, the
-    pre-pass's.  Updates du in place, as the sweep does.  Not counted in
-    ``LAUNCHES``: the measurement calls the kernel outside the solver."""
-    if cfg.get("block_matrix") or not prepass_form(sweep_form(phys, cfg)):
-        raise ValueError("the step clocks are the pre-pass scalar forms'")
+    """One kernel sweep of a pre-pass form (thermally perfect or
+    approximateRoe, ``prepass_form``; scalar, or block with
+    ``cfg['block_matrix']``) through the probe's build of its library
+    (``<library>_probe``, built at first use: only it carries the marks)
+    with its step clocks (namespace probe of csrc/sweep_wavefront.cuh):
+    per slot (``CLOCK_SLOTS``, the block sweep's ``BLOCK_CLOCK_SLOTS``)
+    the SM cycles that thread 0 of a CTA spent there, summed over the
+    CTAs and divided by the planes on which its column had a cell; the
+    planes counted; the launch's span by %globaltimer (ns), the
+    wavefront's and, where the form has one, the pre-pass's.  Updates du
+    in place, as the sweep does.  Not counted in ``LAUNCHES`` /
+    ``BLOCK_LAUNCHES``: the measurement calls the kernel outside the
+    solver."""
+    form = sweep_form(phys, cfg)
+    block = bool(cfg.get("block_matrix"))
+    if not prepass_form(form):
+        raise ValueError("the step clocks are the pre-pass forms'")
     big = torch.iinfo(torch.int64).max
     clocks = torch.zeros(CLOCK_HEADER + CLOCK_ROW * len(plan.tiles),
                          dtype=torch.int64, device=du.device)
     clocks[0] = clocks[2] = big
-    saved = LAUNCHES.count, STATE_RESETS.count
+    saved = LAUNCHES.count, BLOCK_LAUNCHES.count, STATE_RESETS.count
     _kernel_sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward,
                   extra, clocks, f"{form_library(phys, cfg)}_probe")
-    LAUNCHES.count, STATE_RESETS.count = saved
+    LAUNCHES.count, BLOCK_LAUNCHES.count, STATE_RESETS.count = saved
     c = clocks.cpu().numpy()
     rows = c[CLOCK_HEADER:].reshape(-1, CLOCK_ROW)
     planes = int(rows[:, -1].sum())
+    names = BLOCK_CLOCK_SLOTS if block else CLOCK_SLOTS
     out = {name: float(rows[:, k].sum()) / max(planes, 1)
-           for k, name in enumerate(CLOCK_SLOTS)}
+           for k, name in enumerate(names)}
     out["planes counted"] = planes
     out["wavefront ns"] = int(c[1] - c[0])
     if c[2] != big:
@@ -573,7 +604,8 @@ def tp_extra_ops(form, modes, block: bool, diffusion: bool) -> float:
     the enthalpies of the new and the old flux and the neighbour's cp and
     cv (the old energy and the inversion of q + du are the updated
     state's, ``tp_state_ops``).  Block (no q + du): cp and cv, the energy
-    and, with diffusion, the species enthalpies."""
+    and, with diffusion, the species enthalpies: the neighbour state's,
+    which ``sweep_cost`` counts once per state (the pre-pass's terms)."""
     e_extra = sum(2 + 5 * m for m in modes)
     cpcv = sum(3 + 6 * m for m in modes)
     if block:
@@ -586,9 +618,8 @@ def tp_state_ops(form, modes, ridder_iters: float) -> float:
     state (``state_ops``): its old energy, 2 + 5 m_s per species, and
     Ridder's inversion in place of the closed form (``_ridder_ops``);
     ``ridder_iters`` the mean Ridder iterations of this run's states
-    (``mean_ridder_iterations``).  The redesigned scalar forms take it once
-    per updated state, the block Roe form once per contributing
-    neighbour."""
+    (``mean_ridder_iterations``).  The staged forms (``staged_form``: the
+    scalar ones and the block Roe ones) take it once per updated state."""
     return (sum(2 + 5 * m for m in modes)
             + _ridder_ops(form[0], modes, ridder_iters))
 
@@ -617,6 +648,26 @@ def tp_roe_extra_ops(form, modes) -> float:
     e_extra = sum(2 + 5 * m for m in modes)
     cpcv = sum(3 + 6 * m for m in modes)
     return 2 * (3 * e_extra + cpcv) + (cpcv if form[2] else 0)
+
+
+def cell_values(form) -> int:
+    """values per padded cell that a block thermally perfect Rusanov
+    form's pre-pass has room for (csrc/blusgs_sweep.cu cell_values): the
+    neighbour state's gamma and energy and, viscous, its conductivity, its
+    cp and each species' enthalpy"""
+    ns, _, viscous = form[:3]
+    return 4 + ns if viscous else 2
+
+
+def cell_terms_read(form, diffusion: bool) -> int:
+    """of ``cell_values``, those a block thermally perfect Rusanov form's
+    pre-pass writes and its lanes read: gamma and the energy; viscous, the
+    conductivity, the cp with turbulence equations and the species'
+    enthalpies with Schmidt diffusion"""
+    ns, neq, viscous = form[:3]
+    if not viscous:
+        return 2
+    return 3 + (1 if neq == ns + 6 else 0) + (ns if diffusion else 0)
 
 
 def face_values(form) -> int:
@@ -693,7 +744,10 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     Operations: the kernel's per contributing neighbour and per cell
     (+neq with extra).  The thermally perfect scalar forms invert q + du
     once per updated state, the distinct neighbours read, not once per
-    face (``state_ops``, ``tp_state_ops``).  The bytes are the function's
+    face (``state_ops``, ``tp_state_ops``), and so do the block thermally
+    perfect Roe forms; the block thermally perfect Rusanov forms evaluate
+    the neighbour state's thermodynamics once per such state
+    (``tp_extra_ops``).  The bytes are the function's
     inputs and output only: the traffic of the terms the redesigned forms
     store for themselves is ``prepass_bytes``, outside the bound."""
     ns, neq, viscous, wilcox, roe, tp = form
@@ -730,36 +784,45 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
                   else NEIGHBOUR_OPS_BY_FORM)[key]
     else:
         per_nb = mixture_neighbour_ops(form, block, diffusion)
-        if tp:
+        if tp and not block:
             per_nb += tp_extra_ops(form, modes, block, diffusion)
     per_cell = 2 * N * N + N + (8 if turb else 0) if block else 2 * neq
     ops = per_nb * nfaces + (per_cell + (neq if with_extra else 0)) * ncell
-    if tp and roe and block:
-        # the block Roe form inverts q + du per contributing neighbour
-        ops += tp_state_ops(form, modes, ridder_iters) * nfaces
-    elif tp and not block:
-        # the redesigned scalar forms: once per updated state
+    if staged_form(form, block):
+        # q + du once per updated state (the distinct neighbours read)
         ops += ((state_ops(form) + tp_state_ops(form, modes, ridder_iters))
                 * nread - state_ops(form) * nfaces)
+    elif tp and block:
+        # the block Rusanov form's thermodynamics once per neighbour state
+        ops += tp_extra_ops(form, modes, block, diffusion) * nread
     nbytes = 8 * values + mask.numel()
     return nbytes, ops
 
 
-def prepass_bytes(plan, forward: bool, form, block: bool = False) -> int:
+def prepass_bytes(plan, forward: bool, form, block: bool = False,
+                  diffusion: bool = False) -> int:
     """bytes that a pre-pass sweep's own work space (``work_doubles``)
     moves beyond ``sweep_cost``'s (0 for the other forms): per unmasked
     face of the sweep side its pre-pass terms (``face_values``), and for a
-    thermally perfect scalar form per cell its old energy and per updated
+    staged form (``staged_form``) per cell its old energy and per updated
     state (the distinct neighbours read) q + du, each written once and
-    read once.  A cost of the design, not of the function, so no part of
-    the bound."""
-    if not prepass_form(form, block):
+    read once; for a block thermally perfect Rusanov form its
+    ``cell_terms_read`` (``diffusion``: with the species' enthalpies)
+    written once per physical cell and per ghost read and read once per
+    unmasked face.  A cost of the design, not of the function, so no part
+    of the bound."""
+    if not prepass_form(form):
         return 0
-    mask = plan.mask["lower" if forward else "upper"]
-    values = face_values(form) * int(mask.sum())
-    if form[5] and not block:
+    nfaces = int(plan.mask["lower" if forward else "upper"].sum())
+    ncell = int(plan.cells.numel())
+    if block and form[5] and not form[4]:
+        _, nghost = neighbour_reads(plan, forward)
+        return 8 * cell_terms_read(form, diffusion) * (ncell + nghost
+                                                       + nfaces)
+    values = face_values(form) * nfaces
+    if staged_form(form, block):
         nread, _ = neighbour_reads(plan, forward)
-        values += int(plan.cells.numel()) + form[1] * nread
+        values += ncell + form[1] * nread
     return 8 * 2 * values
 
 

@@ -1,6 +1,6 @@
-"""The pre-pass scalar sweeps (csrc/lusgs_sweep.cu built with
--DSWEEP_TP=1 or -DSWEEP_ROE=1) on one GPU: pair times and the step's
-parts by SM clocks.
+"""The pre-pass sweeps (csrc/lusgs_sweep.cu and csrc/blusgs_sweep.cu
+built with -DSWEEP_TP=1 or -DSWEEP_ROE=1) on one GPU: pair times and the
+step's parts by SM clocks.
 
     python3 aither_tpu_torch/utils/sweep_probe.py [--forms NAME ...]
                                                  [--check] [--marks]
@@ -10,10 +10,13 @@ For each form (FORMS: the hot-air thermally perfect SST lusgs deck and its
 approximateRoe twin at case B, 2 x 256x64x32 cells, both blocks; the
 calorically perfect SST approximateRoe deck at case B; the seven-species
 hydrogen-air thermally perfect deck at case A, 2 x 96x120x1, block 0
-alone, as ``chip_smoke.py`` compares it) it builds the generated
+alone, as ``chip_smoke.py`` compares it; the blusgs decks of hot air
+thermally perfect and thermally perfect approximateRoe at case B, and of
+the thermally perfect P5 mixture ``n2o2_ch4x`` and five-species air at
+case S, 2 x 48x60x1, block 0) it builds the generated
 plate's Solver on the card, takes its first linear system
-(``chip_smoke.linear_system``), times the variant (a) forward+backward
-pair as ``Solver.run`` launches it (CUDA events: one untimed pair, then
+(``chip_smoke.linear_system``), times the variant (a) or (c)
+forward+backward pair as ``Solver.run`` launches it (CUDA events: one untimed pair, then
 two windows of ``chip_smoke.KERNEL_REPS`` pairs) and divides it by the
 critical path's planes, then runs each sweep of each block once more
 through the probe's build of the library (``<library>_probe``,
@@ -44,13 +47,23 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # name -> (case dims, physics and deck tag of chip_smoke, compared blocks,
-# the form's library)
-FORMS = {"tp": ((256, 64, 32), "sst", "tp", None, "lusgs_sweep_tp"),
+# the form's library, matrix solver)
+FORMS = {"tp": ((256, 64, 32), "sst", "tp", None, "lusgs_sweep_tp",
+                "lusgs"),
          "roe_tp": ((256, 64, 32), "sst", "roe_tp", None,
-                    "lusgs_sweep_roe_tp"),
-         "roe": ((256, 64, 32), "sst", "roe", None, "lusgs_sweep_roe"),
+                    "lusgs_sweep_roe_tp", "lusgs"),
+         "roe": ((256, 64, 32), "sst", "roe", None, "lusgs_sweep_roe",
+                 "lusgs"),
          "tp_ns7": ((96, 120, 1), "h2air7", "tp_gas", (0,),
-                    "lusgs_sweep_tp_ns7")}
+                    "lusgs_sweep_tp_ns7", "lusgs"),
+         "block_tp": ((256, 64, 32), "sst", "tp", None, "blusgs_sweep_tp",
+                      "blusgs"),
+         "block_roe_tp": ((256, 64, 32), "sst", "roe_tp", None,
+                          "blusgs_sweep_roe_tp", "blusgs"),
+         "block_p5": ((48, 60, 1), "n2o2_ch4x", "tp_gas", (0,),
+                      "blusgs_sweep_tp", "blusgs"),
+         "block_air5": ((48, 60, 1), "air5", "tp_gas_cfl1", (0,),
+                        "blusgs_sweep_tp", "blusgs")}
 
 
 def marks_cost(solver, system, du0) -> dict:
@@ -92,9 +105,9 @@ def form_system(name: str):
     """(solver, its linear system with du0 on the form's compared blocks)
     of form ``name`` (FORMS), in ``smoke_run/sweep_probe_<name>``"""
     import chip_smoke as cs
-    dims, physics, deck, blocks, _ = FORMS[name]
+    dims, physics, deck, blocks, _, solver_name = FORMS[name]
     wd = os.path.join(REPO, "smoke_run", f"sweep_probe_{name}")
-    solver = cs.make_solver(wd, dims, "cuda", "lusgs", 1, physics, deck)
+    solver = cs.make_solver(wd, dims, "cuda", solver_name, 1, physics, deck)
     prims, auxs, inv_diag, bs, du0 = cs.linear_system(solver)
     if blocks is not None:
         du0 = {bi: du for bi, du in du0.items() if bi in blocks}
@@ -102,7 +115,7 @@ def form_system(name: str):
 
 
 def pair_ms(solver, system) -> dict:
-    """the variant (a) pair of the system's blocks as ``Solver.run``
+    """the variant (a) or (c) pair of the system's blocks as ``Solver.run``
     launches it: one untimed pair, then two windows of
     ``chip_smoke.KERNEL_REPS`` pairs; with the critical path's steps"""
     import numpy as np
@@ -144,8 +157,9 @@ def probe(name: str, check: bool, marks: bool = False) -> dict:
             parts.append(ls.clock_breakdown(
                 phys, cfg, solver.plans[bi], prims[bi], du.clone(), bs[bi],
                 *inv_diag[bi], auxs[bi], forward))
-    cycles = {k: float(np.mean([p[k] for p in parts]))
-              for k in ls.CLOCK_SLOTS}
+    slots = (ls.BLOCK_CLOCK_SLOTS if cfg.get("block_matrix")
+             else ls.CLOCK_SLOTS)
+    cycles = {k: float(np.mean([p[k] for p in parts])) for k in slots}
     total = sum(cycles.values())
     out.update(cycles_per_plane=cycles,
                share={k: v / total for k, v in cycles.items()},

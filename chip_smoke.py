@@ -192,7 +192,10 @@ Phases, each printing its own lines:
     mean Ridder iterations (case-B hot air SST lusgs (a) and (b), driven
     with 4 K1 and 0 K2 launches a step; case-S hot air SST blusgs (c)
     and (c)+(b), N2/O2 SST lusgs (a) and reacting five-species air
-    blusgs (c) at CFL 1), each form driven on case S;
+    blusgs (c) at CFL 1), each form driven on case S; and the case-B
+    hot air SST blusgs (c) pair (the block thermally perfect form's
+    pre-pass and persistent CTAs), timed on both blocks, compared on
+    block 0 (PLAIN_BLOCKS) and driven 2 steps;
 16. multi-rank runs on the card (ranks_phase, RANK_DECKS): each deck run
     on one rank (the reference) and then over its ranks, processes of
     this script (``--rank-worker``, rank_worker) that share the card and
@@ -222,7 +225,9 @@ Phases, each printing its own lines:
     the (a) pair, 4 steps at 4 K1 a step); on case S (SMALL_DIMS, 2 x
     48x60x1), compared on block 0 (COMPARED_BLOCKS) and driven 2 steps:
     the thermally perfect
-    approximateRoe (b), (c) and (c)+(b) of hot air (the block decks at CFL
+    approximateRoe (b), (c) and (c)+(b) of hot air (and the (c) pair at
+    case B, the block form's stage: timed on both blocks, compared on
+    block 0 and driven 1 step; the case-S block decks at CFL
     1: at the CFL ramp the plain block sweep gives NaN from the second
     step on, on the CPU) and its (a) of N2/O2, the seven-species (b), (c),
     (c)+(b), approximateRoe (a) and thermally perfect (a), and the
@@ -262,7 +267,8 @@ Then, on lines of their own: the card's name and power limit, the kernels
 JSON object (one row per kernel form; its times from case B where the form
 ran there, else case A, else case S, named in the row as 'case';
 'plain_blocks', where the plain version held only those blocks of it;
-'launches_case' is the
+a pre-pass form's 'work_space_bytes', the traffic of its own work space,
+outside the bound; 'launches_case' is the
 case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
 inside Solver.run per iteration, with 'path_case'; a row of a form on
@@ -325,7 +331,9 @@ BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
 # kernel, form, lagged term), case A on block 0 (COMPARED_BLOCKS): PERF.md
 # section 6 (the thermally perfect scalar forms' design with a Ridder
 # inversion per neighbour, the approximateRoe forms' with both fluxes on
-# the plane chain), NVIDIA H100 80GB HBM3, 700 W
+# the plane chain, the block thermally perfect forms' with the old state's
+# thermodynamics on it and the Roe ones' Ridder inversion per neighbour),
+# NVIDIA H100 80GB HBM3, 700 W
 REDESIGN_BEFORE_MS = {
     ("case B", "lusgs_sweep", (1, 7, True, False, False, True), False):
         "19.30",
@@ -366,7 +374,23 @@ REDESIGN_BEFORE_MS = {
     ("case A", "lusgs_sweep", (3, 7, True, False, True, False), False):
         "3.909",
     ("case A", "blusgs_sweep", (4, 8, True, False, True, False), True):
-        "4.875"}
+        "4.875",
+    ("case B", "blusgs_sweep", (1, 7, True, False, False, True), False):
+        "11.326",
+    ("case B", "blusgs_sweep", (1, 7, True, False, True, True), False):
+        "17.333",
+    ("case S", "blusgs_sweep", (1, 7, True, False, False, True), False):
+        "1.541",
+    ("case S", "blusgs_sweep", (1, 7, True, False, False, True), True):
+        "1.58",
+    ("case S", "blusgs_sweep", (1, 7, True, False, True, True), False):
+        "3.886",
+    ("case S", "blusgs_sweep", (1, 7, True, False, True, True), True):
+        "3.86",
+    ("case S", "blusgs_sweep", (5, 9, True, False, False, True), False):
+        "2.748",
+    ("case S", "blusgs_sweep", (3, 9, True, False, False, True), False):
+        "4.125"}
 # the fused viscous residual's first design (one thread per cell, each face
 # evaluated by both its cells), ms for both blocks: PERF.md section 6, NVIDIA
 # H100 80GB HBM3, 700 W (PRs 2 and 4)
@@ -596,11 +620,12 @@ BC_DECKS = (
 BC_ITERATIONS = 3        # phase 13, every deck
 # phase 15: (case, physics, matrixSolver, matrixSweeps, deck tag of
 # TIME_DECKS, sweep comparisons, compare K2, steps driven).  The case-B
-# decks are the slice's paths; the case-S ones give every thermally
-# perfect form its comparison and a driven path (the lagged forms by a
-# matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: K2
-# none on centralFourth and thermally perfect decks.  Reacting hot air
-# takes CFL 1, as its Roe decks do
+# decks are the slice's paths, and the case-B blusgs deck times the block
+# thermally perfect form where its redesign gains most; the case-S ones
+# give every thermally perfect form its comparison and a driven path (the
+# lagged forms by a matrixSweeps 2 deck).  A drive's launches are checked
+# as in phase 4: K2 none on centralFourth and thermally perfect decks.
+# Reacting hot air takes CFL 1, as its Roe decks do
 PHYSICS_DECKS = (
     ("case B", "sst", "lusgs", 1, "wenoZ", (False, True), True, 3),
     ("case B", "sst", "lusgs", 1, "weno", (), False, 3),
@@ -612,6 +637,7 @@ PHYSICS_DECKS = (
     ("case S", "sst", "blusgs", 2, "tp", (), False, 2),
     ("case S", "n2o2", "lusgs", 1, "tp_gas", (False,), False, 2),
     ("case S", "air5", "blusgs", 1, "tp_gas_cfl1", (False,), False, 2),
+    ("case B", "sst", "blusgs", 1, "tp", (False,), False, 2),
 )
 # the case label of phase 15's WENO-Z comparisons (three ghost layers)
 G3_CASE = "case B g3"
@@ -657,8 +683,12 @@ SMALL_DIMS = (48, 60, 1)
 # thermally perfect approximateRoe SST lusgs at the CPU parity test's CFL
 # ramp; frozen seven-species hydrogen-air SST lusgs); the case-S ones give
 # every new form its comparison and a driven path (the lagged forms by a
-# matrixSweeps 2 deck).  A drive's launches are checked as in phase 4: no
-# K2 on thermally perfect and mixture decks
+# matrixSweeps 2 deck), and the case-B blusgs deck times the block
+# thermally perfect approximateRoe form (driven 1 step: at the CFL ramp
+# the plain block sweep of this deck gives NaN from the second step on,
+# on the CPU, which is why its case-S decks take CFL 1).
+# A drive's launches are checked as in phase 4: no K2 on thermally
+# perfect and mixture decks
 LAST_DECKS = (
     ("case B", "sst", "lusgs", 1, "roe_tp", (False,), 4),
     ("case B", "h2air7", "lusgs", 1, "rusanov", (False,), 4),
@@ -678,6 +708,7 @@ LAST_DECKS = (
     ("case S", "air5_frozen", "lusgs", 1, "tp_gas_cfl1", (False,), 2),
     ("case S", "air5_frozen", "lusgs", 1, "roe_tp_gas_cfl1", (False,), 2),
     ("case S", "h2air7", "lusgs", 1, "roe_tp_gas_cfl1", (False,), 2),
+    ("case B", "sst", "blusgs", 1, "roe_tp", (False,), 1),
 )
 # the libraries of the phase-17 forms (every form of LAST_DECKS and of
 # phase 6's two new references is held by one of them or by a base
@@ -908,9 +939,10 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
     """The sweep pair on one case (at grid level ``lvl``) against its
     plain version: (max_abs_err, kernel ms, plain ms, bound ms, bound_by).
     The plain pair takes seconds, so its checked run is its timed one; the
-    kernel pair is timed twice after it.  ``blocks`` (indices) restricts
-    the pair to those blocks, whose sweeps then run as in the solver (the
-    others' du stays in the connection ghosts); ``plain_blocks`` restricts
+    kernel pair is timed after it (the median of three windows).
+    ``blocks`` (indices) restricts the pair to those blocks, whose sweeps
+    then run as in the solver (the others' du stays in the connection
+    ghosts); ``plain_blocks`` restricts
     the plain pair alone: the kernel pair runs and is timed on every block
     of ``blocks`` and must be finite on each, and is held against the
     plain version on those (a block's sweeps read no other block's du, so
@@ -963,13 +995,16 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
         fail(f"{label}: sweep kernel variant {variant} disagrees with the "
              f"plain sweep")
     run_kernel()    # the card idled through the plain pair: wake it
-    t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(2)]
-    kernel_ms = 0.5 * (t[0] + t[1])
+    # the median of three windows: now and then one window of a small
+    # deck's pair takes several times the others (28.2 against 3.3 ms for
+    # the case-S block thermally perfect Roe (c) pair, PERF.md section 6)
+    t = [timed_ms(torch, run_kernel, KERNEL_REPS) for _ in range(3)]
+    kernel_ms = float(np.median(t))
     diffusion = solver.phys.ns > 1 and solver.cfg["diffusion"] != "none"
     modes, iters, ridder = (), 0.0, ""
     if form[5]:
         modes = [len(v) for v in solver.phys.vib]
-    if form[5] and (form[4] or not block):
+    if ls.staged_form(form, block):
         # the Ridder iterations of this run's q + du, cell by cell (the
         # scalar and the Roe forms': the block Rusanov form inverts no
         # energy)
@@ -992,17 +1027,17 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
         where = f"{where} (plain on blocks {list(held)})"
     print(f"{label}: sweep variant {variant}, forward+backward "
           f"pair over {where}: kernel {kernel_ms:.4f} ms "
-          f"[{t[0]:.4f}, {t[1]:.4f}] (one launch per plane, PERF.md: "
+          f"{[round(x, 4) for x in t]} (one launch per plane, PERF.md: "
           f"{before + ' ms' if before else 'not measured'}), critical path "
           f"{steps} planes, "
           f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}){ridder} "
           f"({card})", flush=True)
-    if not (ls.prepass_form(form, block) and lvl == 0):
+    if not (ls.prepass_form(form) and lvl == 0):
         return max_abs, kernel_ms, plain_ms, bound, by
     # a pre-pass form: the traffic of the terms it stores for itself, not
     # the function's, so outside the bound
-    own = sum(ls.prepass_bytes(p, fwd, form, block)
+    own = sum(ls.prepass_bytes(p, fwd, form, block, diffusion)
               for p in plans.values() for fwd in (True, False))
     old = REDESIGN_BEFORE_MS.get((case, kernel, form, with_extra))
     print(f"{label}: sweep variant {variant}, the redesign: pair "
@@ -2596,9 +2631,10 @@ def main():
             "library_ms": None, "case": case,
             "launches_case": launches[key][1]})
         if key[0] != "viscous_march" and len(by_case[case]) > 5:
-            # a pre-pass form: its work space's traffic, from this run's
-            # plans (the earlier design's time is only in the printed line)
-            kernels[-1]["redesign"] = by_case[case][5]
+            # a pre-pass form: its work space's traffic (work_space_bytes),
+            # from this run's plans (the earlier design's time is only in
+            # the printed line)
+            kernels[-1].update(by_case[case][5])
         if key[0] == "viscous_march":
             # the first window after the plain run, and the kernel inside
             # Solver.run (all blocks, per iteration) with its case

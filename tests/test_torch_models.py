@@ -707,9 +707,13 @@ def test_euler_deck_has_slip_walls_and_no_wall_state(tmp_path):
 def test_sweep_cost_of_thermally_perfect_forms(tmp_path, block):
     """a thermally perfect form's operations per neighbour are the mixture
     path's (every species count takes it) plus ``tp_extra_ops``.  The
-    block form reads what its calorically perfect form reads and its
-    operations do not grow with the Ridder iterations (it inverts no
-    energy).  The scalar form (redesigned: a pre-pass of the old-state
+    block form (redesigned: a pre-pass of the neighbour states'
+    thermodynamics) evaluates ``tp_extra_ops`` once per distinct
+    neighbour read, reads what its calorically perfect form reads, and
+    its operations do not grow with the Ridder iterations (it inverts no
+    energy); its pre-pass's own traffic (per physical cell and per
+    unmasked face its ``cell_terms_read``) is ``prepass_bytes``, outside
+    the bound.  The scalar form (redesigned: a pre-pass of the old-state
     terms, q + du inverted once per updated state) inverts q + du once per
     distinct neighbour read, its operations growing with the iterations
     (two energy evaluations each) per such state; its bytes are the
@@ -734,8 +738,14 @@ def test_sweep_cost_of_thermally_perfect_forms(tmp_path, block):
     if block:
         assert costs[0][0] == costs[1][0] == caloric[0]
         for _, ops in costs:
-            assert ops == per_nb * nfaces + per_cell * ncell
+            assert ops == ((per_nb - ls.tp_extra_ops(tp, (1,), True, False))
+                           * nfaces
+                           + ls.tp_extra_ops(tp, (1,), True, False) * nread
+                           + per_cell * ncell)
         assert costs[0][1] == costs[1][1]
+        _, nghost = ls.neighbour_reads(plan, True)
+        assert ls.prepass_bytes(plan, True, tp, True) == 8 * 4 * (
+            ncell + nghost + nfaces)
     else:
         assert costs[0][0] == costs[1][0] == caloric[0]
         assert ls.prepass_bytes(plan, True, tp) == 8 * 2 * (
@@ -755,12 +765,11 @@ def test_sweep_cost_of_thermally_perfect_roe_forms(tmp_path, block):
     ``tp_roe_extra_ops``, the same for the scalar and the block sweep,
     which grow, when viscous, with the neighbour's cp and cv; q + du and
     its inversion (two energy evaluations of 4 + 5 operations and a
-    bracket of 19 each Ridder iteration, for one mode) once per
-    contributing neighbour in the block sweep, which reads what the Roe
-    form reads (the cell's own state with the neighbours'), and once per
-    distinct neighbour read in the redesigned scalar sweep, whose
-    pre-pass's traffic stays outside the bound
-    (``test_sweep_cost_of_thermally_perfect_forms``)"""
+    bracket of 19 each Ridder iteration, for one mode) once per distinct
+    neighbour read in both redesigned sweeps (the stage's one inversion
+    per updated state), which read what the Roe form reads (the cell's
+    own state with the neighbours') and whose pre-pass's traffic stays
+    outside the bound (``test_sweep_cost_of_thermally_perfect_forms``)"""
     from aither_tpu_torch.kernels import lusgs_sweep as ls
     from aither_tpu_torch.solver.driver import Solver
     path = write_plate_case(str(tmp_path), 4, 3, 2)
@@ -774,23 +783,18 @@ def test_sweep_cost_of_thermally_perfect_roe_forms(tmp_path, block):
     costs = [ls.sweep_cost(plan, True, False, block, roe_tp, modes=(1,),
                            ridder_iters=it) for it in (5.0, 10.0)]
     assert caloric[1] < costs[0][1] < costs[1][1]
-    states = nfaces if block else nread
-    assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * states
+    assert costs[1][1] - costs[0][1] == (10 * 9 + 5 * 19) * nread
     per_cell = caloric[1] - ls.ROE_NEIGHBOUR_OPS_BY_FORM[(7, True, False)] \
         * nfaces
     per_nb = (ls.roe_mixture_neighbour_ops(roe_tp)
               + ls.tp_roe_extra_ops(roe_tp, (1,)))
     per_state = ls.tp_state_ops(roe_tp, (1,), 5.0)
-    if block:
-        assert costs[0][0] == costs[1][0] == caloric[0] > 0
-        assert costs[0][1] == (per_nb + per_state) * nfaces + per_cell
-    else:
-        assert costs[0][0] == costs[1][0] == caloric[0]
-        assert ls.prepass_bytes(plan, True, roe_tp) == 8 * 2 * (
-            ls.face_values(roe_tp) * nfaces + ncell + 7 * nread)
-        assert costs[0][1] == ((per_nb - ls.state_ops(roe_tp)) * nfaces
-                               + (ls.state_ops(roe_tp) + per_state) * nread
-                               + per_cell)
+    assert costs[0][0] == costs[1][0] == caloric[0] > 0
+    assert ls.prepass_bytes(plan, True, roe_tp, block) == 8 * 2 * (
+        ls.face_values(roe_tp) * nfaces + ncell + 7 * nread)
+    assert costs[0][1] == ((per_nb - ls.state_ops(roe_tp)) * nfaces
+                           + (ls.state_ops(roe_tp) + per_state) * nread
+                           + per_cell)
     inviscid = (1, 5, False, False, True, True)
     assert (ls.tp_roe_extra_ops(roe_tp, (1,))
             - ls.tp_roe_extra_ops(inviscid, (1,))) == 3 + 6

@@ -283,8 +283,8 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
     sweep) and their bound moves the function's bytes, their pre-pass's
     terms counted apart (``prepass_bytes``; the calorically perfect Roe
     form's pre-pass stores its face terms alone,
-    ``test_torch_sweep_split_roe.py``); the block Roe form keeps one
-    inversion per face and adds no bytes (at case A)"""
+    ``test_torch_sweep_split_roe.py``); the block Roe form inverts once
+    per updated state too and adds no bytes (at case A)"""
     plan = box_plan(*dims)
     ncell = int(plan.cells.numel())
     ni, nj, nk = dims
@@ -324,7 +324,7 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
                      for it in (5.0, 10.0)]
             assert block[0][0] == ls.sweep_cost(plan, forward, False, True,
                                                 form[:5] + (False,))[0]
-            assert block[1][1] - block[0][1] == (10 * 9 + 5 * 19) * nfaces
+            assert block[1][1] - block[0][1] == (10 * 9 + 5 * 19) * nread
 
 
 @pytest.mark.parametrize("dims", [SMOKE_2D_DIMS, SMOKE_3D_DIMS, (64, 16, 8),
@@ -346,10 +346,11 @@ def test_wavefront_ctas_cover_the_tiles_of_a_plane(dims):
 
 
 @pytest.mark.parametrize("name", ["lusgs_sweep_tp", "lusgs_sweep_roe_tp_ns7",
-                                  "lusgs_sweep_roe"])
+                                  "lusgs_sweep_roe", "blusgs_sweep_tp",
+                                  "blusgs_sweep_roe_tp"])
 def test_probe_builds_resolve(name):
-    """a pre-pass scalar sweep's (thermally perfect or approximateRoe)
-    build with the step clocks' marks (``utils/sweep_probe.py``,
+    """a pre-pass sweep's (thermally perfect or approximateRoe, scalar or
+    block) build with the step clocks' marks (``utils/sweep_probe.py``,
     ``lusgs_sweep.clock_breakdown``) is its own build with
     ``-DSWEEP_PROBE=1``; no other library has marks"""
     from aither_tpu_torch.utils import build
@@ -357,6 +358,7 @@ def test_probe_builds_resolve(name):
     assert "-DSWEEP_PROBE=1" not in defines
     assert build.library_source(f"{name}_probe") == (
         source, defines + ("-DSWEEP_PROBE=1",))
-    for other in ("lusgs_sweep_probe", "blusgs_sweep_tp_probe"):
+    for other in ("lusgs_sweep_probe", "blusgs_sweep_probe",
+                  "blusgs_sweep_ns7_probe"):
         with pytest.raises(ValueError, match="step clocks"):
             build.library_source(other)

@@ -72,7 +72,7 @@ def test_stored_roe_terms_product_is_the_offdiagonal(system, forward):
     phys, cfg = s.phys, s.cfg
     form = ls.sweep_form(phys, cfg)
     block = bool(cfg.get("block_matrix"))
-    assert form[4] and not form[5] and ls.prepass_form(form, block)
+    assert form[4] and not form[5] and ls.prepass_form(form)
     assert block == (name == "sst_block")
     side = "lower" if forward else "upper"
     sign = -1 if forward else 1
@@ -159,15 +159,17 @@ def test_roe_work_space_and_cost(dims, block):
 
 @pytest.mark.parametrize("block", [False, True])
 def test_prepass_forms_and_persistent_ctas(block):
-    """every approximateRoe form of both sweeps and the thermally perfect
-    scalar ones take the pre-pass and the persistent CTAs; the Rusanov
-    calorically perfect forms and the block thermally perfect Rusanov
-    ones walk one CTA a tile; the persistent CTAs of the case-B block
+    """every approximateRoe and every thermally perfect form of both
+    sweeps takes the pre-pass and the persistent CTAs; the Rusanov
+    calorically perfect forms walk one CTA a tile; the thermally perfect
+    forms that invert q + du (all but the block Rusanov ones) take the
+    stage; the persistent CTAs of the case-B block
     (``implicit.wavefront_ctas``) are fewer than its tiles"""
     for roe in (False, True):
         for tp in (False, True):
             form = ls.SST_FORM[:4] + (roe, tp)
-            assert ls.prepass_form(form, block) == (roe or (tp and not block))
+            assert ls.prepass_form(form) == (roe or tp)
+            assert ls.staged_form(form, block) == (tp and (roe or not block))
     tile = imp.sweep_tile(SMOKE_3D_DIMS)
     ntiles = len(imp.tile_table(SMOKE_3D_DIMS, tile))
     assert 0 < imp.wavefront_ctas(SMOKE_3D_DIMS, tile) < ntiles

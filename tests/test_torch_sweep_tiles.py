@@ -366,9 +366,10 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     assert [h.rsplit("/", 1)[-1] for h in build.local_headers(
         str(csrc / "lusgs_sweep.cu"))] == ["roe_offdiag.cuh",
                                            "sweep_wavefront.cuh",
-                                           "thermo_tp.cuh"]
+                                           "thermo_tp.cuh",
+                                           "tp_state.cuh"]
     for header in ("sweep_wavefront.cuh", "roe_offdiag.cuh",
-                   "thermo_tp.cuh"):
+                   "thermo_tp.cuh", "tp_state.cuh"):
         before = {n: build._paths(n) for n in names}
         for variant, define in (("roe", "-DSWEEP_ROE=1"),
                                 ("tp", "-DSWEEP_TP=1")):
