@@ -57,9 +57,14 @@
 // face terms, each cell's old energy and each ghost neighbour's q + du,
 // and a stage of the wavefront inverts each updated state once on
 // thermo::SPEC_LANES lanes, whose q + du the lanes read (tp_state.cuh,
-// shared with the scalar sweep's thermally perfect forms).  Their
-// finish loads its operands before its first store where registers allow
-// (finish_rows, LOADS_FIRST).
+// shared with the scalar sweep's thermally perfect forms).
+// The viscous calorically perfect Rusanov forms' pre-pass stores each
+// padded cell's conductivity (a pow, and for a mixture a division per
+// species and their mole fractions), which their lanes read (CELL_K); an
+// inviscid calorically perfect Rusanov form has no pre-pass.  The Rusanov
+// and thermally perfect forms' finish loads its operands before its first
+// store where registers allow (finish_rows, LOADS_FIRST), and every form
+// runs on persistent CTAs.
 // The scalar sweep of variants (a)/(b) is csrc/lusgs_sweep.cu; this file
 // keeps its structure.
 //
@@ -80,8 +85,9 @@
 // extra is computed before the sweep by implicit.offdiag_sum.  du is
 // updated IN PLACE: a plane reads only the plane before it.
 //
-// Schedule: one launch per block and sweep, the tile wavefront of
-// sweep_wavefront.cuh, as in the scalar sweep.  Each cell's arithmetic is
+// Schedule: a pre-pass launch (the forms of split()) and one wavefront
+// launch per block and sweep, the tile wavefront of sweep_wavefront.cuh on
+// persistent CTAs, as in the scalar sweep.  Each cell's arithmetic is
 // the plane kernel's: each direction's product (direction_product) gives
 // two addends per row, the Rusanov or turbulence one and the
 // thin-shear-layer one, summed for the three directions in the order i, j,
@@ -132,9 +138,9 @@
 #ifndef SWEEP_ROE
 #define SWEEP_ROE 0
 #endif
-// 1: the pre-pass forms (thermally perfect or approximateRoe) carry the
-// step clocks' marks (sweep_wavefront.cuh, namespace probe): only the
-// build of the probe, library <name>_probe, for utils/sweep_probe.py
+// 1: the forms carry the step clocks' marks (sweep_wavefront.cuh,
+// namespace probe): only the build of the probe, library <name>_probe, for
+// utils/sweep_probe.py
 #ifndef SWEEP_PROBE
 #define SWEEP_PROBE 0
 #endif
@@ -160,15 +166,22 @@ struct PhysRoe : Phys {
 };
 
 // the forms of this translation unit: the approximateRoe off-diagonal,
-// the thermally perfect gas.  The Roe and the thermally perfect forms
-// split the product with a pre-pass and run on persistent CTAs (the walk
-// and its launch both read PERSISTENT); the thermally perfect Roe forms
-// also invert each updated state once, in a stage of the wavefront
+// the thermally perfect gas.  The thermally perfect Roe forms invert each
+// updated state once, in a stage of the wavefront.  Every form runs on
+// persistent CTAs
 constexpr bool ROE = SWEEP_ROE != 0;
 constexpr bool TP = SWEEP_TP != 0;
-constexpr bool SPLIT = ROE || TP;
-constexpr bool PERSISTENT = SPLIT;
 constexpr bool STAGED = ROE && TP;
+
+// whether a form splits the product with a pre-pass: the Roe and the
+// thermally perfect forms, and the viscous calorically perfect Rusanov
+// ones (their neighbour state's conductivity once per cell, CELL_K); an
+// inviscid calorically perfect Rusanov form has no old-state term worth
+// storing
+template <bool VISCOUS>
+__host__ __device__ constexpr bool split() {
+  return ROE || TP || VISCOUS;
+}
 
 using KernelPhys = std::conditional_t<ROE, PhysRoe, Phys>;
 
@@ -202,11 +215,11 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: channel stride of b, extra, inv_f, inv_t
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
-  // the pre-pass forms' work space (launch_tiles), written by the
-  // pre-pass and read by the wavefront (__ldg); null for the other forms.
-  // Roe: per face of the sweep side its flux::roe_face_values (3 ncp
-  // faces); thermally perfect Rusanov: per padded cell its old-state
-  // terms (CELL_*, nc cells)
+  // the pre-pass forms' work space (launch_tiles, split()), written by
+  // the pre-pass and read by the wavefront (__ldg); null for the other
+  // forms.  Roe: per face of the sweep side its flux::roe_face_values (3
+  // ncp faces); Rusanov: per padded cell its old-state terms (CELL_*, nc
+  // cells)
   double* pre;
 #if SWEEP_TP
   // the thermally perfect Roe forms' updated states (tp_state.cuh
@@ -217,6 +230,17 @@ struct Fields {
   double* qu;        // (NEQ, nc)
 #endif
 };
+
+// The old-state terms per padded cell that a Rusanov form's pre-pass
+// stores (Fields::pre, channel stride nc) and its lanes read in place of
+// evaluating them per face: thermally perfect, the mixture's gamma = cp(T)
+// / cv(T) and energy sum_s mf_s e_s(T); viscous, its conductivity and its
+// cp(T) (read with turbulence equations) and each species' enthalpy h_s(T)
+// (read with Schmidt diffusion), each written only where it is read;
+// calorically perfect (viscous), the conductivity alone, in channel 0
+// (kernels/lusgs_sweep.py cell_values)
+constexpr int CELL_GAMMA = 0, CELL_ENERGY = 1, CELL_K = TP ? 2 : 0,
+              CELL_CP = 3, CELL_H = 4;
 
 // block off-diagonal product of the neighbour nb across one face, added to
 // acc (aither_tpu implicit.offdiagonal_block_channels, one species).
@@ -230,6 +254,9 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
                                                       double acc[NEQ],
                                                       double acc_t[NEQ]) {
   const int64_t nc = fl.nc;
+  // the pre-pass's conductivity of the neighbour state (CELL_K)
+  double k = 0.0;
+  if constexpr (VISCOUS) k = __ldg(fl.pre + CELL_K * nc + nb);
   const double rho = fl.prim[nb];
   const double u = fl.prim[nc + nb];
   const double v = fl.prim[2 * nc + nb];
@@ -242,6 +269,7 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
   const double vmag2 = u * u + v * v + w * w;
   const double gm1 = ph.gamma - 1.0;
   const double sgn = FORWARD ? 1.0 : -1.0;
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
 
   // Rusanov block: 0.5|A| dF/dU rows (mass fraction 1) +- spectral radius
   {
@@ -271,6 +299,7 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
                     ph.gamma * vn * dq[4]) +
               sgn * spec * dq[4];
   }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 1);
 
   // thin-shear-layer block, subtracted forward and added backward
   // (s = -1 / +1); its turbulence diagonal carries fac = -1 / +1, so that
@@ -285,10 +314,6 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
     const double mu_tot = mu_s + mut_s;
     const double s = FORWARD ? -1.0 : 1.0;
     const double fac = FORWARD ? -1.0 : 1.0;
-    const double td = t * ph.t_ref;
-    const double k =
-        ph.scaling * (ph.cond_c1 * pow(td, 1.5) / (td + ph.cond_s) /
-                      ph.k_nondim);
     // the turbulent conductivity only with turbulence equations
     // (block_jac._tsl_rows)
     const double kt = NEQ == 7 ? mut_s * ph.cp / ph.prt : 0.0;
@@ -352,6 +377,15 @@ __device__ __forceinline__ void add_block_offdiagonal(const Phys& ph,
       acc[6] += tdiag * dq[6];
     }
   }
+  if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS + 2);
+}
+
+// the one species' conductivity (Sutherland) at T = t, times the
+// nondimensional scaling
+__device__ __forceinline__ double conductivity(const Phys& ph, double t) {
+  const double td = t * ph.t_ref;
+  return ph.scaling *
+         (ph.cond_c1 * pow(td, 1.5) / (td + ph.cond_s) / ph.k_nondim);
 }
 
 // the mixture's conductivity (Sutherland per species, mixed over the mole
@@ -379,16 +413,6 @@ __device__ __forceinline__ double mixture_conductivity(const Phys& ph,
   return ph.scaling * (0.5 * (weighted + 1.0 / harmonic));
 }
 
-// The old-state terms per padded cell that a thermally perfect Rusanov
-// form's pre-pass stores (Fields::pre, channel stride nc) and its lanes
-// read in place of evaluating them per face: the mixture's gamma = cp(T) /
-// cv(T) and energy sum_s mf_s e_s(T); viscous, its conductivity and its
-// cp(T) (read with turbulence equations) and each species' enthalpy
-// h_s(T) (read with Schmidt diffusion), each written only where it is read
-// (kernels/lusgs_sweep.py cell_values)
-constexpr int CELL_GAMMA = 0, CELL_ENERGY = 1, CELL_K = 2, CELL_CP = 3,
-              CELL_H = 4;
-
 // block off-diagonal product of the neighbour nb across one face, added to
 // acc, for a mixture of NS species (aither_tpu
 // implicit.offdiagonal_block_channels).  The rows of the one-species form
@@ -414,15 +438,15 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
   const double w = fl.prim[(NS + 2) * nc + nb];
   const double p = fl.prim[(NS + 3) * nc + nb];
   const double t = p / rr;
-  double cpm = 0.0, cvm = 0.0, em = 0.0, gamma, k_tp = 0.0;
+  double cpm = 0.0, cvm = 0.0, em = 0.0, gamma, k = 0.0;
 #pragma unroll
   for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
+  // the pre-pass's terms of the neighbour state (CELL_*)
+  const double* tv = fl.pre + nb;
+  if constexpr (VISCOUS) k = __ldg(tv + CELL_K * nc);
   if constexpr (TP) {
-    // the pre-pass's terms of the neighbour state (CELL_*)
-    const double* tv = fl.pre + nb;
     gamma = __ldg(tv + CELL_GAMMA * nc);
     em = __ldg(tv + CELL_ENERGY * nc);
-    if constexpr (VISCOUS) k_tp = __ldg(tv + CELL_K * nc);
     if constexpr (NEQ == N + 2) cpm = __ldg(tv + CELL_CP * nc);
   } else {
 #pragma unroll
@@ -490,12 +514,6 @@ __device__ __forceinline__ void add_block_offdiagonal_mix(
     const double mu_tot = mu_s + mut_s;
     const double s = FORWARD ? -1.0 : 1.0;
     const double fac = FORWARD ? -1.0 : 1.0;
-    // the mixture's conductivity over the mole fractions
-    double k;
-    if constexpr (TP)
-      k = k_tp;
-    else
-      k = mixture_conductivity<NS>(ph, sp, mf, t);
     // the turbulent conductivity only with turbulence equations
     const double kt = NEQ == N + 2 ? mut_s * cpm / ph.prt : 0.0;
     const double* g = fl.vgrad + nb;
@@ -601,51 +619,59 @@ __device__ __forceinline__ void direction_product(
         ph, sp, fl, nb, st, dq, x, x_t);
 }
 
-#if SWEEP_ROE || SWEEP_TP
 // ---------------------------------------------------------------------------
-// The pre-pass forms (head of this file): nothing of the old state changes
-// during a sweep, so a pre-pass launch, one thread per face 3 pc + d of
-// the sweep side (fully parallel), evaluates once what the lanes read of
-// it.  Roe: per unmasked face the old Roe flux F_roe(q_nb | q_cell) and
-// the radii (flux::store_roe_old_terms, the scalar sweep's face
-// function); thermally perfect, per physical cell its old energy and per
-// ghost neighbour of an unmasked face its q + du (tp_state.cuh, the
-// scalar sweep's).  Thermally perfect Rusanov: per physical cell (the
-// thread of its face d = 0) and per ghost neighbour of an unmasked face
-// the state's terms (store_cell_terms).
+// The pre-pass forms (split()): nothing of the old state changes during a
+// sweep, so a pre-pass launch, one thread per face 3 pc + d of the sweep
+// side (fully parallel), evaluates once what the lanes read of it.  Roe:
+// per unmasked face the old Roe flux F_roe(q_nb | q_cell) and the radii
+// (flux::store_roe_old_terms, the scalar sweep's face function); thermally
+// perfect, per physical cell its old energy and per ghost neighbour of an
+// unmasked face its q + du (tp_state.cuh, the scalar sweep's).  Rusanov:
+// per physical cell (the thread of its face d = 0) and per ghost neighbour
+// of an unmasked face the state's terms (store_cell_terms).
 
-// the old-state terms of padded cell c of a thermally perfect Rusanov form
-// (CELL_*), with add_block_offdiagonal_mix's arithmetic of the state
+// the old-state terms of padded cell c of a Rusanov form (CELL_*), with
+// the arithmetic of the state of add_block_offdiagonal (one calorically
+// perfect species) or add_block_offdiagonal_mix
 template <int NS, int NEQ, bool VISCOUS>
 __device__ __forceinline__ void store_cell_terms(const Fields& fl,
                                                  const Phys& ph,
                                                  const Mixture<NS>& sp,
                                                  int64_t c) {
   const int64_t nc = fl.nc;
-  double mf[NS];
-  double rho = 0.0, rr = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    mf[s] = fl.prim[s * nc + c];
-    rho += mf[s];
-    rr += sp.R[s] * mf[s];
-  }
-  const double t = fl.prim[(NS + 3) * nc + c] / rr;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
-  double cpm, cvm;
-  thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
   double* out = fl.pre + c;
-  out[CELL_GAMMA * nc] = cpm / cvm;
-  out[CELL_ENERGY * nc] = thermo::energy<NS>(sp, mf, t);
-  if constexpr (VISCOUS) {
-    out[CELL_K * nc] = mixture_conductivity<NS>(ph, sp, mf, t);
-    if constexpr (NEQ == NS + 6) out[CELL_CP * nc] = cpm;
-    if (sp.diffusion) {
+  if constexpr (NS == 1 && !TP) {
+    // the calorically perfect one species' conductivity (VISCOUS)
+    out[CELL_K * nc] =
+        conductivity(ph, fl.prim[4 * nc + c] / (ph.R * fl.prim[c]));
+  } else {
+    double mf[NS];
+    double rho = 0.0, rr = 0.0;
 #pragma unroll
-      for (int q = 0; q < NS; ++q)
-        out[(CELL_H + q) * nc] = thermo::species_enthalpy(sp, q, t);
+    for (int s = 0; s < NS; ++s) {
+      mf[s] = fl.prim[s * nc + c];
+      rho += mf[s];
+      rr += sp.R[s] * mf[s];
     }
+    const double t = fl.prim[(NS + 3) * nc + c] / rr;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) mf[s] = mf[s] / rho;
+    if constexpr (TP) {
+      double cpm, cvm;
+      thermo::cp_cv<NS>(sp, mf, t, cpm, cvm);
+      out[CELL_GAMMA * nc] = cpm / cvm;
+      out[CELL_ENERGY * nc] = thermo::energy<NS>(sp, mf, t);
+      if constexpr (VISCOUS) {
+        if constexpr (NEQ == NS + 6) out[CELL_CP * nc] = cpm;
+        if (sp.diffusion) {
+#pragma unroll
+          for (int q = 0; q < NS; ++q)
+            out[(CELL_H + q) * nc] = thermo::species_enthalpy(sp, q, t);
+        }
+      }
+    }
+    if constexpr (VISCOUS)
+      out[CELL_K * nc] = mixture_conductivity<NS>(ph, sp, mf, t);
   }
 }
 
@@ -688,7 +714,6 @@ __global__ void __launch_bounds__(wavefront::PREPASS_THREADS)
     if (threadIdx.x == 0) probe::stamp(sc.clocks, 3);
   }
 }
-#endif  // SWEEP_ROE || SWEEP_TP
 
 #if SWEEP_ROE
 // Direction d's Roe product of one cell from the stored terms, added to x
@@ -750,11 +775,16 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
 // loads after the row before it is stored: one L2 round trip a row.
 // LOADS_FIRST loads every row's operands before the first store, one round
 // trip in all, for about 2 N ceil(N / 3) more registers through finish:
-// the thermally perfect forms of up to LOADS_FIRST_NS species.  The
-// thermally perfect Roe forms of three to five species have none to spare
-// (with the loads first ptxas spilled 8-88 B at 255 registers on sm_90a),
-// nor has a species count above the base build's.
+// the Rusanov and the thermally perfect forms of up to LOADS_FIRST_NS
+// species (loads_first).  The thermally perfect Roe forms of three to five
+// species have none to spare (with the loads first ptxas spilled 8-88 B at
+// 255 registers on sm_90a), nor has a species count above the base
+// build's; the calorically perfect Roe forms load row by row.
 constexpr int LOADS_FIRST_NS = ROE ? 2 : BASE_NS;
+template <int NS>
+__host__ __device__ constexpr bool loads_first() {
+  return (TP || !ROE) && NS <= LOADS_FIRST_NS;
+}
 
 template <int NS, int NEQ, bool FORWARD, bool LOADS_FIRST>
 __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
@@ -865,11 +895,13 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 #pragma unroll
     for (int g = 0; g < 9; ++g) prefetch_l2(fl.vgrad + g * fl.nc + nb);
   }
-  if constexpr (TP && !ROE) {
-    prefetch_l2(fl.pre + CELL_GAMMA * fl.nc + nb);
-    prefetch_l2(fl.pre + CELL_ENERGY * fl.nc + nb);
+  if constexpr (!ROE) {
     if constexpr (VISCOUS) prefetch_l2(fl.pre + CELL_K * fl.nc + nb);
-    if constexpr (NEQ == N + 2) prefetch_l2(fl.pre + CELL_CP * fl.nc + nb);
+    if constexpr (TP) {
+      prefetch_l2(fl.pre + CELL_GAMMA * fl.nc + nb);
+      prefetch_l2(fl.pre + CELL_ENERGY * fl.nc + nb);
+      if constexpr (NEQ == N + 2) prefetch_l2(fl.pre + CELL_CP * fl.nc + nb);
+    }
   }
 #pragma unroll
   for (int e = 0; e < NEQ; ++e) {
@@ -889,9 +921,8 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
   }
 }
 
-// one whole sweep of one block: one CTA per tile, or for the pre-pass
-// forms persistent CTAs, with the thermally perfect Roe forms' stage
-// (sweep_wavefront.cuh)
+// one whole sweep of one block on persistent CTAs, with the thermally
+// perfect Roe forms' stage (sweep_wavefront.cuh)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, KernelPhys ph, Mixture<NS> sp,
@@ -917,62 +948,61 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
 #endif
   };
   auto finish = [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
-    finish_rows<NS, NEQ, FORWARD, TP && NS <= LOADS_FIRST_NS>(
+    finish_rows<NS, NEQ, FORWARD, loads_first<NS>()>(
         fl, padded(i, j, k), physical(i, j, k), d, acc);
   };
 #if SWEEP_ROE && SWEEP_TP
-  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0, thermo::SPEC_LANES,
-                  PERSISTENT>(
+  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0, thermo::SPEC_LANES>(
       sc, prefetch, addends, finish,
       [&](int i, int j, int k, int r, unsigned group) {
         tp_state::invert_cell<NS, NEQ, SWEEP_PROBE != 0>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), r, group);
       });
 #else
-  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0, 1, PERSISTENT>(
-      sc, prefetch, addends, finish);
+  wavefront::walk<FORWARD, NEQ, 2, SWEEP_PROBE != 0>(sc, prefetch, addends,
+                                                     finish);
 #endif
 }
 
-// a pre-pass form's pre-pass and its persistent wavefront, a thermally
+// a form's pre-pass (split()) and its persistent wavefront, a thermally
 // perfect Roe form's with its stage (the work space: a Roe form's 3 ncp
 // faces of flux::roe_face_values each, then for a thermally perfect one
 // its old energies and updated states, tp_state.cuh tp_state_space; a
-// thermally perfect Rusanov form's nc cells of the CELL_* terms); one CTA
-// a tile for the other forms (work null)
+// Rusanov form's nc cells of the CELL_* terms; null for an inviscid
+// calorically perfect Rusanov form, which has no pre-pass)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
 int launch_tiles(int forward, Fields fl, const PhysRoe& ph_all,
                  const Mixture<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st, double* work) {
   const KernelPhys& ph = ph_all;
-  if ((work != nullptr) != SPLIT)
+  if ((work != nullptr) != split<VISCOUS>())
     return static_cast<int>(cudaErrorInvalidValue);
-#if SWEEP_ROE || SWEEP_TP
-  fl.pre = work;
+  if constexpr (split<VISCOUS>()) {
+    fl.pre = work;
 #if SWEEP_ROE && SWEEP_TP
-  tp_state::tp_state_space(
-      fl, work + flux::roe_face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp);
+    tp_state::tp_state_space(
+        fl, work + flux::roe_face_values<NS, NEQ, VISCOUS>() * 3 * fl.ncp);
 #endif
-  const int err =
-      forward
-          ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
-                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
-                                    st, fl, ph, sp, sc)
-          : wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, false>,
-                                    3 * fl.ncp, wavefront::PREPASS_THREADS,
-                                    st, fl, ph, sp, sc);
-  if (err != 0) return err;
-#endif
+    const int err =
+        forward
+            ? wavefront::launch_cells(prepass<NS, NEQ, VISCOUS, WILCOX, true>,
+                                      3 * fl.ncp, wavefront::PREPASS_THREADS,
+                                      st, fl, ph, sp, sc)
+            : wavefront::launch_cells(
+                  prepass<NS, NEQ, VISCOUS, WILCOX, false>, 3 * fl.ncp,
+                  wavefront::PREPASS_THREADS, st, fl, ph, sp, sc);
+    if (err != 0) return err;
+  }
   // the thermally perfect Roe forms' stage: thermo::SPEC_LANES threads a
   // cell
   constexpr int lanes = STAGED ? thermo::SPEC_LANES : 0;
   if (forward)
     return wavefront::launch_lanes(
-        lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc,
-        st, fl, ph, sp);
+        lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st, fl, ph,
+        sp);
   return wavefront::launch_lanes(
-      lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
-      st, fl, ph, sp);
+      lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st, fl, ph,
+      sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -1024,10 +1054,10 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole block sweep of one block: a cudaMemsetAsync of the schedule's
-// state, for the pre-pass forms (approximateRoe or thermally perfect) the
-// pre-pass, and one tile-wavefront launch, all on `stream`.  ns is 1..BASE_NS, or
-// SWEEP_NS in a build for that count, and neq is ns + 4 or ns + 6; viscous and wilcox select the form (see the
-// head of this file); roe is 1 for the approximateRoe forms, which only
+// state, for the pre-pass forms (split()) the pre-pass, and one
+// tile-wavefront launch, all on `stream`.  ns is 1..BASE_NS, or SWEEP_NS in
+// a build for that count, and neq is ns + 4 or ns + 6; viscous and wilcox
+// select the form (see the head of this file); roe is 1 for the approximateRoe forms, which only
 // the library built with SWEEP_ROE holds (they read prandtl, tmin_k and
 // tmin_w, and no vgrad); tp is 1 for the thermally perfect forms, which
 // only the library built with SWEEP_TP holds.  R, cv, cp, hf, gamma,
@@ -1035,14 +1065,14 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // the calorically perfect forms); species is a HOST array of the
 // mixture's constants (launch_form; read when ns > 1 or tp).  stat and
 // mask are in physical cell order; sched is a HOST array {ntiles, ni, nj,
-// nk, ti, tj, tk, g, ctas} (ctas: the persistent CTAs of a pre-pass
-// form's wavefront), tiles the device tile table and state device scratch of 1 +
-// ntiles ints (sweep_wavefront.cuh).  extra may be null; mu, mut, f1,
+// nk, ti, tj, tk, g, ctas} (ctas: the wavefront's persistent CTAs), tiles
+// the device tile table and state device scratch of 1 + ntiles ints
+// (sweep_wavefront.cuh).  extra may be null; mu, mut, f1,
 // vgrad may be null when inviscid and inv_t without turbulence equations.
 // work is the pre-pass forms' device work space (null for the other
 // forms, launch_tiles; kernels/lusgs_sweep.py work_doubles); clocks null,
-// or for a pre-pass form in the probe's build (SWEEP_PROBE) the device
-// array of the step clocks (sweep_wavefront.cuh, namespace probe).
+// or in the probe's build (SWEEP_PROBE) the device array of the step
+// clocks (sweep_wavefront.cuh, namespace probe).
 // Returns cudaGetLastError() after the launches (0 when they were
 // accepted), or cudaErrorInvalidValue for a form that does not exist or
 // that another library holds.
@@ -1061,7 +1091,7 @@ extern "C" int blusgs_sweep_f64(
     const double* species, void* stream, double* work,
     unsigned long long* clocks) {
   if ((roe != 0) != ROE || (tp != 0) != TP ||
-      (clocks && !((ROE || TP) && SWEEP_PROBE)))
+      (clocks && !SWEEP_PROBE))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim,  du,    mu,    mut,  f1,   vgrad, b,   extra,

@@ -33,12 +33,15 @@
 // scan path of aither_tpu/solver/implicit.py:113 roe_offdiagonal (no
 // Pallas form there).  A build holds the Rusanov forms (this file as it
 // is, library lusgs_sweep) or, with -DSWEEP_ROE=1, the Roe forms (library
-// lusgs_sweep_roe): two translation units, built in parallel.  The Roe
-// forms split the product: a pre-pass launch stores the old Roe flux and
-// the radii once per face (roe_offdiag.cuh store_roe_old_terms), the
+// lusgs_sweep_roe): two translation units, built in parallel.
+//
+// Every form splits the product (the section "The pre-pass forms"
+// below): a pre-pass launch stores, once per face, the old-state terms
+// (Rusanov: the old flux F(q).n and the radii, rusanov_old_terms; Roe: the
+// old Roe flux and the radii, roe_offdiag.cuh store_roe_old_terms), the
 // wavefront's lanes evaluate only the new flux of q + du (closed form for
 // a calorically perfect gas) against them, and the wavefront runs on
-// persistent CTAs (the section "The pre-pass forms" below).
+// persistent CTAs.
 //
 // A build with -DSWEEP_TP=1 (library lusgs_sweep_tp) holds the thermally
 // perfect forms (thermodynamicModel: thermallyPerfect) of the Rusanov
@@ -52,11 +55,9 @@
 // scan sweep of such a deck (pallas_sweep.use_pallas turns its kernel
 // off there: aither_tpu/solver/implicit.py:89, 137 through
 // state.update_prim_with_cons and the thermally perfect Physics).  The
-// constant gamma and Prandtl number of Phys are not read.  These forms
-// split the product too (the section "The pre-pass forms" below): a
-// pre-pass launch evaluates the old-state terms once per face, and a stage
-// of the wavefront inverts each updated state once, where the lanes of the
-// calorically perfect Rusanov forms evaluate both per neighbour.
+// constant gamma and Prandtl number of Phys are not read.  A stage of
+// their wavefront inverts each updated state once, where a calorically
+// perfect lane forms the neighbour's q + du in closed form.
 //
 // What it computes (reference: linearSolver.cpp:341-428): for every
 // hyperplane p = i+j+k in order (forward: increasing p, backward:
@@ -76,13 +77,14 @@
 // neighbour in a connection ghost holds the swapped du.  du is updated IN
 // PLACE: a plane reads only the plane before it.
 //
-// Schedule: one launch per block and sweep, the tile wavefront of
-// sweep_wavefront.cuh (tiles in a topological order taken from an atomic
-// ticket, a tile's local planes separated by __syncthreads(), progress
-// flags between tiles, three lanes per cell, one per direction).  Each
-// cell's arithmetic is the plane kernel's: the three directions' products
-// (direction_product) summed from 0.0 in the order i, j, k, the diagonal
-// last (finish_rows).
+// Schedule: a pre-pass launch and one wavefront launch per block and
+// sweep, the tile wavefront of sweep_wavefront.cuh (tiles in a topological
+// order taken from an atomic ticket by persistent CTAs, a tile's local
+// planes separated by __syncthreads(), progress flags between tiles, three
+// lanes per cell, one per direction).  Each cell's arithmetic is the plane
+// kernel's: the three directions' products (stored_product) summed from
+// 0.0 in the order i, j, k, the diagonal last (finish_loaded or
+// finish_rows).
 //
 // Layout: prim, du (NEQ, NI, NJ, NK) and mu, mut, f1 (NI, NJ, NK) padded
 // blocks; b, extra (NEQ, ni, nj, nk), inv_f, inv_t (ni, nj, nk) physical;
@@ -97,13 +99,14 @@
 // sweep_cost; PERF.md).  The sweep is a chain of ni+nj+nk-2 dependent
 // planes of a few hundred to a few thousand cells each, so what holds it
 // is the time of one step of the chain: a barrier, the flags between
-// tiles and one cell's serial FP64 work (q + du, the two fluxes, the
-// radii: several dependent divisions; for the Roe forms q + du and the new
-// Roe flux, the old one stored by the pre-pass; for a thermally perfect gas
-// the new flux, then the stage's Ridder inversion of the cell's q + du,
-// about 20 dependent energy evaluations).  The plane-per-launch kernel took
-// ~20 us a step; the wavefront takes the launch out of it and splits the
-// cell's work over three lanes (PERF.md, section 6).  From about 8 species
+// tiles and one cell's serial FP64 work (q + du and the new flux, Rusanov
+// or Roe, the old-state terms stored by the pre-pass; for a thermally
+// perfect gas the new flux, then the stage's Ridder inversion of the
+// cell's q + du, about 20 dependent energy evaluations).  The
+// plane-per-launch kernel took ~20 us a step; the wavefront takes the
+// launch out of it and splits the cell's work over three lanes, and the
+// pre-pass takes the old state's terms off the chain (PERF.md, section
+// 6).  From about 8 species
 // on the per-thread arrays (q, du, the fluxes: NS + 6 doubles each) spill
 // to local memory; the species constants pass by value, under the classic
 // 4 KB of kernel parameters at 16 species with a thermally perfect gas's
@@ -123,10 +126,10 @@
 #ifndef SWEEP_ROE
 #define SWEEP_ROE 0
 #endif
-// 1: the pre-pass forms (thermally perfect or approximateRoe) carry the
-// step clocks' marks (sweep_wavefront.cuh, namespace probe): only the
-// build of the probe, library <name>_probe, for utils/sweep_probe.py (they
-// cost 1-3% of a sweep pair, with or without clocks)
+// 1: the forms carry the step clocks' marks (sweep_wavefront.cuh,
+// namespace probe): only the build of the probe, library <name>_probe, for
+// utils/sweep_probe.py (they cost 1-3% of a sweep pair, with or without
+// clocks)
 #ifndef SWEEP_PROBE
 #define SWEEP_PROBE 0
 #endif
@@ -135,8 +138,6 @@ namespace {
 
 using flux::physical_flux;
 using flux::physical_flux_mix;
-using flux::update_prim;
-using flux::update_prim_mix;
 
 constexpr int NSTAT = 5;       // nx, ny, nz, mag, dist per direction
 // species counts of a build without SWEEP_NS: 1..BASE_NS
@@ -152,10 +153,6 @@ struct Phys {
 // approximateRoe off-diagonal
 constexpr bool TP = SWEEP_TP != 0;
 constexpr bool ROE = SWEEP_ROE != 0;
-// the forms that split the product with a pre-pass, and run on persistent
-// CTAs (the walk and its launch both read this)
-constexpr bool SPLIT = TP || ROE;
-constexpr bool PERSISTENT = SPLIT;
 
 // per-species constants of a mixture (read when NS > 1, and for every NS
 // by the thermally perfect forms)
@@ -183,22 +180,20 @@ struct Fields {
   int64_t ncp;       // ni*nj*nk: equation stride of b
   int64_t base;      // padded flat index of physical cell (0, 0, 0)
   int64_t stride[3]; // flat step of one cell in i, j, k
-#if SWEEP_TP || SWEEP_ROE
-  // the pre-pass forms' work space (launch_tiles): the pre-pass writes pre
-  // (and eold) and the wavefront reads them (__ldg); a thermally perfect
-  // form's qu is written by the pre-pass (ghost neighbours) and by the
-  // wavefront's stage (physical cells), which reads it through L2 (__ldcg)
+  // the work space (launch_tiles): the pre-pass writes pre (and eold) and
+  // the wavefront reads them (__ldg); a thermally perfect form's qu is
+  // written by the pre-pass (ghost neighbours) and by the wavefront's stage
+  // (physical cells), which reads it through L2 (__ldcg)
   double* pre;       // (face_values, 3 ncp): per face the old-state terms
-#endif
 #if SWEEP_TP
   double* eold;      // (ncp): q's specific total energy
   double* qu;        // (NEQ, nc): q + du in primitive variables
 #endif
 };
 
-// values the pre-pass stores per face: Rusanov (thermally perfect), the
-// flow rows of F(q).n, the face radius and (with turbulence equations) the
-// turbulence radius; Roe, the NEQ rows of F_roe(q | q_cell) and the
+// values the pre-pass stores per face: Rusanov, the flow rows of F(q).n,
+// the face radius and (with turbulence equations) the turbulence radius;
+// Roe, the NEQ rows of F_roe(q | q_cell) and the
 // viscous radii (flux::roe_face_values)
 template <int NS, int NEQ, bool VISCOUS>
 __host__ __device__ constexpr int face_values() {
@@ -207,8 +202,8 @@ __host__ __device__ constexpr int face_values() {
              : NS + 5 + nturb / 2;
 }
 
-// the old-state terms of a neighbour's scalar Rusanov product (aither_tpu
-// implicit.offdiagonal_scalar): F(q).n, the face spectral radius sr
+// the old-state terms of a neighbour's scalar Rusanov product that the
+// pre-pass stores (aither_tpu implicit.offdiagonal_scalar): F(q).n, the face spectral radius sr
 // (inviscid, plus the viscous one when VISCOUS) and the turbulence radius
 // sr_t (with turbulence equations).  mu, mut, f1 and dist are read only by
 // the forms that use them (the caller passes 0 otherwise).
@@ -288,54 +283,8 @@ __device__ __forceinline__ void add_rusanov_rows(const double fu[NEQ],
   for (int e = T0; e < NEQ; ++e) acc[e] += sgn * (sr_t * dq[e]);
 }
 
-// scalar Rusanov off-diagonal product of one neighbour, added to acc
-// (aither_tpu implicit.offdiagonal_scalar), the calorically perfect forms
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__device__ __forceinline__ void add_offdiagonal(
-    const Phys& ph, const Species<NS>& sp, const double q[NEQ],
-    const double dq[NEQ], double n0, double n1, double n2, double mag,
-    double dist, double mu, double mut, double f1, double acc[NEQ]) {
-  double qu[NEQ], fu[NEQ], fq[NEQ], sr, sr_t;
-  if constexpr (NS == 1 && !TP) {
-    update_prim<NEQ>(ph, q, dq, qu);
-    physical_flux<NEQ>(ph, qu, n0, n1, n2, fu);
-  } else {
-    update_prim_mix<NS, NEQ>(ph, sp, q, dq, qu);
-    physical_flux_mix<NS, NEQ>(sp, qu, n0, n1, n2, fu);
-  }
-  rusanov_old_terms<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-      ph, sp, q, n0, n1, n2, mag, dist, mu, mut, f1, fq, sr, sr_t);
-  add_rusanov_rows<NS, NEQ, FORWARD>(fu, fq, mag, sr, sr_t, dq, acc);
-}
-
 using wavefront::stride_of;
 using wavefront::viscous_fields;
-
-// Direction d's off-diagonal product of one cell, added to x: one step of
-// the plane kernel's direction loop, Rusanov.  c and pc are the cell's
-// padded and physical flat indices.  du is read through L2 (__ldcg): other
-// SMs write it during the launch.  A masked face adds nothing.  The
-// calorically perfect Rusanov forms.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__device__ __forceinline__ void direction_product(const Fields& fl,
-                                                  const Phys& ph,
-                                                  const Species<NS>& sp,
-                                                  int64_t c, int64_t pc,
-                                                  int d, double x[NEQ]) {
-  if (!fl.mask[3 * pc + d]) return;
-  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
-  const double* st = fl.stat + (3 * pc + d) * NSTAT;
-  double q[NEQ], dq[NEQ];
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) {
-    q[e] = fl.prim[e * fl.nc + nb];
-    dq[e] = __ldcg(fl.du + e * fl.nc + nb);
-  }
-  double mu, mut, f1, dist;
-  viscous_fields<NS, NEQ, VISCOUS, WILCOX>(fl, nb, st, mu, mut, f1, dist);
-  add_offdiagonal<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-      ph, sp, q, dq, st[0], st[1], st[2], st[3], dist, mu, mut, f1, x);
-}
 
 // Lane d's rows (e % 3 == d) of one cell's update from the sum acc of its
 // three off-diagonal products (the plane kernel's update of du).
@@ -363,37 +312,8 @@ __device__ __forceinline__ void finish_rows(const Fields& fl, int64_t c,
   }
 }
 
-// Prefetch into L2 what lane d reads for one cell but du.
-template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
-__device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
-                                              int64_t pc, int d) {
-  constexpr int T0 = NS + 4;
-  using wavefront::prefetch_l2;
-  const int64_t nb = FORWARD ? c - stride_of(fl, d) : c + stride_of(fl, d);
-  const double* st = fl.stat + (3 * pc + d) * NSTAT;
-  prefetch_l2(fl.mask + 3 * pc + d);
-  prefetch_l2(st);
-  prefetch_l2(st + NSTAT - 1);
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) prefetch_l2(fl.prim + e * fl.nc + nb);
-  if constexpr (VISCOUS) {
-    prefetch_l2(fl.mu + nb);
-    prefetch_l2(fl.mut + nb);
-    if constexpr (NEQ == T0 + 2 && !WILCOX) prefetch_l2(fl.f1 + nb);
-  }
-#pragma unroll
-  for (int e = 0; e < NEQ; ++e) {
-    if (e % wavefront::LANES != d) continue;
-    prefetch_l2(fl.b + e * fl.ncp + pc);
-    if (fl.extra) prefetch_l2(fl.extra + e * fl.ncp + pc);
-  }
-  prefetch_l2(fl.inv_f + pc);
-  if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
-}
-
-#if SWEEP_TP || SWEEP_ROE
 // ---------------------------------------------------------------------------
-// The pre-pass forms: the thermally perfect and the approximateRoe ones.
+// The pre-pass forms, every form of this file.
 // Nothing of the old state changes during a sweep, so a pre-pass (one
 // thread per face, fully parallel) evaluates once what the product needs
 // of it: per unmasked face of the sweep side the old flux F(q_nb).n
@@ -409,7 +329,8 @@ __device__ __forceinline__ void prefetch_cell(const Fields& fl, int64_t c,
 // the ghosts' q + du and the stage, shared with the block sweep's
 // thermally perfect approximateRoe forms).  The CTAs are persistent
 // (sweep_wavefront.cuh launch_lanes).  The product is the one-lane
-// kernel's arithmetic on the stored operands (up to FMA contraction).
+// kernel's arithmetic on the stored operands (up to FMA contraction), its
+// sum in the one-lane kernel's order: i, j, k, then the diagonal.
 
 // one face 3 pc + d of the pre-pass (head of this section)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
@@ -548,17 +469,17 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   }
   const double mag = st[3];
   if (!unmasked) return;
+  if constexpr (!TP) {
+    // the calorically perfect q + du, closed form
+    double q[NEQ];
+#pragma unroll
+    for (int e = 0; e < NEQ; ++e) q[e] = qn[e];
+    flux::update_state<NS, NEQ>(ph, sp, q, dq, qn);
+  }
   if constexpr (ROE) {
     double qd[NEQ], df[NEQ];
 #pragma unroll
     for (int e = 0; e < NEQ; ++e) qd[e] = fl.prim[e * fl.nc + c];
-    if constexpr (!TP) {
-      // the calorically perfect q + du, closed form
-      double q[NEQ];
-#pragma unroll
-      for (int e = 0; e < NEQ; ++e) q[e] = qn[e];
-      flux::update_state<NS, NEQ>(ph, sp, q, dq, qn);
-    }
     flux::roe_new_flux<NS, NEQ, FORWARD>(ph, sp, qn, qd, st[0], st[1],
                                          st[2], df);
     if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
@@ -566,7 +487,7 @@ __device__ __forceinline__ void stored_product(const Fields& fl,
   } else {
     constexpr int T0 = NS + 4;
     double fu[NEQ];
-    physical_flux_mix<NS, NEQ>(sp, qn, st[0], st[1], st[2], fu);
+    flux::state_flux<NS, NEQ>(ph, sp, qn, st[0], st[1], st[2], fu);
     if constexpr (SWEEP_PROBE != 0) probe::mark(probe::ADDENDS);
     add_rusanov_rows<NS, NEQ, FORWARD>(fu, old, mag, old[T0],
                                        NEQ == T0 + 2 ? old[NV - 1] : 0.0, dq,
@@ -611,10 +532,8 @@ __device__ __forceinline__ void prefetch_stored(const Fields& fl, int64_t c,
   prefetch_l2(fl.inv_f + pc);
   if constexpr (NEQ == T0 + 2) prefetch_l2(fl.inv_t + pc);
 }
-#endif  // SWEEP_TP || SWEEP_ROE
 
-// one whole sweep of one block: one CTA per tile, or for the pre-pass forms
-// persistent CTAs (sweep_wavefront.cuh)
+// one whole sweep of one block on persistent CTAs (sweep_wavefront.cuh)
 template <int NS, int NEQ, bool VISCOUS, bool WILCOX, bool FORWARD>
 __global__ void __launch_bounds__(wavefront::THREADS, 1)
     sweep_tiles(Fields fl, Phys ph, Species<NS> sp, wavefront::Schedule sc) {
@@ -625,11 +544,13 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
   auto physical = [&](int i, int j, int k) {
     return (static_cast<int64_t>(i) * nj + j) * nk + k;
   };
-#if SWEEP_TP || SWEEP_ROE
   // finish's operands loaded before the product hold 2 x 3 x ceil(NEQ / 3)
   // registers through it: a calorically perfect Roe form of more than 9
-  // equations has none to spare, and loads them in finish (finish_rows)
-  constexpr bool early = TP || NEQ <= 9;
+  // equations has none to spare, and loads them in finish row by row
+  // (finish_rows), as the calorically perfect Rusanov forms do: their pairs
+  // ran 1.5-5% slower with the loads before the product and 1-10% slower
+  // with them all at finish's start, on the H100 (PERF.md, section 6)
+  constexpr bool early = TP || (ROE && NEQ <= 9);
   FinishRows<NEQ> fr;
   auto prefetch = [&](int i, int j, int k, int d) {
     prefetch_stored<NS, NEQ, VISCOUS, FORWARD>(fl, padded(i, j, k),
@@ -647,33 +568,16 @@ __global__ void __launch_bounds__(wavefront::THREADS, 1)
       finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k), physical(i, j, k),
                                     d, acc);
   };
-#endif
 #if SWEEP_TP
-  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, thermo::SPEC_LANES,
-                  PERSISTENT>(
+  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, thermo::SPEC_LANES>(
       sc, prefetch, addends, finish,
       [&](int i, int j, int k, int r, unsigned group) {
         tp_state::invert_cell<NS, NEQ, SWEEP_PROBE != 0>(
             fl, ph, sp, padded(i, j, k), physical(i, j, k), r, group);
       });
-#elif SWEEP_ROE
-  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0, 1, PERSISTENT>(
-      sc, prefetch, addends, finish);
 #else
-  wavefront::walk<FORWARD, NEQ, 1, false, 1, PERSISTENT>(
-      sc,
-      [&](int i, int j, int k, int d) {
-        prefetch_cell<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-            fl, padded(i, j, k), physical(i, j, k), d);
-      },
-      [&](int i, int j, int k, int d, double (&x)[1][NEQ]) {
-        direction_product<NS, NEQ, VISCOUS, WILCOX, FORWARD>(
-            fl, ph, sp, padded(i, j, k), physical(i, j, k), d, x[0]);
-      },
-      [&](int i, int j, int k, int d, const double (&acc)[NEQ]) {
-        finish_rows<NS, NEQ, FORWARD>(fl, padded(i, j, k),
-                                      physical(i, j, k), d, acc);
-      });
+  wavefront::walk<FORWARD, NEQ, 1, SWEEP_PROBE != 0>(sc, prefetch, addends,
+                                                     finish);
 #endif
 }
 
@@ -681,7 +585,6 @@ template <int NS, int NEQ, bool VISCOUS, bool WILCOX>
 int launch_tiles(int forward, Fields fl, const Phys& ph,
                  const Species<NS>& sp, const wavefront::Schedule& sc,
                  cudaStream_t st, double* work) {
-#if SWEEP_TP || SWEEP_ROE
   if (!work) return static_cast<int>(cudaErrorInvalidValue);
   fl.pre = work;
 #if SWEEP_TP
@@ -697,18 +600,15 @@ int launch_tiles(int forward, Fields fl, const Phys& ph,
                                     3 * fl.ncp, wavefront::PREPASS_THREADS,
                                     st, fl, ph, sp, sc);
   if (err != 0) return err;
-#else
-  if (work) return static_cast<int>(cudaErrorInvalidValue);
-#endif
   // the thermally perfect forms' stage: thermo::SPEC_LANES threads a cell
   constexpr int lanes = TP ? thermo::SPEC_LANES : 0;
   if (forward)
     return wavefront::launch_lanes(
-        lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc,
-        st, fl, ph, sp);
+        lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, true>, sc, st, fl, ph,
+        sp);
   return wavefront::launch_lanes(
-      lanes, PERSISTENT, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc,
-      st, fl, ph, sp);
+      lanes, sweep_tiles<NS, NEQ, VISCOUS, WILCOX, false>, sc, st, fl, ph,
+      sp);
 }
 
 // the four forms of one species count; species holds R_s, cv_s, cp_s,
@@ -752,10 +652,9 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 }  // namespace
 
 // One whole sweep of one block: a cudaMemsetAsync of the schedule's state,
-// for the pre-pass forms (thermally perfect or approximateRoe) the
-// pre-pass, and one tile-wavefront launch, all on `stream`.  ns is 1..BASE_NS, or SWEEP_NS in a build for
-// that count, and neq is
-// ns + 4 or ns + 6; viscous and wilcox select the form (see the head of
+// the pre-pass and one tile-wavefront launch, all on `stream`.  ns is
+// 1..BASE_NS, or SWEEP_NS in a build for that count, and neq is ns + 4 or
+// ns + 6; viscous and wilcox select the form (see the head of
 // this file; wilcox only with turbulence equations and viscous, and
 // turbulence equations only with viscous); roe is 1 for the approximateRoe
 // forms, which only the library built with SWEEP_ROE holds, tp 1 for the
@@ -767,15 +666,14 @@ int launch_form(int forward, int neq, int viscous, int wilcox,
 // temperatures (launch_form).  stat
 // (ni*nj*nk, 3, NSTAT) and mask (ni*nj*nk, 3) are in physical cell order.
 // sched is a HOST array {ntiles, ni, nj, nk, ti, tj, tk, g, ctas} (ctas:
-// the persistent CTAs of a pre-pass form's wavefront); tiles the device
+// the wavefront's persistent CTAs); tiles the device
 // tile table (ntiles, 6) and state device scratch of 1 + ntiles ints
 // (sweep_wavefront.cuh).  extra may be null (variant (a)); mu, mut, f1
 // may be null when inviscid and inv_t without turbulence equations.  work
-// is the pre-pass forms' device work space (null for the other forms):
-// per face of the sweep side face_values doubles (3 ncp faces), then for
-// tp ncp old energies and NEQ x nc updated states (kernels/lusgs_sweep.py
-// work_doubles); clocks null, or for a pre-pass form in the probe's build
-// (SWEEP_PROBE) the device array of the step clocks (sweep_wavefront.cuh,
+// is the device work space: per face of the sweep side face_values doubles
+// (3 ncp faces), then for tp ncp old energies and NEQ x nc updated states
+// (kernels/lusgs_sweep.py work_doubles); clocks null, or in the probe's
+// build (SWEEP_PROBE) the device array of the step clocks (sweep_wavefront.cuh,
 // namespace probe).  Returns
 // cudaGetLastError() after the launches (0 when they were accepted), or
 // cudaErrorInvalidValue for a form that does not exist or that another
@@ -792,8 +690,7 @@ extern "C" int lusgs_sweep_f64(
     double prt, double scaling, double tmin_k, double tmin_w,
     double sigma_k1, double sigma_k2, const double* species, void* stream,
     double* work, unsigned long long* clocks) {
-  if ((roe != 0) != ROE || (tp != 0) != TP ||
-      (clocks && !(SPLIT && SWEEP_PROBE)))
+  if ((roe != 0) != ROE || (tp != 0) != TP || (clocks && !SWEEP_PROBE))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t base = sched[7] * (stride_i + stride_j + stride_k);
   Fields fl{prim, du,   mu,   mut, f1, b,   extra,

@@ -4,13 +4,13 @@
 // plane kernel of earlier versions took one launch per plane.
 //
 // The block is cut into tiles, boxes of ti x tj x tk cells (ragged at the
-// upper ends).  Each CTA takes one tile (persistent CTAs, walk's
-// PERSISTENT: one tile after another) from an atomic ticket, in the
+// upper ends).  The launch's persistent CTAs (Schedule::ctas, at most the
+// tiles) take one tile after another from an atomic ticket, in the
 // order of a host-built table of tiles sorted by the hyperplane of their
 // origin (a topological order: a tile's lower neighbour tiles come before
 // it), never by blockIdx.  Every tile a CTA waits for then belongs to a
-// CTA that took an earlier ticket and is already running, so the schedule
-// cannot deadlock however many CTAs are resident.  The tile's local
+// CTA that took an earlier ticket and is already running or done, so the
+// schedule cannot deadlock however many CTAs are resident.  The tile's local
 // hyperplanes run in order with __syncthreads() between them.  The
 // backward sweep walks the table from its end and each tile from its upper
 // corner, so both sweeps are the same code in "sweep-local" coordinates.
@@ -166,7 +166,7 @@ struct Schedule {
   const int* __restrict__ tiles;  // (ntiles, TILE_COLUMNS), topological
   int* state;                     // [0] ticket, [1 + id] planes done
   int ntiles;
-  int ctas;      // CTAs of a persistent launch, at most ntiles
+  int ctas;      // the launch's persistent CTAs, at most ntiles
   int n[3];      // block extents ni, nj, nk
   int t[3];      // tile extents (the last tile of an axis may be shorter)
   int tg[3];     // tiles per axis
@@ -196,32 +196,30 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
-// One sweep-ordered tile per CTA.  A plane before lane d of a column
-// reaches a cell, it calls prefetch(i, j, k, d) for it (for the first cell:
-// before the tile's first wait).  On each plane, for the cell of every
+// A CTA walks sweep-ordered tiles one after another, each CTA taking tiles
+// until the tickets run out.  A plane before lane d of a column reaches a
+// cell, it calls prefetch(i, j, k, d) for it (for the first cell: before
+// the tile's first wait).  On each plane, for the cell of every
 // column on it, lane d of the column calls addends(i, j, k, d, x), which
 // adds direction d's off-diagonal product to x[0..NADD-1][0..NEQ-1] (all
 // +0.0 before); then acc[e] is the sum over d = 0, 1, 2 and a = 0 ..
 // NADD-1 of x[a][e] in that order from 0.0, and lane d calls
 // finish(i, j, k, d, acc).  (i, j, k) are physical cell indices.  Every
 // lane of a warp with a cell on the plane takes part in the exchange.
-// With a stage (the thermally perfect scalar sweep), a barrier follows
+// With a stage (the thermally perfect scalar sweep and the block thermally
+// perfect approximateRoe one), a barrier follows
 // finish, and each group of STAGE_LANES threads (aligned lanes of a warp)
 // calls stage(i, j, k, r, group) for the cell of its tile column on the
 // plane (r the thread's lane in the group, group the group's lane mask);
 // then a barrier, and the control thread publishes the plane, which so
 // covers what the stage writes, before it waits for the predecessors' next
 // plane.  Without (NoStage: every other build) a plane is published when
-// the next one starts.  With PERSISTENT, which a stage needs (the
-// pre-pass forms of both sweeps), each CTA takes tiles until the tickets
-// run out; without, a CTA walks one tile.  The launch (launch_lanes) must
-// take the same choice: each sweep source names it once (its PERSISTENT)
-// and passes it to both.
+// the next one starts.
 struct NoStage {};
 
 template <bool FORWARD, int NEQ, int NADD, bool PROBE = false,
-          int STAGE_LANES = 1, bool PERSISTENT = false, class Prefetch,
-          class Addends, class Finish, class Stage = NoStage>
+          int STAGE_LANES = 1, class Prefetch, class Addends, class Finish,
+          class Stage = NoStage>
 __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
                                      Addends addends, Finish finish,
                                      Stage stage = Stage()) {
@@ -230,14 +228,13 @@ __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
   const int lane = tid & 31;
   const bool ctrl = tid == 31;
   constexpr bool staged = !std::is_same<Stage, NoStage>::value;
-  static_assert(PERSISTENT || !staged, "a stage runs on persistent CTAs");
   for (;;) {
     if (ctrl) {
       ticket = atomicAdd(sc.state, 1);
       if constexpr (PROBE) probe::begin(sc.clocks);
     }
     __syncthreads();
-    if (PERSISTENT && ticket >= sc.ntiles) break;
+    if (ticket >= sc.ntiles) break;
     const int row = FORWARD ? ticket : sc.ntiles - 1 - ticket;
     const int* tl = sc.tiles + TILE_COLUMNS * row;
     const int o[3] = {tl[0], tl[1], tl[2]};
@@ -357,26 +354,24 @@ __device__ __forceinline__ void walk(const Schedule& sc, Prefetch prefetch,
     }
     if (!staged && ctrl) publish(nq);
     if constexpr (PROBE) probe::end(sc.clocks, ticket, ctrl);
-    if constexpr (!PERSISTENT) break;
     __syncthreads();   // every thread has read this tile's ticket
   }
 }
 
 // the launch of one sweep of one block: zero the ticket and the flags on
-// `st`, then one CTA per tile, three lanes for each of a whole tile's
-// columns, ten columns to a warp; with a stage of stage_lanes threads a
-// cell (walk's STAGE_LANES), enough warps for all the columns' cells at
-// once, up to THREADS.  persistent (the walk's PERSISTENT): the
-// schedule's ctas persistent CTAs instead (the tickets are taken in
+// `st`, then the schedule's ctas persistent CTAs, three lanes for each of
+// a whole tile's columns, ten columns to a warp; with a stage of
+// stage_lanes threads a cell (walk's STAGE_LANES), enough warps for all
+// the columns' cells at once, up to THREADS.  The tickets are taken in
 // topological order and every waiting CTA holds one, so the tiles a CTA
 // waits for are done or held by running CTAs: no deadlock however few
-// CTAs run), so that the blocks of a sweep, launched on streams of their
-// own, run side by side where one launch of a CTA a tile would fill the
-// card before the next block's launch starts.
+// CTAs run.  The blocks of a sweep, launched on streams of their own, so
+// run side by side, where a launch of a CTA a tile filled the card before
+// the next block's launch started (PERF.md, section 6).
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
 template <class Kernel, class... Args>
-int launch_lanes(int stage_lanes, bool persistent, Kernel kernel,
-                 const Schedule& sc, cudaStream_t st, Args... args) {
+int launch_lanes(int stage_lanes, Kernel kernel, const Schedule& sc,
+                 cudaStream_t st, Args... args) {
   cudaError_t err = cudaMemsetAsync(sc.state, 0,
                                     sizeof(int) * (1 + sc.ntiles), st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -386,8 +381,7 @@ int launch_lanes(int stage_lanes, bool persistent, Kernel kernel,
   if (stage_lanes > 0)
     threads = max(threads, min(THREADS, 32 * ((stage_lanes * columns + 31) /
                                               32)));
-  const int ctas = persistent ? sc.ctas : sc.ntiles;
-  kernel<<<ctas, threads, 0, st>>>(args..., sc);
+  kernel<<<sc.ctas, threads, 0, st>>>(args..., sc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,8 +10,9 @@ solver (lusgs), ``csrc/blusgs_sweep.cu`` for the block solver (blusgs,
 as a wavefront of tiles (``csrc/sweep_wavefront.cuh``;
 ``implicit.sweep_tile``).
 ``LAUNCHES`` / ``BLOCK_LAUNCHES`` count each kernel's launches (one per
-block and sweep), ``STATE_RESETS`` the cudaMemsetAsync of the schedule's
-ticket and flags before each of them.
+block and sweep), ``PREPASS_LAUNCHES`` the pre-pass launches before them
+(``prepass_form``), ``STATE_RESETS`` the cudaMemsetAsync of the
+schedule's ticket and flags before each of them.
 
 Replaces the TPU kernel ``aither_tpu/solver/pallas_sweep.py::sweep``,
 variants (a) (scalar LU-SGS, no lagged term), (b) (``with_extra``: the
@@ -38,16 +39,18 @@ functions of T, the energy of q + du is inverted by Ridder's method, and
 the Roe state's enthalpy and speed of sound are those of its T; a
 species may have any number of vibrational modes, a deck up to
 ``VIB_MODES`` in all (the table passes by value in the kernels'
-parameters).  Every thermally perfect and every approximateRoe form of
-both sweeps splits the product (``prepass_form``): a pre-pass launch
-evaluates the old-state terms (the old Roe flux and the radii, or the old
-flux and radii of Rusanov, once per face; the block Rusanov rows' gamma,
-energy, conductivity, cp and species enthalpies of a thermally perfect
-gas once per cell) into a work space (``work_doubles``) and the wavefront
-runs on persistent CTAs; the thermally perfect scalar forms and the block
-thermally perfect approximateRoe ones also invert each updated state
-once, in a stage of the wavefront on four lanes that evaluate Ridder's
-next points together (``staged_form``).  The thermally
+parameters).  Every form of the scalar sweep and every form of the block
+sweep but the inviscid calorically perfect Rusanov ones splits the
+product (``prepass_form``): a pre-pass launch evaluates the old-state
+terms (the old Roe flux and the radii, or the old flux and radii of
+Rusanov, once per face; the block Rusanov rows' conductivity, and for a
+thermally perfect gas its gamma, energy, cp and species enthalpies, once
+per cell) into a work space (``work_doubles``).  The wavefront of every
+form runs on persistent CTAs (``implicit.wavefront_ctas``); the
+thermally perfect scalar forms and the block thermally perfect
+approximateRoe ones also invert each updated state once, in a stage of
+the wavefront on four lanes that evaluate Ridder's next points together
+(``staged_form``).  The thermally
 perfect forms replace the JAX package's scan sweep of such a deck (its
 ``use_pallas`` turns the Pallas kernel off there).  The plain
 version has the semantics of the JAX package's
@@ -96,6 +99,7 @@ class LaunchCounter:
 
 LAUNCHES = LaunchCounter()          # csrc/lusgs_sweep.cu (scalar)
 BLOCK_LAUNCHES = LaunchCounter()    # csrc/blusgs_sweep.cu (block)
+PREPASS_LAUNCHES = LaunchCounter()  # a pre-pass form's pre-pass, either
 STATE_RESETS = LaunchCounter()      # cudaMemsetAsync before either
 
 
@@ -232,12 +236,13 @@ def _library(name: str):
     return fn
 
 
-def prepass_form(form) -> bool:
+def prepass_form(form, block: bool = False) -> bool:
     """whether the kernel of ``form`` (``sweep_form``) splits its product
-    with a pre-pass and runs on persistent CTAs: every approximateRoe and
-    every thermally perfect form, of the scalar sweep and of the block
-    sweep alike"""
-    return bool(form[4] or form[5])
+    with a pre-pass: every form of the scalar sweep, and every form of the
+    block sweep but the inviscid calorically perfect Rusanov ones, which
+    have no old-state term worth storing (csrc/blusgs_sweep.cu split).
+    Every form of both sweeps runs on persistent CTAs."""
+    return not block or bool(form[2] or form[4] or form[5])
 
 
 def staged_form(form, block: bool = False) -> bool:
@@ -252,17 +257,17 @@ def staged_form(form, block: bool = False) -> bool:
 def work_doubles(form, plan, block: bool = False) -> int:
     """doubles of the work space a sweep of ``form`` (``sweep_form``)
     takes on ``plan``'s block (``launch_tiles`` of csrc/lusgs_sweep.cu and
-    csrc/blusgs_sweep.cu): for a block thermally perfect Rusanov form per
-    padded cell its ``cell_values``; for the other pre-pass forms per face
+    csrc/blusgs_sweep.cu): for a block Rusanov form per padded cell its
+    ``cell_values``; for the other pre-pass forms per face
     of the sweep side its ``face_values``, and for a staged one
     (``staged_form``) also per physical cell its old energy and per
     padded cell its updated state; 0 for the other forms"""
-    if not prepass_form(form):
+    if not prepass_form(form, block):
         return 0
     NI, NJ, NK = plan.padded
     ni, nj, nk = plan.dims
     ncp = ni * nj * nk
-    if block and form[5] and not form[4]:
+    if block and not form[4]:
         return cell_values(form) * NI * NJ * NK
     if staged_form(form, block):
         return face_values(form) * 3 * ncp + ncp + form[1] * NI * NJ * NK
@@ -386,10 +391,10 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     pr = 4.0 * g / (9.0 * g - 5.0)
     species = species_constants(phys, cfg, blk)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
-    # the pre-pass forms' work space (the face terms, and the thermally
-    # perfect scalar forms' old energies and updated states), on the
-    # launch's stream: the allocator reuses the block only for work queued
-    # after it there
+    # the pre-pass forms' work space (the face or cell terms, and the
+    # thermally perfect scalar forms' old energies and updated states), on
+    # the launch's stream: the allocator reuses the block only for work
+    # queued after it there
     nwork = work_doubles((ns, neq, viscous, wilcox, roe, tp), plan, blk)
     work = (torch.empty(nwork, dtype=torch.float64, device=du.device)
             if nwork else None)
@@ -440,6 +445,8 @@ def _kernel_sweep(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                            f"launch")
     STATE_RESETS.count += 1
     counter.count += 1
+    if nwork:
+        PREPASS_LAUNCHES.count += 1
     return du
 
 
@@ -468,8 +475,7 @@ CLOCK_HEADER, CLOCK_ROW = 4, len(CLOCK_SLOTS) + 1
 
 def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
                     forward: bool, extra=None) -> dict:
-    """One kernel sweep of a pre-pass form (thermally perfect or
-    approximateRoe, ``prepass_form``; scalar, or block with
+    """One kernel sweep of a form (scalar, or block with
     ``cfg['block_matrix']``) through the probe's build of its library
     (``<library>_probe``, built at first use: only it carries the marks)
     with its step clocks (namespace probe of csrc/sweep_wavefront.cuh):
@@ -481,18 +487,17 @@ def clock_breakdown(phys: Physics, cfg, plan, prim, du, b, inv_f, inv_t, aux,
     in place, as the sweep does.  Not counted in ``LAUNCHES`` /
     ``BLOCK_LAUNCHES``: the measurement calls the kernel outside the
     solver."""
-    form = sweep_form(phys, cfg)
     block = bool(cfg.get("block_matrix"))
-    if not prepass_form(form):
-        raise ValueError("the step clocks are the pre-pass forms'")
     big = torch.iinfo(torch.int64).max
     clocks = torch.zeros(CLOCK_HEADER + CLOCK_ROW * len(plan.tiles),
                          dtype=torch.int64, device=du.device)
     clocks[0] = clocks[2] = big
-    saved = LAUNCHES.count, BLOCK_LAUNCHES.count, STATE_RESETS.count
+    counters = (LAUNCHES, BLOCK_LAUNCHES, PREPASS_LAUNCHES, STATE_RESETS)
+    saved = [c.count for c in counters]
     _kernel_sweep(phys, cfg, plan, prim, du, b, inv_f, inv_t, aux, forward,
                   extra, clocks, f"{form_library(phys, cfg)}_probe")
-    LAUNCHES.count, BLOCK_LAUNCHES.count, STATE_RESETS.count = saved
+    for c, n in zip(counters, saved):
+        c.count = n
     c = clocks.cpu().numpy()
     rows = c[CLOCK_HEADER:].reshape(-1, CLOCK_ROW)
     planes = int(rows[:, -1].sum())
@@ -651,20 +656,26 @@ def tp_roe_extra_ops(form, modes) -> float:
 
 
 def cell_values(form) -> int:
-    """values per padded cell that a block thermally perfect Rusanov
-    form's pre-pass has room for (csrc/blusgs_sweep.cu cell_values): the
+    """values per padded cell that a block Rusanov form's pre-pass has
+    room for (csrc/blusgs_sweep.cu CELL_*): thermally perfect, the
     neighbour state's gamma and energy and, viscous, its conductivity, its
-    cp and each species' enthalpy"""
+    cp and each species' enthalpy; calorically perfect (viscous), its
+    conductivity alone"""
     ns, _, viscous = form[:3]
+    if not form[5]:
+        return 1
     return 4 + ns if viscous else 2
 
 
 def cell_terms_read(form, diffusion: bool) -> int:
-    """of ``cell_values``, those a block thermally perfect Rusanov form's
-    pre-pass writes and its lanes read: gamma and the energy; viscous, the
+    """of ``cell_values``, those a block Rusanov form's pre-pass writes and
+    its lanes read: thermally perfect, gamma and the energy; viscous, the
     conductivity, the cp with turbulence equations and the species'
-    enthalpies with Schmidt diffusion"""
+    enthalpies with Schmidt diffusion; calorically perfect, the
+    conductivity"""
     ns, neq, viscous = form[:3]
+    if not form[5]:
+        return 1
     if not viscous:
         return 2
     return 3 + (1 if neq == ns + 6 else 0) + (ns if diffusion else 0)
@@ -747,7 +758,11 @@ def sweep_cost(plan, forward: bool, with_extra: bool = False,
     face (``state_ops``, ``tp_state_ops``), and so do the block thermally
     perfect Roe forms; the block thermally perfect Rusanov forms evaluate
     the neighbour state's thermodynamics once per such state
-    (``tp_extra_ops``).  The bytes are the function's
+    (``tp_extra_ops``).  The calorically perfect Rusanov forms count the
+    old-state terms once per face, as the scalar ones' pre-pass evaluates
+    them (the block ones' conductivity, once per cell in their pre-pass,
+    stays counted per face: a few per cent more operations, far below the
+    bytes' time).  The bytes are the function's
     inputs and output only: the traffic of the terms the redesigned forms
     store for themselves is ``prepass_bytes``, outside the bound."""
     ns, neq, viscous, wilcox, roe, tp = form
@@ -806,16 +821,16 @@ def prepass_bytes(plan, forward: bool, form, block: bool = False,
     face of the sweep side its pre-pass terms (``face_values``), and for a
     staged form (``staged_form``) per cell its old energy and per updated
     state (the distinct neighbours read) q + du, each written once and
-    read once; for a block thermally perfect Rusanov form its
+    read once; for a block Rusanov form its
     ``cell_terms_read`` (``diffusion``: with the species' enthalpies)
     written once per physical cell and per ghost read and read once per
     unmasked face.  A cost of the design, not of the function, so no part
     of the bound."""
-    if not prepass_form(form):
+    if not prepass_form(form, block):
         return 0
     nfaces = int(plan.mask["lower" if forward else "upper"].sum())
     ncell = int(plan.cells.numel())
-    if block and form[5] and not form[4]:
+    if block and not form[4]:
         _, nghost = neighbour_reads(plan, forward)
         return 8 * cell_terms_read(form, diffusion) * (ncell + nghost
                                                        + nfaces)

@@ -527,8 +527,9 @@ def sweep_tile(dims) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def wavefront_ctas(dims, tile) -> int:
-    """persistent CTAs of a thermally perfect scalar sweep's wavefront
-    (``csrc/sweep_wavefront.cuh`` launch_lanes): 1.25 x the most tiles
+    """persistent CTAs of a sweep's wavefront, every form of both sweep
+    kernels (``csrc/sweep_wavefront.cuh`` launch_lanes): 1.25 x the most
+    tiles
     that share a hyperplane of the forward sweep (a tile spans the planes from
     its origin's i + j + k through its last cell's), at most the tiles.
     The tiles a sweep works on at once keep a CTA each, and the blocks of

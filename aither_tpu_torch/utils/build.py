@@ -12,9 +12,8 @@ the approximateRoe (``-DSWEEP_ROE=1``) and thermally perfect
 base build's ``SWEEP_BASE_NS`` (``-DSWEEP_NS=N``: that count alone, built
 when a deck first needs it), each its own translation unit, so that the
 Rusanov forms of 1-5 species build as they did and all of them build in
-parallel; ``<name>_probe`` is a pre-pass sweep, scalar or block
-(thermally perfect or approximateRoe), with its step clocks' marks (``-DSWEEP_PROBE=1``, for
-``utils/sweep_probe.py``).
+parallel; ``<name>_probe`` is any sweep library with its step clocks'
+marks (``-DSWEEP_PROBE=1``, for ``utils/sweep_probe.py``).
 Usage::
 
     lib, info = load_cuda_library("lusgs_sweep")
@@ -90,10 +89,10 @@ def library_source(name: str):
     library ``name``: a sweep library ``<source>[_roe][_tp][_ns<N>]`` is
     its source with ``-DSWEEP_ROE=1``, ``-DSWEEP_TP=1`` and
     ``-DSWEEP_NS=N`` for its suffixes (N above ``SWEEP_BASE_NS``: the
-    base build holds 1 to SWEEP_BASE_NS species), and a thermally perfect
-    or approximateRoe one ``..._probe`` with the step clocks' marks
-    (``-DSWEEP_PROBE=1``, for ``utils/sweep_probe.py``); any other name is
-    its own source without defines"""
+    base build holds 1 to SWEEP_BASE_NS species), and ``..._probe`` with
+    the step clocks' marks (``-DSWEEP_PROBE=1``, for
+    ``utils/sweep_probe.py``); any other name is its own source without
+    defines"""
     m = _SWEEP_LIBRARY.fullmatch(name)
     if m is None:
         return name, ()
@@ -107,10 +106,6 @@ def library_source(name: str):
                              f"is of a count above it")
         defines += (f"-DSWEEP_NS={int(ns)}",)
     if probe:
-        if not (tp or roe):
-            raise ValueError(f"{name}: only the pre-pass sweeps "
-                             f"(thermally perfect or approximateRoe) carry "
-                             f"the step clocks' marks")
         defines += ("-DSWEEP_PROBE=1",)
     return source, defines
 

@@ -4,17 +4,21 @@ on one GPU.
     python3 aither_tpu_torch/utils/pair_turns.py --against DIR
         [--libraries NAME ...] DECK [DECK ...]
 
-A DECK is ``case:physics:solver:tag``: case ``A`` (2 x 96x120x1) or ``S``
-(2 x 48x60x1, ``chip_smoke.SMALL_DIMS``), block 0 alone, as
+A DECK is ``case:physics:solver:tag[:b]``: case ``A`` (2 x 96x120x1) or
+``S`` (2 x 48x60x1, ``chip_smoke.SMALL_DIMS``), block 0 alone, as
 ``chip_smoke.py`` compares them, or ``B`` (2 x 256x64x32, both blocks),
 and the physics, matrix solver and deck tag of ``chip_smoke.py``
 (``PHYSICS``, ``TIME_DECKS``), e.g. ``B:sst:lusgs:roe`` or
-``S:n2o2_ch4x:blusgs:tp_gas``.  For each checkout,
+``S:n2o2_ch4x:blusgs:tp_gas``; a last field ``b`` times the pair with the
+lagged term (variant (b), or (c)+(b) for blusgs: the lagged sums of
+``implicit.offdiag_sum``, as ``chip_smoke.compare_sweeps`` takes them),
+e.g. ``B:sst:lusgs:rusanov:b``.  For each checkout,
 in the order DIR, this, this, DIR (DIR another checkout, e.g. the parent's
 unpacked under a git-ignored directory), a process of its own imports that
 checkout's package and ``chip_smoke.py``, builds each deck's Solver on the
 card, takes its first linear system (``chip_smoke.linear_system``) and
-times its variant (a) or (c) pair as ``Solver.run`` launches it: one
+times its variant (a) or (c) pair (or with the lagged term) as
+``Solver.run`` launches it: one
 untimed pair, then three windows of ``chip_smoke.KERNEL_REPS`` pairs (CUDA
 events).  It prints one JSON line per checkout and deck (the windows, their
 median and the median over the critical path's steps: on the small decks
@@ -47,9 +51,10 @@ def worker(tree: str, tag: str, decks) -> None:
     import torch
     import chip_smoke as cs
     from aither_tpu_torch.kernels import lusgs_sweep as ls
+    from aither_tpu_torch.solver import implicit as imp
     assert ls.__file__.startswith(os.path.abspath(tree)), ls.__file__
     for deck in decks:
-        case, physics, solver_name, deck_tag = deck.split(":")
+        case, physics, solver_name, deck_tag, *lagged = deck.split(":")
         wd = os.path.join(REPO, "smoke_run",
                           f"pair_turns_{tag}_{deck.replace(':', '_')}")
         s = cs.make_solver(wd, DIMS[case], "cuda", solver_name, 1, physics,
@@ -58,9 +63,15 @@ def worker(tree: str, tag: str, decks) -> None:
         if case != "B":
             du0 = {0: du0[0]}
         system = (prims, auxs, inv_diag, bs, du0)
+        extras = None
+        if lagged == ["b"]:
+            extras = {b.index: tuple(imp.offdiag_sum(
+                s.phys, s.cfg, b, prims[b.index], du0[b.index], side,
+                auxs[b.index]) for side in ("upper", "lower"))
+                for b in s.mg_cases[0].blocks if b.index in du0}
 
         def pair():
-            return cs.sweep_pair(s, system, du0, None)
+            return cs.sweep_pair(s, system, du0, extras)
 
         pair()
         windows = [cs.timed_ms(torch, pair, cs.KERNEL_REPS)
@@ -71,7 +82,7 @@ def worker(tree: str, tag: str, decks) -> None:
             tag=tag, deck=deck, library=ls.form_library(s.phys, s.cfg),
             card=cs.card_line(), windows_ms=windows, ms=ms,
             us_per_step=1e3 * ms / steps)), flush=True)
-        del s, system, prims, auxs, inv_diag, bs, du0
+        del s, system, prims, auxs, inv_diag, bs, du0, extras
         torch.cuda.empty_cache()
 
 

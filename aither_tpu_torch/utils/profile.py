@@ -47,7 +47,8 @@ three times:
    the host many times over, so the idle share is taken against the
    plain iteration time of window 1.
 
-Prints one JSON line.  Requires CUDA.
+Prints one JSON line, with the peak device memory of the whole run
+(``torch.cuda.max_memory_allocated``).  Requires CUDA.
 """
 
 from __future__ import annotations
@@ -240,6 +241,7 @@ def main(argv=None):
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / iteration_ms,
         "kernel_launches_per_iteration": sum(k[2] for k in kernels),
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
         "top_kernels": [[k[0][:80], k[1], k[2]] for k in kernels[:12]]}))
     return 0
 

@@ -1,14 +1,15 @@
-"""The pre-pass sweeps (csrc/lusgs_sweep.cu and csrc/blusgs_sweep.cu
-built with -DSWEEP_TP=1 or -DSWEEP_ROE=1) on one GPU: pair times and the
-step's parts by SM clocks.
+"""The sweep kernels (csrc/lusgs_sweep.cu and csrc/blusgs_sweep.cu, any
+build) on one GPU: pair times and the step's parts by SM clocks.
 
     python3 aither_tpu_torch/utils/sweep_probe.py [--forms NAME ...]
                                                  [--check] [--marks]
                                                  [--out PATH]
 
-For each form (FORMS: the hot-air thermally perfect SST lusgs deck and its
-approximateRoe twin at case B, 2 x 256x64x32 cells, both blocks; the
-calorically perfect SST approximateRoe deck at case B; the seven-species
+For each form (FORMS: the calorically perfect SST lusgs and blusgs decks,
+the main paths' Rusanov forms (a) and (c), at case B, 2 x 256x64x32 cells,
+both blocks; the hot-air thermally perfect SST lusgs deck and its
+approximateRoe twin at case B; the calorically perfect SST approximateRoe
+deck at case B; the seven-species
 hydrogen-air thermally perfect deck at case A, 2 x 96x120x1, block 0
 alone, as ``chip_smoke.py`` compares it; the blusgs decks of hot air
 thermally perfect and thermally perfect approximateRoe at case B, and of
@@ -48,7 +49,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # name -> (case dims, physics and deck tag of chip_smoke, compared blocks,
 # the form's library, matrix solver)
-FORMS = {"tp": ((256, 64, 32), "sst", "tp", None, "lusgs_sweep_tp",
+FORMS = {"sst": ((256, 64, 32), "sst", "rusanov", None, "lusgs_sweep",
+                 "lusgs"),
+         "block_sst": ((256, 64, 32), "sst", "rusanov", None,
+                       "blusgs_sweep", "blusgs"),
+         "tp": ((256, 64, 32), "sst", "tp", None, "lusgs_sweep_tp",
                 "lusgs"),
          "roe_tp": ((256, 64, 32), "sst", "roe_tp", None,
                     "lusgs_sweep_roe_tp", "lusgs"),

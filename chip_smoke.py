@@ -240,17 +240,19 @@ Phases, each printing its own lines:
     perfect approximateRoe (a) of seven species (``_roe_tp_ns7``), the
     five- and seven-species decks at CFL 1.
 
-Every comparison of a pre-pass form (phases 11, 15 and 17: the
-approximateRoe forms of both sweeps and the thermally perfect scalar
-forms, which store the old-state terms once per face in a pre-pass and
-run on persistent CTAs; the thermally perfect scalar ones also invert
-q + du once per cell) also prints its pair and per-step time beside the
-earlier design's (REDESIGN_BEFORE_MS, text from PERF.md) and the traffic
-of its own work space, outside the bound; its row holds the traffic, not
-the earlier time, in 'redesign'.  The parts of a scalar form's step by
-the kernel's step clocks come from aither_tpu_torch/utils/sweep_probe.py,
-through builds of the probe's own (the marks cost 1-3% of a pair, so the
-libraries here carry none).  A thermally perfect scalar mixture form
+Every comparison of a pre-pass form (every form of the scalar sweep, and
+every form of the block sweep but the inviscid calorically perfect
+Rusanov ones: they store the old-state terms once per face or once per
+cell in a pre-pass; the thermally perfect scalar ones also invert q + du
+once per cell) also prints its pair and per-step time beside the earlier
+design's (REDESIGN_BEFORE_MS, text from PERF.md) and the traffic of its
+own work space, outside the bound; its row holds the traffic in
+'work_space_bytes', and the pre-pass launches of its driven path in
+'prepass_launches' (each drive checks one before every sweep launch of a
+pre-pass form).  Every form runs on persistent CTAs.  The parts of a
+form's step by the kernel's step clocks come from
+aither_tpu_torch/utils/sweep_probe.py, through builds of the probe's own
+(the marks cost 1-3% of a pair, so the libraries here carry none).  A thermally perfect scalar mixture form
 whose deck compares only variant (a) (N2/O2 in phase 15; N2/O2
 approximateRoe and seven species in phase 17) is held against its plain
 version in variant (b) too, on the same solver; no driven path takes
@@ -268,7 +270,9 @@ JSON object (one row per kernel form; its times from case B where the form
 ran there, else case A, else case S, named in the row as 'case';
 'plain_blocks', where the plain version held only those blocks of it;
 a pre-pass form's 'work_space_bytes', the traffic of its own work space,
-outside the bound; 'launches_case' is the
+outside the bound, and 'prepass_launches'; a sweep row's 'registers',
+ptxas's registers and spills of its instantiations (sm_90a: the forward
+and backward wavefront and the pre-pass); 'launches_case' is the
 case of the driven path that gave 'launches'; a viscous row also has
 'cold_ms', the first window after the plain run, and 'path_ms', the kernel
 inside Solver.run per iteration, with 'path_case'; a row of a form on
@@ -332,9 +336,25 @@ BEFORE_MS = {("case B", "lusgs_sweep", False): "28.18",
 # section 6 (the thermally perfect scalar forms' design with a Ridder
 # inversion per neighbour, the approximateRoe forms' with both fluxes on
 # the plane chain, the block thermally perfect forms' with the old state's
-# thermodynamics on it and the Roe ones' Ridder inversion per neighbour),
-# NVIDIA H100 80GB HBM3, 700 W
+# thermodynamics on it and the Roe ones' Ridder inversion per neighbour,
+# the calorically perfect Rusanov forms' with the old flux, sound speed,
+# radii or conductivity per face on it and a CTA a tile), NVIDIA H100
+# 80GB HBM3, 700 W
 REDESIGN_BEFORE_MS = {
+    ("case B", "lusgs_sweep", (1, 7, True, False, False, False), False):
+        "6.31",
+    ("case B", "lusgs_sweep", (1, 7, True, False, False, False), True):
+        "6.45",
+    ("case B", "blusgs_sweep", (1, 7, True, False, False, False), False):
+        "9.27",
+    ("case B", "blusgs_sweep", (1, 7, True, False, False, False), True):
+        "10.39",
+    ("case B", "lusgs_sweep", (7, 13, True, False, False, False), False):
+        "13.92",
+    ("case B", "lusgs_sweep", (2, 8, True, False, False, False), False):
+        "7.11",
+    ("case B", "blusgs_sweep", (5, 9, True, False, False, False), True):
+        "23.35",
     ("case B", "lusgs_sweep", (1, 7, True, False, False, True), False):
         "19.30",
     ("case B", "lusgs_sweep", (1, 7, True, False, False, True), True):
@@ -1033,7 +1053,7 @@ def compare_sweeps(torch, solver, system, label, card, with_extra,
           f"{1e3 * kernel_ms / steps:.3f} us per step, plain "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms ({by}){ridder} "
           f"({card})", flush=True)
-    if not (ls.prepass_form(form) and lvl == 0):
+    if not (ls.prepass_form(form, block) and lvl == 0):
         return max_abs, kernel_ms, plain_ms, bound, by
     # a pre-pass form: the traffic of the terms it stores for itself, not
     # the function's, so outside the bound
@@ -1217,7 +1237,8 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
     passes = iterations * nonlinear
     counters = {"lusgs_sweep": ls.LAUNCHES, "blusgs_sweep": ls.BLOCK_LAUNCHES,
                 "viscous_march": vm.LAUNCHES,
-                "sweep_state_resets": ls.STATE_RESETS}
+                "sweep_state_resets": ls.STATE_RESETS,
+                "sweep_prepass": ls.PREPASS_LAUNCHES}
     # one launch per block and sweep
     sweeps = passes * sweep_pairs * 2 * nblocks if solver.sweeps else 0
     if per_iteration is not None:
@@ -1238,6 +1259,12 @@ def drive(torch, solver, iterations, sweep_pairs, label, card,
         expect = {"lusgs_sweep": sweeps, "blusgs_sweep": 0,
                   "viscous_march": passes * nblocks if fused else 0,
                   "sweep_state_resets": sweeps}
+    # a pre-pass form launches its pre-pass before each sweep launch
+    prepass = solver.sweeps and ls.prepass_form(
+        ls.sweep_form(solver.phys, solver.cfg),
+        bool(solver.cfg["block_matrix"]))
+    expect["sweep_prepass"] = (expect["sweep_state_resets"] if prepass
+                               else 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocs = device_allocs(torch)
@@ -2107,12 +2134,15 @@ def main():
               flush=True)
 
     # -- phase 2: build -------------------------------------------------------
+    ptxas = {}   # library -> its instantiations' ptxas lines
+
     def report_build(libs):
         for name, (_, info) in libs.items():
             print(f"phase 2 build: {os.path.relpath(info['path'], REPO)} "
                   f"built={info['built']} in {info['seconds']:.2f} s",
                   flush=True)
-            for ln in ptxas_report(info["ptxas"]):
+            ptxas[name] = ptxas_report(info["ptxas"])
+            for ln in ptxas[name]:
                 print(f"phase 2 ptxas {name}: {ln}", flush=True)
                 spill = re.search(r"(\d+) bytes spill stores", ln)
                 if name == "viscous_march" and (not spill
@@ -2280,9 +2310,10 @@ def main():
             kernel = ("blusgs_sweep" if solver.cfg["block_matrix"]
                       else "lusgs_sweep")
             form = ls.sweep_form(solver.phys, solver.cfg)
-            # a form's first driven path gives its count
+            # a form's first driven path gives its count (and its
+            # pre-pass launches)
             launches.setdefault((kernel, form, sweeps > 1),
-                                (n[kernel], case))
+                                (n[kernel], case, n["sweep_prepass"]))
         if n["viscous_march"]:
             key = ("viscous_march", solver.phys.turb_model)
             launches.setdefault(key, (n["viscous_march"], case))
@@ -2630,6 +2661,16 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "case": case,
             "launches_case": launches[key][1]})
+        if key[0] != "viscous_march":
+            # the registers and spills of its instantiations (ptxas,
+            # sm_90a): the forward and backward wavefront, and the
+            # pre-pass's where it has one
+            ns, neq, viscous, wilcox = key[1][:4]
+            args = f"{ns}, {neq}, {int(viscous)}, {int(wilcox)}, "
+            kernels[-1]["registers"] = [
+                ln for ln in ptxas.get(library, [])
+                if ln.split(">")[0].split("<")[-1].startswith(args)]
+            kernels[-1]["prepass_launches"] = launches[key][2]
         if key[0] != "viscous_march" and len(by_case[case]) > 5:
             # a pre-pass form: its work space's traffic (work_space_bytes),
             # from this run's plans (the earlier design's time is only in

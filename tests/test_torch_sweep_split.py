@@ -1,14 +1,18 @@
-"""PyTorch port, the thermally perfect scalar sweeps' decomposition
-(``csrc/lusgs_sweep.cu`` built with ``-DSWEEP_TP=1``), held on the CPU in
-plain PyTorch, without JAX:
+"""PyTorch port, the scalar sweeps' decomposition (``csrc/lusgs_sweep.cu``,
+every form of its Rusanov and thermally perfect builds), held on the CPU
+in plain PyTorch, without JAX:
 
 1. a plain twin of the kernel's pre-pass (per unmasked face of a sweep
    side the old flux F(q_nb).n, or F_roe(q_nb | q_cell) for approximateRoe,
-   and the face radii; per cell its old specific total energy) and of its
-   stage (q + du from that energy, inverted once per cell): the product
-   assembled from those stored terms and the new flux of q + du equals
+   and the face radii; for a thermally perfect gas per cell its old
+   specific total energy) and of the neighbour's q + du (a thermally
+   perfect form's stage: q + du from that energy, inverted once per cell;
+   a calorically perfect lane's closed form): the product assembled from
+   those stored terms and the new flux of q + du equals
    ``implicit.offdiagonal`` per cell and direction bit for bit
    (``torch.equal``), forward and backward, on a small generated plate,
+   for the calorically perfect Rusanov decks (one-species SST, the main
+   path, Euler, laminar, Wilcox, N2/O2 and seven-species hydrogen-air),
    for hot air, N2/O2 and seven-species hydrogen-air thermally perfect and
    hot air thermally perfect approximateRoe;
 2. a plain twin of the stage's inversion (``thermo_tp.cuh``
@@ -17,7 +21,8 @@ plain PyTorch, without JAX:
    for bit;
 3. ``sweep_cost`` of the redesigned forms at case-A and case-B sized
    plans: one inversion of q + du per updated state, and the pre-pass's
-   bytes; and the persistent CTAs of their wavefront
+   bytes; the calorically perfect Rusanov forms' work space and pre-pass
+   bytes, scalar and block; and the persistent CTAs of the wavefront
    (``implicit.wavefront_ctas``).
 
 The plain functions themselves are held to the JAX package by
@@ -46,20 +51,32 @@ from aither_tpu_torch.solver.flux import (physical_flux,  # noqa: E402
 DIMS = (6, 5, 3)
 TP_GAS = dict(thermodynamic_model="thermallyPerfect")
 ROE = dict(inviscid_flux_jacobian="approximateRoe")
-DECKS = {"hot_air": TP_AIR,
-         "n2o2": dict(MIXTURES["n2o2"], **TP_GAS),
-         "h2air7": dict(MIXTURES["h2air7_frozen"], **TP_GAS),
-         "hot_air_roe": dict(TP_AIR, **ROE)}
+TP_DECKS = {"hot_air": TP_AIR,
+            "n2o2": dict(MIXTURES["n2o2"], **TP_GAS),
+            "h2air7": dict(MIXTURES["h2air7_frozen"], **TP_GAS),
+            "hot_air_roe": dict(TP_AIR, **ROE)}
+# the calorically perfect Rusanov decks (one-species SST: the main path)
+CP_DECKS = {"sst": {},
+            "euler": dict(equation_set="euler", turbulence_model="none"),
+            "laminar": dict(equation_set="navierStokes",
+                            turbulence_model="none"),
+            "wilcox": dict(turbulence_model="kOmegaWilcox2006"),
+            "n2o2_cp": MIXTURES["n2o2"],
+            "h2air7_frozen": MIXTURES["h2air7_frozen"]}
+DECKS = {**TP_DECKS, **CP_DECKS}
+_SYSTEMS = {}
 
 
-@pytest.fixture(scope="module", params=sorted(DECKS))
-def system(request, tmp_path_factory):
+def build_system(name, tmp_path_factory):
     """a deck's Solver on the CPU, its first residual's state and aux
     fields (ghosts filled) and a seeded du of 1e-3 of each equation's
-    scale on every padded cell"""
-    wd = str(tmp_path_factory.mktemp(request.param))
-    s = Solver(write_plate_case(wd, *DIMS, **DECKS[request.param]),
-               device="cpu", workdir=wd)
+    scale on every padded cell; built once a deck for the module's
+    fixtures"""
+    if name in _SYSTEMS:
+        return _SYSTEMS[name]
+    wd = str(tmp_path_factory.mktemp(name))
+    s = Solver(write_plate_case(wd, *DIMS, **DECKS[name]), device="cpu",
+               workdir=wd)
     prims, _, _, _, _, auxs = s._residuals(dict(s.prims), s.deck.cfl(0))
     rng = np.random.default_rng(5)
     dus = {}
@@ -67,7 +84,18 @@ def system(request, tmp_path_factory):
         scale = q.abs().amax(dim=(1, 2, 3), keepdim=True)
         dus[bi] = 1e-3 * scale * torch.as_tensor(
             rng.uniform(-1.0, 1.0, tuple(q.shape)))
-    return s, prims, auxs, dus
+    _SYSTEMS[name] = (s, prims, auxs, dus)
+    return _SYSTEMS[name]
+
+
+@pytest.fixture(scope="module", params=sorted(DECKS))
+def system(request, tmp_path_factory):
+    return build_system(request.param, tmp_path_factory)
+
+
+@pytest.fixture(scope="module", params=sorted(TP_DECKS))
+def tp_system(request, tmp_path_factory):
+    return build_system(request.param, tmp_path_factory)
 
 
 # ---------------------------------------------------------------------------
@@ -150,13 +178,16 @@ def stored_product(phys, cfg, qu, du, q_cell, n, mag, positive, old, sr,
 def test_stored_terms_product_is_the_offdiagonal(system, forward):
     s, prims, auxs, dus = system
     phys, cfg = s.phys, s.cfg
-    assert ls.sweep_form(phys, cfg)[5]
+    tp = ls.sweep_form(phys, cfg)[5]
+    assert ls.prepass_form(ls.sweep_form(phys, cfg))
     side = "lower" if forward else "upper"
     sign = -1 if forward else 1
     for bi, plan in s.plans.items():
         C = prims[bi].shape[0]
         qf, duf = prims[bi].reshape(C, -1), dus[bi].reshape(C, -1)
-        aux = {k: auxs[bi][k].reshape(-1) for k in ("mu", "mut", "f1")}
+        # Euler has no viscous fields
+        aux = {k: (None if auxs[bi] is None else auxs[bi][k].reshape(-1))
+               for k in ("mu", "mut", "f1")}
         cells, pcells = plan.cells, plan.phys_cells
         mask = plan.mask[side][pcells]
         compared = 0
@@ -165,16 +196,21 @@ def test_stored_terms_product_is_the_offdiagonal(system, forward):
             cell, nb = cells[m], cells[m] + sign * plan.strides[d]
             stat = plan.static[side][pcells[m], d]
             n, mag, dist = stat[:, 0:3].T, stat[:, 3], stat[:, 4]
-            kw = dict(dist=dist, mu=aux["mu"][nb], mut=aux["mut"][nb],
-                      f1=aux["f1"][nb])
-            # the neighbours' q + du from their stored old energies (the
-            # stage's, a ghost's the pre-pass's) and the old terms.  Each
-            # is evaluated on this batch of faces: the plain species sums
-            # (torch's vectorised reductions over a tensor's first axis)
-            # round by the position of a cell in its batch from about 7
-            # species on, so only the same batch compares bit for bit
-            qu = stage(phys, qf[:, nb], duf[:, nb], old_energy(phys,
-                                                               qf[:, nb]))
+            kw = {k: None if v is None else v[nb] for k, v in aux.items()}
+            kw["dist"] = dist
+            # the neighbours' q + du (thermally perfect: from their stored
+            # old energies, the stage's, a ghost's the pre-pass's;
+            # calorically perfect: the lane's closed form) and the old
+            # terms.  Each is evaluated on this batch of faces: the plain
+            # species sums (torch's vectorised reductions over a tensor's
+            # first axis) round by the position of a cell in its batch
+            # from about 7 species on, so only the same batch compares bit
+            # for bit
+            if tp:
+                qu = stage(phys, qf[:, nb], duf[:, nb],
+                           old_energy(phys, qf[:, nb]))
+            else:
+                qu = st.update_prim_with_cons(phys, qf[:, nb], duf[:, nb])
             old, sr, sr_t = old_terms(phys, cfg, qf[:, nb], qf[:, cell], n,
                                       mag, forward, **kw)
             got = stored_product(phys, cfg, qu, duf[:, nb], qf[:, cell], n,
@@ -226,14 +262,14 @@ def group_inversion(phys, e, mf):
     return torch.where(bracketed, x4, RIDDER_HI)
 
 
-def test_group_inversion_is_the_physics(system):
+def test_group_inversion_is_the_physics(tp_system):
     """the stage's inversion of q + du (evaluating the next iteration's
     midpoint beside x4) takes the same points as Ridder's method, so it
     gives the Physics' T bit for bit: on every padded cell's q + du, and
     on the energies of the first cell's mixture from 50 to 20,000 K, whose
     brackets take all three of Ridder's branches (the plate's states take
     the first one only)"""
-    s, prims, _, dus = system
+    s, prims, _, dus = tp_system
     phys = s.phys
     for bi, q in prims.items():
         cons = st.cons_from_prim(phys, q) + dus[bi]
@@ -281,10 +317,10 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
     """the redesigned scalar forms invert q + du once per updated state
     (the block's distinct neighbours: every cell but the last of the
     sweep) and their bound moves the function's bytes, their pre-pass's
-    terms counted apart (``prepass_bytes``; the calorically perfect Roe
-    form's pre-pass stores its face terms alone,
-    ``test_torch_sweep_split_roe.py``); the block Roe form inverts once
-    per updated state too and adds no bytes (at case A)"""
+    terms counted apart (``prepass_bytes``; a calorically perfect form's
+    pre-pass stores its face terms alone, ``test_torch_sweep_split_roe.py``
+    and ``test_rusanov_work_space_and_cost``); the block Roe form inverts
+    once per updated state too and adds no bytes (at case A)"""
     plan = box_plan(*dims)
     ncell = int(plan.cells.numel())
     ni, nj, nk = dims
@@ -309,7 +345,7 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
         assert ls.prepass_bytes(plan, forward, form) == 8 * 2 * (
             nv * nfaces + ncell + 7 * nread)
         assert ls.prepass_bytes(plan, forward, form[:5] + (False,)) == (
-            8 * 2 * nv * nfaces if roe else 0)
+            8 * 2 * nv * nfaces)
         # per face the fluxes' thermodynamics, per state q + du
         per_nb = ((ls.roe_mixture_neighbour_ops(form)
                    + ls.tp_roe_extra_ops(form, (1,))) if roe
@@ -327,10 +363,77 @@ def test_cost_counts_one_inversion_per_state_and_the_prepass(dims, roe):
             assert block[1][1] - block[0][1] == (10 * 9 + 5 * 19) * nread
 
 
+@pytest.mark.parametrize("dims", [SMOKE_2D_DIMS, SMOKE_3D_DIMS],
+                         ids=["case_A", "case_B"])
+@pytest.mark.parametrize("block", [False, True])
+def test_rusanov_work_space_and_cost(dims, block):
+    """the calorically perfect Rusanov forms: the scalar ones store per
+    face of the sweep side the flow rows of the old flux, the face radius
+    and with turbulence equations the turbulence radius
+    (``face_values``), each written and read once (``prepass_bytes``);
+    the viscous block ones store per padded cell their neighbour state's
+    conductivity (``cell_values``), written per physical cell and ghost
+    read and read per unmasked face, the inviscid block ones nothing.
+    Their bound stays the function's: ``sweep_cost`` counts the old-state
+    terms per contributing face and no byte of the work space"""
+    plan = box_plan(*dims)
+    g = 2
+    plan.padded = tuple(n + 2 * g for n in dims)
+    plan.dims = dims
+    ni, nj, nk = dims
+    ncp = ni * nj * nk
+    nc = (ni + 2 * g) * (nj + 2 * g) * (nk + 2 * g)
+    nfaces = ((ni - 1) * nj * nk + ni * (nj - 1) * nk + ni * nj * (nk - 1))
+    forward = True
+    # (form, face values of the scalar form) of SST, Euler, laminar,
+    # Wilcox, N2/O2 SST and seven-species SST
+    forms = [((1, 7, True, False, False, False), 7),
+             ((1, 5, False, False, False, False), 6),
+             ((1, 5, True, False, False, False), 6),
+             ((1, 7, True, True, False, False), 7),
+             ((2, 8, True, False, False, False), 8),
+             ((7, 13, True, False, False, False), 13)]
+    if dims == SMOKE_3D_DIMS:
+        forms = forms[:1]   # each count there is a unique of 1.5M indices
+    nread, nghost = ls.neighbour_reads(plan, forward)
+    for form, nv in forms:
+        viscous = form[2]
+        assert ls.prepass_form(form, block) == (not block or viscous)
+        assert not ls.staged_form(form, block)
+        if block:
+            assert ls.cell_values(form) == 1
+            assert ls.cell_terms_read(form, False) == 1
+            assert ls.work_doubles(form, plan, True) == (nc if viscous
+                                                         else 0)
+            assert ls.prepass_bytes(plan, forward, form, True) == (
+                8 * (ncp + nghost + nfaces) if viscous else 0)
+        else:
+            assert ls.face_values(form) == nv
+            assert ls.work_doubles(form, plan) == nv * 3 * ncp
+            assert ls.prepass_bytes(plan, forward, form) == (
+                8 * 2 * nv * nfaces)
+        nbytes, ops = ls.sweep_cost(plan, forward, False, block, form)
+        N = form[0] + 4
+        turb = form[1] == N + 2
+        if form[0] == 1:
+            per_nb = (ls.BLOCK_NEIGHBOUR_OPS_BY_FORM if block
+                      else ls.NEIGHBOUR_OPS_BY_FORM)[form[1:4]]
+        else:
+            per_nb = ls.mixture_neighbour_ops(form, block, False)
+        per_cell = (2 * N * N + N + (8 if turb else 0) if block
+                    else 2 * form[1])
+        assert ops == per_nb * nfaces + per_cell * ncp
+        # the function's bytes: those of its thermally perfect twin, which
+        # reads the same inputs
+        assert nbytes == ls.sweep_cost(plan, forward, False, block,
+                                       form[:5] + (True,), modes=(1,) *
+                                       form[0], ridder_iters=5.0)[0]
+
+
 @pytest.mark.parametrize("dims", [SMOKE_2D_DIMS, SMOKE_3D_DIMS, (64, 16, 8),
                                   (12, 8, 3)])
 def test_wavefront_ctas_cover_the_tiles_of_a_plane(dims):
-    """the persistent CTAs of a thermally perfect scalar sweep: at least
+    """the persistent CTAs of a sweep, every form's: at least
     the tiles that share a hyperplane, counted tile by tile here (a tile
     spans the planes of its first through its last cell), 1.25 x that
     where the block has so many tiles, never more than the tiles"""
@@ -347,18 +450,16 @@ def test_wavefront_ctas_cover_the_tiles_of_a_plane(dims):
 
 @pytest.mark.parametrize("name", ["lusgs_sweep_tp", "lusgs_sweep_roe_tp_ns7",
                                   "lusgs_sweep_roe", "blusgs_sweep_tp",
-                                  "blusgs_sweep_roe_tp"])
+                                  "blusgs_sweep_roe_tp", "lusgs_sweep",
+                                  "blusgs_sweep", "blusgs_sweep_ns7"])
 def test_probe_builds_resolve(name):
-    """a pre-pass sweep's (thermally perfect or approximateRoe, scalar or
-    block) build with the step clocks' marks (``utils/sweep_probe.py``,
-    ``lusgs_sweep.clock_breakdown``) is its own build with
-    ``-DSWEEP_PROBE=1``; no other library has marks"""
+    """a sweep's (any build, scalar or block) build with the step clocks'
+    marks (``utils/sweep_probe.py``, ``lusgs_sweep.clock_breakdown``) is
+    its own build with ``-DSWEEP_PROBE=1``; no production build and no
+    other library has marks"""
     from aither_tpu_torch.utils import build
     source, defines = build.library_source(name)
     assert "-DSWEEP_PROBE=1" not in defines
     assert build.library_source(f"{name}_probe") == (
         source, defines + ("-DSWEEP_PROBE=1",))
-    for other in ("lusgs_sweep_probe", "blusgs_sweep_probe",
-                  "blusgs_sweep_ns7_probe"):
-        with pytest.raises(ValueError, match="step clocks"):
-            build.library_source(other)
+    assert build.library_source("viscous_march") == ("viscous_march", ())

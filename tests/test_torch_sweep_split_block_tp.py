@@ -5,8 +5,10 @@ functions, without a JAX Solver:
 
 1. a plain twin of the Rusanov forms' pre-pass (``store_cell_terms``: per
    state the mixture's gamma, energy, conductivity, cp and species
-   enthalpies) against the JAX Physics' functions (1e-13 of each term's
-   largest value; they differ by 3e-16);
+   enthalpies; a calorically perfect form stores the conductivity alone
+   and its lanes evaluate the rest, as the twin does) against the JAX
+   Physics' functions (1e-13 of each term's largest value; they differ by
+   3e-16);
 2. a plain twin of the lanes' product from those stored terms (the
    kernel's ``add_block_offdiagonal_mix``: the Rusanov rows, the
    thin-shear-layer rows with Schmidt diffusion and the turbulence
@@ -32,7 +34,10 @@ functions, without a JAX Solver:
 Decks (a 2 x 6x5x3 plate, blusgs): hot one-species SST and Wilcox air
 (``cases.TP_AIR``), laminar frozen five-species air with Schmidt
 diffusion, the P5 mixture ``n2o2_ch4x`` (SST, Schmidt, a species of
-eleven vibrational modes) and hot air with ``approximateRoe``.
+eleven vibrational modes) and hot air with ``approximateRoe``; and for
+the product, the calorically perfect viscous Rusanov decks whose pre-pass
+stores the conductivity: one-species SST (the blusgs path) and Wilcox,
+N2/O2 SST with Schmidt diffusion and laminar frozen five-species air.
 """
 
 import os
@@ -70,7 +75,16 @@ DECKS = {"hot_air": dict(TP_AIR, **BLOCK),
          "n2o2_ch4x": dict(MIXTURES["n2o2_ch4x"], **TP_GAS, **BLOCK),
          "hot_air_roe": dict(TP_AIR, inviscid_flux_jacobian="approximateRoe",
                              **BLOCK)}
-RUSANOV = ("air5", "hot_air", "hot_air_wilcox", "n2o2_ch4x")
+# the calorically perfect viscous Rusanov decks (their conductivity once
+# per cell)
+CP_DECKS = {"sst_cp": BLOCK,
+            "wilcox_cp": dict(turbulence_model="kOmegaWilcox2006", **BLOCK),
+            "n2o2_cp": dict(MIXTURES["n2o2"], **BLOCK),
+            "air5_cp": dict(MIXTURES["air5_frozen"],
+                            equation_set="navierStokes",
+                            turbulence_model="none", **BLOCK)}
+RUSANOV = ("air5", "hot_air", "hot_air_wilcox", "n2o2_ch4x") + tuple(
+    CP_DECKS)
 _SYSTEMS = {}
 
 
@@ -84,7 +98,7 @@ def build_system(name, tmp_path_factory):
     from aither_tpu.io.deck import parse_deck
     from aither_tpu.physics.models import Physics as JaxPhysics
     wd = str(tmp_path_factory.mktemp(name))
-    path = write_plate_case(wd, *DIMS, **DECKS[name])
+    path = write_plate_case(wd, *DIMS, **{**DECKS, **CP_DECKS}[name])
     here = os.getcwd()
     os.chdir(wd)   # a tracer's fluid file sits beside the deck
     try:
@@ -174,10 +188,14 @@ def cell_terms(phys, q):
     the nondimensional scaling, its cp and the species' enthalpies h_s(T)"""
     t = st.temperature(phys, q)
     mf = st.mixture_fractions(phys, q)
-    return dict(gamma=phys.gamma(t, mf),
-                energy=phys.mix(phys.species_energy(t), mf),
-                k=phys.nondim_scaling * phys.conductivity(t, mf),
-                cp=phys.cp(t, mf), h=phys.species_enthalpy(t))
+    terms = dict(gamma=phys.gamma(t, mf),
+                 energy=phys.mix(phys.species_energy(t), mf),
+                 k=phys.nondim_scaling * phys.conductivity(t, mf),
+                 cp=phys.cp(t, mf), h=phys.species_enthalpy(t))
+    # one calorically perfect species' gamma and cp are constants
+    return {key: v if key == "h" else torch.broadcast_to(
+        torch.as_tensor(v, dtype=t.dtype), t.shape)
+        for key, v in terms.items()}
 
 
 def product_from_terms(phys, cfg, q, dq, n, mag, positive, terms, dist, mu,
@@ -278,11 +296,13 @@ def jax_terms(jphys, q):
     rho = qj[:ns].sum(axis=0)
     mf = qj[:ns] / rho
     t = qj[ns + 3] / sum(r * qj[s] for s, r in enumerate(jphys.R))
-    return dict(gamma=jphys.gamma(t, mf),
-                energy=jphys.mix(jphys.species_energy(t), mf),
-                k=jphys.nondim_scaling * jphys.conductivity(t, mf),
-                cp=jphys.mix(jphys.species_cp(t), mf),
-                h=jphys.species_enthalpy(t))
+    terms = dict(gamma=jphys.gamma(t, mf),
+                 energy=jphys.mix(jphys.species_energy(t), mf),
+                 k=jphys.nondim_scaling * jphys.conductivity(t, mf),
+                 cp=jphys.mix(jphys.species_cp(t), mf),
+                 h=jphys.species_enthalpy(t))
+    return {key: v if key == "h" else jnp.broadcast_to(v, t.shape)
+            for key, v in terms.items()}
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -295,8 +315,8 @@ def test_block_prepass_terms_and_product(rusanov_system, forward):
     name, s, jphys, prims, auxs, dus = rusanov_system
     phys, cfg = s.phys, s.cfg
     form = ls.sweep_form(phys, cfg)
-    assert form[5] and not form[4]
-    assert ls.prepass_form(form) and not ls.staged_form(form, True)
+    assert not form[4] and form[5] == (name not in CP_DECKS)
+    assert ls.prepass_form(form, True) and not ls.staged_form(form, True)
     q, dq, _, n, mag, kw = faces(s, prims, auxs, dus, forward)
     assert q.shape[1] > 0
     terms = cell_terms(phys, q)

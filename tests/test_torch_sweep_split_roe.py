@@ -15,8 +15,8 @@ CPU in plain PyTorch, without JAX:
    path) and Euler (no radii);
 2. ``work_doubles``, ``prepass_bytes`` and ``sweep_cost`` of the
    calorically perfect Roe forms at case-A and case-B sized plans, and
-   the forms that take the pre-pass and the persistent CTAs of
-   ``implicit.wavefront_ctas``.
+   the forms that take the pre-pass; every form runs on the persistent
+   CTAs of ``implicit.wavefront_ctas``, the wavefront's one schedule.
 
 The plain functions themselves are held to the JAX package by
 ``test_torch_roe.py``.
@@ -131,12 +131,19 @@ def test_roe_work_space_and_cost(dims, block):
         assert ls.face_values(form) == values[name]
         assert ls.work_doubles(form, plan, block) == values[name] * 3 * ncp
         # the thermally perfect scalar form adds its old energies and
-        # updated states; no Rusanov calorically perfect form has one
+        # updated states; a calorically perfect Rusanov form stores its
+        # own face terms (scalar) or its neighbour states' conductivity
+        # (block, viscous), nothing inviscid
+        NI, NJ, NK = plan.padded
+        rusanov = form[:4] + (False, False)
         if not block:
-            NI, NJ, NK = plan.padded
             assert ls.work_doubles(form[:5] + (True,), plan) == (
                 values[name] * 3 * ncp + ncp + form[1] * NI * NJ * NK)
-        assert ls.work_doubles(form[:4] + (False, False), plan, block) == 0
+            assert ls.work_doubles(rusanov, plan) == (
+                ls.face_values(rusanov) * 3 * ncp)
+        else:
+            assert ls.work_doubles(rusanov, plan, True) == (
+                NI * NJ * NK if form[2] else 0)
         forward = True
         assert ls.prepass_bytes(plan, forward, form, block) == (
             8 * 2 * values[name] * nfaces)
@@ -159,17 +166,30 @@ def test_roe_work_space_and_cost(dims, block):
 
 @pytest.mark.parametrize("block", [False, True])
 def test_prepass_forms_and_persistent_ctas(block):
-    """every approximateRoe and every thermally perfect form of both
-    sweeps takes the pre-pass and the persistent CTAs; the Rusanov
-    calorically perfect forms walk one CTA a tile; the thermally perfect
+    """every scalar form and every block form but the inviscid
+    calorically perfect Rusanov ones takes the pre-pass; every form of
+    both sweeps runs on persistent CTAs, the wavefront's one schedule (no
+    launch of a CTA a tile is left in the sources); the thermally perfect
     forms that invert q + du (all but the block Rusanov ones) take the
     stage; the persistent CTAs of the case-B block
     (``implicit.wavefront_ctas``) are fewer than its tiles"""
+    import os
     for roe in (False, True):
         for tp in (False, True):
-            form = ls.SST_FORM[:4] + (roe, tp)
-            assert ls.prepass_form(form) == (roe or tp)
-            assert ls.staged_form(form, block) == (tp and (roe or not block))
+            for viscous_form in (ls.SST_FORM[:4],
+                                 (1, 5, False, False)):
+                form = viscous_form + (roe, tp)
+                assert ls.prepass_form(form, block) == (
+                    not block or roe or tp or form[2])
+                assert ls.staged_form(form, block) == (
+                    tp and (roe or not block))
+    csrc = os.path.join(os.path.dirname(ls.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "sweep_wavefront.cuh")) as f:
+        header = f.read()
+    assert "kernel<<<sc.ctas, threads, 0, st>>>(args..., sc);" in header
+    for name in ("sweep_wavefront.cuh", "lusgs_sweep.cu", "blusgs_sweep.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            assert "PERSISTENT" not in f.read(), name
     tile = imp.sweep_tile(SMOKE_3D_DIMS)
     ntiles = len(imp.tile_table(SMOKE_3D_DIMS, tile))
     assert 0 < imp.wavefront_ctas(SMOKE_3D_DIMS, tile) < ntiles
